@@ -1,0 +1,29 @@
+"""pedoni-tpu ported to PyTorch and CUDA for NVIDIA Hopper (H100).
+
+A second package beside ``pedoni_tpu`` (the JAX reference, which it never
+imports).  This slice covers the grid backend's step on one device: the
+plain-torch spawn scatter, the hand-written CUDA fused step kernel and the
+CUDA full rebin (``ops/kernels/csrc``), each with a plain PyTorch twin that
+runs on CPU tensors.  Host modules (scenario, field, physics, diagnostics,
+fields6, utils, the native FMM) are copies of the reference's, since
+importing any of the reference's modules loads JAX.
+"""
+
+from .field import Field, FieldMaps
+from .physics import Physics
+from .scenario import Scenario, Segment, load_scenario, loads_scenario
+from .sim import Simulator, SimulatorOptions
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Field",
+    "FieldMaps",
+    "Physics",
+    "Scenario",
+    "Segment",
+    "Simulator",
+    "SimulatorOptions",
+    "load_scenario",
+    "loads_scenario",
+]

@@ -1,0 +1,95 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, at first use, and loaded with
+``ctypes``.  The library lands in ``pedoni_tpu_torch/_build/`` under a name
+that carries a hash of the sources and flags, so an edited source is
+never served by a stale build.
+
+Flags: no ``--use_fast_math`` (the rebin's cell classification needs the
+IEEE f32 divide, and the step kernel's expf/sqrtf must stay the accurate
+ones), and ``--fmad=false`` so that no a*b+c is fused into an FMA that the
+plain PyTorch twins do not perform.
+
+A missing ``nvcc`` or a failed build raises: nothing falls back to the
+twins on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log: str = ""  # nvcc/ptxas output of that build (registers, spills)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for p in sorted(q for q in CSRC.iterdir() if q.is_file()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libpedoni_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> None:
+    global build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-4000:]}")
+    tmp.replace(out)
+    build_log = r.stdout + r.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first call in this checkout."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        if not path.exists():
+            _compile(path)
+        lib = ctypes.CDLL(str(path))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.pedoni_step_kernel.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p]
+        lib.pedoni_step_kernel.restype = i
+        lib.pedoni_rebin_full.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, p]
+        lib.pedoni_rebin_full.restype = i
+        _lib = lib
+        return lib
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise on a refused launch (the C launchers return cudaGetLastError)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

@@ -1,0 +1,234 @@
+"""Fused step: field sampling, despawn, all forces and integration.
+
+Counterpart of pedoni_tpu/ops/pallas/step_kernel.py::fused_step_kernel
+(pallas_call at step_kernel.py:898) in its base mode: each agent samples
+its own destination plane ``fwp[dest]`` (any waypoint count; this replaces
+the reference's waypoint slot walk), distance-map obstacles, channel 7 =
+sampled potential.
+
+``fused_step`` is the wrapper: on a CUDA tensor it launches the
+hand-written kernel ``csrc/step_kernel.cu`` (two passes, see its header);
+on a CPU tensor it runs ``fused_step_torch``, the plain PyTorch twin that
+mirrors the reference algorithm — vectorised over the grid, lane shifts
+by ``torch.roll``, candidate slots walked j outer, then dy, then dx.
+
+Layouts are the reference's: d [ny2, K, 8, NXL], fwp [n_wp, R, S, 4, NXL],
+fobs [R, S, 4, NXL]; the output is [ny2, K, 8, NXL], ghost rows zero.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...physics import Physics
+from ..neighbor import true_divide
+from . import _build
+from .pairwise import EPS, pair_accum
+
+BIG = 2.0 ** 30  # non-finite sanitize sentinel (step_kernel.py:394-398)
+ROW0 = 3  # fields6.ROW0: first patch row/col of cell 0 in the padded map
+FPAD = 4.0  # field-map PAD rings
+
+
+def _constants(phys: Physics, grid_size: tuple[float, float],
+               field_unit: float) -> list[float]:
+    """The kernel's scalar constants, in csrc/step_kernel.cu StepConsts
+    order; each is rounded to f32 when it reaches the kernel, as the twin's
+    Python scalars are when they meet an f32 tensor."""
+    return [
+        1.0 / field_unit, grid_size[0], grid_size[1], phys.despawn_potential,
+        phys.relaxation_time, phys.obs_strength, phys.obs_range,
+        phys.delta_time, phys.delta_time * 0.5, phys.max_speed_factor,
+        phys.cutoff_sq, phys.delta_time, phys.delta_time * phys.delta_time,
+        0.5 * phys.ped_strength, -0.5 / phys.ped_range,
+        phys.cos_phi * phys.cos_phi, phys.fov_damping,
+    ]
+
+
+def _check(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
+           stride: int) -> None:
+    for name, t in (("d", d), ("fwp", fwp), ("fobs", fobs)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+        if t.device != d.device:
+            raise ValueError(f"{name} is on {t.device}, d on {d.device}")
+    ny2, k, ch, nxl = d.shape
+    if ch != 8 or nxl % 128 != 0:
+        raise ValueError(f"d must be [ny2, K, 8, NXL % 128 == 0], got {tuple(d.shape)}")
+    if fwp.dim() != 5 or tuple(fwp.shape[2:]) != (stride, 4, nxl):
+        raise ValueError(f"fwp must be [n_wp, R, {stride}, 4, {nxl}], got {tuple(fwp.shape)}")
+    if tuple(fobs.shape) != tuple(fwp.shape[1:]):
+        raise ValueError(f"fobs must be {tuple(fwp.shape[1:])}, got {tuple(fobs.shape)}")
+    need = stride * (ny2 + 1) + ROW0 + 2
+    if fwp.shape[1] < need:
+        raise ValueError(f"field planes have {fwp.shape[1]} rows, need {need}")
+
+
+def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
+               phys: Physics, grid_size: tuple[float, float], stride: int = 6,
+               field_unit: float = 0.25) -> torch.Tensor:
+    """One fused step over the grid: returns G [ny2, K, 8, NXL].
+
+    Channels out: post-step pos, vel; sanitized speed; dest unchanged;
+    post-despawn active; ch 7 = sampled potential.  Rows 0 and ny2-1 are
+    zero.  CUDA tensors run the kernel (or raise); CPU tensors the twin."""
+    _check(d, fwp, fobs, stride)
+    if d.device.type == "cpu":
+        return fused_step_torch(d, fwp, fobs, phys, grid_size, stride,
+                                field_unit)
+    if d.device.type != "cuda":
+        raise ValueError(f"fused_step: unsupported device {d.device}")
+    lib = _build.library()
+    ny2, k, _, nxl = d.shape
+    out = torch.empty_like(d)
+    scratch = torch.empty((6, ny2, k, nxl), dtype=torch.float32, device=d.device)
+    consts = torch.tensor(_constants(phys, grid_size, field_unit),
+                          dtype=torch.float32)  # host array, read at launch
+    stream = torch.cuda.current_stream(d.device).cuda_stream
+    rc = lib.pedoni_step_kernel(
+        d.data_ptr(), fwp.data_ptr(), fobs.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), ny2, k, nxl, fwp.shape[0], fwp.shape[1], stride,
+        consts.data_ptr(), stream)
+    _build.check_launch(rc, "pedoni_step_kernel")
+    fused_step.launches += 1
+    return out
+
+
+fused_step.launches = 0
+
+
+def _shift_lane(x: torch.Tensor, delta: int) -> torch.Tensor:
+    """x[..., l] -> x[..., l + delta], circular like the reference's roll."""
+    return x if delta == 0 else torch.roll(x, shifts=-delta, dims=-1)
+
+
+def _sample(planes: torch.Tensor, plane_idx: torch.Tensor | None,
+            plane_ok: torch.Tensor | None, px: torch.Tensor, py: torch.Tensor,
+            stride: int, channels: int) -> list[torch.Tensor]:
+    """Bilinear sample of fields6 planes for every slot of the grid.
+
+    planes [P, R, S, 4, NXL]; plane_idx/plane_ok [ny2, K, NXL] select each
+    slot's plane (None: plane 0 for all).  px/py [ny2, K, NXL] are field
+    coordinates.  A tap outside the cell's (S+2)^2 patch contributes 0, and
+    the taps are summed in the reference's order (qy outer, qx inner)."""
+    ny2, k, nxl = px.shape
+    dev = px.device
+    row = torch.arange(ny2, device=dev, dtype=torch.float32).view(ny2, 1, 1)
+    lane = torch.arange(nxl, device=dev, dtype=torch.float32).view(1, 1, nxl)
+    bx = torch.floor(px)
+    by = torch.floor(py)
+    tx = px - bx
+    ty = py - by
+    p0 = bx - (lane - 1.0) * stride - ROW0
+    q0 = by - (row - 1.0) * stride - ROW0
+    row_i = torch.arange(ny2, device=dev).view(ny2, 1, 1)
+    lane_i = torch.arange(nxl, device=dev).view(1, 1, nxl)
+    pidx = (torch.zeros_like(row_i) if plane_idx is None else plane_idx)
+    out = [torch.zeros_like(px) for _ in range(channels)]
+    ext = float(stride + 1)
+    for a in (0, 1):
+        qy = q0 + a
+        wy = ty if a else 1.0 - ty
+        for b in (0, 1):
+            qx = p0 + b
+            ok = (qy >= 0.0) & (qy <= ext) & (qx >= 0.0) & (qx <= ext)
+            if plane_ok is not None:
+                ok = ok & plane_ok
+            w = wy * (tx if b else 1.0 - tx)
+            qyi = torch.where(ok, qy, 0.0).long()
+            col = torch.where(ok, qx, 0.0).long() + ROW0
+            frow = stride * row_i + ROW0 + qyi
+            l2 = (lane_i + col // stride) % nxl
+            for c in range(channels):
+                val = planes[pidx, frow, col % stride, c, l2]
+                out[c] = out[c] + torch.where(ok, w * val, 0.0)
+    return out
+
+
+def fused_step_torch(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
+                     phys: Physics, grid_size: tuple[float, float],
+                     stride: int = 6, field_unit: float = 0.25) -> torch.Tensor:
+    """Plain PyTorch twin of the fused step kernel (same contract)."""
+    ny2, k, _, nxl = d.shape
+    n_wp = fwp.shape[0]
+    # 1. sanitize pos, vel, speed of every row: NaN, +-inf -> +2^30
+    san = [torch.where(torch.abs(d[:, :, c, :]) < BIG, d[:, :, c, :], BIG)
+           for c in range(5)]
+    posx, posy, velx, vely, speed = san
+    dest = d[:, :, 5, :]
+    act = d[:, :, 6, :]
+
+    # 2. sample the agent's own destination plane and the obstacle plane
+    px = posx * (1.0 / field_unit) - 0.5 + FPAD
+    py = posy * (1.0 / field_unit) - 0.5 + FPAD
+    plane_ok = (dest >= 0) & (dest < n_wp) & (dest == torch.floor(dest))
+    plane_idx = torch.where(plane_ok, dest, 0.0).long()
+    pot, gx, gy = _sample(fwp, plane_idx, plane_ok, px, py, stride, 3)
+    dist, dgx, dgy = _sample(fobs[None], None, None, px, py, stride, 3)
+
+    # 3. despawn at the goal or off the grid
+    in_grid = ((posx >= 0.0) & (posx < grid_size[0])
+               & (posy >= 0.0) & (posy < grid_size[1]))
+    act_new = torch.where((pot > phys.despawn_potential) & in_grid, act, 0.0)
+
+    # 4-5. goal force, obstacle force from the distance map
+    g_norm = torch.rsqrt(torch.clamp(gx * gx + gy * gy, min=EPS))
+    ex = gx * g_norm
+    ey = gy * g_norm
+    afx = true_divide(ex * speed - velx, phys.relaxation_time)
+    afy = true_divide(ey * speed - vely, phys.relaxation_time)
+    d_norm = torch.rsqrt(torch.clamp(dgx * dgx + dgy * dgy, min=EPS))
+    mag = phys.obs_strength * torch.exp(true_divide(-dist, phys.obs_range))
+    afx = afx - mag * dgx * d_norm
+    afy = afy - mag * dgy * d_norm
+
+    # 6. pair force over the 3x3 cells' slots, j outer, then dy, then dx;
+    # a candidate slot counts only below its cell's count (ch 7, slot 0)
+    c = slice(1, ny2 - 1)
+    center = {"px": posx[c], "py": posy[c], "ex": ex[c], "ey": ey[c]}
+    acc = (afx[c], afy[c])
+    cnt = d[:, 0, 7, :]  # [ny2, NXL]
+    slot = torch.arange(k, device=d.device).view(1, k, 1)
+    dt = phys.delta_time
+    kmax = int(torch.clamp(torch.ceil(cnt.max()), 0, k).item()) if cnt.numel() else 0
+    for j in range(kmax):
+        for dy in (-1, 0, 1):
+            r = slice(1 + dy, ny2 - 1 + dy)
+            cvx, cvy = velx[r, j:j + 1], vely[r, j:j + 1]
+            row = {
+                "px": posx[r, j:j + 1], "py": posy[r, j:j + 1],
+                "vxdt": cvx * dt, "vydt": cvy * dt,
+                "v2dtt": (cvx * cvx + cvy * cvy) * (dt * dt),
+                "act": torch.where(j < cnt[r, None, :], act_new[r, j:j + 1], 0.0),
+            }
+            for dxo in (-1, 0, 1):
+                cand = {n: _shift_lane(a, dxo) for n, a in row.items()}
+                if dxo == -1:
+                    cand["act"][..., 0] = 0.0  # no cell left of lane 0
+                elif dxo == 1:
+                    cand["act"][..., nxl - 1] = 0.0  # nor right of the last
+                self_slot = (slot == j) if (dy == 0 and dxo == 0) else None
+                acc = pair_accum(acc, center, cand, phys, self_slot)
+
+    # 7. trapezoidal integration with the speed clamp, keep-gated
+    accx, accy = acc
+    vx0, vy0 = velx[c], vely[c]
+    nvx = vx0 + accx * dt
+    nvy = vy0 + accy * dt
+    vmax = speed[c] * phys.max_speed_factor
+    vlen = torch.sqrt(torch.clamp(nvx * nvx + nvy * nvy, min=EPS))
+    scale = torch.clamp(vmax / vlen, max=1.0)
+    nvx = nvx * scale
+    nvy = nvy * scale
+    keep = act_new[c] > 0.5
+    half = dt * 0.5
+    npx = torch.where(keep, posx[c] + (nvx + vx0) * half, posx[c])
+    npy = torch.where(keep, posy[c] + (nvy + vy0) * half, posy[c])
+    nvx = torch.where(keep, nvx, vx0)
+    nvy = torch.where(keep, nvy, vy0)
+
+    # 8. output: ch 7 = sampled potential, ghost rows zero
+    out = torch.zeros_like(d)
+    out[c] = torch.stack([npx, npy, nvx, nvy, speed[c], dest[c], act_new[c],
+                          pot[c]], dim=2)
+    return out

@@ -1,0 +1,277 @@
+"""Simulator orchestration for the grid backend on one device.
+
+Counterpart of pedoni_tpu/sim.py with the same surface:
+
+    sim = Simulator(SimulatorOptions(device="cuda"), scenario)
+    record = sim.tick()
+    pos, dest = sim.list_pedestrians()
+    sim.pedestrian_count
+
+Covered: the cell-resident grid step with the full rebin, distance-map
+obstacles, one device, drop-free table growth, the on-device run totals
+and the lagged growth guard of ``run``.  Options outside that slice raise
+``ValueError`` naming the ROADMAP item that will port them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import torch
+
+from .diagnostics import DiagnosticLog, StepRecord
+from .field import Field, FieldMaps
+from .models import sfm_grid
+from .models.sfm import SimState, StepConfig, StepMetrics, make_initial_state
+from .physics import Physics
+from .scenario import Scenario
+from .utils.timing import Timer
+
+log = logging.getLogger(__name__)
+
+
+def _accumulate_metrics(tot: StepMetrics, m: StepMetrics) -> StepMetrics:
+    """Device-side running totals for Simulator.run(): counters sum,
+    max_demand takes the max, n_active keeps the latest (a level, not a
+    flow).  A few scalar kernels per step — no host sync."""
+    return m._replace(
+        n_spawned=tot.n_spawned + m.n_spawned,
+        n_dropped=tot.n_dropped + m.n_dropped,
+        n_overflow=tot.n_overflow + m.n_overflow,
+        max_demand=torch.maximum(tot.max_demand, m.max_demand),
+        n_exited=tot.n_exited + m.n_exited,
+    )
+
+
+def _to_host(m: StepMetrics) -> StepMetrics:
+    """One device->host transfer for all metric scalars."""
+    return StepMetrics(*torch.stack(list(m)).tolist())
+
+
+@dataclasses.dataclass(frozen=True)
+class SimulatorOptions:
+    """Counterpart of the reference's options, grid backend only."""
+
+    backend: str = "grid"
+    neighbor_grid_unit: float = 1.4  # auto-switched to 1.5 (stride-6 fields)
+    field_grid_unit: float = 0.25
+    use_neighbor_grid: bool = True
+    use_distance_map: bool = True
+    table_capacity: int = 16
+    chunk_size: int = 2048  # reference --work-size; row_block derives from it
+    capacity: int = 0  # 0 = auto-size from the scenario
+    seed: int = 0
+    physics: Physics = Physics()
+    n_devices: int = 1
+    incremental_rebin: bool = False
+    device: str = "cuda"
+
+    @property
+    def row_block(self) -> int:
+        """Cell rows per metric block (the reference's kernel dispatch
+        granularity, derived from chunk_size the same way)."""
+        return max(1, min(8, self.chunk_size // 1024))
+
+    def check(self) -> None:
+        """Raise on what this port does not cover yet."""
+        if self.backend != "grid":
+            raise ValueError(f"backend {self.backend!r} is not ported; only "
+                             "'grid' is (ROADMAP queue 1, item 9)")
+        if self.n_devices > 1:
+            raise ValueError("n_devices > 1 is not ported (ROADMAP queue 1, "
+                             "item 10: multi-GPU tiling)")
+        if self.incremental_rebin:
+            raise ValueError("incremental_rebin=True is not ported (ROADMAP "
+                             "queue 2, item 2B)")
+        if not self.use_distance_map:
+            raise ValueError("use_distance_map=False is not ported (ROADMAP "
+                             "queue 2, 2A-segments)")
+        if not self.use_neighbor_grid:
+            raise ValueError("use_neighbor_grid=False is not ported (ROADMAP "
+                             "queue 1, item 7: debug modes)")
+
+
+class Simulator:
+    def __init__(self, options: SimulatorOptions, scenario: Scenario) -> None:
+        options.check()
+        if options.neighbor_grid_unit == 1.4:
+            # The stride-6 field layout needs 1.5 m cells; auto-switch when
+            # the unit was left at the reference default.
+            options = dataclasses.replace(options, neighbor_grid_unit=1.5)
+        self.device = torch.device(options.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {options.device!r} requested but "
+                               "torch.cuda.is_available() is False")
+        self.options = options
+        self.scenario = scenario
+
+        with Timer() as t_field:
+            self.field = Field.from_scenario(scenario, options.field_grid_unit)
+            self.maps = FieldMaps.from_field(self.field)
+        self.time_calc_field = t_field.elapsed
+        log.info("field: %dx%d cells, %d potential maps, built in %.3fs",
+                 *self.field.shape, len(scenario.waypoints), t_field.elapsed)
+
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(options.seed)
+        capacity = options.capacity or self._auto_capacity(scenario)
+        self._build(capacity)
+        self.state = sfm_grid.bin_state(
+            self.cfg, make_initial_state(self.cfg, self.generator, self.device),
+            row_block=options.row_block)
+        self.step_count = 0
+        self.last_metrics: StepMetrics | None = None  # host, last tick()
+        self.last_run_metrics: StepMetrics | None = None  # host, last run()
+
+    @staticmethod
+    def _auto_capacity(scenario: Scenario) -> int:
+        n_once = sum(g.spawn.count for g in scenario.once_groups)
+        rate = sum(g.spawn.frequency for g in scenario.periodic_groups)
+        estimate = int(n_once * 1.25 + rate * 60 + 1024)
+        cap = 1024
+        while cap < estimate:
+            cap *= 2
+        return cap
+
+    def _build(self, capacity: int) -> None:
+        o = self.options
+        self.cfg = StepConfig.build(
+            self.scenario, physics=o.physics, capacity=capacity,
+            neighbor_grid_unit=o.neighbor_grid_unit, field_unit=o.field_grid_unit,
+            table_capacity=o.table_capacity, use_neighbor_grid=o.use_neighbor_grid,
+            use_distance_map=o.use_distance_map)
+        self._fwp, self._fobs = sfm_grid.field_tensors(
+            self.cfg, self.maps, self.device, row_block=o.row_block)
+        self._step = sfm_grid.make_step_grid(
+            self.cfg, row_block=o.row_block, generator=self.generator)
+        self._kernel_chain = None  # shapes depend on K
+        log.info("step function built: capacity=%d K=%d device=%s",
+                 capacity, o.table_capacity, self.device)
+
+    def tick(self) -> StepRecord:
+        """Advance one step (lib.rs:64-100) and return host-side metrics."""
+        with Timer() as t:
+            self.state, dmetrics = self._step(self.state, self._fwp, self._fobs)
+            metrics = _to_host(dmetrics)
+        self.step_count += 1
+        self.last_metrics = metrics
+        if metrics.n_dropped > 0:
+            log.warning("step %d: %d spawn candidates dropped into full cells",
+                        self.step_count, metrics.n_dropped)
+        if metrics.n_exited > 0:
+            log.debug("step %d: %d agents left the field", self.step_count,
+                      metrics.n_exited)
+        if metrics.n_overflow > 0:
+            # Reactive: a cell jumped past K within one step.  Counted.
+            self._grow_table(metrics.n_overflow)
+        elif metrics.max_demand >= self.options.table_capacity - 1:
+            # Drop-free growth: some cell is one agent short of K.
+            self._grow_table(0)
+        return StepRecord(active_ped_count=metrics.n_active, time_spawn=0.0,
+                          time_calc_state=t.elapsed)
+
+    def run(self, n_steps: int, sync_every: int = 0,
+            guard_every: int = 4) -> StepRecord:
+        """Advance ``n_steps`` without per-step host syncs: metrics
+        accumulate on the device and are fetched once at the end (in
+        :attr:`last_run_metrics`).  Every ``guard_every`` steps the LAGGED
+        metrics of the step ``guard_every`` launches ago are read and the
+        table grows preemptively at peak demand >= K-1, as tick() does; a
+        cell sprinting past K within the lag still falls to the counted
+        reactive path.  ``sync_every`` > 0 adds full syncs."""
+        totals = None
+        pending: list[StepMetrics] = []
+        with Timer() as t:
+            for i in range(n_steps):
+                self.state, metrics = self._step(self.state, self._fwp,
+                                                 self._fobs)
+                totals = metrics if totals is None \
+                    else _accumulate_metrics(totals, metrics)
+                if guard_every:
+                    pending.append(metrics)
+                    if len(pending) > guard_every:
+                        pending.pop(0)
+                    if (i + 1) % guard_every == 0:
+                        old = pending[0]
+                        if int(old.max_demand) >= self.options.table_capacity - 1:
+                            self._grow_table(0)
+                            pending.clear()
+                if sync_every and (i + 1) % sync_every == 0:
+                    if int(metrics.max_demand) >= self.options.table_capacity - 1:
+                        self._grow_table(0)
+            host = _to_host(totals) if totals is not None else None
+        self.step_count += n_steps
+        self.last_run_metrics = host
+        if host is not None:
+            if host.n_dropped > 0:
+                log.warning("run(%d): %d spawn candidates dropped into full "
+                            "cells over the run", n_steps, host.n_dropped)
+            if host.n_overflow > 0:
+                log.warning("run(%d): %d agents lost to cell overflow over "
+                            "the run", n_steps, host.n_overflow)
+        return StepRecord(
+            active_ped_count=host.n_active if host is not None else 0,
+            time_spawn=0.0, time_calc_state=t.elapsed / max(n_steps, 1))
+
+    def _grow_table(self, n_lost: int) -> None:
+        """Grow the per-cell table K and re-bin (preemptively when
+        n_lost == 0, reactively after a counted overflow)."""
+        old_k = self.options.table_capacity
+        flat = self._to_flat_state()
+        self.options = dataclasses.replace(
+            self.options, table_capacity=old_k + max(4, old_k // 2))
+        if n_lost:
+            log.warning("step %d: %d agents dropped from full cells; growing "
+                        "table_capacity %d -> %d", self.step_count, n_lost,
+                        old_k, self.options.table_capacity)
+        else:
+            log.info("step %d: peak cell demand reached %d; growing "
+                     "table_capacity %d -> %d preemptively (drop-free)",
+                     self.step_count, old_k - 1, old_k,
+                     self.options.table_capacity)
+        self._build(self.cfg.capacity)
+        self.state = sfm_grid.bin_state(self.cfg, flat,
+                                        row_block=self.options.row_block)
+
+    def measure_kernel_time(self, n: int = 10) -> float:
+        """Seconds per step of the two kernels alone (fused step + rebin,
+        no spawn, no metrics), chained ``n`` times from the current state.
+        On a CUDA device timed with CUDA events; on the CPU (twins) with
+        the host clock."""
+        if self._kernel_chain is None:
+            self._kernel_chain = sfm_grid.make_kernel_chain(
+                self.cfg, row_block=self.options.row_block)
+        d = self._kernel_chain(self.state.d, self._fwp, self._fobs)  # warm
+        if self.device.type != "cuda":
+            with Timer() as t:
+                for _ in range(n):
+                    d = self._kernel_chain(d, self._fwp, self._fobs)
+            return t.elapsed / n
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            d = self._kernel_chain(d, self._fwp, self._fobs)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1000.0 / n
+
+    def _to_flat_state(self) -> SimState:
+        return sfm_grid.unbin_state(self.cfg, self.state)
+
+    def list_pedestrians(self):
+        """Positions [n, 2] and destinations [n] of active agents, as
+        NumPy arrays (models/mod.rs:29-32 exchange struct analog)."""
+        a = self._to_flat_state().agents
+        act = a.active
+        return a.pos[act].cpu().numpy(), a.dest[act].cpu().numpy()
+
+    @property
+    def pedestrian_count(self) -> int:
+        return int((self.state.d[:, :, 6, :] > 0.5).sum())
+
+    def new_log(self, scenario_name: str = "") -> DiagnosticLog:
+        lg = DiagnosticLog(model="sfm-torch/grid", scenario=scenario_name)
+        lg.time_calc_field = self.time_calc_field
+        return lg

@@ -1,0 +1,72 @@
+"""The hand-written CUDA kernels vs their plain PyTorch twins, on the card.
+
+Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports neither JAX nor the
+reference package, so it runs on a machine with only PyTorch:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+(the repository's conftest configures JAX, hence ``--noconftest``).
+"""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from pedoni_tpu_torch import load_scenario
+from pedoni_tpu_torch.convert import agents_from_numpy
+from pedoni_tpu_torch.field import Field, FieldMaps
+from pedoni_tpu_torch.models import sfm_grid
+from pedoni_tpu_torch.models.sfm import SimState, StepConfig
+from pedoni_tpu_torch.ops.kernels import rebin as rb
+from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+
+GAP = pathlib.Path(__file__).resolve().parents[1] / "scenarios" / "gap.toml"
+
+
+@pytest.fixture(scope="module")
+def card_grid():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    sc = load_scenario(GAP)
+    maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
+    cfg = StepConfig.build(sc, capacity=2048, neighbor_grid_unit=1.5,
+                           table_capacity=12)
+    rng = np.random.default_rng(3)
+    n = 1200
+    agents = agents_from_numpy(
+        rng.uniform(0.5, 23.5, (n, 2)), rng.normal(0, 0.6, (n, 2)),
+        np.clip(rng.normal(1.34, 0.26, n), 0.1, None), rng.integers(0, 2, n),
+        np.ones(n, bool), "cuda")
+    d = sfm_grid.bin_state(cfg, SimState(agents, 0)).d
+    fwp, fobs = sfm_grid.field_tensors(cfg, maps, "cuda")
+    return sc, cfg, d, fwp, fobs
+
+
+@pytest.mark.cuda
+def test_step_kernel_matches_twin(card_grid):
+    sc, cfg, d, fwp, fobs = card_grid
+    before = sk.fused_step.launches
+    got = sk.fused_step(d, fwp, fobs, cfg.physics, sc.size)
+    want = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size)
+    torch.cuda.synchronize()
+    assert sk.fused_step.launches == before + 1
+    assert torch.equal(got[:, :, 6], want[:, :, 6])
+    held = (d[:, :, 6] > 0.5).unsqueeze(2).expand(-1, -1, 4, -1)
+    assert float((got[:, :, 0:4] - want[:, :, 0:4]).abs()[held].max()) <= 1e-5
+    assert torch.equal(got[:, :, 4:6], want[:, :, 4:6])
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.cuda
+def test_rebin_kernel_matches_twin(card_grid):
+    sc, cfg, d, fwp, fobs = card_grid
+    g = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size)
+    before = rb.rebin.launches
+    got = rb.rebin(g, 1.5, cfg.grid.nx, cfg.grid.ny)
+    want = rb.rebin_torch(g, 1.5, cfg.grid.nx, cfg.grid.ny)
+    torch.cuda.synchronize()
+    assert rb.rebin.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
