@@ -4,19 +4,35 @@
     python chip_smoke.py
 
 Builds the hand-written kernels (pedoni_tpu_torch/ops/kernels/csrc) with
-nvcc, then:
+nvcc, one process per source, then:
 
 1. holds each kernel against its plain PyTorch twin on a seeded random
-   grid: the rebin bit-equal, the step within abs 1e-5 on pos/vel of the
-   slots that held agents with the active channel equal;
+   grid: the step kernel (base and mover modes) within abs 1e-5 on pos/vel
+   of the slots that held agents, its other channels, mover table and
+   per-block outputs equal; both rebins bit-equal on all five outputs;
 2. drives scenarios/gap.toml through ``Simulator.tick()`` until the
-   population evacuates (must happen within 400 steps);
-3. drives the 1M-agent bench workload (density 2.5 m^-2, 1021 x 175
-   cells, K = 14, one waypoint) through ``make_step_grid``: 16 warm-up
-   and 40 timed steps; positions finite, >= 0.99e6 agents active, each
-   kernel launched exactly once per step;
-4. repeats the kernel-vs-twin checks on the 1M state and times each
-   kernel and its twin (median of 20 runs, CUDA events).
+   population evacuates (within 400 steps), on the auto-chosen full rebin
+   and once more with ``incremental_rebin=True`` forced;
+3. runs tests/test_rebin_incremental.py's spawning scenario through
+   ``make_step_grid`` incremental and full from the same candidates for 8
+   steps: every StepMetrics field equal each step, active sets within
+   atol 2e-5 / rtol 1e-5 — with mover_k=4 and with mover_k=1 (fallback);
+4. drives the 1M-agent bench workload (density 2.5 m^-2, 1021 x 175
+   cells, K = 14, one waypoint) through ``make_step_grid``: the full-rebin
+   path (``incremental=False``), then the hybrid as bench.py runs it
+   (``incremental=True, mover_k=8, compact_every=8``), each 16 warm-up and
+   40 timed steps with every launch count zeroed before and read after;
+   the hybrid's timed steps run under ``set_sync_debug_mode("error")``;
+   positions finite, >= 0.99e6 agents active, both rebin branches taken
+   (read from the device counter after the run); then 24 more steps of
+   each path under ``torch.profiler``: device us/step per kernel and the
+   device's busy share of the unprofiled wall time;
+5. repeats the kernel-vs-twin checks on each path's own 1M state (the
+   base step and the full rebin on the full path's, the mover mode and the
+   incremental rebin on the hybrid's) and times each kernel and its twin
+   there (median of 20 runs, CUDA events, each queued behind a device spin
+   so that host enqueue time stays out).  Each bound counts the bytes the
+   function needs from this state (see ``_needed_bytes``).
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}.  Exits
@@ -39,7 +55,32 @@ TOL = 1e-5  # step kernel vs twin, pos/vel of slots that held agents
 N_AGENTS = 1_000_000
 WARMUP, TIMED = 16, 40
 GAP_MAX_STEPS = 400
+PARITY_STEPS = 8
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+PAIR_FLOPS = 45  # float operations of one pair_accum within the cutoff
+SPIN_CYCLES = 2_000_000  # ~1 ms of device clock ahead of each timed run
+PROFILE_STEPS = 24  # a multiple of the compaction period of 8
+# kernel names as the profiler reports them, in step order
+PROFILED = ("step_pass_a", "step_pass_b", "step_movers", "rebin_full", "rebin_inc")
 GAP = pathlib.Path(__file__).resolve().parent / "scenarios" / "gap.toml"
+# tests/test_rebin_incremental.py's spawning scenario
+SPAWN_SCENARIO = """
+[field]
+size = [18, 12]
+[[waypoints]]
+line = [[2, 2], [2, 10]]
+[[waypoints]]
+line = [[16, 2], [16, 10]]
+[[obstacles]]
+line = [[9, 0], [9, 5]]
+width = 1
+[[pedestrians]]
+origin = 0
+destination = 1
+spawn = { kind = "periodic", frequency = 4.0 }
+"""
+CSRC = "pedoni_tpu_torch/ops/kernels/csrc/"
 
 
 def _card() -> str:
@@ -49,11 +90,16 @@ def _card() -> str:
 
 
 def _median_ms(fn, n: int = 20) -> float:
+    """Median device time of ``fn`` over ``n`` runs, CUDA events.  Each run
+    is queued behind a ~1 ms device spin, so the host's enqueue work
+    (allocation, the ctypes call) overlaps the spin and only device time
+    falls between the events."""
     fn()  # warm
     times = []
     for _ in range(n):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -62,35 +108,238 @@ def _median_ms(fn, n: int = 20) -> float:
     return statistics.median(times)
 
 
-def _compare(d, fwp, fobs, phys, size, unit, nx, ny, what):
-    """Kernel vs twin on one grid: returns (step max abs err, rebin err)."""
+def _launch_counts() -> dict[str, int]:
+    from pedoni_tpu_torch.ops.kernels import rebin as rb
+    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+    return {"step_kernel": sk.fused_step.launches,
+            "step_kernel_movers": sk.fused_step.mover_launches,
+            "rebin": rb.rebin.launches,
+            "rebin_incremental": rb.rebin_incremental.launches}
+
+
+def _zero_launch_counts() -> None:
+    from pedoni_tpu_torch.ops.kernels import rebin as rb
+    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+    sk.fused_step.launches = sk.fused_step.mover_launches = 0
+    rb.rebin.launches = rb.rebin_incremental.launches = 0
+
+
+def _step_err(d, got, want) -> float:
+    """Max |err| on pos/vel of the slots that held agents; agents flung by
+    a sanitized (non-finite) velocity sit near 2^30 m and are held to 1e-6
+    relative."""
+    held = (d[:, :, 6] > 0.5).unsqueeze(2).expand(-1, -1, 4, -1)
+    diff = (got[:, :, 0:4] - want[:, :, 0:4]).abs()[held]
+    ref = want[:, :, 0:4].abs()[held]
+    sane = ref < 2.0 ** 20
+    err = float(diff[sane].max()) if bool(sane.any()) else 0.0
+    if not err <= TOL or not bool((diff[~sane] <= 1e-6 * ref[~sane]).all()):
+        raise AssertionError(f"step kernel pos/vel err {err:.3e} > {TOL}")
+    return err
+
+
+def _compare(d, fwp, fobs, phys, size, unit, nx, ny, mk, what):
+    """All four kernels vs their twins on one grid: returns the step
+    kernel's max abs pos/vel error in base and mover mode."""
     from pedoni_tpu_torch.ops.kernels import rebin as rb
     from pedoni_tpu_torch.ops.kernels import step_kernel as sk
 
     g_k = sk.fused_step(d, fwp, fobs, phys, size)
     g_t = sk.fused_step_torch(d, fwp, fobs, phys, size)
     torch.cuda.synchronize()
-    if not torch.equal(g_k[:, :, 6], g_t[:, :, 6]):
-        raise AssertionError(f"{what}: step kernel active channel differs")
-    # pos/vel of the slots that held agents; agents flung by a sanitized
-    # (non-finite) velocity sit near 2^30 m and are held to 1e-6 relative
-    held = (d[:, :, 6] > 0.5).unsqueeze(2).expand(-1, -1, 4, -1)
-    diff = (g_k[:, :, 0:4] - g_t[:, :, 0:4]).abs()[held]
-    ref = g_t[:, :, 0:4].abs()[held]
-    sane = ref < 2.0 ** 20
-    step_err = float(diff[sane].max()) if bool(sane.any()) else 0.0
-    if not step_err <= TOL or not bool((diff[~sane] <= 1e-6 * ref[~sane]).all()):
-        raise AssertionError(f"{what}: step kernel pos/vel err {step_err:.3e} > {TOL}")
-    r_k = rb.rebin(g_t, unit, nx, ny)
-    r_t = rb.rebin_torch(g_t, unit, nx, ny)
+    if not torch.equal(g_k[:, :, 4:7], g_t[:, :, 4:7]):
+        raise AssertionError(f"{what}: step kernel speed/dest/active differ")
+    step_err = _step_err(d, g_k, g_t)
+    mv_k = sk.fused_step(d, fwp, fobs, phys, size, emit_movers=mk)
+    mv_t = sk.fused_step_torch(d, fwp, fobs, phys, size, emit_movers=mk)
     torch.cuda.synchronize()
-    for name, a, b in zip(("D'", "overflow", "demand", "active_in", "active_out"),
-                          r_k, r_t):
+    if not torch.equal(mv_k[0][:, :, 4:8], mv_t[0][:, :, 4:8]):
+        raise AssertionError(f"{what}: mover mode speed/dest/active/stay differ")
+    mover_err = _step_err(d, mv_k[0], mv_t[0])
+    for name, a, b in zip(("M", "movf", "mdmx"), mv_k[1:], mv_t[1:]):
         if not torch.equal(a, b):
-            raise AssertionError(f"{what}: rebin {name} differs from the twin")
-    print(f"# {what}: step kernel max |err| {step_err:.3e} (tol {TOL}), "
-          f"active channel equal; rebin bit-equal on all 5 outputs", flush=True)
-    return step_err
+            raise AssertionError(f"{what}: mover mode {name} differs from the twin")
+    names = ("D'", "overflow", "demand", "active_in", "active_out")
+    for label, got, want in (
+            ("rebin", rb.rebin(g_t, unit, nx, ny), rb.rebin_torch(g_t, unit, nx, ny)),
+            ("rebin_incremental",
+             rb.rebin_incremental(mv_t[0], mv_t[1], unit, nx, ny),
+             rb.rebin_incremental_torch(mv_t[0], mv_t[1], unit, nx, ny))):
+        torch.cuda.synchronize()
+        for name, a, b in zip(names, got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {label} {name} differs from the twin")
+    n_movers = int(mv_t[1][:, 0, 7].sum())
+    print(f"# {what}: step kernel max |err| {step_err:.3e} (base), "
+          f"{mover_err:.3e} (mover mode, MK {mk}, {n_movers} movers; stay "
+          f"mask, M, movf, mdmx equal) (tol {TOL}); rebin and "
+          f"rebin_incremental bit-equal on all 5 outputs", flush=True)
+    return step_err, mover_err
+
+
+def _active_rows(d: torch.Tensor) -> np.ndarray:
+    rows = d.permute(0, 1, 3, 2).reshape(-1, 8)
+    rows = rows[rows[:, 6] > 0.5][:, :6].cpu().numpy()
+    return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+
+
+def _spawn_parity(dev) -> None:
+    """Incremental vs full from the same state and candidates: equal
+    metrics every step and equal active sets (tests/test_rebin_incremental.py
+    :192-232 on the card)."""
+    from pedoni_tpu_torch import loads_scenario
+    from pedoni_tpu_torch.convert import agents_from_numpy, metrics_to_dict
+    from pedoni_tpu_torch.field import Field, FieldMaps
+    from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.models.sfm import SimState, StepConfig, spawn_candidates
+
+    sc = loads_scenario(SPAWN_SCENARIO)
+    maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
+    cfg = StepConfig.build(sc, capacity=256, neighbor_grid_unit=1.5,
+                           table_capacity=8)
+    rng = np.random.default_rng(3)
+    n = 256
+    pos = rng.uniform(0.8, np.array(sc.size) - 0.8, (n, 2))
+    vel = rng.normal(0, 0.3, (n, 2))
+    speed = np.clip(rng.normal(1.34, 0.26, n), 0.3, None)
+    dest = rng.integers(0, 2, n)
+    d0 = sfm_grid.bin_state(cfg, SimState(agents_from_numpy(
+        pos, vel, speed, dest, np.arange(n) < 150, dev), 0)).d
+    fwp, fobs = sfm_grid.field_tensors(cfg, maps, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cands = [spawn_candidates(cfg, gen) for _ in range(PARITY_STEPS)]
+    for mk, every in ((4, 5), (1, 1000)):
+        runs = []
+        for incremental in (False, True):
+            step = sfm_grid.make_step_grid(cfg, incremental=incremental,
+                                           mover_k=mk, compact_every=every,
+                                           generator=gen)
+            gs = sfm_grid.GridState(d=d0.clone(), step=0)
+            ms = []
+            for cand in cands:
+                gs, m = step(gs, fwp, fobs, cand)
+                ms.append(metrics_to_dict(m))
+            runs.append((ms, _active_rows(gs.d), step.full_rebins))
+        (m_full, a_full, _), (m_inc, a_inc, n_full) = runs
+        for i, (mf, mi) in enumerate(zip(m_full, m_inc)):
+            mf = dict(mf, max_mover_demand=mi["max_mover_demand"])  # full: 0
+            if mf != mi:
+                raise AssertionError(f"spawn parity mk={mk} step {i}: {mf} != {mi}")
+        if a_full.shape != a_inc.shape or not np.allclose(a_inc, a_full, atol=2e-5,
+                                                          rtol=1e-5):
+            raise AssertionError(f"spawn parity mk={mk}: active sets differ")
+        peak = max(m["max_mover_demand"] for m in m_inc)
+        print(f"# spawning scenario, mover_k={mk}, compact_every={every}: "
+              f"{PARITY_STEPS} steps incremental == full (all metrics each "
+              f"step; {a_inc.shape[0]} agents within 2e-5/1e-5), "
+              f"{int(n_full)} steps took the full rebin, peak mover demand "
+              f"{peak}", flush=True)
+
+
+def _bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+    """Least time the card could take: the bytes at the HBM rate, or the
+    float operations at the f32 rate, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _field_bytes(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
+                 stride: int = 6, field_unit: float = 0.25) -> int:
+    """Bytes of the field planes the active agents' bilinear taps read: each
+    distinct texel once, with the 3 channels sampled (the index arithmetic
+    of step_kernel.py::_sample)."""
+    from pedoni_tpu_torch.ops.kernels.step_kernel import FPAD, ROW0
+    act = d[:, :, 6] > 0.5
+    r, _, l = torch.nonzero(act, as_tuple=True)
+    px = d[:, :, 0][act] * (1.0 / field_unit) - 0.5 + FPAD
+    py = d[:, :, 1][act] * (1.0 / field_unit) - 0.5 + FPAD
+    dest = d[:, :, 5][act]
+    wp_ok = (dest >= 0) & (dest < fwp.shape[0]) & (dest == torch.floor(dest))
+    p0 = torch.floor(px).long() - (l - 1) * stride - ROW0
+    q0 = torch.floor(py).long() - (r - 1) * stride - ROW0
+    n_r, nxl = fwp.shape[1], fwp.shape[-1]
+    texels = 0
+    for plane_of, ok_of in ((torch.where(wp_ok, dest, 0.0).long(), wp_ok),
+                            (torch.zeros_like(r), torch.ones_like(wp_ok))):
+        keys = []
+        for a in (0, 1):
+            for b in (0, 1):
+                qy, qx = q0 + a, p0 + b
+                ok = ok_of & (qy >= 0) & (qy <= stride + 1) & (qx >= 0) & (qx <= stride + 1)
+                col = qx + ROW0
+                frow = stride * r + ROW0 + qy
+                lane2 = (l + col // stride) % nxl
+                keys.append((((plane_of * n_r + frow) * stride + col % stride) * nxl
+                             + lane2)[ok])
+        texels += int(torch.unique(torch.cat(keys)).numel())
+    return texels * 3 * fwp.element_size()
+
+
+def _needed_bytes(name: str, ins: tuple, outs: tuple) -> int:
+    """Bytes the function must move on this state: every output written
+    once, and of the inputs what this data needs.
+    - step kernel (both modes): all of D (an empty slot's output is its
+      sanitized input) and the field texels that active agents sample;
+    - rebin: G's ch 6 plane (every slot of the 3x3 walk is tested) and
+      ch 0-5 of G's active slots;
+    - rebin_incremental: G's ch 6 and ch 7 planes, ch 0-5 of the stay slots,
+      M's count plane, and ch 0-5 of the mover rows below each cell's count
+      (ch 6 of those rows follows from the count)."""
+    out_b = _nbytes(*outs)
+    if name.startswith("step_kernel"):
+        d, fwp, fobs = ins
+        return _nbytes(d) + _field_bytes(d, fwp, fobs) + out_b
+    g = ins[0]
+    plane = g[:, :, 6].numel() * g.element_size()
+    row6 = 6 * g.element_size()
+    if name == "rebin":
+        return plane + row6 * int((g[:, :, 6] > 0.5).sum()) + out_b
+    m = ins[1]
+    return (2 * plane + row6 * int((g[:, :, 7] > 0.5).sum())
+            + _nbytes(m[:, 0, 7]) + row6 * int((m[:, :, 6] > 0.5).sum()) + out_b)
+
+
+def _profile(step, gs, fwp, fobs, wall_ms: float, name: str, card: str):
+    """PROFILE_STEPS more steps under torch.profiler: device us/step and
+    launches/step per kernel, and the busy share of ``wall_ms``."""
+    import collections
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(PROFILE_STEPS):
+            gs, _m = step(gs, fwp, fobs)
+        torch.cuda.synchronize()
+    us, launches = collections.Counter(), collections.Counter()
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host events; device kernels, memsets and copies stay
+        label = next((k for k in PROFILED if k in ev.key), "glue")
+        us[label] += ev.self_device_time_total / PROFILE_STEPS
+        launches[label] += ev.count / PROFILE_STEPS
+    dev_ms = sum(us.values()) / 1e3
+    if not dev_ms > 0:
+        raise AssertionError(f"1M {name}: the profiler traced no device time")
+    print(f"# 1M {name} profile, {PROFILE_STEPS} steps (torch.profiler): device "
+          f"{dev_ms:.4f} ms/step, unprofiled wall {wall_ms:.4f} ms/step, busy "
+          f"share {dev_ms / wall_ms:.3f} on {card}", flush=True)
+    for label in (*PROFILED, "glue"):
+        if label in us:
+            print(f"#   {label:12s} {us[label]:9.2f} us/step {us[label] / 1e3 / dev_ms:6.1%}"
+                  f"  {launches[label]:.2f} launches/step", flush=True)
+    return gs
+
+
+def _pair_candidates(d: torch.Tensor) -> float:
+    """Candidate pairs the pair loop visits on this grid: for every active
+    agent, the active agents of its 3x3 cells other than itself."""
+    act = (d[:, :, 6] > 0.5).sum(dim=1).float()  # [ny2, NXL]
+    win = torch.nn.functional.avg_pool2d(act[None, None], 3, stride=1,
+                                         padding=1, divisor_override=1)[0, 0]
+    return float((act * win - act).sum())
 
 
 def main() -> int:
@@ -122,7 +371,7 @@ def main() -> int:
           f" -> {_build.library_path().name} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("#   ptxas:", line.strip(), flush=True)
 
     # 1. seeded random grid on gap.toml's fields (two waypoint planes, a
@@ -144,89 +393,168 @@ def main() -> int:
     r, k, l = occ[500].tolist()
     d[r, k, 2, l] = float("inf")
     fwp, fobs = sfm_grid.field_tensors(cfg, maps, dev)
-    _compare(d, fwp, fobs, cfg.physics, sc.size, 1.5, cfg.grid.nx,
-             cfg.grid.ny, "random grid (gap fields, 1500 agents)")
+    _compare(d, fwp, fobs, cfg.physics, sc.size, 1.5, cfg.grid.nx, cfg.grid.ny,
+             4, "random grid (gap fields, 1500 agents)")
 
-    # 2. gap.toml through the Simulator: the physics gate
-    sk.fused_step.launches = rb.rebin.launches = 0
-    sim = Simulator(SimulatorOptions(device="cuda", seed=1), sc)
-    n0 = sim.pedestrian_count
-    steps = 0
-    active = n0
-    while active > 0 and steps < GAP_MAX_STEPS:
-        active = sim.tick().active_ped_count
-        steps += 1
-    if active != 0:
-        raise AssertionError(f"gap.toml: {active} agents left after {steps} steps")
-    if not (sk.fused_step.launches == rb.rebin.launches == steps):
-        raise AssertionError("gap.toml: launch counts differ from the step count")
-    print(f"# gap.toml: {n0} agents evacuated in {steps} steps "
-          f"(limit {GAP_MAX_STEPS}); kernel launches {steps} each", flush=True)
+    # 2. gap.toml through the Simulator: the physics gate, on the rebin the
+    # auto rule picks (full at this occupancy) and on the forced hybrid
+    for forced in (None, True):
+        _zero_launch_counts()
+        sim = Simulator(SimulatorOptions(device="cuda", seed=1,
+                                         incremental_rebin=forced), sc)
+        n0 = sim.pedestrian_count
+        steps = 0
+        active = n0
+        while active > 0 and steps < GAP_MAX_STEPS:
+            active = sim.tick().active_ped_count
+            steps += 1
+        if active != 0:
+            raise AssertionError(f"gap.toml ({forced=}): {active} agents left "
+                                 f"after {steps} steps")
+        counts = _launch_counts()
+        used = (("step_kernel_movers", "rebin") if forced
+                else ("step_kernel", "rebin"))
+        if any(counts[kname] != steps for kname in used):
+            raise AssertionError(f"gap.toml: launch counts {counts} vs {steps} steps")
+        print(f"# gap.toml (incremental_rebin={forced}, resolved "
+              f"{sim._resolve_incremental()}): {n0} agents evacuated in {steps} "
+              f"steps (limit {GAP_MAX_STEPS}); launches {counts}", flush=True)
 
-    # 3. the 1M-agent bench workload through the port's grid step
+    # 3. spawning parity, incremental vs full, with and without fallback
+    _spawn_parity(dev)
+
+    # 4. the 1M-agent bench workload: the full path, then the hybrid
     t0 = time.perf_counter()
     _sc, bmaps, bcfg, flat = build_problem(N_AGENTS, device=dev)
     bfwp, bfobs = sfm_grid.field_tensors(bcfg, bmaps, dev)
-    gs = sfm_grid.bin_state(bcfg, flat)
-    step = sfm_grid.make_step_grid(bcfg)
+    gs0 = sfm_grid.bin_state(bcfg, flat)
     del flat
     torch.cuda.synchronize()
-    dims = tuple(gs.d.shape)
+    dims = tuple(gs0.d.shape)
     print(f"# 1M problem: grid {bcfg.grid.nx} x {bcfg.grid.ny} cells, D {dims}, "
-          f"{int((gs.d[:, :, 6] > 0.5).sum())} agents binned, set-up "
+          f"{int((gs0.d[:, :, 6] > 0.5).sum())} agents binned, set-up "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    sk.fused_step.launches = rb.rebin.launches = 0
-    for _ in range(WARMUP):
-        gs, m = step(gs, bfwp, bfobs)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED):
-        gs, m = step(gs, bfwp, bfobs)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / TIMED
-    launches = {"step_kernel": sk.fused_step.launches, "rebin": rb.rebin.launches}
     n_steps = WARMUP + TIMED
-    if set(launches.values()) != {n_steps}:
-        raise AssertionError(f"1M: launches {launches} != {n_steps} steps")
-    n_active = int(m.n_active)
-    held = gs.d[:, :, 6] > 0.5
-    if not bool(torch.isfinite(gs.d[:, :, 0:4][held.unsqueeze(2).expand(-1, -1, 4, -1)]).all()):
-        raise AssertionError("1M: non-finite positions or velocities")
-    if n_active < 0.99e6:
-        raise AssertionError(f"1M: only {n_active} agents active")
-    print(f"# 1M run: {n_steps} steps ({WARMUP} warm-up), {n_active} active, "
-          f"overflow last step {int(m.n_overflow)}, max demand {int(m.max_demand)}; "
-          f"{dt * 1e3:.3f} ms/step, {n_active / dt:.4e} agent-steps/s "
-          f"on {card}", flush=True)
+    paths = {}
+    for name, incremental in (("full", False), ("hybrid", True)):
+        step = sfm_grid.make_step_grid(bcfg, incremental=incremental)
+        gs = gs0
+        _zero_launch_counts()
+        for _ in range(WARMUP):
+            gs, m = step(gs, bfwp, bfobs)
+        torch.cuda.synchronize()
+        if incremental:
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        for _ in range(TIMED):
+            gs, m = step(gs, bfwp, bfobs)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / TIMED
+        torch.cuda.set_sync_debug_mode("default")
+        counts = _launch_counts()
+        n_active = int(m.n_active)
+        held = gs.d[:, :, 6] > 0.5
+        if not bool(torch.isfinite(gs.d[:, :, 0:4][held.unsqueeze(2).expand(-1, -1, 4, -1)]).all()):
+            raise AssertionError(f"1M {name}: non-finite positions or velocities")
+        if n_active < 0.99e6:
+            raise AssertionError(f"1M {name}: only {n_active} agents active")
+        n_full = int(step.full_rebins) if incremental else n_steps
+        if incremental:
+            n_compact = -(-n_steps // 8)
+            want = {"step_kernel": 0, "step_kernel_movers": n_steps,
+                    "rebin": n_steps, "rebin_incremental": n_steps - n_compact}
+            if counts != want:
+                raise AssertionError(f"1M hybrid: launches {counts} != {want}")
+            if not 0 < n_full < n_steps:
+                raise AssertionError(f"1M hybrid: {n_full} of {n_steps} steps "
+                                     "took the full rebin; both branches must run")
+            branches = (f"; rebin taken (device counter): full {n_full}, "
+                        f"incremental {n_steps - n_full} of {n_steps} steps; "
+                        f"peak mover demand last step {int(m.max_mover_demand)}; "
+                        f"timed steps under set_sync_debug_mode('error')")
+        else:
+            want = {"step_kernel": n_steps, "step_kernel_movers": 0,
+                    "rebin": n_steps, "rebin_incremental": 0}
+            if counts != want:
+                raise AssertionError(f"1M full: launches {counts} != {want}")
+            branches = ""
+        print(f"# 1M {name} path: {n_steps} steps ({WARMUP} warm-up), "
+              f"{n_active} active, overflow last step {int(m.n_overflow)}, max "
+              f"demand {int(m.max_demand)}; {dt * 1e3:.4f} ms/step, "
+              f"{n_active / dt:.4e} agent-steps/s; launches {counts}{branches} "
+              f"on {card}", flush=True)
+        gs = _profile(step, gs, bfwp, bfobs, dt * 1e3, name, card)
+        paths[name] = (dt, counts, gs.d, n_full)
+    print(f"# 1M ms/step on {card}: hybrid {paths['hybrid'][0] * 1e3:.4f}, "
+          f"full {paths['full'][0] * 1e3:.4f}", flush=True)
 
-    # 4. kernel vs twin on the 1M state, and their times
-    step_err = _compare(gs.d, bfwp, bfobs, bcfg.physics, bcfg.scenario.size,
-                        bcfg.grid.unit, bcfg.grid.nx, bcfg.grid.ny, "1M state")
+    # 5. kernels vs twins on each path's own 1M state, and their times
+    d_full, d_hyb = paths["full"][2], paths["hybrid"][2]
     phys, size = bcfg.physics, bcfg.scenario.size
-    g = sk.fused_step_torch(gs.d, bfwp, bfobs, phys, size)
     unit, nx, ny = bcfg.grid.unit, bcfg.grid.nx, bcfg.grid.ny
+    mk = 8
+    step_err, _ = _compare(d_full, bfwp, bfobs, phys, size, unit, nx, ny, mk,
+                           "1M full-path state")
+    _, mover_err = _compare(d_hyb, bfwp, bfobs, phys, size, unit, nx, ny, mk,
+                            "1M hybrid state")
+    g = sk.fused_step_torch(d_full, bfwp, bfobs, phys, size)
+    g_mv, m_mv, movf, mdmx = sk.fused_step_torch(d_hyb, bfwp, bfobs, phys, size,
+                                                 emit_movers=mk)
+    rb_out = rb.rebin_torch(g, unit, nx, ny)
+    inc_out = rb.rebin_incremental_torch(g_mv, m_mv, unit, nx, ny)
+    io = {"step_kernel": ((d_full, bfwp, bfobs), (g,)),
+          "step_kernel_movers": ((d_hyb, bfwp, bfobs), (g_mv, m_mv, movf, mdmx)),
+          "rebin": ((g,), rb_out),
+          "rebin_incremental": ((g_mv, m_mv), inc_out)}
+    flops = {"step_kernel": _pair_candidates(d_full) * PAIR_FLOPS,
+             "step_kernel_movers": _pair_candidates(d_hyb) * PAIR_FLOPS}
+    need = {name: _needed_bytes(name, ins, outs) for name, (ins, outs) in io.items()}
+    bounds = {name: _bound(need[name], flops.get(name, 0.0)) for name in io}
     times = {
-        "step_kernel": (_median_ms(lambda: sk.fused_step(gs.d, bfwp, bfobs, phys, size)),
-                        _median_ms(lambda: sk.fused_step_torch(gs.d, bfwp, bfobs, phys, size))),
+        "step_kernel": (_median_ms(lambda: sk.fused_step(d_full, bfwp, bfobs, phys, size)),
+                        _median_ms(lambda: sk.fused_step_torch(d_full, bfwp, bfobs, phys, size))),
+        "step_kernel_movers": (
+            _median_ms(lambda: sk.fused_step(d_hyb, bfwp, bfobs, phys, size,
+                                             emit_movers=mk)),
+            _median_ms(lambda: sk.fused_step_torch(d_hyb, bfwp, bfobs, phys, size,
+                                                   emit_movers=mk))),
         "rebin": (_median_ms(lambda: rb.rebin(g, unit, nx, ny)),
                   _median_ms(lambda: rb.rebin_torch(g, unit, nx, ny))),
+        "rebin_incremental": (
+            _median_ms(lambda: rb.rebin_incremental(g_mv, m_mv, unit, nx, ny)),
+            _median_ms(lambda: rb.rebin_incremental_torch(g_mv, m_mv, unit, nx, ny))),
+    }
+    meta = {
+        "step_kernel": ("step_kernel.cu", "pedoni_tpu/ops/pallas/step_kernel.py:898",
+                        "full", step_err),
+        "step_kernel_movers": ("step_kernel.cu",
+                               "pedoni_tpu/ops/pallas/step_kernel.py:898",
+                               "hybrid", mover_err),
+        "rebin": ("rebin.cu", "pedoni_tpu/ops/pallas/rebin.py:570", "full", 0.0),
+        "rebin_incremental": ("rebin_incremental.cu",
+                              "pedoni_tpu/ops/pallas/rebin.py:488", "hybrid", 0.0),
     }
     for name, (k_ms, t_ms) in times.items():
-        print(f"# {name} at D {dims}: kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms "
-              f"(median of 20, CUDA events) on {card}", flush=True)
+        b_ms, by = bounds[name]
+        print(f"# {name} on the 1M {meta[name][2]}-path state: kernel {k_ms:.4f} "
+              f"ms, twin {t_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; "
+              f"{need[name] / 1e6:.1f} MB needed of "
+              f"{_nbytes(*io[name][0], *io[name][1]) / 1e6:.1f} MB in the tensors; "
+              f"{b_ms / k_ms:.1%} of it) (median of 20, CUDA events) on {card}",
+              flush=True)
 
-    kernels = [
-        {"name": "step_kernel", "route": "cuda",
-         "source": "pedoni_tpu_torch/ops/kernels/csrc/step_kernel.cu",
-         "replaces": "pedoni_tpu/ops/pallas/step_kernel.py:898",
-         "launches": launches["step_kernel"], "max_abs_err": step_err,
-         "ms": times["step_kernel"][0], "plain_ms": times["step_kernel"][1]},
-        {"name": "rebin", "route": "cuda",
-         "source": "pedoni_tpu_torch/ops/kernels/csrc/rebin.cu",
-         "replaces": "pedoni_tpu/ops/pallas/rebin.py:570",
-         "launches": launches["rebin"], "max_abs_err": 0.0,
-         "ms": times["rebin"][0], "plain_ms": times["rebin"][1]},
-    ]
+    kernels = []
+    for name, (src, replaces, path, err) in meta.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": CSRC + src,
+            "replaces": replaces, "path": path,
+            "launches": paths[path][1][name], "max_abs_err": err,
+            "ms": times[name][0], "plain_ms": times[name][1],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": None})
+        if name == "rebin":  # launched every hybrid step, run when selected
+            kernels[-1].update(hybrid_launches=paths["hybrid"][1][name],
+                               hybrid_bodies_run=paths["hybrid"][3])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,7 +49,7 @@ class StepMetrics(NamedTuple):
     n_overflow: torch.Tensor  # agents dropped at the rebin (cell full)
     max_demand: torch.Tensor  # peak un-clamped per-cell demand
     n_exited: torch.Tensor  # agents that walked off the field
-    max_mover_demand: torch.Tensor  # incremental rebin only; 0 here
+    max_mover_demand: torch.Tensor  # peak movers of a cell (hybrid step; else 0)
 
 
 def _spawn_cap(lam: float) -> int:

@@ -7,22 +7,26 @@ Counterpart of pedoni_tpu/models/sfm_grid.py.  The grid IS the state:
    static) into free slots, before the kernels, so new agents receive
    forces the same tick the reference spawns them (lib.rs:64-90);
 2. the fused step kernel (ops/kernels/step_kernel.py): sampling, despawn,
-   all forces, integration (sfm.rs:91-255);
-3. the full compacting rebin (ops/kernels/rebin.py): fresh bins from the
-   integrated positions, with the out-of-grid drop (neighbor_grid.rs:29);
+   all forces, integration (sfm.rs:91-255) — by default in its mover mode,
+   which also emits each cell's movers;
+3. a rebin (ops/kernels/rebin.py), chosen on the device: the
+   hole-preserving incremental rebin, or the full compacting rebin every
+   ``compact_every``-th step, on mover-table overflow, or when a spawning
+   scenario's fullest cell nears K;
 4. on-device metric sums from the rebin's per-block outputs.
 
 Channel layout (dim 2 of D): 0 pos.x, 1 pos.y, 2 vel.x, 3 vel.y, 4 speed,
-5 dest, 6 active, 7 per-cell active count (valid at slot 0; the spawn
-scatter updates only slot 0, the rebin broadcasts it).
+5 dest, 6 active, 7 per-cell slot bound (valid at slot 0): the count after
+a full rebin, the top occupied slot + 1 after an incremental one (slots
+below it may be holes); the spawn scatter appends there and updates only
+slot 0, the rebins broadcast it.
 
 Deviations from the flat path, all reported per step: agents landing in a
 full cell are dropped (n_overflow); spawn candidates aimed at full cells
 are dropped (n_dropped); agents leaving the field vanish at the rebin
 (n_exited, expected).
 
-Only the full rebin (``incremental=False``) on one device is ported; the
-hole-preserving incremental rebin raises (ROADMAP queue 2, item 2B).
+One device only.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 
 from ..field import FieldMaps
 from ..ops.fields6 import Fields6
-from ..ops.kernels.rebin import rebin
+from ..ops.kernels.rebin import new_outputs, rebin, rebin_incremental
 from ..ops.kernels.step_kernel import fused_step
 from ..ops.neighbor import compute_cell_ids, true_divide
 from .sfm import AgentState, SimState, StepConfig, StepMetrics, spawn_candidates
@@ -206,10 +210,7 @@ def assert_movement_fits_rebin(cfg: StepConfig) -> None:
                          f"{cfg.grid.unit} m cell")
 
 
-def _check_config(cfg: StepConfig, incremental: bool) -> int:
-    if incremental:
-        raise ValueError("incremental rebin is not ported yet "
-                         "(ROADMAP queue 2, item 2B); use incremental=False")
+def _check_config(cfg: StepConfig) -> int:
     if not cfg.use_distance_map:
         raise ValueError("segment obstacles (use_distance_map=False) are not "
                          "ported yet (ROADMAP queue 2, 2A-segments)")
@@ -222,17 +223,25 @@ def _check_config(cfg: StepConfig, incremental: bool) -> int:
 
 
 def make_kernel_chain(cfg: StepConfig, row_block: int = 2,
-                      incremental: bool = False
+                      incremental: bool = False, mover_k: int = 8
                       ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                                     torch.Tensor]:
     """Kernels-only step (fused step + rebin, no spawn, no metrics):
     ``(d, fwp, fobs) -> d'`` — the surface behind the kernel-time
-    diagnostic slot."""
-    stride = _check_config(cfg, incremental)
+    diagnostic slot.  ``incremental`` runs the steady-state branch of the
+    hybrid (mover emit + incremental rebin, no choice)."""
+    stride = _check_config(cfg)
     grid = cfg.grid
+    mk = min(mover_k, cfg.table_capacity)
 
     def chain(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor
               ) -> torch.Tensor:
+        if incremental:
+            g, m, _movf, _mdmx = fused_step(
+                d, fwp, fobs, cfg.physics, cfg.scenario.size, stride=stride,
+                field_unit=cfg.field_unit, emit_movers=mk, row_block=row_block)
+            return rebin_incremental(g, m, grid.unit, grid.nx, grid.ny,
+                                     row_block=row_block)[0]
         g = fused_step(d, fwp, fobs, cfg.physics, cfg.scenario.size,
                        stride=stride, field_unit=cfg.field_unit)
         return rebin(g, grid.unit, grid.nx, grid.ny, row_block=row_block)[0]
@@ -241,22 +250,64 @@ def make_kernel_chain(cfg: StepConfig, row_block: int = 2,
 
 
 def make_step_grid(cfg: StepConfig, row_block: int = 2,
-                   incremental: bool = False,
+                   incremental: bool = True, mover_k: int = 8,
+                   compact_every: int = 8,
                    generator: torch.Generator | None = None):
     """Build the grid-resident step:
     ``step(state, fwp, fobs, cand=None) -> (GridState, StepMetrics)``.
+
+    ``incremental`` (the reference's default) runs the hybrid: the step
+    kernel also emits each cell's movers (at most ``mover_k``), and the
+    rebin is the incremental one unless (a) some cell had more movers
+    than the table holds, (b) ``state.step % compact_every == 0``, or (c)
+    the scenario spawns and its fullest cell's slot bound is >= K - 1
+    (sfm_grid.py:396-419).  (b) is a host int, so those steps launch the
+    full rebin alone; (a) and (c) are read on the device: both rebins are
+    launched with one 0-d int32 flag and only the selected one runs its
+    body — no host sync.  ``step.full_rebins`` (0-d int32, on the device)
+    counts the steps that took the full rebin.
 
     ``cand`` injects this step's spawn candidates (an AgentState of the
     scenario's S = spawn.total rows); when None they are drawn from
     ``generator``, which must then be given for a spawning scenario.
     The spawn scatter writes into ``state.d`` in place (no ~100 MB copy at
     1M agents): the input state is consumed."""
-    stride = _check_config(cfg, incremental)
+    stride = _check_config(cfg)
     phys = cfg.physics
     grid = cfg.grid
     s = cfg.spawn.total
+    k = cfg.table_capacity
+    mk = min(mover_k, k)
     if s > 0 and generator is None:
         raise ValueError("a spawning scenario needs a torch.Generator")
+
+    def kernels(state: GridState, d: torch.Tensor, fwp: torch.Tensor,
+                fobs: torch.Tensor):
+        """Step kernel and rebin: (D', ovf, dmx, n_in, n_out, mover peak)."""
+        kw = dict(stride=stride, field_unit=cfg.field_unit)
+        if not incremental:
+            g = fused_step(d, fwp, fobs, phys, cfg.scenario.size, **kw)
+            return (*rebin(g, grid.unit, grid.nx, grid.ny, row_block=row_block),
+                    None)
+        g, m, movf, mdmx = fused_step(d, fwp, fobs, phys, cfg.scenario.size,
+                                      emit_movers=mk, row_block=row_block, **kw)
+        if step.full_rebins is None:
+            step.full_rebins = torch.zeros((), dtype=torch.int32, device=d.device)
+        if state.step % compact_every == 0:
+            out = rebin(g, grid.unit, grid.nx, grid.ny, row_block=row_block)
+            step.full_rebins += 1
+        else:
+            need_full = movf.sum() > 0.0
+            if s > 0:
+                need_full = need_full | (d[:, 0, 7, :].amax() >= float(k - 1))
+            flag = need_full.to(torch.int32)
+            out = new_outputs(g, row_block)
+            rebin(g, grid.unit, grid.nx, grid.ny, row_block=row_block,
+                  gate=flag, out=out)
+            rebin_incremental(g, m, grid.unit, grid.nx, grid.ny,
+                              row_block=row_block, gate=flag, out=out)
+            step.full_rebins += flag
+        return (*out, mdmx.max().to(torch.int32))
 
     def step(state: GridState, fwp: torch.Tensor, fobs: torch.Tensor,
              cand: AgentState | None = None
@@ -268,10 +319,8 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
             if cand is None:
                 cand = spawn_candidates(cfg, generator)
             d, n_spawned, n_spawn_drop = spawn_scatter(cfg, d, cand)
-        g = fused_step(d, fwp, fobs, phys, cfg.scenario.size, stride=stride,
-                       field_unit=cfg.field_unit)
-        d_new, ovf, dmx, nact_in, nact_out = rebin(
-            g, grid.unit, grid.nx, grid.ny, row_block=row_block)
+        d_new, ovf, dmx, nact_in, nact_out, mover_peak = kernels(
+            state, d, fwp, fobs)
         # Exact: per-block sums are integer-valued f32 far below 2^24.
         n_active = nact_in.sum().to(torch.int32)
         n_overflow = ovf.sum().to(torch.int32)
@@ -283,9 +332,9 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
             n_overflow=n_overflow,
             max_demand=dmx.max().to(torch.int32),
             n_exited=(n_active - n_after) - n_overflow,
-            max_mover_demand=zero,
+            max_mover_demand=zero if mover_peak is None else mover_peak,
         )
         return GridState(d=d_new, step=state.step + 1), metrics
 
+    step.full_rebins = None
     return step
-

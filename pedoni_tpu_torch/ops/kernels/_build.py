@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, at first use, and loaded with
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, at first use, and loaded with
 ``ctypes``.  The library lands in ``pedoni_tpu_torch/_build/`` under a name
 that carries a hash of the sources and flags, so an edited source is
 never served by a stale build.
@@ -28,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -58,16 +59,32 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpedoni_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = []
+    for p in procs:
+        logs.append(p.communicate(timeout=600)[0])
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{text[-4000:]}")
+    return "".join(logs)
+
+
 def _compile(out: Path) -> None:
     global build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    log = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(_sources(), objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-4000:]}")
+    log += _run([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     tmp.replace(out)
-    build_log = r.stdout + r.stderr
+    build_log = log
 
 
 def library() -> ctypes.CDLL:
@@ -81,10 +98,12 @@ def library() -> ctypes.CDLL:
             _compile(path)
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pedoni_step_kernel.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p]
+        lib.pedoni_step_kernel.argtypes = [p] * 8 + [i] * 8 + [p, p]
         lib.pedoni_step_kernel.restype = i
-        lib.pedoni_rebin_full.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, p]
+        lib.pedoni_rebin_full.argtypes = [p] * 7 + [i] * 5 + [f, i, i, p]
         lib.pedoni_rebin_full.restype = i
+        lib.pedoni_rebin_incremental.argtypes = [p] * 8 + [i] * 6 + [f, i, i, p]
+        lib.pedoni_rebin_incremental.restype = i
         _lib = lib
         return lib
 

@@ -9,10 +9,15 @@
 //                          ch 7 holds the sampled potential, not a count).
 // out [ny2, K, 8, NXL] f32: fresh compacted bins, ghost rows zero,
 //                          ch 6 = slot < count, ch 7 = min(count, K).
-// ovf, nin, nout [nb] f32 and dmx [nb] i32, per block of rb cell rows:
-//   overflow sum(max(count - K, 0)), peak un-clamped count, input active
-//   sum over owned lanes, output active sum.  All integer-valued, so the
-//   float atomics are exact in any order (totals stay below 2^24).
+// ovf, dmx, nin, nout [nb] f32, per block of rb cell rows: overflow
+//   sum(max(count - K, 0)), peak un-clamped count, input active sum over
+//   owned lanes, output active sum.  All integer-valued, so the float
+//   atomics are exact in any order (totals stay below 2^24); the peak is
+//   an integer atomicMax on the float's bits (non-negative floats order as
+//   their bit patterns do).
+// gate: optional device int; when given, the body runs only where
+//   *gate == want, so the step's full-or-incremental choice is read on the
+//   device (rebin_incremental.cu takes the same gate and the other value).
 //
 // What bounds it on the card: device-memory traffic.  Each output cell
 // reads the 7 channels of its 3x3 neighbourhood's K slots (mostly cache
@@ -35,10 +40,12 @@
 namespace {
 
 __global__ void rebin_full(const float* __restrict__ g, float* __restrict__ out,
-                           float* __restrict__ ovf, int* __restrict__ dmx,
+                           float* __restrict__ ovf, float* __restrict__ dmx,
                            float* __restrict__ nin, float* __restrict__ nout,
+                           const int* __restrict__ gate, int want,
                            int ny2, int k, int nxl, int rb, float unit,
                            int nx_cells, int ny_cells) {
+  if (gate != nullptr && *gate != want) return;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y;  // every thread of a block shares its row
   if (lane >= nxl) return;
@@ -109,21 +116,23 @@ __global__ void rebin_full(const float* __restrict__ g, float* __restrict__ out,
     if (over != 0.0f) atomicAdd(ovf + b, over);
     if (kept_f != 0.0f) atomicAdd(nout + b, kept_f);
     if (in_act != 0.0f) atomicAdd(nin + b, in_act);
-    if (peak > 0) atomicMax(dmx + b, peak);
+    if (peak > 0) atomicMax((int*)(dmx + b), __float_as_int((float)peak));
   }
 }
 
 }  // namespace
 
-// ovf/nin/nout/dmx must be zeroed by the caller.  nxl % 32 == 0, so every
-// warp is full and the shuffles see 32 live lanes.
+// ovf/dmx/nin/nout must be zeroed by the caller.  nxl % 32 == 0, so every
+// warp is full and the shuffles see 32 live lanes.  gate may be null.
 extern "C" int pedoni_rebin_full(const float* g, float* out, float* ovf,
-                                 int* dmx, float* nin, float* nout, int ny2,
-                                 int k, int nxl, int rb, float unit,
-                                 int nx_cells, int ny_cells, void* stream) {
+                                 float* dmx, float* nin, float* nout,
+                                 const int* gate, int want, int ny2, int k,
+                                 int nxl, int rb, float unit, int nx_cells,
+                                 int ny_cells, void* stream) {
   const int threads = 128;
   dim3 grid((unsigned)((nxl + threads - 1) / threads), (unsigned)ny2);
   rebin_full<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      g, out, ovf, dmx, nin, nout, ny2, k, nxl, rb, unit, nx_cells, ny_cells);
+      g, out, ovf, dmx, nin, nout, gate, want, ny2, k, nxl, rb, unit,
+      nx_cells, ny_cells);
   return (int)cudaGetLastError();
 }

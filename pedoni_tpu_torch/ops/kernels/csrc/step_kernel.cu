@@ -3,16 +3,21 @@
 //
 // Replaces pedoni_tpu/ops/pallas/step_kernel.py::fused_step_kernel
 // (pallas_call at step_kernel.py:898; bodies _kernel :162 and _compute :367)
-// in its base mode: one waypoint plane per agent, distance-map obstacles,
-// no mover emit, no slot split.  Plain PyTorch twin:
-// pedoni_tpu_torch/ops/kernels/step_kernel.py::fused_step_torch.
+// in its base mode and its emit_movers mode (_mover_pass :717): one
+// waypoint plane per agent, distance-map obstacles, no slot split.  Plain
+// PyTorch twin: pedoni_tpu_torch/ops/kernels/step_kernel.py::fused_step_torch.
 //
 // Layouts (all f32, contiguous):
 //   d    [ny2, K, 8, NXL]  ch 0 pos.x, 1 pos.y, 2 vel.x, 3 vel.y, 4 speed,
 //                          5 dest, 6 active, 7 cell count (valid at slot 0)
 //   fwp  [n_wp, R, S, 4, NXL], fobs [R, S, 4, NXL]  (fields6 layout:
 //                          F[f, c, ch, l] = map[f - S, S*(l-1) + c])
-//   out  [ny2, K, 8, NXL]  ghost rows 0 and ny2-1 zero; ch 7 = potential
+//   out  [ny2, K, 8, NXL]  ghost rows 0 and ny2-1 zero; ch 7 = potential,
+//                          or the stay mask in the mover mode
+//   m    [ny2, MK, 8, NXL] mover mode only: each cell's movers in slot
+//                          order, ch 6 = row < movers, ch 7 = min(movers, MK)
+//   movf, mdmx [nb]        mover mode only, per block of rb cell rows:
+//                          sum(max(movers - MK, 0)) and the peak mover count
 //
 // What bounds it on the card: device-memory traffic and load latency.  Per
 // agent slot pass A reads 7 channels and 24 field taps; pass B reads the 9
@@ -35,7 +40,23 @@
 // Inactive centre slots skip the pair loop: their outputs are keep-gated
 // pass-through in the reference, so the force would be discarded.
 // A candidate slot j counts only below its cell's count (ch 7, slot 0),
-// which replaces the reference's per-block jmax bound.
+// which replaces the reference's per-block jmax bound.  After an
+// incremental rebin that channel is the cell's top occupied slot + 1 and
+// the slots below it may hold holes; the post-despawn act test skips them.
+//
+// Mover mode (MK > 0, feeding rebin_incremental.cu): passes A and B run
+// as in the base mode, then a third launch, one thread per cell, walks
+// the cell's K output slots in order.  It overwrites ch 7 with the stay
+// mask act' * same, same = [the integrated position's cell is this cell]
+// (step_kernel.py:697-714), and writes the movers — act' * (1 - same) >
+// 0.5 — to rows 0, 1, ... of M; movers beyond MK are counted in movf only
+// (the step then takes the full rebin).  The cell test is the IEEE divide
+// __fdiv_rn, the one both rebins use, so a stay mask and a rebin never
+// disagree at a cell boundary.  The classification lives in this launch,
+// not in pass B: there it raised pass B's registers from 80 to 90 and cut
+// its occupancy, which cost ~0.18 ms of pass B time at 1M agents (NVIDIA
+// H100 80GB HBM3, 700 W) against ~0.06 ms for this launch.  The TPU's one-hot MAC walk
+// bounded by jmax is not carried over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +78,7 @@ struct StepConsts {
   float dt, dt_half;       // delta_time, 0.5 * delta_time
   float max_speed_factor;
   PairConsts pair;
+  float cell_unit;         // stride * field_unit: the mover mode's cell size
 };
 
 struct Dims {
@@ -247,14 +269,78 @@ __global__ void step_pass_b(const float* __restrict__ d,
   dst[7 * nxl] = scr[5 * plane_sz + idx];
 }
 
+// One thread per cell (row, lane) of pass B's output G: ch 7 becomes the
+// stay mask, and the cell's movers, walked in slot order, fill rows 0, 1,
+// ... of M with their post-step ch 0-5 (step_kernel.py:697-749).  Per-block
+// movf/mdmx by warp shuffles and one atomic per warp; the values are
+// integers, exact in any order.
+__global__ void step_movers(float* __restrict__ g,
+                            float* __restrict__ m, float* __restrict__ movf,
+                            float* __restrict__ mdmx, Dims dm, int mk, int rb,
+                            float cell_unit) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y;  // every thread of a block shares its row
+  if (lane >= dm.nxl) return;
+  const int64_t nxl = dm.nxl;
+  const int64_t sk = 8 * nxl;  // slot stride
+  float* dst = m + (int64_t)row * mk * sk + lane;
+  if (row == 0 || row == dm.ny2 - 1) {
+    for (int r = 0; r < mk; ++r)
+      for (int c = 0; c < 8; ++c) dst[r * sk + c * nxl] = 0.0f;
+    return;
+  }
+  float* src = g + (int64_t)row * dm.k * sk + lane;
+  int cnt = 0;
+  for (int j = 0; j < dm.k; ++j) {
+    float* cs = src + j * sk;
+    const float act = cs[6 * nxl];
+    const float tgt_lane = floorf(__fdiv_rn(cs[0], cell_unit)) + 1.0f;
+    const float tgt_row = floorf(__fdiv_rn(cs[nxl], cell_unit));
+    const float same =
+        (tgt_lane == (float)lane && tgt_row == (float)(row - 1)) ? 1.0f : 0.0f;
+    cs[7 * nxl] = act * same;
+    if (!(act * (1.0f - same) > 0.5f)) continue;
+    if (cnt < mk) {
+      float* o = dst + cnt * sk;
+      for (int c = 0; c < 6; ++c) o[c * nxl] = cs[c * nxl];
+    }
+    ++cnt;
+  }
+  const int kept = cnt < mk ? cnt : mk;
+  for (int r = 0; r < mk; ++r) {
+    float* o = dst + r * sk;
+    if (r >= kept)
+      for (int c = 0; c < 6; ++c) o[c * nxl] = 0.0f;
+    o[6 * nxl] = r < cnt ? 1.0f : 0.0f;
+    o[7 * nxl] = (float)kept;
+  }
+  float over = (float)(cnt > mk ? cnt - mk : 0);
+  int peak = cnt;
+  const unsigned mask = 0xffffffffu;  // full warps: NXL % 128 == 0
+  for (int off = 16; off > 0; off >>= 1) {
+    over += __shfl_down_sync(mask, over, off);
+    const int p2 = __shfl_down_sync(mask, peak, off);
+    peak = p2 > peak ? p2 : peak;
+  }
+  if ((threadIdx.x & 31) == 0) {
+    const int b = (row - 1) / rb;
+    if (over != 0.0f) atomicAdd(movf + b, over);
+    // non-negative floats order as their bit patterns do
+    if (peak > 0) atomicMax((int*)(mdmx + b), __float_as_int((float)peak));
+  }
+}
+
 }  // namespace
 
-// consts: 17 floats in StepConsts order (see step_kernel.py::_constants).
+// consts: 18 floats in StepConsts order (see step_kernel.py::_constants).
+// mk == 0 is the base mode (m, movf, mdmx unused); mk > 0 the mover mode,
+// where movf and mdmx [nb] must be zeroed by the caller.
 extern "C" int pedoni_step_kernel(const float* d, const float* fwp,
                                   const float* fobs, float* scratch,
-                                  float* out, int ny2, int k, int nxl,
-                                  int n_wp, int frows, int stride,
-                                  const float* consts, void* stream) {
+                                  float* out, float* m, float* movf,
+                                  float* mdmx, int ny2, int k, int nxl,
+                                  int n_wp, int frows, int stride, int mk,
+                                  int rb, const float* consts, void* stream) {
   StepConsts sc;
   sc.inv_unit = consts[0];
   sc.grid_w = consts[1];
@@ -273,6 +359,7 @@ extern "C" int pedoni_step_kernel(const float* d, const float* fwp,
   sc.pair.neg_half_inv_range = consts[14];
   sc.pair.cos2 = consts[15];
   sc.pair.fov_damping = consts[16];
+  sc.cell_unit = consts[17];
   Dims dm{ny2, k, nxl, n_wp, frows, stride};
   const int64_t n = (int64_t)ny2 * k * nxl;
   const int threads = 256;
@@ -282,5 +369,11 @@ extern "C" int pedoni_step_kernel(const float* d, const float* fwp,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   step_pass_b<<<blocks, threads, 0, st>>>(d, scratch, out, dm, sc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || mk == 0) return (int)e;
+  const int mthreads = 128;
+  dim3 grid((unsigned)((nxl + mthreads - 1) / mthreads), (unsigned)ny2);
+  step_movers<<<grid, mthreads, 0, st>>>(out, m, movf, mdmx, dm, mk, rb,
+                                         sc.cell_unit);
   return (int)cudaGetLastError();
 }

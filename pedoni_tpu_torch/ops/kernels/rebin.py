@@ -1,14 +1,23 @@
-"""Full compacting rebin of the post-step grid into fresh cell bins.
+"""The two rebins of the post-step grid into fresh cell bins.
 
-Counterpart of pedoni_tpu/ops/pallas/rebin.py::rebin_kernel (pallas_call
-at rebin.py:570) with ``emit_counts=True``: every output cell takes the
-candidates of its 3x3 neighbourhood that land in it, in (j, dy, dx) order,
-at slot = running count; landers beyond K are dropped and counted.
-Agents that leave the field vanish (neighbor_grid.rs:29).
+``rebin``: counterpart of pedoni_tpu/ops/pallas/rebin.py::rebin_kernel
+(pallas_call at rebin.py:570) with ``emit_counts=True``: every output cell
+takes the candidates of its 3x3 neighbourhood that land in it, in
+(j, dy, dx) order, at slot = running count; landers beyond K are dropped
+and counted.  Agents that leave the field vanish (neighbor_grid.rs:29).
 
-``rebin`` is the wrapper: on a CUDA tensor it launches the hand-written
-kernel ``csrc/rebin.cu``; on a CPU tensor it runs ``rebin_torch``, the
-plain PyTorch twin, bit-exact with tests/test_rebin.py::_numpy_rebin.
+``rebin_incremental``: counterpart of rebin.py::rebin_incremental
+(pallas_call at rebin.py:488) with ``emit_counts=True``: stayers (G's
+ch 7 = the step kernel's stay mask) keep their slots, and the movers of
+the 3x3 mover tables M fill the holes in hole-rank order.
+
+Each wrapper launches its hand-written kernel (``csrc/rebin.cu``,
+``csrc/rebin_incremental.cu``) on a CUDA tensor and runs its plain
+PyTorch twin (``rebin_torch``, ``rebin_incremental_torch``) on a CPU
+tensor.  Both take an optional device ``gate``: the hybrid step launches
+both with one 0-d int32 flag, each kernel's body runs only where the flag
+selects it (1 = full, 0 = incremental), and both write the same
+preallocated ``out`` — the choice never reaches the host.
 """
 
 from __future__ import annotations
@@ -17,6 +26,9 @@ import torch
 
 from ..neighbor import true_divide
 from . import _build
+from .step_kernel import _shift_lane
+
+FULL, INCREMENTAL = 1, 0  # gate values that select each rebin
 
 
 def _check(g: torch.Tensor, row_block: int) -> None:
@@ -29,36 +41,151 @@ def _check(g: torch.Tensor, row_block: int) -> None:
             f"ny_pad % {row_block} == 0, got {tuple(g.shape)}")
 
 
+def new_outputs(g: torch.Tensor, row_block: int = 2) -> tuple[torch.Tensor, ...]:
+    """Outputs for either rebin: (D' [ny2, K, 8, NXL] uninitialised, then
+    overflow, demand_max, active_in, active_out [nb] f32, zeroed — the
+    kernels accumulate into them)."""
+    nb = (g.shape[0] - 2) // row_block
+    sums = torch.zeros((4, nb), dtype=torch.float32, device=g.device)
+    return (torch.empty_like(g), *sums)
+
+
+def _check_out(g: torch.Tensor, row_block: int, gate: torch.Tensor | None,
+               out) -> None:
+    if out is not None:
+        nb = (g.shape[0] - 2) // row_block
+        shapes = [tuple(g.shape)] + [(nb,)] * 4
+        if len(out) != 5 or any(
+                tuple(t.shape) != sh or t.dtype != torch.float32
+                or t.device != g.device or not t.is_contiguous()
+                for t, sh in zip(out, shapes)):
+            raise ValueError("out must be new_outputs(g, row_block)")
+    if gate is None:
+        return
+    if out is None:
+        raise ValueError("a gated rebin writes into preallocated out")
+    if gate.dtype != torch.int32 or gate.device != g.device or gate.dim() != 0:
+        raise ValueError("gate must be a 0-d int32 tensor on g's device")
+
+
+def _twin(gate: torch.Tensor | None, want: int, out, twin):
+    """CPU path: run ``twin()`` unless the gate deselects it; results land
+    in ``out`` when given."""
+    if gate is not None and int(gate) != want:
+        return out
+    res = twin()
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return out
+
+
+def _ptrs(out, gate: torch.Tensor | None) -> tuple:
+    """Kernel pointers: the four [nb] outputs, then the gate (or NULL)."""
+    return (*(t.data_ptr() for t in out[1:]),
+            gate.data_ptr() if gate is not None else None)
+
+
 def rebin(g: torch.Tensor, unit: float, nx_cells: int, ny_cells: int,
-          row_block: int = 2) -> tuple[torch.Tensor, ...]:
+          row_block: int = 2, gate: torch.Tensor | None = None,
+          out: tuple[torch.Tensor, ...] | None = None
+          ) -> tuple[torch.Tensor, ...]:
     """Returns (D' [ny2, K, 8, NXL], overflow, demand_max, active_in,
     active_out), the last four [nb] f32 per block of ``row_block`` rows.
 
     D' is ghost-carrying (rows 0 and ny2-1 zero); ch 6 = slot < count,
-    ch 7 = min(count, K) on every slot.  CUDA tensors run the kernel (or
-    raise); CPU tensors the twin."""
+    ch 7 = min(count, K) on every slot.  G's ch 7 is not read.  With
+    ``gate`` the body runs only where gate == FULL, into ``out``.  CUDA
+    tensors run the kernel (or raise); CPU tensors the twin."""
     _check(g, row_block)
+    _check_out(g, row_block, gate, out)
     if g.device.type == "cpu":
-        return rebin_torch(g, unit, nx_cells, ny_cells, row_block)
+        return _twin(gate, FULL, out, lambda: rebin_torch(
+            g, unit, nx_cells, ny_cells, row_block))
     if g.device.type != "cuda":
         raise ValueError(f"rebin: unsupported device {g.device}")
     lib = _build.library()
     ny2, k, _, nxl = g.shape
-    nb = (ny2 - 2) // row_block
-    out = torch.empty_like(g)
-    sums = torch.zeros((3, nb), dtype=torch.float32, device=g.device)
-    dmx = torch.zeros((nb,), dtype=torch.int32, device=g.device)
+    out = out if out is not None else new_outputs(g, row_block)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     rc = lib.pedoni_rebin_full(
-        g.data_ptr(), out.data_ptr(), sums[0].data_ptr(), dmx.data_ptr(),
-        sums[1].data_ptr(), sums[2].data_ptr(), ny2, k, nxl, row_block,
-        unit, nx_cells, ny_cells, stream)
+        g.data_ptr(), out[0].data_ptr(), *_ptrs(out, gate), FULL, ny2, k,
+        nxl, row_block, unit, nx_cells, ny_cells, stream)
     _build.check_launch(rc, "pedoni_rebin_full")
     rebin.launches += 1
-    return out, sums[0], dmx.float(), sums[1], sums[2]
+    return out
 
 
 rebin.launches = 0
+
+
+def rebin_incremental(g: torch.Tensor, m: torch.Tensor, unit: float,
+                      nx_cells: int, ny_cells: int, row_block: int = 2,
+                      gate: torch.Tensor | None = None,
+                      out: tuple[torch.Tensor, ...] | None = None
+                      ) -> tuple[torch.Tensor, ...]:
+    """Hole-preserving rebin: returns (D', overflow, demand_max, active_in,
+    active_out), the contract of ``rebin`` except that bins may hold holes
+    and ch 7 = topcnt, the top occupied slot + 1, on every slot.
+
+    g: the step kernel's mover-mode output (ch 7 = stay mask); m its mover
+    table [ny2, MK, 8, NXL].  demand_max is the peak of stayers + landing
+    movers; overflow counts landers beyond a cell's holes.  With ``gate``
+    the body runs only where gate == INCREMENTAL, into ``out``.  CUDA
+    tensors run the kernel (or raise); CPU tensors the twin."""
+    _check(g, row_block)
+    ny2, k, _, nxl = g.shape
+    if (m.dtype != torch.float32 or not m.is_contiguous() or m.dim() != 4
+            or m.shape[0] != ny2 or tuple(m.shape[2:]) != (8, nxl)
+            or m.device != g.device):
+        raise ValueError(f"m must be contiguous float32 [{ny2}, MK, 8, {nxl}] "
+                         f"on {g.device}, got {tuple(m.shape)}")
+    _check_out(g, row_block, gate, out)
+    if g.device.type == "cpu":
+        return _twin(gate, INCREMENTAL, out, lambda: rebin_incremental_torch(
+            g, m, unit, nx_cells, ny_cells, row_block))
+    if g.device.type != "cuda":
+        raise ValueError(f"rebin_incremental: unsupported device {g.device}")
+    lib = _build.library()
+    out = out if out is not None else new_outputs(g, row_block)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    rc = lib.pedoni_rebin_incremental(
+        g.data_ptr(), m.data_ptr(), out[0].data_ptr(), *_ptrs(out, gate),
+        INCREMENTAL, ny2, k, m.shape[1], nxl, row_block, unit, nx_cells,
+        ny_cells, stream)
+    _build.check_launch(rc, "pedoni_rebin_incremental")
+    rebin_incremental.launches += 1
+    return out
+
+
+rebin_incremental.launches = 0
+
+
+def _landing(src: torch.Tensor, unit: float, nx_cells: int, ny_cells: int,
+             row_f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """rebin.cu's landing test for candidates ``src`` [ny, C >= 7, NXL] of
+    a row band: (lands in its row and in the field, target lane)."""
+    tgt_lane = torch.floor(true_divide(src[:, 0], unit)) + 1.0
+    tgt_row = torch.floor(true_divide(src[:, 1], unit))
+    lands = ((src[:, 6] > 0.5) & (tgt_row == row_f)
+             & (tgt_row <= ny_cells - 1)
+             & (tgt_lane >= 1.0) & (tgt_lane <= nx_cells))
+    return lands, tgt_lane
+
+
+def _lands_at(landing: tuple[torch.Tensor, torch.Tensor], lane_f: torch.Tensor,
+              dxo: int) -> torch.Tensor:
+    """Whether the candidate seen at lane l from lane l + dxo (no wrap)
+    lands in the output cell at lane l."""
+    lands_src, tgt_lane = landing
+    lands = torch.roll(lands_src & (tgt_lane == lane_f - dxo), shifts=-dxo,
+                       dims=-1)
+    if dxo == -1:
+        lands[:, 0] = False
+    elif dxo == 1:
+        lands[:, -1] = False
+    return lands
 
 
 def rebin_torch(g: torch.Tensor, unit: float, nx_cells: int, ny_cells: int,
@@ -75,20 +202,11 @@ def rebin_torch(g: torch.Tensor, unit: float, nx_cells: int, ny_cells: int,
     for j in range(k):
         for dy in (-1, 0, 1):
             src = g[1 + dy : 1 + dy + ny, j]  # [ny, 8, NXL]
-            tgt_lane = torch.floor(true_divide(src[:, 0], unit)) + 1.0
-            tgt_row = torch.floor(true_divide(src[:, 1], unit))
-            lands_src = ((src[:, 6] > 0.5) & (tgt_row == row_f)
-                         & (tgt_row <= ny_cells - 1)
-                         & (tgt_lane >= 1.0) & (tgt_lane <= nx_cells))
+            landing = _landing(src, unit, nx_cells, ny_cells, row_f)
             for dxo in (-1, 0, 1):
                 # candidate at lane l comes from lane l + dxo (no wrap)
-                sh = torch.roll(src[:, :6], shifts=-dxo, dims=-1)
-                lands = (torch.roll(lands_src & (tgt_lane == lane_f - dxo),
-                                    shifts=-dxo, dims=-1))
-                if dxo == -1:
-                    lands[:, 0] = False
-                elif dxo == 1:
-                    lands[:, nxl - 1] = False
+                sh = _shift_lane(src[:, :6], dxo)
+                lands = _lands_at(landing, lane_f, dxo)
                 put = lands[:, None, None, :] & (slot == cnt[:, None, None, :])
                 outs = torch.where(put, sh[:, None], outs)
                 cnt = cnt + lands
@@ -108,3 +226,52 @@ def rebin_torch(g: torch.Tensor, unit: float, nx_cells: int, ny_cells: int,
             per_row(cnt).amax(dim=(1, 2)),
             per_row(act_in).sum(dim=(1, 2)),
             per_row(kept).sum(dim=(1, 2)))
+
+
+def rebin_incremental_torch(g: torch.Tensor, m: torch.Tensor, unit: float,
+                            nx_cells: int, ny_cells: int, row_block: int = 2
+                            ) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch twin of the incremental rebin kernel (same contract),
+    the reference's _compute_inc (rebin.py:323-430) on the whole grid."""
+    ny2, k, _, nxl = g.shape
+    ny = ny2 - 2
+    mk = m.shape[1]
+    dev = g.device
+    row_f = torch.arange(ny, device=dev, dtype=torch.float32).view(ny, 1)
+    lane_f = torch.arange(nxl, device=dev, dtype=torch.float32).view(1, nxl)
+    own = (lane_f >= 1.0) & (lane_f <= nx_cells)  # [1, NXL]
+    gc = g[1:-1]
+    stay = (gc[:, :, 7] > 0.5) & own[:, None]  # [ny, K, NXL]
+    outs = torch.where(stay[:, :, None], gc[:, :, :6], 0.0)
+    # exclusive hole rank along the slot axis; stay slots poisoned to -1
+    hole = (~stay).long()
+    rank = torch.where(stay, -1, torch.cumsum(hole, dim=1) - hole)
+    holes = hole.sum(dim=1)  # [ny, NXL]
+    landed = torch.zeros((ny, nxl), dtype=torch.int64, device=dev)
+    for j in range(mk):
+        for dy in (-1, 0, 1):
+            src = m[1 + dy : 1 + dy + ny, j]  # [ny, 8, NXL]
+            landing = _landing(src, unit, nx_cells, ny_cells, row_f)
+            for dxo in (-1, 0, 1):
+                sh = _shift_lane(src[:, :6], dxo)
+                lands = _lands_at(landing, lane_f, dxo)
+                put = lands[:, None, :] & (rank == landed[:, None, :])
+                outs = torch.where(put[:, :, None], sh[:, None], outs)
+                landed = landed + lands
+    filled = (rank >= 0) & (rank < landed[:, None, :])
+    act_out = stay | filled
+    slot = torch.arange(1, k + 1, device=dev).view(1, k, 1)
+    topcnt = torch.where(act_out, slot, 0).amax(dim=1)  # [ny, NXL]
+    out = torch.zeros_like(g)
+    out[1:-1, :, :6] = outs
+    out[1:-1, :, 6] = act_out.float()
+    out[1:-1, :, 7] = topcnt[:, None, :].float()
+
+    nb = ny // row_block
+    per_row = lambda x: x.float().view(nb, row_block, -1)  # noqa: E731
+    act_in = (gc[:, :, 6] * own[:, None]).sum(dim=1)
+    return (out,
+            per_row(torch.clamp(landed - holes, min=0)).sum(dim=(1, 2)),
+            per_row(k - holes + landed).amax(dim=(1, 2)),
+            per_row(act_in).sum(dim=(1, 2)),
+            per_row(act_out.sum(dim=1)).sum(dim=(1, 2)))

@@ -1,10 +1,12 @@
 """Fused step: field sampling, despawn, all forces and integration.
 
 Counterpart of pedoni_tpu/ops/pallas/step_kernel.py::fused_step_kernel
-(pallas_call at step_kernel.py:898) in its base mode: each agent samples
-its own destination plane ``fwp[dest]`` (any waypoint count; this replaces
-the reference's waypoint slot walk), distance-map obstacles, channel 7 =
-sampled potential.
+(pallas_call at step_kernel.py:898) in its base mode and its
+``emit_movers`` mode: each agent samples its own destination plane
+``fwp[dest]`` (any waypoint count; this replaces the reference's waypoint
+slot walk), distance-map obstacles.  Channel 7 of the output is the
+sampled potential, or in the mover mode the stay mask, with the per-cell
+mover table M that feeds ``rebin.rebin_incremental``.
 
 ``fused_step`` is the wrapper: on a CUDA tensor it launches the
 hand-written kernel ``csrc/step_kernel.cu`` (two passes, see its header);
@@ -13,7 +15,8 @@ mirrors the reference algorithm — vectorised over the grid, lane shifts
 by ``torch.roll``, candidate slots walked j outer, then dy, then dx.
 
 Layouts are the reference's: d [ny2, K, 8, NXL], fwp [n_wp, R, S, 4, NXL],
-fobs [R, S, 4, NXL]; the output is [ny2, K, 8, NXL], ghost rows zero.
+fobs [R, S, 4, NXL]; the output is [ny2, K, 8, NXL], ghost rows zero;
+M is [ny2, MK, 8, NXL].
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ FPAD = 4.0  # field-map PAD rings
 
 
 def _constants(phys: Physics, grid_size: tuple[float, float],
-               field_unit: float) -> list[float]:
+               field_unit: float, stride: int) -> list[float]:
     """The kernel's scalar constants, in csrc/step_kernel.cu StepConsts
     order; each is rounded to f32 when it reaches the kernel, as the twin's
     Python scalars are when they meet an f32 tensor."""
@@ -42,11 +45,17 @@ def _constants(phys: Physics, grid_size: tuple[float, float],
         phys.cutoff_sq, phys.delta_time, phys.delta_time * phys.delta_time,
         0.5 * phys.ped_strength, -0.5 / phys.ped_range,
         phys.cos_phi * phys.cos_phi, phys.fov_damping,
+        _cell_unit(stride, field_unit),
     ]
 
 
+def _cell_unit(stride: int, field_unit: float) -> float:
+    """The mover mode's cell size (step_kernel.py:854)."""
+    return stride * field_unit
+
+
 def _check(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
-           stride: int) -> None:
+           stride: int, emit_movers: int, row_block: int) -> None:
     for name, t in (("d", d), ("fwp", fwp), ("fobs", fobs)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
@@ -62,39 +71,61 @@ def _check(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     need = stride * (ny2 + 1) + ROW0 + 2
     if fwp.shape[1] < need:
         raise ValueError(f"field planes have {fwp.shape[1]} rows, need {need}")
+    if emit_movers < 0 or (emit_movers and (ny2 - 2) % row_block != 0):
+        raise ValueError(f"emit_movers={emit_movers} needs ny_pad % "
+                         f"row_block == 0, got ny2={ny2}, row_block={row_block}")
 
 
 def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
                phys: Physics, grid_size: tuple[float, float], stride: int = 6,
-               field_unit: float = 0.25) -> torch.Tensor:
-    """One fused step over the grid: returns G [ny2, K, 8, NXL].
+               field_unit: float = 0.25, emit_movers: int = 0,
+               row_block: int = 2):
+    """One fused step over the grid: returns G [ny2, K, 8, NXL], or with
+    ``emit_movers`` = MK > 0 the tuple (G, M, movf, mdmx).
 
     Channels out: post-step pos, vel; sanitized speed; dest unchanged;
-    post-despawn active; ch 7 = sampled potential.  Rows 0 and ny2-1 are
-    zero.  CUDA tensors run the kernel (or raise); CPU tensors the twin."""
-    _check(d, fwp, fobs, stride)
+    post-despawn active; ch 7 = sampled potential (base mode) or the stay
+    mask act' * [integrated position still in this cell] (mover mode).
+    M [ny2, MK, 8, NXL] holds each cell's movers in slot order, ch 6 =
+    row < movers, ch 7 = min(movers, MK); movf / mdmx [nb] f32 are, per
+    block of ``row_block`` rows, sum(max(movers - MK, 0)) and the peak
+    mover count.  Rows 0 and ny2-1 are zero.  CUDA tensors run the kernel
+    (or raise); CPU tensors the twin."""
+    _check(d, fwp, fobs, stride, emit_movers, row_block)
     if d.device.type == "cpu":
         return fused_step_torch(d, fwp, fobs, phys, grid_size, stride,
-                                field_unit)
+                                field_unit, emit_movers, row_block)
     if d.device.type != "cuda":
         raise ValueError(f"fused_step: unsupported device {d.device}")
     lib = _build.library()
     ny2, k, _, nxl = d.shape
+    mk = emit_movers
     out = torch.empty_like(d)
     scratch = torch.empty((6, ny2, k, nxl), dtype=torch.float32, device=d.device)
-    consts = torch.tensor(_constants(phys, grid_size, field_unit),
+    if mk:
+        m = torch.empty((ny2, mk, 8, nxl), dtype=torch.float32, device=d.device)
+        blocks = torch.zeros((2, (ny2 - 2) // row_block), dtype=torch.float32,
+                             device=d.device)
+        mover_ptrs = (m.data_ptr(), blocks[0].data_ptr(), blocks[1].data_ptr())
+    else:
+        mover_ptrs = (None, None, None)
+    consts = torch.tensor(_constants(phys, grid_size, field_unit, stride),
                           dtype=torch.float32)  # host array, read at launch
     stream = torch.cuda.current_stream(d.device).cuda_stream
     rc = lib.pedoni_step_kernel(
         d.data_ptr(), fwp.data_ptr(), fobs.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), ny2, k, nxl, fwp.shape[0], fwp.shape[1], stride,
-        consts.data_ptr(), stream)
+        out.data_ptr(), *mover_ptrs, ny2, k, nxl, fwp.shape[0], fwp.shape[1],
+        stride, mk, row_block, consts.data_ptr(), stream)
     _build.check_launch(rc, "pedoni_step_kernel")
-    fused_step.launches += 1
-    return out
+    if not mk:
+        fused_step.launches += 1
+        return out
+    fused_step.mover_launches += 1
+    return out, m, blocks[0], blocks[1]
 
 
-fused_step.launches = 0
+fused_step.launches = 0  # base-mode launches
+fused_step.mover_launches = 0  # emit_movers launches
 
 
 def _shift_lane(x: torch.Tensor, delta: int) -> torch.Tensor:
@@ -147,7 +178,8 @@ def _sample(planes: torch.Tensor, plane_idx: torch.Tensor | None,
 
 def fused_step_torch(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
                      phys: Physics, grid_size: tuple[float, float],
-                     stride: int = 6, field_unit: float = 0.25) -> torch.Tensor:
+                     stride: int = 6, field_unit: float = 0.25,
+                     emit_movers: int = 0, row_block: int = 2):
     """Plain PyTorch twin of the fused step kernel (same contract)."""
     ny2, k, _, nxl = d.shape
     n_wp = fwp.shape[0]
@@ -229,6 +261,42 @@ def fused_step_torch(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
 
     # 8. output: ch 7 = sampled potential, ghost rows zero
     out = torch.zeros_like(d)
-    out[c] = torch.stack([npx, npy, nvx, nvy, speed[c], dest[c], act_new[c],
-                          pot[c]], dim=2)
-    return out
+    if not emit_movers:
+        out[c] = torch.stack([npx, npy, nvx, nvy, speed[c], dest[c],
+                              act_new[c], pot[c]], dim=2)
+        return out
+
+    # 8'. mover mode (step_kernel.py:697-749): ch 7 = stay mask; movers of
+    # each cell, in slot order, fill the rows of M
+    cu = _cell_unit(stride, field_unit)
+    lane_f = torch.arange(nxl, device=d.device, dtype=torch.float32).view(1, 1, nxl)
+    row_f = torch.arange(ny2 - 2, device=d.device, dtype=torch.float32).view(-1, 1, 1)
+    same = ((torch.floor(true_divide(npx, cu)) + 1.0 == lane_f)
+            & (torch.floor(true_divide(npy, cu)) == row_f)).float()
+    act_c = act_new[c]
+    out[c] = torch.stack([npx, npy, nvx, nvy, speed[c], dest[c], act_c,
+                          act_c * same], dim=2)
+    mover = act_c * (1.0 - same) > 0.5
+    return (out, *_movers_torch(out, mover, emit_movers, row_block))
+
+
+def _movers_torch(g: torch.Tensor, mover: torch.Tensor, mk: int,
+                  row_block: int) -> tuple[torch.Tensor, ...]:
+    """The mover table of G's centre rows: (M, movf, mdmx)."""
+    ny2, k, _, nxl = g.shape
+    ny = ny2 - 2
+    rows = torch.arange(mk, device=g.device).view(1, mk, 1)
+    cnt = torch.zeros((ny, 1, nxl), dtype=torch.int64, device=g.device)
+    vals = torch.zeros((ny, mk, 6, nxl), dtype=torch.float32, device=g.device)
+    for j in range(k):
+        mv = mover[:, j : j + 1]  # [ny, 1, NXL]
+        put = (mv & (rows == cnt))[:, :, None, :]
+        vals = torch.where(put, g[1:-1, j : j + 1, :6], vals)
+        cnt = cnt + mv
+    m = torch.zeros((ny2, mk, 8, nxl), dtype=torch.float32, device=g.device)
+    m[1:-1, :, :6] = vals
+    m[1:-1, :, 6] = (rows < cnt).float()
+    m[1:-1, :, 7] = torch.clamp(cnt, max=mk).float().expand(-1, mk, -1)
+    per_block = cnt.view(ny // row_block, -1).float()
+    return (m, torch.clamp(per_block - mk, min=0.0).sum(dim=1),
+            per_block.amax(dim=1))

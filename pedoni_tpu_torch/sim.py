@@ -7,9 +7,11 @@ Counterpart of pedoni_tpu/sim.py with the same surface:
     pos, dest = sim.list_pedestrians()
     sim.pedestrian_count
 
-Covered: the cell-resident grid step with the full rebin, distance-map
-obstacles, one device, drop-free table growth, the on-device run totals
-and the lagged growth guard of ``run``.  Options outside that slice raise
+Covered: the cell-resident grid step with the hybrid rebin (incremental,
+or full every ``compact_every``-th step and on fallback; auto-chosen by
+cell occupancy), distance-map obstacles, one device, drop-free table
+growth, mover-table growth, the on-device run totals and the lagged
+growth guard of ``run``.  Options outside that slice raise
 ``ValueError`` naming the ROADMAP item that will port them.
 """
 
@@ -64,7 +66,13 @@ class SimulatorOptions:
     seed: int = 0
     physics: Physics = Physics()
     n_devices: int = 1
-    incremental_rebin: bool = False
+    # Hybrid rebin (the reference's sim.py:75-98): incremental on most
+    # steps, full every compact_every-th step and on fallback.  None =
+    # auto by expected cell occupancy (_resolve_incremental).
+    # mover_capacity = mover-table rows per cell, grown like K.
+    incremental_rebin: bool | None = None
+    mover_capacity: int = 8
+    compact_every: int = 8
     device: str = "cuda"
 
     @property
@@ -81,9 +89,6 @@ class SimulatorOptions:
         if self.n_devices > 1:
             raise ValueError("n_devices > 1 is not ported (ROADMAP queue 1, "
                              "item 10: multi-GPU tiling)")
-        if self.incremental_rebin:
-            raise ValueError("incremental_rebin=True is not ported (ROADMAP "
-                             "queue 2, item 2B)")
         if not self.use_distance_map:
             raise ValueError("use_distance_map=False is not ported (ROADMAP "
                              "queue 2, 2A-segments)")
@@ -134,6 +139,22 @@ class Simulator:
             cap *= 2
         return cap
 
+    def _resolve_incremental(self) -> bool:
+        """incremental_rebin=None -> auto by expected cell occupancy: the
+        reference's rule (sim.py:187-204), incremental iff lambda =
+        E[agents] / area * unit^2 >= 1.75 over a 60 s population horizon.
+        The threshold was measured on the TPU reference; it is copied, not
+        re-measured on the GPU."""
+        o = self.options
+        if o.incremental_rebin is not None:
+            return o.incremental_rebin
+        n_once = sum(g.spawn.count for g in self.scenario.once_groups)
+        rate = sum(g.spawn.frequency for g in self.scenario.periodic_groups)
+        est_n = n_once + rate * 60
+        w, h = self.scenario.size
+        lam = est_n / max(w * h, 1e-9) * o.neighbor_grid_unit ** 2
+        return lam >= 1.75
+
     def _build(self, capacity: int) -> None:
         o = self.options
         self.cfg = StepConfig.build(
@@ -144,7 +165,10 @@ class Simulator:
         self._fwp, self._fobs = sfm_grid.field_tensors(
             self.cfg, self.maps, self.device, row_block=o.row_block)
         self._step = sfm_grid.make_step_grid(
-            self.cfg, row_block=o.row_block, generator=self.generator)
+            self.cfg, row_block=o.row_block,
+            incremental=self._resolve_incremental(),
+            mover_k=o.mover_capacity, compact_every=o.compact_every,
+            generator=self.generator)
         self._kernel_chain = None  # shapes depend on K
         log.info("step function built: capacity=%d K=%d device=%s",
                  capacity, o.table_capacity, self.device)
@@ -168,6 +192,11 @@ class Simulator:
         elif metrics.max_demand >= self.options.table_capacity - 1:
             # Drop-free growth: some cell is one agent short of K.
             self._grow_table(0)
+        elif (metrics.max_mover_demand >= self.options.mover_capacity - 1
+              and self.options.mover_capacity < self.options.table_capacity):
+            # A performance trigger, not a safety one: a mover-table
+            # overflow only costs a full-rebin step, never an agent.
+            self._grow_movers()
         return StepRecord(active_ped_count=metrics.n_active, time_spawn=0.0,
                           time_calc_state=t.elapsed)
 
@@ -218,30 +247,48 @@ class Simulator:
         """Grow the per-cell table K and re-bin (preemptively when
         n_lost == 0, reactively after a counted overflow)."""
         old_k = self.options.table_capacity
-        flat = self._to_flat_state()
-        self.options = dataclasses.replace(
-            self.options, table_capacity=old_k + max(4, old_k // 2))
+        new_k = old_k + max(4, old_k // 2)
         if n_lost:
             log.warning("step %d: %d agents dropped from full cells; growing "
                         "table_capacity %d -> %d", self.step_count, n_lost,
-                        old_k, self.options.table_capacity)
+                        old_k, new_k)
         else:
             log.info("step %d: peak cell demand reached %d; growing "
                      "table_capacity %d -> %d preemptively (drop-free)",
-                     self.step_count, old_k - 1, old_k,
-                     self.options.table_capacity)
+                     self.step_count, old_k - 1, old_k, new_k)
+        self._rebuild(table_capacity=new_k)
+
+    def _grow_movers(self) -> None:
+        """Grow the mover table (capped at K) and rebuild the step — to keep
+        the incremental path fast; an overflowing table loses no agent."""
+        old_mk = self.options.mover_capacity
+        new_mk = min(old_mk + max(2, old_mk // 2), self.options.table_capacity)
+        if new_mk == old_mk:
+            return
+        log.info("step %d: peak mover demand reached %d; growing mover table "
+                 "%d -> %d (fast-path retention)", self.step_count, old_mk - 1,
+                 old_mk, new_mk)
+        self._rebuild(mover_capacity=new_mk)
+
+    def _rebuild(self, **changes) -> None:
+        """Apply option changes, rebuild the step and re-bin the agents."""
+        flat = self._to_flat_state()
+        self.options = dataclasses.replace(self.options, **changes)
         self._build(self.cfg.capacity)
         self.state = sfm_grid.bin_state(self.cfg, flat,
                                         row_block=self.options.row_block)
 
     def measure_kernel_time(self, n: int = 10) -> float:
-        """Seconds per step of the two kernels alone (fused step + rebin,
-        no spawn, no metrics), chained ``n`` times from the current state.
-        On a CUDA device timed with CUDA events; on the CPU (twins) with
-        the host clock."""
+        """Seconds per step of the kernels alone (fused step + rebin, no
+        spawn, no metrics; the incremental branch when the step is the
+        hybrid), chained ``n`` times from the current state.  On a CUDA
+        device timed with CUDA events; on the CPU (twins) with the host
+        clock."""
         if self._kernel_chain is None:
             self._kernel_chain = sfm_grid.make_kernel_chain(
-                self.cfg, row_block=self.options.row_block)
+                self.cfg, row_block=self.options.row_block,
+                incremental=self._resolve_incremental(),
+                mover_k=self.options.mover_capacity)
         d = self._kernel_chain(self.state.d, self._fwp, self._fobs)  # warm
         if self.device.type != "cuda":
             with Timer() as t:

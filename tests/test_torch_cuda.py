@@ -1,4 +1,6 @@
-"""The hand-written CUDA kernels vs their plain PyTorch twins, on the card.
+"""The hand-written CUDA kernels vs their plain PyTorch twins, on the card:
+the step kernel (base and mover modes), the full and the incremental
+rebin, and the device gate that makes the hybrid step's choice.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports neither JAX nor the
 reference package, so it runs on a machine with only PyTorch:
@@ -69,4 +71,54 @@ def test_rebin_kernel_matches_twin(card_grid):
     torch.cuda.synchronize()
     assert rb.rebin.launches == before + 1
     for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_step_kernel_movers_matches_twin(card_grid):
+    sc, cfg, d, fwp, fobs = card_grid
+    before = sk.fused_step.mover_launches
+    got = sk.fused_step(d, fwp, fobs, cfg.physics, sc.size, emit_movers=6)
+    want = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size, emit_movers=6)
+    torch.cuda.synchronize()
+    assert sk.fused_step.mover_launches == before + 1
+    held = (d[:, :, 6] > 0.5).unsqueeze(2).expand(-1, -1, 4, -1)
+    assert float((got[0][:, :, 0:4] - want[0][:, :, 0:4]).abs()[held].max()) <= 1e-5
+    assert torch.equal(got[0][:, :, 4:8], want[0][:, :, 4:8])  # ch 7 = stay
+    for a, b in zip(got[1:], want[1:]):  # M, movf, mdmx
+        assert torch.equal(a, b)
+    assert float(got[1][:, 0, 7].sum()) > 0  # some movers
+
+
+@pytest.mark.cuda
+def test_rebin_incremental_kernel_matches_twin(card_grid):
+    sc, cfg, d, fwp, fobs = card_grid
+    g, m, _movf, _mdmx = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size,
+                                             emit_movers=6)
+    before = rb.rebin_incremental.launches
+    got = rb.rebin_incremental(g, m, 1.5, cfg.grid.nx, cfg.grid.ny)
+    want = rb.rebin_incremental_torch(g, m, 1.5, cfg.grid.nx, cfg.grid.ny)
+    torch.cuda.synchronize()
+    assert rb.rebin_incremental.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [rb.FULL, rb.INCREMENTAL])
+def test_device_gate_runs_exactly_one_rebin(card_grid, flag):
+    """Both rebins launched with one device flag: only the selected body
+    writes the shared outputs (poisoned beforehand)."""
+    sc, cfg, d, fwp, fobs = card_grid
+    g, m, _movf, _mdmx = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size,
+                                             emit_movers=6)
+    gate = torch.tensor(flag, dtype=torch.int32, device="cuda")
+    out = rb.new_outputs(g)
+    out[0].fill_(float("nan"))
+    rb.rebin(g, 1.5, cfg.grid.nx, cfg.grid.ny, gate=gate, out=out)
+    rb.rebin_incremental(g, m, 1.5, cfg.grid.nx, cfg.grid.ny, gate=gate, out=out)
+    want = (rb.rebin_torch(g, 1.5, cfg.grid.nx, cfg.grid.ny) if flag == rb.FULL
+            else rb.rebin_incremental_torch(g, m, 1.5, cfg.grid.nx, cfg.grid.ny))
+    torch.cuda.synchronize()
+    for a, b in zip(out, want):
         assert torch.equal(a, b)

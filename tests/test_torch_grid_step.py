@@ -92,7 +92,7 @@ def test_grid_step_matches_reference(grid_setup):
     pfwp, pfobs = port_grid.field_tensors(pcfg, pmaps, "cpu")
     np.testing.assert_array_equal(pfwp.numpy(), np.asarray(fwp))
     ref_step = jax.jit(ref_grid.make_step_grid(cfg, maps, incremental=False))
-    port_step = port_grid.make_step_grid(pcfg)
+    port_step = port_grid.make_step_grid(pcfg, incremental=False)
     for i in range(5):
         gs, m = ref_step(gs, fwp, fobs)
         pgs, pm = port_step(pgs, pfwp, pfobs)

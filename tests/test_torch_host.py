@@ -90,7 +90,7 @@ def test_package_never_imports_jax_or_reference():
 
 
 @pytest.mark.parametrize("option", [
-    {"backend": "xla"}, {"n_devices": 2}, {"incremental_rebin": True},
+    {"backend": "xla"}, {"n_devices": 2},
     {"use_distance_map": False}, {"use_neighbor_grid": False},
 ])
 def test_unported_options_raise(option):

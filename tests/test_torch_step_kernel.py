@@ -9,6 +9,12 @@ the reference Pallas kernel.
   distance map), atol 1e-5 on pos and vel of active slots, despawn flags
   equal — and once more with non-finite agents, which must take the
   reference's sanitize path.
+- The mover mode, ``fused_step(..., emit_movers=4)`` vs
+  ``fused_step_kernel(..., emit_movers=4, interpret=True)`` on
+  tests/test_wp_skip.py's small grid (as :189-212): stay mask, active
+  channel, M ch 5-7, movf and mdmx equal; G pos/vel and M ch 0-4 within
+  1e-5; no agent within 1e-4 m of a cell boundary, so both sides
+  classify it unambiguously.
 The CUDA kernel is held against the twin on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -32,6 +38,8 @@ from pedoni_tpu.scenario import loads_scenario
 from pedoni_tpu_torch.ops.kernels import step_kernel as port_step
 from pedoni_tpu_torch.ops.kernels.pairwise import pair_accum
 from pedoni_tpu_torch.physics import Physics as PortPhysics
+
+from test_wp_skip import _small_grid_inputs
 
 torch.set_num_threads(1)
 
@@ -169,3 +177,33 @@ def test_step_cpu_tensor_takes_the_twin(step_setup):
     assert port_step.fused_step.launches == 0
     assert torch.equal(a, b)
 
+
+def test_fused_step_emit_movers_matches_pallas():
+    sc, d, f6, rb = _small_grid_inputs(seed=1)
+    # the port bounds the pair loop by each cell's count (ch 7, slot 0);
+    # the reference kernel does not read ch 7 of D
+    d[:, :, 7, :] = d[:, :, 6, :].sum(axis=1, keepdims=True)
+    want = [np.asarray(a) for a in fused_step_kernel(
+        jnp.asarray(d), jnp.asarray(f6.wp), jnp.asarray(f6.obs), Physics(),
+        sc.size, row_block=rb, interpret=True, emit_movers=4)]
+    got = [t.numpy() for t in port_step.fused_step(
+        torch.from_numpy(d), torch.from_numpy(f6.wp), torch.from_numpy(f6.obs),
+        PortPhysics(), sc.size, emit_movers=4, row_block=rb)]
+    assert port_step.fused_step.mover_launches == 0
+    g_w, m_w, movf_w, mdmx_w = want
+    g_o, m_o, movf_o, mdmx_o = got
+    live = g_w[:, :, 6, :] > 0.5
+    pos = g_w[:, :, 0:2, :].transpose(0, 1, 3, 2)[live]
+    off = np.abs(pos / 1.5 - np.round(pos / 1.5)) * 1.5
+    assert off.min() > 1e-4, "an agent sits on a cell boundary"
+    np.testing.assert_array_equal(g_o[:, :, 6:8, :], g_w[:, :, 6:8, :])
+    held = d[:, :, 6, :] > 0.5
+    for c in range(4):
+        np.testing.assert_allclose(g_o[:, :, c, :][held], g_w[:, :, c, :][held],
+                                   rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(m_o[:, :, 5:8, :], m_w[:, :, 5:8, :])
+    np.testing.assert_allclose(m_o[:, :, 0:5, :], m_w[:, :, 0:5, :], rtol=0,
+                               atol=1e-5)
+    np.testing.assert_array_equal(movf_o, movf_w)
+    np.testing.assert_array_equal(mdmx_o, mdmx_w)
+    assert m_w[:, 0, 7, :].sum() >= 1 and (g_w[:, :, 7] > 0.5).sum() > 100
