@@ -32,7 +32,27 @@ nvcc, one process per source, then:
    incremental rebin on the hybrid's) and times each kernel and its twin
    there (median of 20 runs, CUDA events, each queued behind a device spin
    so that host enqueue time stays out).  Each bound counts the bytes the
-   function needs from this state (see ``_needed_bytes``).
+   function needs from this state (see ``_needed_bytes``);
+6. segment mode (--no-distance-map): the step kernel with the obstacle edge
+   table vs its twin on step 1's random grid (gap.toml's obstacles) and on
+   both 1M states (the bench's one obstacle), base and mover modes; the 1M
+   full path with ``use_distance_map=False`` (launch counts zeroed before,
+   read after); scenarios/random.toml (1000 obstacles, 200 x 200 m, 4
+   spawn groups) for 200 steps through ``Simulator(use_distance_map=
+   False)``, then the kernel vs the twin on its state; kernel, twin and
+   bound on both states;
+7. all-pairs mode (--no-neighbor-grid): gap.toml through
+   ``Simulator(use_neighbor_grid=False)`` (unit 2.0 m, K 29) evacuates
+   within 400 steps; the 1M bench problem at unit 2.0 (K grown by the same
+   rule, field stride 8), its ms/step and the step kernel vs its twin there;
+8. the standalone pairwise kernel (2D) vs its twin on a random grid and on
+   the 1M full-path state with ch 4/5 replaced by seeded unit vectors, one
+   launch counted, kernel and twin timed;
+9. the CLI as subprocesses: ``python -m pedoni_tpu_torch gap.toml -H
+   --no-distance-map --checkpoint-every 100`` for 300 steps (population
+   reaches 0, log written), then ``--resume`` from the step-100
+   checkpoint: the resumed simulator's agents and generator equal the
+   saved ones exactly, and its later checkpoints equal the first run's.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}.  Exits
@@ -59,11 +79,19 @@ PARITY_STEPS = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PAIR_FLOPS = 45  # float operations of one pair_accum within the cutoff
+PAIR_TEST_FLOPS = 6  # its distance test alone (a candidate past the cutoff)
 SPIN_CYCLES = 2_000_000  # ~1 ms of device clock ahead of each timed run
 PROFILE_STEPS = 24  # a multiple of the compaction period of 8
 # kernel names as the profiler reports them, in step order
 PROFILED = ("step_pass_a", "step_pass_b", "step_movers", "rebin_full", "rebin_inc")
-GAP = pathlib.Path(__file__).resolve().parent / "scenarios" / "gap.toml"
+ROOT = pathlib.Path(__file__).resolve().parent
+GAP = ROOT / "scenarios" / "gap.toml"
+RANDOM = ROOT / "scenarios" / "random.toml"  # 1000 obstacles
+RANDOM_STEPS = 200
+SEG_FLOPS = 100  # float operations of one (agent, obstacle) segment test
+# the distance-map 1M ms/step before the segment mode existed (PERF.md;
+# NVIDIA H100 80GB HBM3, 700 W): the segment template must leave them alone
+BEFORE_SEGMENTS_MS = {"hybrid": 1.0745, "full": 0.9262}
 # tests/test_rebin_incremental.py's spawning scenario
 SPAWN_SCENARIO = """
 [field]
@@ -109,19 +137,25 @@ def _median_ms(fn, n: int = 20) -> float:
 
 
 def _launch_counts() -> dict[str, int]:
+    from pedoni_tpu_torch.ops.kernels import pairwise as pw
     from pedoni_tpu_torch.ops.kernels import rebin as rb
     from pedoni_tpu_torch.ops.kernels import step_kernel as sk
     return {"step_kernel": sk.fused_step.launches,
             "step_kernel_movers": sk.fused_step.mover_launches,
+            "step_kernel_segments": sk.fused_step.segment_launches,
             "rebin": rb.rebin.launches,
-            "rebin_incremental": rb.rebin_incremental.launches}
+            "rebin_incremental": rb.rebin_incremental.launches,
+            "pairwise": pw.pairwise.launches}
 
 
 def _zero_launch_counts() -> None:
+    from pedoni_tpu_torch.ops.kernels import pairwise as pw
     from pedoni_tpu_torch.ops.kernels import rebin as rb
     from pedoni_tpu_torch.ops.kernels import step_kernel as sk
     sk.fused_step.launches = sk.fused_step.mover_launches = 0
+    sk.fused_step.segment_launches = 0
     rb.rebin.launches = rb.rebin_incremental.launches = 0
+    pw.pairwise.launches = 0
 
 
 def _step_err(d, got, want) -> float:
@@ -138,20 +172,21 @@ def _step_err(d, got, want) -> float:
     return err
 
 
-def _compare(d, fwp, fobs, phys, size, unit, nx, ny, mk, what):
-    """All four kernels vs their twins on one grid: returns the step
-    kernel's max abs pos/vel error in base and mover mode."""
-    from pedoni_tpu_torch.ops.kernels import rebin as rb
+def _compare_step(d, fwp, fobs, phys, size, mk, what, **kw):
+    """The step kernel vs its twin in base and mover mode (``kw``: the
+    segment table, the field stride): returns (base err, mover err, the
+    twin's base output, the twin's mover-mode outputs)."""
     from pedoni_tpu_torch.ops.kernels import step_kernel as sk
 
-    g_k = sk.fused_step(d, fwp, fobs, phys, size)
-    g_t = sk.fused_step_torch(d, fwp, fobs, phys, size)
+    g_k = sk.fused_step(d, fwp, fobs, phys, size, **kw)
+    g_t = sk.fused_step_torch(d, fwp, fobs, phys, size, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(g_k[:, :, 4:7], g_t[:, :, 4:7]):
-        raise AssertionError(f"{what}: step kernel speed/dest/active differ")
+    ch = slice(4, 8) if kw.get("segments") is not None else slice(4, 7)
+    if not torch.equal(g_k[:, :, ch], g_t[:, :, ch]):
+        raise AssertionError(f"{what}: step kernel channels {ch} differ")
     step_err = _step_err(d, g_k, g_t)
-    mv_k = sk.fused_step(d, fwp, fobs, phys, size, emit_movers=mk)
-    mv_t = sk.fused_step_torch(d, fwp, fobs, phys, size, emit_movers=mk)
+    mv_k = sk.fused_step(d, fwp, fobs, phys, size, emit_movers=mk, **kw)
+    mv_t = sk.fused_step_torch(d, fwp, fobs, phys, size, emit_movers=mk, **kw)
     torch.cuda.synchronize()
     if not torch.equal(mv_k[0][:, :, 4:8], mv_t[0][:, :, 4:8]):
         raise AssertionError(f"{what}: mover mode speed/dest/active/stay differ")
@@ -159,6 +194,16 @@ def _compare(d, fwp, fobs, phys, size, unit, nx, ny, mk, what):
     for name, a, b in zip(("M", "movf", "mdmx"), mv_k[1:], mv_t[1:]):
         if not torch.equal(a, b):
             raise AssertionError(f"{what}: mover mode {name} differs from the twin")
+    return step_err, mover_err, g_t, mv_t
+
+
+def _compare(d, fwp, fobs, phys, size, unit, nx, ny, mk, what):
+    """All four kernels vs their twins on one grid: returns the step
+    kernel's max abs pos/vel error in base and mover mode."""
+    from pedoni_tpu_torch.ops.kernels import rebin as rb
+
+    step_err, mover_err, g_t, mv_t = _compare_step(d, fwp, fobs, phys, size,
+                                                   mk, what)
     names = ("D'", "overflow", "demand", "active_in", "active_out")
     for label, got, want in (
             ("rebin", rb.rebin(g_t, unit, nx, ny), rb.rebin_torch(g_t, unit, nx, ny)),
@@ -248,11 +293,12 @@ def _nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _field_bytes(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
+def _field_bytes(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor | None,
                  stride: int = 6, field_unit: float = 0.25) -> int:
     """Bytes of the field planes the active agents' bilinear taps read: each
     distinct texel once, with the 3 channels sampled (the index arithmetic
-    of step_kernel.py::_sample)."""
+    of step_kernel.py::_sample); ``fobs`` None (segment mode) leaves the
+    obstacle plane out."""
     from pedoni_tpu_torch.ops.kernels.step_kernel import FPAD, ROW0
     act = d[:, :, 6] > 0.5
     r, _, l = torch.nonzero(act, as_tuple=True)
@@ -264,8 +310,10 @@ def _field_bytes(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     q0 = torch.floor(py).long() - (r - 1) * stride - ROW0
     n_r, nxl = fwp.shape[1], fwp.shape[-1]
     texels = 0
-    for plane_of, ok_of in ((torch.where(wp_ok, dest, 0.0).long(), wp_ok),
-                            (torch.zeros_like(r), torch.ones_like(wp_ok))):
+    planes = [(torch.where(wp_ok, dest, 0.0).long(), wp_ok)]
+    if fobs is not None:
+        planes.append((torch.zeros_like(r), torch.ones_like(wp_ok)))
+    for plane_of, ok_of in planes:
         keys = []
         for a in (0, 1):
             for b in (0, 1):
@@ -283,17 +331,32 @@ def _field_bytes(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
 def _needed_bytes(name: str, ins: tuple, outs: tuple) -> int:
     """Bytes the function must move on this state: every output written
     once, and of the inputs what this data needs.
-    - step kernel (both modes): all of D (an empty slot's output is its
-      sanitized input) and the field texels that active agents sample;
+    - step kernel (all modes): all of D (an empty slot's output is its
+      sanitized input) and the field texels that active agents sample (in
+      segment mode no obstacle plane, and the edge table once);
+    - pairwise: D's ch 6 plane, ch 0, 1, 4, 5 of the centre rows (every
+      centre slot gets an acceleration), ch 2-3 of the active slots and
+      ch 0-1 of the active ghost-row slots (only active candidates are
+      evaluated);
     - rebin: G's ch 6 plane (every slot of the 3x3 walk is tested) and
       ch 0-5 of G's active slots;
     - rebin_incremental: G's ch 6 and ch 7 planes, ch 0-5 of the stay slots,
       M's count plane, and ch 0-5 of the mover rows below each cell's count
       (ch 6 of those rows follows from the count)."""
     out_b = _nbytes(*outs)
+    if name == "step_kernel_segments":
+        d, fwp, segs, stride = ins
+        return (_nbytes(d, segs) + _field_bytes(d, fwp, None, stride=stride)
+                + out_b)
     if name.startswith("step_kernel"):
         d, fwp, fobs = ins
         return _nbytes(d) + _field_bytes(d, fwp, fobs) + out_b
+    if name == "pairwise":
+        d = ins[0]
+        word = d.element_size()
+        act = d[:, :, 6] > 0.5
+        return (d[:, :, 6].numel() * word + 4 * d[1:-1, :, 0].numel() * word
+                + 2 * word * (int(act.sum()) + int(act[[0, -1]].sum())) + out_b)
     g = ins[0]
     plane = g[:, :, 6].numel() * g.element_size()
     row6 = 6 * g.element_size()
@@ -334,12 +397,349 @@ def _profile(step, gs, fwp, fobs, wall_ms: float, name: str, card: str):
 
 
 def _pair_candidates(d: torch.Tensor) -> float:
-    """Candidate pairs the pair loop visits on this grid: for every active
+    """Candidate pairs a pair loop visits on this grid: for every active
     agent, the active agents of its 3x3 cells other than itself."""
     act = (d[:, :, 6] > 0.5).sum(dim=1).float()  # [ny2, NXL]
     win = torch.nn.functional.avg_pool2d(act[None, None], 3, stride=1,
                                          padding=1, divisor_override=1)[0, 0]
-    return float((act * win - act).sum())
+    return float((act * win - act)[1:-1].sum())
+
+
+def _pairwise_flops(d: torch.Tensor, cutoff_sq: float) -> tuple[float, int, int]:
+    """Float operations of the pairwise kernel on this grid: (flops, pairs
+    within the cutoff, pairs past it).  It visits, for every centre slot,
+    each active candidate of the 3x3 cells (lanes circular, itself
+    excluded); a pair within the cutoff costs a whole pair_accum, one past
+    it the distance test alone."""
+    ny2, k = d.shape[0], d.shape[1]
+    px, py = d[1:-1, :, None, 0], d[1:-1, :, None, 1]  # [ny, K centres, 1, NX]
+    not_self = ~torch.eye(k, dtype=torch.bool, device=d.device)[None, :, :, None]
+    within = visited = 0
+    for dy in (-1, 0, 1):
+        rows = d[1 + dy:ny2 - 1 + dy]
+        for dx in (-1, 0, 1):
+            cand = torch.roll(rows, -dx, dims=-1)[:, None]  # [ny, 1, K, 8, NX]
+            act = cand[:, :, :, 6] > 0.5
+            if dy == dx == 0:
+                act = act & not_self
+            ex, ey = px - cand[:, :, :, 0], py - cand[:, :, :, 1]
+            within += int((act & (ex * ex + ey * ey <= cutoff_sq)).sum())
+            visited += int(act.sum()) * (1 if dy == dx == 0 else k)
+    beyond = visited - within
+    return within * PAIR_FLOPS + beyond * PAIR_TEST_FLOPS, within, beyond
+
+def _obstacles(sc) -> list[tuple]:
+    return [(o.line[0][0], o.line[0][1], o.line[1][0], o.line[1][1], o.width)
+            for o in sc.obstacles]
+
+
+def _run_timed(step, gs, fwp, fobs):
+    """WARMUP then TIMED synchronised steps: (state, last metrics, ms/step)."""
+    for _ in range(WARMUP):
+        gs, m = step(gs, fwp, fobs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED):
+        gs, m = step(gs, fwp, fobs)
+    torch.cuda.synchronize()
+    return gs, m, (time.perf_counter() - t0) / TIMED * 1e3
+
+
+def _evacuate(sim, what: str) -> tuple[int, int]:
+    """Tick until nobody is left (at most GAP_MAX_STEPS): (n0, steps)."""
+    n0 = active = sim.pedestrian_count
+    steps = 0
+    while active > 0 and steps < GAP_MAX_STEPS:
+        active = sim.tick().active_ped_count
+        steps += 1
+    if active != 0:
+        raise AssertionError(f"{what}: {active} agents left after {steps} steps")
+    return n0, steps
+
+
+def _segments_phase(dev, card, grid1, bench, states) -> dict:
+    """6. Segment mode: kernel vs twin on the random grid and both 1M
+    states; the 1M full path with use_distance_map=False; random.toml
+    through the Simulator; times and bounds.  Returns the JSON entry."""
+    import dataclasses
+
+    from pedoni_tpu_torch import Simulator, SimulatorOptions, load_scenario
+    from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+
+    sc, cfg, d, fwp, fobs = grid1
+    segs = sk.segment_table(_obstacles(sc), dev)
+    errs = list(_compare_step(d, fwp, fobs, cfg.physics, sc.size, 4,
+                              "segments, random grid", segments=segs)[:2])
+    print(f"# segments, random grid (gap.toml's {segs.shape[0]} obstacles, a NaN "
+          f"and an inf agent): step kernel max |err| {errs[0]:.3e} (base), "
+          f"{errs[1]:.3e} (mover mode); other channels, M, movf, mdmx equal "
+          f"(tol {TOL})", flush=True)
+
+    bcfg, bfwp, bfobs, gs0 = bench
+    scfg = dataclasses.replace(bcfg, use_distance_map=False)
+    bsegs = sfm_grid.debug_segments(scfg, dev)
+    phys, size = bcfg.physics, bcfg.scenario.size
+    for name, sd in (("full", states["full"]), ("hybrid", states["hybrid"])):
+        e = _compare_step(sd, bfwp, bfobs, phys, size, 8,
+                          f"segments, 1M {name}-path state", segments=bsegs)[:2]
+        errs += e
+        print(f"# segments, 1M {name}-path state ({bsegs.shape[0]} obstacle): "
+              f"step kernel max |err| {e[0]:.3e} (base), {e[1]:.3e} (mover "
+              f"mode); other channels equal (tol {TOL})", flush=True)
+
+    step = sfm_grid.make_step_grid(scfg, incremental=False)
+    _zero_launch_counts()
+    gs, m, ms_1m = _run_timed(step, gs0, bfwp, bfobs)
+    counts = _launch_counts()
+    n = WARMUP + TIMED
+    want = dict.fromkeys(counts, 0)
+    want.update(step_kernel_segments=n, rebin=n)
+    if counts != want:
+        raise AssertionError(f"1M segments: launches {counts} != {want}")
+    n_active = int(m.n_active)
+    if n_active < 0.99 * N_AGENTS or not bool(torch.isfinite(gs.d[:, :, 0:4]).all()):
+        raise AssertionError(f"1M segments: {n_active} active or non-finite state")
+    print(f"# 1M segments full path (use_distance_map=False): {n} steps "
+          f"({WARMUP} warm-up), {n_active} active; {ms_1m:.4f} ms/step; "
+          f"launches {counts} on {card}", flush=True)
+
+    rsc = load_scenario(RANDOM)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    sim = Simulator(SimulatorOptions(device=dev.type, seed=1,
+                                     use_distance_map=False), rsc)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(RANDOM_STEPS):
+        rec = sim.tick()
+    torch.cuda.synchronize()
+    ms_rand = (time.perf_counter() - t0) / RANDOM_STEPS * 1e3
+    rcounts = _launch_counts()
+    if rcounts["step_kernel_segments"] != RANDOM_STEPS or rec.active_ped_count <= 0:
+        raise AssertionError(f"random.toml: launches {rcounts}, "
+                             f"{rec.active_ped_count} active")
+    rsegs = sfm_grid.debug_segments(sim.cfg, dev)
+    stride = sfm_grid.stride_for(sim.cfg)
+    rd = sim.state.d
+    e = _compare_step(rd, sim._fwp, sim._fobs, sim.cfg.physics, rsc.size,
+                      min(sim.options.mover_capacity, sim.options.table_capacity),
+                      "segments, random.toml state", segments=rsegs,
+                      stride=stride)[:2]
+    errs += e
+    print(f"# random.toml ({rsegs.shape[0]} obstacles, {rsc.size[0]:g} x "
+          f"{rsc.size[1]:g} m): set-up {t_build:.2f} s, {RANDOM_STEPS} ticks of "
+          f"Simulator(use_distance_map=False) at {ms_rand:.4f} ms/tick (host "
+          f"sync each tick), {rec.active_ped_count} active, D "
+          f"{tuple(rd.shape)}; launches {rcounts}; step kernel vs twin max "
+          f"|err| {e[0]:.3e} (base), {e[1]:.3e} (mover mode) on {card}",
+          flush=True)
+
+    timing = {}
+    for label, (sd, wp, ob, p, sz, sg, st, n_twin) in {
+            "1M": (gs.d, bfwp, bfobs, phys, size, bsegs, 6, 20),
+            "random.toml": (rd, sim._fwp, sim._fobs, sim.cfg.physics, rsc.size,
+                            rsegs, stride, 5)}.items():
+        def kernel():
+            return sk.fused_step(sd, wp, ob, p, sz, stride=st, segments=sg)
+
+        def twin():
+            return sk.fused_step_torch(sd, wp, ob, p, sz, stride=st, segments=sg)
+
+        k_ms, t_ms = _median_ms(kernel), _median_ms(twin, n=n_twin)
+        need = _needed_bytes("step_kernel_segments", (sd, wp, sg, st), (twin(),))
+        n_act = int((sd[:, :, 6] > 0.5).sum())
+        b_ms, by = _bound(need, SEG_FLOPS * n_act * sg.shape[0])
+        timing[label] = (k_ms, t_ms, b_ms, by)
+        print(f"# step_kernel_segments on the {label} state ({n_act} active, "
+              f"{sg.shape[0]} obstacles): ms/step "
+              f"{ms_1m if label == '1M' else ms_rand:.4f}, kernel {k_ms:.4f} ms, "
+              f"twin {t_ms:.4f} ms (median of {n_twin}), bound {b_ms:.4f} ms "
+              f"({by}; {need / 1e6:.1f} MB, {SEG_FLOPS} flops x {n_act} agents "
+              f"x {sg.shape[0]} obstacles at {F32_FLOP_PER_S / 1e12:.0f} "
+              f"TFLOP/s; {b_ms / k_ms:.1%} of it) on {card}", flush=True)
+    k_ms, t_ms, b_ms, by = timing["1M"]
+    rk, rt, rb_ms, rby = timing["random.toml"]
+    return {"name": "step_kernel_segments", "route": "cuda",
+            "source": CSRC + "step_kernel.cu",
+            "replaces": "pedoni_tpu/ops/pallas/step_kernel.py:898",
+            "path": "segments", "launches": counts["step_kernel_segments"],
+            "max_abs_err": max(errs), "ms": k_ms, "plain_ms": t_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "random_toml": {"launches": rcounts["step_kernel_segments"],
+                            "ms": rk, "plain_ms": rt, "bound_ms": rb_ms,
+                            "bound_by": rby, "ms_per_tick": ms_rand}}
+
+
+def _all_pairs_phase(dev, card, sc_gap, bscenario, bmaps, flat, capacity) -> None:
+    """7. All-pairs mode: gap.toml evacuates; the 1M problem at the grown
+    unit, its ms/step and the step kernel vs its twin at stride 8."""
+    from pedoni_tpu_torch import Simulator, SimulatorOptions
+    from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.models.sfm import StepConfig
+
+    _zero_launch_counts()
+    sim = Simulator(SimulatorOptions(device=dev.type, seed=1,
+                                     use_neighbor_grid=False), sc_gap)
+    if (sim.options.neighbor_grid_unit, sim.options.table_capacity) != (2.0, 29):
+        raise AssertionError(f"all-pairs options {sim.options}")
+    n0, steps = _evacuate(sim, "gap.toml (use_neighbor_grid=False)")
+    counts = _launch_counts()
+    if counts["step_kernel"] + counts["step_kernel_movers"] != steps:
+        raise AssertionError(f"all-pairs gap: launches {counts} vs {steps} steps")
+    print(f"# gap.toml, Simulator(use_neighbor_grid=False): unit 2.0 m, K 29, "
+          f"{n0} agents evacuated in {steps} steps (limit {GAP_MAX_STEPS}); "
+          f"launches {counts}", flush=True)
+
+    o = SimulatorOptions(neighbor_grid_unit=1.5, table_capacity=14,
+                         use_neighbor_grid=False).resolved()
+    cfg = StepConfig.build(bscenario, capacity=capacity,
+                           neighbor_grid_unit=o.neighbor_grid_unit,
+                           table_capacity=o.table_capacity,
+                           use_neighbor_grid=False)
+    stride = sfm_grid.stride_for(cfg)
+    fwp, fobs = sfm_grid.field_tensors(cfg, bmaps, dev)
+    gs = sfm_grid.bin_state(cfg, flat)
+    step = sfm_grid.make_step_grid(cfg)  # the hybrid, as at the 1.5 m unit
+    gs, m, ms = _run_timed(step, gs, fwp, fobs)
+    n_active = int(m.n_active)
+    if n_active < 0.99 * N_AGENTS or not bool(torch.isfinite(gs.d[:, :, 0:4]).all()):
+        raise AssertionError(f"1M all-pairs: {n_active} active or non-finite state")
+    e = _compare_step(gs.d, fwp, fobs, cfg.physics, bscenario.size, 8,
+                      "1M all-pairs state", stride=stride)[:2]
+    print(f"# 1M all-pairs (unit {o.neighbor_grid_unit} m, K {o.table_capacity}, "
+          f"field stride {stride}, D {tuple(gs.d.shape)}): {n_active} active, "
+          f"overflow last step {int(m.n_overflow)}, max demand "
+          f"{int(m.max_demand)}; {ms:.4f} ms/step (hybrid, {WARMUP} warm-up, "
+          f"{TIMED} timed); step kernel vs twin at stride {stride} max |err| "
+          f"{e[0]:.3e} (base), {e[1]:.3e} (mover mode) on {card}", flush=True)
+
+
+def _pairwise_phase(dev, card, d_full, phys) -> dict:
+    """8. The standalone pairwise kernel (2D) vs its twin on a random grid
+    and on the 1M full-path state with seeded unit vectors in ch 4/5; one
+    counted launch; times.  Returns the JSON entry."""
+    from pedoni_tpu_torch.ops.kernels import pairwise as pw
+
+    rng = np.random.default_rng(2)
+    ny2, k, nx = 42, 8, 128
+    dr = np.zeros((ny2, k, 8, nx), np.float32)
+    r, j, c = np.nonzero(rng.uniform(size=(ny2 - 2, k, 100)) < 0.4)
+    dr[r + 1, j, 0, c + 1] = (c + rng.uniform(size=r.size)) * 1.4
+    dr[r + 1, j, 1, c + 1] = (r + rng.uniform(size=r.size)) * 1.4
+    dr[r + 1, j, 2:4, c + 1] = rng.normal(0, 1, (r.size, 2))
+    e = rng.normal(0, 1, (r.size, 2))
+    dr[r + 1, j, 4:6, c + 1] = e / np.linalg.norm(e, axis=1, keepdims=True)
+    dr[r + 1, j, 6, c + 1] = 1.0
+    dr = torch.from_numpy(dr).to(dev)
+    err_r = float((pw.pairwise(dr, phys, 4) - pw.pairwise_torch(dr, phys, 4)).abs().max())
+
+    d = d_full.clone()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    e = torch.randn((d.shape[0], d.shape[1], 2, d.shape[3]), generator=gen,
+                    device=dev)
+    d[:, :, 4:6] = e / e.norm(dim=2, keepdim=True)
+    _zero_launch_counts()
+    acc = pw.pairwise(d, phys, 2)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    want = pw.pairwise_torch(d, phys, 2)
+    err = float((acc - want).abs().max())
+    if counts != dict(dict.fromkeys(counts, 0), pairwise=1):
+        raise AssertionError(f"pairwise: launches {counts}")
+    if not (err_r <= TOL and err <= TOL) or not float(want.abs().max()) > 0.1:
+        raise AssertionError(f"pairwise: err {err_r:.3e} (random), {err:.3e} (1M)")
+    k_ms = _median_ms(lambda: pw.pairwise(d, phys, 2))
+    t_ms = _median_ms(lambda: pw.pairwise_torch(d, phys, 2), n=5)
+    need = _needed_bytes("pairwise", (d,), (acc,))
+    flops, within, beyond = _pairwise_flops(d, phys.cutoff_sq)
+    b_ms, by = _bound(need, flops)
+    print(f"# pairwise (2D): max |err| {err_r:.3e} on a random grid "
+          f"{tuple(dr.shape)}, {err:.3e} on the 1M full-path state "
+          f"{tuple(d.shape)} with seeded unit e (tol {TOL}); launches "
+          f"{counts}; kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms (median of 5), "
+          f"bound {b_ms:.4f} ms ({by}; {need / 1e6:.1f} MB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {within} pairs within the "
+          f"cutoff x {PAIR_FLOPS} + {beyond} past it x {PAIR_TEST_FLOPS} = "
+          f"{flops / 1e9:.3f} GFLOP at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
+          f"{b_ms / k_ms:.1%} of it) on {card}", flush=True)
+    return {"name": "pairwise", "route": "cuda", "source": CSRC + "pairwise.cu",
+            "replaces": "pedoni_tpu/ops/pallas/pairwise.py:177",
+            "path": "standalone", "launches": counts["pairwise"],
+            "max_abs_err": max(err_r, err), "ms": k_ms, "plain_ms": t_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def _agent_rows(a) -> np.ndarray:
+    """The active agents of a checkpoint or of ``agents_to_numpy`` as
+    sorted rows (pos, vel, speed, dest)."""
+    rows = np.concatenate([a["pos"], a["vel"], a["speed"][:, None],
+                           a["dest"][:, None].astype(np.float32)], 1)[a["active"]]
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def _npz_rows(path) -> np.ndarray:
+    with np.load(path) as z:
+        return _agent_rows(z)
+
+
+def _cli_phase() -> None:
+    """9. The CLI as subprocesses: a --no-distance-map run with checkpoints,
+    then a run resumed from its step-100 checkpoint."""
+    import tempfile
+
+    from pedoni_tpu_torch import checkpoint, cli
+    from pedoni_tpu_torch.convert import agents_to_numpy
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        base = [str(GAP), "-H", "-s", "0", "--seed", "1", "--no-distance-map",
+                "--checkpoint-every", "100"]
+        ck100 = tmp / "ck" / "step_00000100.npz"
+        runs = {"first": (base + ["--max-steps", "300", "--log-dir", str(tmp / "logs"),
+                                  "--checkpoint-dir", str(tmp / "ck")], 300),
+                "resumed": (base + ["--max-steps", "200", "--log-dir",
+                                    str(tmp / "logs2"), "--checkpoint-dir",
+                                    str(tmp / "ck2"), "--resume", str(ck100)], 200)}
+        for name, (argv, n_steps) in runs.items():
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "pedoni_tpu_torch", *argv],
+                               cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"CLI ({name}) exited {r.returncode}:\n"
+                                     f"{r.stderr[-3000:]}")
+            log_dir = pathlib.Path(argv[argv.index("--log-dir") + 1])
+            (out,) = log_dir.glob("*_log.json")
+            log = json.loads(out.read_text())
+            pops = log["step_metrics"]["active_ped_count"]
+            if log["total_steps"] != n_steps or pops[-1] != 0:
+                raise AssertionError(f"CLI ({name}): {log['total_steps']} steps, "
+                                     f"population {pops[-1]} at the end")
+            print(f"# CLI ({name}): python -m pedoni_tpu_torch "
+                  f"{' '.join(a if tmp.name not in a else '<tmp>' for a in argv)}"
+                  f" -> exit 0 in {time.perf_counter() - t0:.1f} s, log "
+                  f"{out.name}, population {pops[0]} -> 0 at logged step "
+                  f"{pops.index(0) + 1}", flush=True)
+
+        args = cli.build_parser().parse_args(runs["resumed"][0])
+        sim = cli.make_simulator(args)
+        checkpoint.restore(sim, args.resume)
+        rows = _agent_rows(agents_to_numpy(sim._to_flat_state().agents))
+        with np.load(ck100) as z:
+            gen = torch.from_numpy(z["torch_generator"])
+        if not (sim.step_count == 100 and np.array_equal(rows, _npz_rows(ck100))
+                and torch.equal(sim.generator.get_state(), gen)):
+            raise AssertionError("resumed agents or generator differ from the "
+                                 "step-100 checkpoint")
+        for s in (200, 300):
+            name = f"step_{s:08d}.npz"
+            if not np.array_equal(_npz_rows(tmp / "ck2" / name),
+                                  _npz_rows(tmp / "ck" / name)):
+                raise AssertionError(f"resumed run's {name} differs from the first run's")
+        print(f"# CLI resume: the simulator restored from step 100 holds the "
+              f"saved {rows.shape[0]} agents exactly and the saved generator "
+              f"state; the resumed run's step-200 and step-300 checkpoints "
+              f"equal the first run's", flush=True)
 
 
 def main() -> int:
@@ -365,7 +765,7 @@ def main() -> int:
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.library()
     print(f"# kernels built from {_build.CSRC.relative_to(_build.CSRC.parents[3])}"
           f" -> {_build.library_path().name} in {time.perf_counter() - t0:.2f} s",
@@ -395,6 +795,7 @@ def main() -> int:
     fwp, fobs = sfm_grid.field_tensors(cfg, maps, dev)
     _compare(d, fwp, fobs, cfg.physics, sc.size, 1.5, cfg.grid.nx, cfg.grid.ny,
              4, "random grid (gap fields, 1500 agents)")
+    grid1 = (sc, cfg, d, fwp, fobs)
 
     # 2. gap.toml through the Simulator: the physics gate, on the rebin the
     # auto rule picks (full at this occupancy) and on the forced hybrid
@@ -402,15 +803,7 @@ def main() -> int:
         _zero_launch_counts()
         sim = Simulator(SimulatorOptions(device="cuda", seed=1,
                                          incremental_rebin=forced), sc)
-        n0 = sim.pedestrian_count
-        steps = 0
-        active = n0
-        while active > 0 and steps < GAP_MAX_STEPS:
-            active = sim.tick().active_ped_count
-            steps += 1
-        if active != 0:
-            raise AssertionError(f"gap.toml ({forced=}): {active} agents left "
-                                 f"after {steps} steps")
+        n0, steps = _evacuate(sim, f"gap.toml ({forced=})")
         counts = _launch_counts()
         used = (("step_kernel_movers", "rebin") if forced
                 else ("step_kernel", "rebin"))
@@ -425,10 +818,9 @@ def main() -> int:
 
     # 4. the 1M-agent bench workload: the full path, then the hybrid
     t0 = time.perf_counter()
-    _sc, bmaps, bcfg, flat = build_problem(N_AGENTS, device=dev)
+    bscenario, bmaps, bcfg, flat = build_problem(N_AGENTS, device=dev)
     bfwp, bfobs = sfm_grid.field_tensors(bcfg, bmaps, dev)
     gs0 = sfm_grid.bin_state(bcfg, flat)
-    del flat
     torch.cuda.synchronize()
     dims = tuple(gs0.d.shape)
     print(f"# 1M problem: grid {bcfg.grid.nx} x {bcfg.grid.ny} cells, D {dims}, "
@@ -462,7 +854,8 @@ def main() -> int:
         if incremental:
             n_compact = -(-n_steps // 8)
             want = {"step_kernel": 0, "step_kernel_movers": n_steps,
-                    "rebin": n_steps, "rebin_incremental": n_steps - n_compact}
+                    "step_kernel_segments": 0, "rebin": n_steps,
+                    "rebin_incremental": n_steps - n_compact, "pairwise": 0}
             if counts != want:
                 raise AssertionError(f"1M hybrid: launches {counts} != {want}")
             if not 0 < n_full < n_steps:
@@ -474,7 +867,8 @@ def main() -> int:
                         f"timed steps under set_sync_debug_mode('error')")
         else:
             want = {"step_kernel": n_steps, "step_kernel_movers": 0,
-                    "rebin": n_steps, "rebin_incremental": 0}
+                    "step_kernel_segments": 0, "rebin": n_steps,
+                    "rebin_incremental": 0, "pairwise": 0}
             if counts != want:
                 raise AssertionError(f"1M full: launches {counts} != {want}")
             branches = ""
@@ -487,6 +881,11 @@ def main() -> int:
         paths[name] = (dt, counts, gs.d, n_full)
     print(f"# 1M ms/step on {card}: hybrid {paths['hybrid'][0] * 1e3:.4f}, "
           f"full {paths['full'][0] * 1e3:.4f}", flush=True)
+    print("# 1M distance-map ms/step against the figures from before the "
+          "segment mode (NVIDIA H100 80GB HBM3, 700 W): " + ", ".join(
+              f"{p} {paths[p][0] * 1e3:.4f} vs {ms} "
+              f"({paths[p][0] * 1e3 / ms - 1:+.2%})"
+              for p, ms in BEFORE_SEGMENTS_MS.items()), flush=True)
 
     # 5. kernels vs twins on each path's own 1M state, and their times
     d_full, d_hyb = paths["full"][2], paths["hybrid"][2]
@@ -555,6 +954,22 @@ def main() -> int:
         if name == "rebin":  # launched every hybrid step, run when selected
             kernels[-1].update(hybrid_launches=paths["hybrid"][1][name],
                                hybrid_bodies_run=paths["hybrid"][3])
+
+    t0 = time.perf_counter()
+    kernels.append(_segments_phase(dev, card, grid1, (bcfg, bfwp, bfobs, gs0),
+                                   {"full": d_full, "hybrid": d_hyb}))
+    print(f"# phase 6 (segments) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    _all_pairs_phase(dev, card, sc, bscenario, bmaps, flat, bcfg.capacity)
+    print(f"# phase 7 (all-pairs) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    kernels.append(_pairwise_phase(dev, card, d_full, phys))
+    print(f"# phase 8 (pairwise) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    _cli_phase()
+    print(f"# phase 9 (CLI) took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the "
+          f"kernel build included", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
 """pedoni-tpu ported to PyTorch and CUDA for NVIDIA Hopper (H100).
 
 A second package beside ``pedoni_tpu`` (the JAX reference, which it never
-imports).  This slice covers the grid backend's step on one device: the
-plain-torch spawn scatter, the hand-written CUDA fused step kernel and the
-CUDA full rebin (``ops/kernels/csrc``), each with a plain PyTorch twin that
-runs on CPU tensors.  Host modules (scenario, field, physics, diagnostics,
-fields6, utils, the native FMM) are copies of the reference's, since
-importing any of the reference's modules loads JAX.
+imports).  It covers the grid backend on one device: the plain-torch
+spawn scatter, the hand-written CUDA fused step kernel (distance-map or
+segment obstacles, optional mover emit), the full and incremental rebins
+and the standalone pairwise kernel (``ops/kernels/csrc``), each with a
+plain PyTorch twin that runs on CPU tensors; the Simulator with both
+debug modes, checkpoints (``checkpoint``) and the headless CLI
+(``python -m pedoni_tpu_torch``).  Host modules (scenario, field,
+physics, diagnostics, fields6, utils, the native FMM) are copies of the
+reference's, since importing any of the reference's modules loads JAX.
 """
 
 from .field import Field, FieldMaps

@@ -22,7 +22,7 @@ from .scenario import Scenario, Segment
 
 def build_problem(n_agents: int = 1_000_000, density: float = 2.5,
                   seed: int = 0, table_capacity: int = 14,
-                  device: torch.device | str = "cpu", waypoints: int = 1
+                  device: torch.device | str = "cuda", waypoints: int = 1
                   ) -> tuple[Scenario, FieldMaps, StepConfig, SimState]:
     """(scenario, maps, cfg, flat state on ``device``) of the bench
     workload; the agents are drawn from ``seed`` with NumPy exactly as the

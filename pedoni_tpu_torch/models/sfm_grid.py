@@ -26,6 +26,10 @@ full cell are dropped (n_overflow); spawn candidates aimed at full cells
 are dropped (n_dropped); agents leaving the field vanish at the rebin
 (n_exited, expected).
 
+Obstacles: the distance map by default; with ``cfg.use_distance_map``
+False (the reference's --no-distance-map) the step kernel's segment mode
+reads the obstacle edge table of ``debug_segments``.
+
 One device only.
 """
 
@@ -38,7 +42,7 @@ import torch
 from ..field import FieldMaps
 from ..ops.fields6 import Fields6
 from ..ops.kernels.rebin import new_outputs, rebin, rebin_incremental
-from ..ops.kernels.step_kernel import fused_step
+from ..ops.kernels.step_kernel import fused_step, segment_table
 from ..ops.neighbor import compute_cell_ids, true_divide
 from .sfm import AgentState, SimState, StepConfig, StepMetrics, spawn_candidates
 
@@ -210,10 +214,33 @@ def assert_movement_fits_rebin(cfg: StepConfig) -> None:
                          f"{cfg.grid.unit} m cell")
 
 
+def debug_segments(cfg: StepConfig, device: torch.device | str = "cpu"
+                   ) -> torch.Tensor | None:
+    """The obstacle edge table of the --no-distance-map kernel mode
+    (reference sfm_pallas.py:49-60, args.rs:27-31): None on the default
+    path, else ``segment_table`` of the scenario's obstacles on
+    ``device``."""
+    if cfg.use_distance_map:
+        return None
+    return segment_table(
+        [(s.line[0][0], s.line[0][1], s.line[1][0], s.line[1][1], s.width)
+         for s in cfg.scenario.obstacles], device)
+
+
+def _segments_on(cfg: StepConfig) -> Callable[[torch.device], torch.Tensor | None]:
+    """device -> ``debug_segments(cfg)`` there, copied once per device."""
+    table = debug_segments(cfg)
+    copies: dict[torch.device, torch.Tensor] = {}
+
+    def on(device: torch.device) -> torch.Tensor | None:
+        if table is not None and device not in copies:
+            copies[device] = table.to(device)
+        return copies.get(device)
+
+    return on
+
+
 def _check_config(cfg: StepConfig) -> int:
-    if not cfg.use_distance_map:
-        raise ValueError("segment obstacles (use_distance_map=False) are not "
-                         "ported yet (ROADMAP queue 2, 2A-segments)")
     stride = stride_for(cfg)
     if stride is None or not cfg.scenario.waypoints:
         raise ValueError("grid backend needs an integral neighbor/field unit "
@@ -233,17 +260,19 @@ def make_kernel_chain(cfg: StepConfig, row_block: int = 2,
     stride = _check_config(cfg)
     grid = cfg.grid
     mk = min(mover_k, cfg.table_capacity)
+    segs_on = _segments_on(cfg)
 
     def chain(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor
               ) -> torch.Tensor:
+        kw = dict(stride=stride, field_unit=cfg.field_unit,
+                  segments=segs_on(d.device))
         if incremental:
             g, m, _movf, _mdmx = fused_step(
-                d, fwp, fobs, cfg.physics, cfg.scenario.size, stride=stride,
-                field_unit=cfg.field_unit, emit_movers=mk, row_block=row_block)
+                d, fwp, fobs, cfg.physics, cfg.scenario.size, emit_movers=mk,
+                row_block=row_block, **kw)
             return rebin_incremental(g, m, grid.unit, grid.nx, grid.ny,
                                      row_block=row_block)[0]
-        g = fused_step(d, fwp, fobs, cfg.physics, cfg.scenario.size,
-                       stride=stride, field_unit=cfg.field_unit)
+        g = fused_step(d, fwp, fobs, cfg.physics, cfg.scenario.size, **kw)
         return rebin(g, grid.unit, grid.nx, grid.ny, row_block=row_block)[0]
 
     return chain
@@ -273,6 +302,7 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
     The spawn scatter writes into ``state.d`` in place (no ~100 MB copy at
     1M agents): the input state is consumed."""
     stride = _check_config(cfg)
+    segs_on = _segments_on(cfg)
     phys = cfg.physics
     grid = cfg.grid
     s = cfg.spawn.total
@@ -284,7 +314,8 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
     def kernels(state: GridState, d: torch.Tensor, fwp: torch.Tensor,
                 fobs: torch.Tensor):
         """Step kernel and rebin: (D', ovf, dmx, n_in, n_out, mover peak)."""
-        kw = dict(stride=stride, field_unit=cfg.field_unit)
+        kw = dict(stride=stride, field_unit=cfg.field_unit,
+                  segments=segs_on(d.device))
         if not incremental:
             g = fused_step(d, fwp, fobs, phys, cfg.scenario.size, **kw)
             return (*rebin(g, grid.unit, grid.nx, grid.ny, row_block=row_block),

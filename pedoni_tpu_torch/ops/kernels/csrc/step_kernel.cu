@@ -3,15 +3,19 @@
 //
 // Replaces pedoni_tpu/ops/pallas/step_kernel.py::fused_step_kernel
 // (pallas_call at step_kernel.py:898; bodies _kernel :162 and _compute :367)
-// in its base mode and its emit_movers mode (_mover_pass :717): one
-// waypoint plane per agent, distance-map obstacles, no slot split.  Plain
-// PyTorch twin: pedoni_tpu_torch/ops/kernels/step_kernel.py::fused_step_torch.
+// in its base mode, its emit_movers mode (_mover_pass :717) and its
+// segments mode (_segment_accel :104, used at :553-557): one waypoint plane
+// per agent, obstacles from the distance map or from the exact segment
+// geometry, no slot split.  Plain PyTorch twin:
+// pedoni_tpu_torch/ops/kernels/step_kernel.py::fused_step_torch.
 //
 // Layouts (all f32, contiguous):
 //   d    [ny2, K, 8, NXL]  ch 0 pos.x, 1 pos.y, 2 vel.x, 3 vel.y, 4 speed,
 //                          5 dest, 6 active, 7 cell count (valid at slot 0)
 //   fwp  [n_wp, R, S, 4, NXL], fobs [R, S, 4, NXL]  (fields6 layout:
 //                          F[f, c, ch, l] = map[f - S, S*(l-1) + c])
+//   segs [n_seg, 22]       segments mode only: the obstacle edge table of
+//                          step_kernel.py::segment_table (fobs unread)
 //   out  [ny2, K, 8, NXL]  ghost rows 0 and ny2-1 zero; ch 7 = potential,
 //                          or the stay mask in the mover mode
 //   m    [ny2, MK, 8, NXL] mover mode only: each cell's movers in slot
@@ -24,6 +28,18 @@
 // neighbour cells' candidates (~5 loads each, mostly from L1/L2 since
 // neighbouring lanes share them) — about 1 FLOP per byte from device
 // memory, far under the H100's compute line.
+//
+// Segments mode (the reference's --no-distance-map debug mode) is a
+// compile-time template parameter of pass A, so the distance-map
+// instantiation keeps its code and its registers.  The segment
+// instantiation replaces the obstacle-plane sample by a walk over the edge
+// table, for centre slots whose post-despawn act is set (pass B reads the
+// force of no other slot).  Every thread of a warp reads the same table
+// row, so each load is one broadcast; the table stays in device memory (a
+// 1000-obstacle scenario needs 88 KB, more than constant memory holds).
+// That walk is bound by operations: ~100 float operations per (active
+// agent, obstacle).  Divisions are IEEE and expf the accurate one (the
+// build has no fast math), as the twin's.
 //
 // The simple design: one thread per agent slot (row, k, lane), lanes
 // fastest so every channel read of a warp is one coalesced 128-byte line.
@@ -68,6 +84,7 @@ namespace {
 constexpr float kBig = 1073741824.0f;  // 2^30 sanitize sentinel
 constexpr int kRow0 = 3;               // fields6.ROW0
 constexpr float kFpad = 4.0f;          // field-map PAD rings
+constexpr int kSegCols = 22;           // step_kernel.py SEG_COLS
 
 struct StepConsts {
   float inv_unit;          // 1 / field_unit
@@ -126,10 +143,54 @@ __device__ __forceinline__ void sample(const float* __restrict__ plane,
   }
 }
 
+// Exact obstacle acceleration at (px, py) from the edge table
+// (step_kernel.py:104-159): per obstacle, the closest point of each of the
+// widened rectangle's 4 edges (t clipped to [0, 1]), the first minimum by a
+// strict < on squared distances, no force inside the rectangle (the
+// reference adds coef = 0 there, which changes no sum).  Row layout: for
+// edge e, q0.x q0.y s.x s.y il2 at 5e .. 5e+4; then width^2, h^2.
+__device__ __forceinline__ void segment_accel(const float* __restrict__ segs,
+                                              int n_seg, float px, float py,
+                                              const StepConsts& sc, float& ax,
+                                              float& ay) {
+  for (int o = 0; o < n_seg; ++o) {
+    const float* r = segs + (int64_t)o * kSegCols;
+    float d2[4], ddx[4], ddy[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float q0x = __ldg(r + 5 * e), q0y = __ldg(r + 5 * e + 1);
+      const float sx = __ldg(r + 5 * e + 2), sy = __ldg(r + 5 * e + 3);
+      const float il2 = __ldg(r + 5 * e + 4);
+      float t = ((px - q0x) * sx + (py - q0y) * sy) * il2;
+      t = fminf(fmaxf(t, 0.0f), 1.0f);
+      ddx[e] = px - (q0x + t * sx);
+      ddy[e] = py - (q0y + t * sy);
+      d2[e] = ddx[e] * ddx[e] + ddy[e] * ddy[e];
+    }
+    const float w2 = __ldg(r + 20), h2 = __ldg(r + 21);
+    if (d2[0] < w2 && d2[1] < w2 && d2[2] < h2 && d2[3] < h2) continue;
+    float best = d2[0], bdx = ddx[0], bdy = ddy[0];
+#pragma unroll
+    for (int e = 1; e < 4; ++e) {
+      if (d2[e] < best) {
+        best = d2[e];
+        bdx = ddx[e];
+        bdy = ddy[e];
+      }
+    }
+    const float dmin = sqrtf(fmaxf(best, PEDONI_EPS));
+    const float coef = sc.obs_strength * expf(-dmin / sc.obs_range) / dmin;
+    ax = ax + coef * bdx;
+    ay = ay + coef * bdy;
+  }
+}
+
+template <bool kSeg>
 __global__ void step_pass_a(const float* __restrict__ d,
                             const float* __restrict__ fwp,
                             const float* __restrict__ fobs,
-                            float* __restrict__ scr, Dims dm, StepConsts sc) {
+                            float* __restrict__ scr, Dims dm, StepConsts sc,
+                            const float* __restrict__ segs, int n_seg) {
   const int64_t plane_sz = (int64_t)dm.ny2 * dm.k * dm.nxl;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= plane_sz) return;
@@ -170,12 +231,21 @@ __global__ void step_pass_a(const float* __restrict__ d,
     ey = gy * g_norm;
     afx = (ex * speed - velx) / sc.relaxation_time;
     afy = (ey * speed - vely) / sc.relaxation_time;
-    float ov[3];
-    sample(fobs, dm, row, lane, px, py, 3, ov);
-    const float d_norm = rsqrtf(fmaxf(ov[1] * ov[1] + ov[2] * ov[2], PEDONI_EPS));
-    const float mag = sc.obs_strength * expf(-ov[0] / sc.obs_range);
-    afx = afx - mag * ov[1] * d_norm;
-    afy = afy - mag * ov[2] * d_norm;
+    if constexpr (kSeg) {
+      if (act_new > 0.5f) {
+        float sfx = 0.0f, sfy = 0.0f;
+        segment_accel(segs, n_seg, posx, posy, sc, sfx, sfy);
+        afx = afx + sfx;
+        afy = afy + sfy;
+      }
+    } else {
+      float ov[3];
+      sample(fobs, dm, row, lane, px, py, 3, ov);
+      const float d_norm = rsqrtf(fmaxf(ov[1] * ov[1] + ov[2] * ov[2], PEDONI_EPS));
+      const float mag = sc.obs_strength * expf(-ov[0] / sc.obs_range);
+      afx = afx - mag * ov[1] * d_norm;
+      afy = afy - mag * ov[2] * d_norm;
+    }
   }
   scr[idx] = act_new;
   scr[plane_sz + idx] = ex;
@@ -334,13 +404,16 @@ __global__ void step_movers(float* __restrict__ g,
 
 // consts: 18 floats in StepConsts order (see step_kernel.py::_constants).
 // mk == 0 is the base mode (m, movf, mdmx unused); mk > 0 the mover mode,
-// where movf and mdmx [nb] must be zeroed by the caller.
+// where movf and mdmx [nb] must be zeroed by the caller.  n_seg < 0 takes
+// the obstacle force from fobs (segs unused); n_seg >= 0 from the n_seg
+// rows of segs.
 extern "C" int pedoni_step_kernel(const float* d, const float* fwp,
-                                  const float* fobs, float* scratch,
-                                  float* out, float* m, float* movf,
-                                  float* mdmx, int ny2, int k, int nxl,
-                                  int n_wp, int frows, int stride, int mk,
-                                  int rb, const float* consts, void* stream) {
+                                  const float* fobs, const float* segs,
+                                  float* scratch, float* out, float* m,
+                                  float* movf, float* mdmx, int ny2, int k,
+                                  int nxl, int n_wp, int frows, int stride,
+                                  int mk, int rb, int n_seg,
+                                  const float* consts, void* stream) {
   StepConsts sc;
   sc.inv_unit = consts[0];
   sc.grid_w = consts[1];
@@ -365,7 +438,12 @@ extern "C" int pedoni_step_kernel(const float* d, const float* fwp,
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
-  step_pass_a<<<blocks, threads, 0, st>>>(d, fwp, fobs, scratch, dm, sc);
+  if (n_seg < 0)
+    step_pass_a<false><<<blocks, threads, 0, st>>>(d, fwp, fobs, scratch, dm,
+                                                   sc, segs, n_seg);
+  else
+    step_pass_a<true><<<blocks, threads, 0, st>>>(d, fwp, fobs, scratch, dm,
+                                                  sc, segs, n_seg);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   step_pass_b<<<blocks, threads, 0, st>>>(d, scratch, out, dm, sc);

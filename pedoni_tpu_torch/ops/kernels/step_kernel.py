@@ -1,10 +1,12 @@
 """Fused step: field sampling, despawn, all forces and integration.
 
 Counterpart of pedoni_tpu/ops/pallas/step_kernel.py::fused_step_kernel
-(pallas_call at step_kernel.py:898) in its base mode and its
-``emit_movers`` mode: each agent samples its own destination plane
-``fwp[dest]`` (any waypoint count; this replaces the reference's waypoint
-slot walk), distance-map obstacles.  Channel 7 of the output is the
+(pallas_call at step_kernel.py:898) in its base mode, its
+``emit_movers`` mode and its ``segments`` mode: each agent samples its own
+destination plane ``fwp[dest]`` (any waypoint count; this replaces the
+reference's waypoint slot walk); obstacles come from the distance map, or
+with ``segments`` from the exact geometry of each obstacle rectangle (the
+reference's --no-distance-map mode).  Channel 7 of the output is the
 sampled potential, or in the mover mode the stay mask, with the per-cell
 mover table M that feeds ``rebin.rebin_incremental``.
 
@@ -26,11 +28,12 @@ import torch
 from ...physics import Physics
 from ..neighbor import true_divide
 from . import _build
-from .pairwise import EPS, pair_accum
+from .pairwise import EPS, _shift_lane, pair_accum
 
 BIG = 2.0 ** 30  # non-finite sanitize sentinel (step_kernel.py:394-398)
 ROW0 = 3  # fields6.ROW0: first patch row/col of cell 0 in the padded map
 FPAD = 4.0  # field-map PAD rings
+SEG_COLS = 22  # columns of the obstacle edge table (segment_table)
 
 
 def _constants(phys: Physics, grid_size: tuple[float, float],
@@ -54,9 +57,52 @@ def _cell_unit(stride: int, field_unit: float) -> float:
     return stride * field_unit
 
 
+def segment_table(obstacles, device: torch.device | str = "cpu"
+                  ) -> torch.Tensor:
+    """The obstacle edge table of the segment mode: [n_obs, SEG_COLS] f32.
+
+    ``obstacles``: (x0, y0, x1, y1, width) per obstacle, world metres.  Row
+    o holds, for each of the 4 edges of the width-widened rectangle in the
+    reference's order (step_kernel.py:130-132: across the two endpoints,
+    then the two long sides), q0.x, q0.y, s.x, s.y and il2 = 1 / |s|^2 at
+    columns 5e .. 5e+4, then width^2 and h^2 (h = the segment's length).
+    Every constant is computed in Python float64 exactly as
+    step_kernel.py:120-137 computes it and rounded to f32 once, as the
+    reference's Python floats are where they meet an f32 array; corners or
+    il2 recomputed in f32 would give other bits."""
+    rows = []
+    for x0, y0, x1, y1, width in obstacles:
+        x0, y0, x1, y1, width = map(float, (x0, y0, x1, y1, width))
+        dx_ = x1 - x0
+        dy_ = y1 - y0
+        h = max((dx_ * dx_ + dy_ * dy_) ** 0.5, 1e-6)
+        nx_ = dy_ / h * (width * 0.5)
+        ny_ = -dx_ / h * (width * 0.5)
+        p0p = (x0 + nx_, y0 + ny_)
+        p0m = (x0 - nx_, y0 - ny_)
+        p1p = (x1 + nx_, y1 + ny_)
+        p1m = (x1 - nx_, y1 - ny_)
+        row = []
+        for q0, q1 in ((p0p, p0m), (p1p, p1m), (p0p, p1p), (p0m, p1m)):
+            sx = q1[0] - q0[0]
+            sy = q1[1] - q0[1]
+            row += [q0[0], q0[1], sx, sy, 1.0 / max(sx * sx + sy * sy, 1e-12)]
+        rows.append(row + [width * width, h * h])
+    return torch.tensor(rows, dtype=torch.float32,
+                        device=device).reshape(len(rows), SEG_COLS)
+
+
 def _check(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
-           stride: int, emit_movers: int, row_block: int) -> None:
-    for name, t in (("d", d), ("fwp", fwp), ("fobs", fobs)):
+           segments: torch.Tensor | None, stride: int, emit_movers: int,
+           row_block: int) -> None:
+    if segments is not None and (segments.dim() != 2
+                                 or segments.shape[1] != SEG_COLS):
+        raise ValueError(f"segments must be [n_obs, {SEG_COLS}] (segment_table), "
+                         f"got {tuple(segments.shape)}")
+    for name, t in (("d", d), ("fwp", fwp), ("fobs", fobs),
+                    ("segments", segments)):
+        if t is None:
+            continue
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
         if t.device != d.device:
@@ -79,9 +125,13 @@ def _check(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
 def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
                phys: Physics, grid_size: tuple[float, float], stride: int = 6,
                field_unit: float = 0.25, emit_movers: int = 0,
-               row_block: int = 2):
+               row_block: int = 2, segments: torch.Tensor | None = None):
     """One fused step over the grid: returns G [ny2, K, 8, NXL], or with
     ``emit_movers`` = MK > 0 the tuple (G, M, movf, mdmx).
+
+    ``segments`` (a ``segment_table`` on d's device) switches the obstacle
+    force from the distance map to the exact per-segment geometry; fobs is
+    then neither read nor needed beyond its shape.
 
     Channels out: post-step pos, vel; sanitized speed; dest unchanged;
     post-despawn active; ch 7 = sampled potential (base mode) or the stay
@@ -91,10 +141,10 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     block of ``row_block`` rows, sum(max(movers - MK, 0)) and the peak
     mover count.  Rows 0 and ny2-1 are zero.  CUDA tensors run the kernel
     (or raise); CPU tensors the twin."""
-    _check(d, fwp, fobs, stride, emit_movers, row_block)
+    _check(d, fwp, fobs, segments, stride, emit_movers, row_block)
     if d.device.type == "cpu":
         return fused_step_torch(d, fwp, fobs, phys, grid_size, stride,
-                                field_unit, emit_movers, row_block)
+                                field_unit, emit_movers, row_block, segments)
     if d.device.type != "cuda":
         raise ValueError(f"fused_step: unsupported device {d.device}")
     lib = _build.library()
@@ -112,25 +162,25 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     consts = torch.tensor(_constants(phys, grid_size, field_unit, stride),
                           dtype=torch.float32)  # host array, read at launch
     stream = torch.cuda.current_stream(d.device).cuda_stream
+    n_seg = -1 if segments is None else segments.shape[0]  # -1: distance map
     rc = lib.pedoni_step_kernel(
-        d.data_ptr(), fwp.data_ptr(), fobs.data_ptr(), scratch.data_ptr(),
+        d.data_ptr(), fwp.data_ptr(), fobs.data_ptr(),
+        None if segments is None else segments.data_ptr(), scratch.data_ptr(),
         out.data_ptr(), *mover_ptrs, ny2, k, nxl, fwp.shape[0], fwp.shape[1],
-        stride, mk, row_block, consts.data_ptr(), stream)
+        stride, mk, row_block, n_seg, consts.data_ptr(), stream)
     _build.check_launch(rc, "pedoni_step_kernel")
-    if not mk:
+    if segments is not None:
+        fused_step.segment_launches += 1
+    elif mk:
+        fused_step.mover_launches += 1
+    else:
         fused_step.launches += 1
-        return out
-    fused_step.mover_launches += 1
-    return out, m, blocks[0], blocks[1]
+    return (out, m, blocks[0], blocks[1]) if mk else out
 
 
-fused_step.launches = 0  # base-mode launches
-fused_step.mover_launches = 0  # emit_movers launches
-
-
-def _shift_lane(x: torch.Tensor, delta: int) -> torch.Tensor:
-    """x[..., l] -> x[..., l + delta], circular like the reference's roll."""
-    return x if delta == 0 else torch.roll(x, shifts=-delta, dims=-1)
+fused_step.launches = 0  # distance-map base-mode launches
+fused_step.mover_launches = 0  # distance-map emit_movers launches
+fused_step.segment_launches = 0  # segment-mode launches, either output mode
 
 
 def _sample(planes: torch.Tensor, plane_idx: torch.Tensor | None,
@@ -179,7 +229,8 @@ def _sample(planes: torch.Tensor, plane_idx: torch.Tensor | None,
 def fused_step_torch(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
                      phys: Physics, grid_size: tuple[float, float],
                      stride: int = 6, field_unit: float = 0.25,
-                     emit_movers: int = 0, row_block: int = 2):
+                     emit_movers: int = 0, row_block: int = 2,
+                     segments: torch.Tensor | None = None):
     """Plain PyTorch twin of the fused step kernel (same contract)."""
     ny2, k, _, nxl = d.shape
     n_wp = fwp.shape[0]
@@ -190,35 +241,38 @@ def fused_step_torch(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     dest = d[:, :, 5, :]
     act = d[:, :, 6, :]
 
-    # 2. sample the agent's own destination plane and the obstacle plane
+    # 2. sample the agent's own destination plane
     px = posx * (1.0 / field_unit) - 0.5 + FPAD
     py = posy * (1.0 / field_unit) - 0.5 + FPAD
     plane_ok = (dest >= 0) & (dest < n_wp) & (dest == torch.floor(dest))
     plane_idx = torch.where(plane_ok, dest, 0.0).long()
     pot, gx, gy = _sample(fwp, plane_idx, plane_ok, px, py, stride, 3)
-    dist, dgx, dgy = _sample(fobs[None], None, None, px, py, stride, 3)
 
     # 3. despawn at the goal or off the grid
     in_grid = ((posx >= 0.0) & (posx < grid_size[0])
                & (posy >= 0.0) & (posy < grid_size[1]))
     act_new = torch.where((pot > phys.despawn_potential) & in_grid, act, 0.0)
 
-    # 4-5. goal force, obstacle force from the distance map
+    # 4-5. goal force; obstacle force from the distance map (subtracted),
+    # or from the segment geometry (added, step_kernel.py:553-557)
+    c = slice(1, ny2 - 1)
     g_norm = torch.rsqrt(torch.clamp(gx * gx + gy * gy, min=EPS))
     ex = gx * g_norm
     ey = gy * g_norm
     afx = true_divide(ex * speed - velx, phys.relaxation_time)
     afy = true_divide(ey * speed - vely, phys.relaxation_time)
-    d_norm = torch.rsqrt(torch.clamp(dgx * dgx + dgy * dgy, min=EPS))
-    mag = phys.obs_strength * torch.exp(true_divide(-dist, phys.obs_range))
-    afx = afx - mag * dgx * d_norm
-    afy = afy - mag * dgy * d_norm
+    if segments is None:
+        dist, dgx, dgy = _sample(fobs[None], None, None, px, py, stride, 3)
+        d_norm = torch.rsqrt(torch.clamp(dgx * dgx + dgy * dgy, min=EPS))
+        mag = phys.obs_strength * torch.exp(true_divide(-dist, phys.obs_range))
+        acc = ((afx - mag * dgx * d_norm)[c], (afy - mag * dgy * d_norm)[c])
+    else:
+        sfx, sfy = _segment_accel(posx[c], posy[c], segments, phys)
+        acc = (afx[c] + sfx, afy[c] + sfy)
 
     # 6. pair force over the 3x3 cells' slots, j outer, then dy, then dx;
     # a candidate slot counts only below its cell's count (ch 7, slot 0)
-    c = slice(1, ny2 - 1)
     center = {"px": posx[c], "py": posy[c], "ex": ex[c], "ey": ey[c]}
-    acc = (afx[c], afy[c])
     cnt = d[:, 0, 7, :]  # [ny2, NXL]
     slot = torch.arange(k, device=d.device).view(1, k, 1)
     dt = phys.delta_time
@@ -278,6 +332,46 @@ def fused_step_torch(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
                           act_c * same], dim=2)
     mover = act_c * (1.0 - same) > 0.5
     return (out, *_movers_torch(out, mover, emit_movers, row_block))
+
+
+def _segment_accel(posx: torch.Tensor, posy: torch.Tensor,
+                   segments: torch.Tensor, phys: Physics
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact per-segment obstacle acceleration (step_kernel.py:104-159)
+    from the edge table: the nearest of each rectangle's 4 edges repels
+    along (pos - closest point), t clipped to [0, 1]; first minimum by a
+    strict < on squared distances; agents inside the rectangle skipped;
+    obstacles summed in table order.  Sanitized 2^30 positions stay finite
+    (exp underflows to 0)."""
+    afx = torch.zeros_like(posx)
+    afy = torch.zeros_like(posx)
+    for row in segments.tolist():  # the f32 constants, exactly
+        d2s, dxs, dys = [], [], []
+        for e in range(4):
+            q0x, q0y, sx, sy, il2 = row[5 * e:5 * e + 5]
+            t = torch.clamp(((posx - q0x) * sx + (posy - q0y) * sy) * il2,
+                            0.0, 1.0)
+            ddx = posx - (q0x + t * sx)
+            ddy = posy - (q0y + t * sy)
+            d2s.append(ddx * ddx + ddy * ddy)
+            dxs.append(ddx)
+            dys.append(ddy)
+        w2, h2 = row[20], row[21]
+        inside = (d2s[0] < w2) & (d2s[1] < w2) & (d2s[2] < h2) & (d2s[3] < h2)
+        best, bdx, bdy = d2s[0], dxs[0], dys[0]
+        for e in (1, 2, 3):
+            sel = d2s[e] < best
+            best = torch.where(sel, d2s[e], best)
+            bdx = torch.where(sel, dxs[e], bdx)
+            bdy = torch.where(sel, dys[e], bdy)
+        dmin = torch.sqrt(torch.clamp(best, min=EPS))
+        coef = torch.where(
+            inside, 0.0,
+            phys.obs_strength * torch.exp(true_divide(-dmin, phys.obs_range))
+            / dmin)
+        afx = afx + coef * bdx
+        afy = afy + coef * bdy
+    return afx, afy
 
 
 def _movers_torch(g: torch.Tensor, mover: torch.Tensor, mk: int,

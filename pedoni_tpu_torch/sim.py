@@ -9,16 +9,20 @@ Counterpart of pedoni_tpu/sim.py with the same surface:
 
 Covered: the cell-resident grid step with the hybrid rebin (incremental,
 or full every ``compact_every``-th step and on fallback; auto-chosen by
-cell occupancy), distance-map obstacles, one device, drop-free table
-growth, mover-table growth, the on-device run totals and the lagged
-growth guard of ``run``.  Options outside that slice raise
-``ValueError`` naming the ROADMAP item that will port them.
+cell occupancy), distance-map or exact segment obstacles
+(``use_distance_map=False``), all-pairs interactions through a cell unit
+grown to cover the cutoff (``use_neighbor_grid=False``), one device,
+drop-free table growth, mover-table growth, the on-device run totals and
+the lagged growth guard of ``run``, and checkpoints (checkpoint.py).
+Options outside that slice raise ``ValueError`` naming the ROADMAP item
+that will port them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 
 import torch
 
@@ -89,21 +93,35 @@ class SimulatorOptions:
         if self.n_devices > 1:
             raise ValueError("n_devices > 1 is not ported (ROADMAP queue 1, "
                              "item 10: multi-GPU tiling)")
-        if not self.use_distance_map:
-            raise ValueError("use_distance_map=False is not ported (ROADMAP "
-                             "queue 2, 2A-segments)")
-        if not self.use_neighbor_grid:
-            raise ValueError("use_neighbor_grid=False is not ported (ROADMAP "
-                             "queue 1, item 7: debug modes)")
+
+    def resolved(self) -> "SimulatorOptions":
+        """The options the grid step runs with (the reference's sim.py:
+        124-152): the 1.4 m default unit becomes 1.5 m (the stride-6 field
+        layout); in all-pairs mode the unit grows to cover the interaction
+        cutoff, in whole field units, and K by the cell-area ratio.  The
+        reference's all-pairs branch keeps the same cutoff (sfm.rs:158-184),
+        so a 3x3 window of such cells finds exactly its interacting pairs."""
+        o = self
+        if o.neighbor_grid_unit == 1.4:
+            o = dataclasses.replace(o, neighbor_grid_unit=1.5)
+        if not o.use_neighbor_grid:
+            fu = o.field_grid_unit
+            unit_ap = math.ceil(o.physics.interaction_cutoff / fu - 1e-9) * fu
+            if unit_ap > o.neighbor_grid_unit:
+                k_ap = math.ceil(o.table_capacity
+                                 * (unit_ap / o.neighbor_grid_unit) ** 2)
+                o = dataclasses.replace(o, neighbor_grid_unit=unit_ap,
+                                        table_capacity=k_ap)
+                log.info("all-pairs mode: neighbor unit -> %.2f m (covers the "
+                         "%.1f m interaction cutoff), table capacity -> %d",
+                         unit_ap, o.physics.interaction_cutoff, k_ap)
+        return o
 
 
 class Simulator:
     def __init__(self, options: SimulatorOptions, scenario: Scenario) -> None:
         options.check()
-        if options.neighbor_grid_unit == 1.4:
-            # The stride-6 field layout needs 1.5 m cells; auto-switch when
-            # the unit was left at the reference default.
-            options = dataclasses.replace(options, neighbor_grid_unit=1.5)
+        options = options.resolved()
         self.device = torch.device(options.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {options.device!r} requested but "
@@ -122,9 +140,8 @@ class Simulator:
         self.generator.manual_seed(options.seed)
         capacity = options.capacity or self._auto_capacity(scenario)
         self._build(capacity)
-        self.state = sfm_grid.bin_state(
-            self.cfg, make_initial_state(self.cfg, self.generator, self.device),
-            row_block=options.row_block)
+        self.state = self._from_flat_state(
+            make_initial_state(self.cfg, self.generator, self.device))
         self.step_count = 0
         self.last_metrics: StepMetrics | None = None  # host, last tick()
         self.last_run_metrics: StepMetrics | None = None  # host, last run()
@@ -275,8 +292,7 @@ class Simulator:
         flat = self._to_flat_state()
         self.options = dataclasses.replace(self.options, **changes)
         self._build(self.cfg.capacity)
-        self.state = sfm_grid.bin_state(self.cfg, flat,
-                                        row_block=self.options.row_block)
+        self.state = self._from_flat_state(flat)
 
     def measure_kernel_time(self, n: int = 10) -> float:
         """Seconds per step of the kernels alone (fused step + rebin, no
@@ -305,7 +321,17 @@ class Simulator:
         return start.elapsed_time(end) / 1000.0 / n
 
     def _to_flat_state(self) -> SimState:
+        """The state as flat agent tensors: the checkpoint, render and
+        diagnostic exchange format."""
         return sfm_grid.unbin_state(self.cfg, self.state)
+
+    def _from_flat_state(self, state: SimState) -> sfm_grid.GridState:
+        """Inverse of :meth:`_to_flat_state` (the reference's sim.py:
+        550-563, one device): the agents binned on this simulator's
+        device."""
+        state = SimState(agents=state.agents.to(self.device), step=state.step)
+        return sfm_grid.bin_state(self.cfg, state,
+                                  row_block=self.options.row_block)
 
     def list_pedestrians(self):
         """Positions [n, 2] and destinations [n] of active agents, as

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels vs their plain PyTorch twins, on the card:
-the step kernel (base and mover modes), the full and the incremental
-rebin, and the device gate that makes the hybrid step's choice.
+the step kernel (base, mover and segment modes, field strides 6 and 8),
+the full and the incremental rebin, the device gate that makes the hybrid
+step's choice, and the standalone pairwise kernel.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports neither JAX nor the
 reference package, so it runs on a machine with only PyTorch:
@@ -21,10 +22,13 @@ from pedoni_tpu_torch.convert import agents_from_numpy
 from pedoni_tpu_torch.field import Field, FieldMaps
 from pedoni_tpu_torch.models import sfm_grid
 from pedoni_tpu_torch.models.sfm import SimState, StepConfig
+from pedoni_tpu_torch.ops.kernels import pairwise as pw
 from pedoni_tpu_torch.ops.kernels import rebin as rb
 from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+from pedoni_tpu_torch.physics import Physics
 
-GAP = pathlib.Path(__file__).resolve().parents[1] / "scenarios" / "gap.toml"
+SCENARIOS = pathlib.Path(__file__).resolve().parents[1] / "scenarios"
+GAP = SCENARIOS / "gap.toml"
 
 
 @pytest.fixture(scope="module")
@@ -122,3 +126,88 @@ def test_device_gate_runs_exactly_one_rebin(card_grid, flag):
     torch.cuda.synchronize()
     for a, b in zip(out, want):
         assert torch.equal(a, b)
+
+
+def _assert_step_close(d, got, want):
+    """pos/vel of the slots that held agents within 1e-5, other channels
+    equal."""
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :, 4:8], want[:, :, 4:8])
+    held = (d[:, :, 6] > 0.5).unsqueeze(2).expand(-1, -1, 4, -1)
+    assert float((got[:, :, 0:4] - want[:, :, 0:4]).abs()[held].max()) <= 1e-5
+
+
+def _obstacles(sc):
+    return [(s.line[0][0], s.line[0][1], s.line[1][0], s.line[1][1], s.width)
+            for s in sc.obstacles]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", ["gap.toml", "random.toml"])
+def test_step_kernel_segments_matches_twin(card_grid, scenario):
+    """Segment mode with gap.toml's 2 obstacles and with random.toml's
+    1000-row edge table (88 KB, past constant memory), base and mover
+    output modes."""
+    sc, cfg, d, fwp, fobs = card_grid
+    segs = sk.segment_table(_obstacles(load_scenario(SCENARIOS / scenario)), "cuda")
+    assert segs.shape[0] == (2 if scenario == "gap.toml" else 1000)
+    before = sk.fused_step.segment_launches
+    got = sk.fused_step(d, fwp, fobs, cfg.physics, sc.size, segments=segs)
+    want = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size, segments=segs)
+    _assert_step_close(d, got, want)
+    got = sk.fused_step(d, fwp, fobs, cfg.physics, sc.size, segments=segs,
+                        emit_movers=6)
+    want = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size,
+                               segments=segs, emit_movers=6)
+    _assert_step_close(d, got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):  # M, movf, mdmx
+        assert torch.equal(a, b)
+    assert sk.fused_step.segment_launches == before + 2
+
+
+@pytest.mark.cuda
+def test_step_kernel_stride8_matches_twin():
+    """The all-pairs unit: 2.0 m cells over 0.25 m fields (stride 8)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    sc = load_scenario(GAP)
+    maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
+    cfg = StepConfig.build(sc, capacity=2048, neighbor_grid_unit=2.0,
+                           table_capacity=20, use_neighbor_grid=False)
+    rng = np.random.default_rng(4)
+    n = 1200
+    agents = agents_from_numpy(
+        rng.uniform(0.5, 23.5, (n, 2)), rng.normal(0, 0.6, (n, 2)),
+        np.clip(rng.normal(1.34, 0.26, n), 0.1, None), rng.integers(0, 2, n),
+        np.ones(n, bool), "cuda")
+    d = sfm_grid.bin_state(cfg, SimState(agents, 0)).d
+    fwp, fobs = sfm_grid.field_tensors(cfg, maps, "cuda")
+    assert fwp.shape[2] == 8
+    got = sk.fused_step(d, fwp, fobs, cfg.physics, sc.size, stride=8)
+    want = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size, stride=8)
+    _assert_step_close(d, got, want)
+
+
+@pytest.mark.cuda
+def test_pairwise_kernel_matches_twin():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    rng = np.random.default_rng(2)
+    ny2, k, nx = 18, 8, 128
+    d = np.zeros((ny2, k, 8, nx), np.float32)
+    occ = rng.uniform(size=(ny2 - 2, k, 40)) < 0.4
+    r, j, c = np.nonzero(occ)
+    d[r + 1, j, 0, c + 1] = (c + rng.uniform(size=r.size)) * 1.4
+    d[r + 1, j, 1, c + 1] = (r + rng.uniform(size=r.size)) * 1.4
+    d[r + 1, j, 2:4, c + 1] = rng.normal(0, 1, (r.size, 2))
+    e = rng.normal(0, 1, (r.size, 2))
+    d[r + 1, j, 4:6, c + 1] = e / np.linalg.norm(e, axis=1, keepdims=True)
+    d[r + 1, j, 6, c + 1] = 1.0
+    dt = torch.from_numpy(d).cuda()
+    before = pw.pairwise.launches
+    got = pw.pairwise(dt, Physics(), row_block=4)
+    want = pw.pairwise_torch(dt, Physics(), row_block=4)
+    torch.cuda.synchronize()
+    assert pw.pairwise.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float(want.abs().max()) > 0.1

@@ -91,7 +91,7 @@ def test_package_never_imports_jax_or_reference():
 
 @pytest.mark.parametrize("option", [
     {"backend": "xla"}, {"n_devices": 2},
-    {"use_distance_map": False}, {"use_neighbor_grid": False},
+    {"backend": "pallas"}, {"n_devices": 4},
 ])
 def test_unported_options_raise(option):
     with pytest.raises(ValueError, match="ROADMAP"):
