@@ -83,15 +83,21 @@ PAIR_TEST_FLOPS = 6  # its distance test alone (a candidate past the cutoff)
 SPIN_CYCLES = 2_000_000  # ~1 ms of device clock ahead of each timed run
 PROFILE_STEPS = 24  # a multiple of the compaction period of 8
 # kernel names as the profiler reports them, in step order
-PROFILED = ("step_pass_a", "step_pass_b", "step_movers", "rebin_full", "rebin_inc")
+PROFILED = ("step_sample", "step_pairs", "rebin_full", "rebin_inc")
 ROOT = pathlib.Path(__file__).resolve().parent
 GAP = ROOT / "scenarios" / "gap.toml"
 RANDOM = ROOT / "scenarios" / "random.toml"  # 1000 obstacles
 RANDOM_STEPS = 200
 SEG_FLOPS = 100  # float operations of one (agent, obstacle) segment test
-# the distance-map 1M ms/step before the segment mode existed (PERF.md;
-# NVIDIA H100 80GB HBM3, 700 W): the segment template must leave them alone
-BEFORE_SEGMENTS_MS = {"hybrid": 1.0745, "full": 0.9262}
+# The same measurements with the step kernel's first design (one thread per
+# slot: a sample pass over the fields6 planes, a pair pass with a warp-wide
+# candidate walk, a third launch for the movers), from PERF.md (NVIDIA H100
+# 80GB HBM3, 700 W).  Printed beside this run's for comparison; nothing is
+# gated on them (a card capped below 700 W would fail a timing gate for no
+# fault of the code).
+FIRST_DESIGN_MS = {"hybrid": 1.0674, "full": 0.9188, "step_kernel": 0.7499,
+                   "step_kernel_movers": 0.9055, "step_kernel_segments": 0.6765,
+                   "segments_full": 0.8441, "all_pairs": 1.4354}
 # tests/test_rebin_incremental.py's spawning scenario
 SPAWN_SCENARIO = """
 [field]
@@ -134,6 +140,12 @@ def _median_ms(fn, n: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _vs_first(key: str, ms: float) -> str:
+    """``ms`` beside FIRST_DESIGN_MS[key], for printing."""
+    was = FIRST_DESIGN_MS[key]
+    return f"{key} {ms:.4f} (first design {was}, {ms / was - 1:+.1%})"
 
 
 def _launch_counts() -> dict[str, int]:
@@ -502,7 +514,8 @@ def _segments_phase(dev, card, grid1, bench, states) -> dict:
         raise AssertionError(f"1M segments: {n_active} active or non-finite state")
     print(f"# 1M segments full path (use_distance_map=False): {n} steps "
           f"({WARMUP} warm-up), {n_active} active; {ms_1m:.4f} ms/step; "
-          f"launches {counts} on {card}", flush=True)
+          f"launches {counts}; {_vs_first('segments_full', ms_1m)} on {card}",
+          flush=True)
 
     rsc = load_scenario(RANDOM)
     _zero_launch_counts()
@@ -560,6 +573,8 @@ def _segments_phase(dev, card, grid1, bench, states) -> dict:
               f"TFLOP/s; {b_ms / k_ms:.1%} of it) on {card}", flush=True)
     k_ms, t_ms, b_ms, by = timing["1M"]
     rk, rt, rb_ms, rby = timing["random.toml"]
+    print("# segment mode against the step kernel's first design: "
+          + _vs_first("step_kernel_segments", k_ms), flush=True)
     return {"name": "step_kernel_segments", "route": "cuda",
             "source": CSRC + "step_kernel.cu",
             "replaces": "pedoni_tpu/ops/pallas/step_kernel.py:898",
@@ -612,7 +627,8 @@ def _all_pairs_phase(dev, card, sc_gap, bscenario, bmaps, flat, capacity) -> Non
           f"overflow last step {int(m.n_overflow)}, max demand "
           f"{int(m.max_demand)}; {ms:.4f} ms/step (hybrid, {WARMUP} warm-up, "
           f"{TIMED} timed); step kernel vs twin at stride {stride} max |err| "
-          f"{e[0]:.3e} (base), {e[1]:.3e} (mover mode) on {card}", flush=True)
+          f"{e[0]:.3e} (base), {e[1]:.3e} (mover mode); "
+          f"{_vs_first('all_pairs', ms)} on {card}", flush=True)
 
 
 def _pairwise_phase(dev, card, d_full, phys) -> dict:
@@ -877,15 +893,23 @@ def main() -> int:
               f"demand {int(m.max_demand)}; {dt * 1e3:.4f} ms/step, "
               f"{n_active / dt:.4e} agent-steps/s; launches {counts}{branches} "
               f"on {card}", flush=True)
+        paths[name] = (dt, counts, step, gs, n_full)
+    # the profiles come after both timed runs: a profiler once started
+    # slows the host's launches for the rest of the process
+    for name, (dt, counts, step, gs, n_full) in paths.items():
         gs = _profile(step, gs, bfwp, bfobs, dt * 1e3, name, card)
         paths[name] = (dt, counts, gs.d, n_full)
     print(f"# 1M ms/step on {card}: hybrid {paths['hybrid'][0] * 1e3:.4f}, "
           f"full {paths['full'][0] * 1e3:.4f}", flush=True)
-    print("# 1M distance-map ms/step against the figures from before the "
-          "segment mode (NVIDIA H100 80GB HBM3, 700 W): " + ", ".join(
-              f"{p} {paths[p][0] * 1e3:.4f} vs {ms} "
-              f"({paths[p][0] * 1e3 / ms - 1:+.2%})"
-              for p, ms in BEFORE_SEGMENTS_MS.items()), flush=True)
+    packed = sk.packed_fields(bfwp, bfobs)
+    tile = sk.pair_pass_launch(dims[1], dims[0], dims[3])
+    print(f"# 1M step kernel: texel-major field copy {_nbytes(packed) / 1e6:.1f} "
+          f"MB beside the fields6 planes' {_nbytes(bfwp, bfobs) / 1e6:.1f} MB; "
+          f"pair pass tiles of {tile[0]} rows x {sk.TILE_LANES} lanes, "
+          f"{tile[1]} threads, {tile[2]} bytes of shared memory a block",
+          flush=True)
+    print("# 1M ms/step against the step kernel's first design: " + ", ".join(
+        _vs_first(p, paths[p][0] * 1e3) for p in ("hybrid", "full")), flush=True)
 
     # 5. kernels vs twins on each path's own 1M state, and their times
     d_full, d_hyb = paths["full"][2], paths["hybrid"][2]
@@ -941,6 +965,9 @@ def main() -> int:
               f"{_nbytes(*io[name][0], *io[name][1]) / 1e6:.1f} MB in the tensors; "
               f"{b_ms / k_ms:.1%} of it) (median of 20, CUDA events) on {card}",
               flush=True)
+    print("# step kernel against its first design: " + ", ".join(
+        _vs_first(n, times[n][0]) for n in ("step_kernel", "step_kernel_movers")),
+        flush=True)
 
     kernels = []
     for name, (src, replaces, path, err) in meta.items():

@@ -17,8 +17,10 @@ from .models.sfm import AgentState, StepMetrics
 
 
 def agents_from_numpy(pos: Any, vel: Any, speed: Any, dest: Any, active: Any,
-                      device: torch.device | str = "cpu") -> AgentState:
-    """Flat agent arrays (any array-likes) -> AgentState on ``device``."""
+                      device: torch.device | str = "cuda") -> AgentState:
+    """Flat agent arrays (any array-likes) -> AgentState on ``device`` (the
+    card unless the caller asks for ``"cpu"``, as the port's other entry
+    points)."""
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)
     return AgentState(

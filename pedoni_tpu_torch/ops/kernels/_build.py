@@ -98,7 +98,7 @@ def library() -> ctypes.CDLL:
             _compile(path)
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pedoni_step_kernel.argtypes = [p] * 9 + [i] * 9 + [p, p]
+        lib.pedoni_step_kernel.argtypes = [p] * 9 + [i] * 12 + [p, p]
         lib.pedoni_step_kernel.restype = i
         lib.pedoni_rebin_full.argtypes = [p] * 7 + [i] * 5 + [f, i, i, p]
         lib.pedoni_rebin_full.restype = i

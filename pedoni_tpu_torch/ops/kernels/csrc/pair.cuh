@@ -1,4 +1,5 @@
-// Pair-force core of the fused step kernel (step_kernel.cu).
+// Pair-force core of the fused step kernel (step_kernel.cu) and of the
+// standalone pairwise kernel (pairwise.cu).
 //
 // Replaces pedoni_tpu/ops/pallas/pairwise.py::_pair_accum (pairwise.py:40),
 // the Helbing elliptical repulsion of sfm.rs:129-153 in its
@@ -26,16 +27,21 @@ struct PairConsts {
   float fov_damping;
 };
 
+// The cutoff test of one candidate at squared distance d2: NaN and the huge
+// d2 of a sanitized (2^30) position fail it.
+__device__ __forceinline__ bool pair_in_cutoff(float d2, const PairConsts& c) {
+  return d2 <= c.cutoff_sq;
+}
+
 // Accumulate the repulsion of one ACTIVE candidate (cpx, cpy, cvx, cvy)
-// onto one centre agent (px, py, ex, ey).  The caller has already applied
-// the active and self-exclusion masks; this applies the cutoff.
-__device__ __forceinline__ void pair_accum(
+// WITHIN THE CUTOFF onto one centre agent (px, py, ex, ey).  The caller has
+// applied the active, self-exclusion and cutoff masks.
+__device__ __forceinline__ void pair_force(
     float& ax, float& ay, float px, float py, float ex, float ey,
     float cpx, float cpy, float cvx, float cvy, const PairConsts& c) {
   const float dx = px - cpx;
   const float dy = py - cpy;
   const float d2 = dx * dx + dy * dy;
-  if (!(d2 <= c.cutoff_sq)) return;
   const float vxdt = cvx * c.dt;
   const float vydt = cvy * c.dt;
   const float v2dtt = (cvx * cvx + cvy * cvy) * c.dt2;
@@ -57,4 +63,15 @@ __device__ __forceinline__ void pair_accum(
   const float m = (in_front ? 1.0f : c.fov_damping) * mag;
   ax = ax + m * ux;
   ay = ay + m * uy;
+}
+
+// pair_force behind the cutoff test: the caller has applied the active and
+// self-exclusion masks only.
+__device__ __forceinline__ void pair_accum(
+    float& ax, float& ay, float px, float py, float ex, float ey,
+    float cpx, float cpy, float cvx, float cvy, const PairConsts& c) {
+  const float dx = px - cpx;
+  const float dy = py - cpy;
+  if (!pair_in_cutoff(dx * dx + dy * dy, c)) return;
+  pair_force(ax, ay, px, py, ex, ey, cpx, cpy, cvx, cvy, c);
 }

@@ -1,5 +1,5 @@
 // Fused step kernel: field sampling, despawn, goal, obstacle and pair
-// forces, and integration over the cell-resident grid.
+// forces, integration, and the mover emit, over the cell-resident grid.
 //
 // Replaces pedoni_tpu/ops/pallas/step_kernel.py::fused_step_kernel
 // (pallas_call at step_kernel.py:898; bodies _kernel :162 and _compute :367)
@@ -10,69 +10,103 @@
 // pedoni_tpu_torch/ops/kernels/step_kernel.py::fused_step_torch.
 //
 // Layouts (all f32, contiguous):
-//   d    [ny2, K, 8, NXL]  ch 0 pos.x, 1 pos.y, 2 vel.x, 3 vel.y, 4 speed,
-//                          5 dest, 6 active, 7 cell count (valid at slot 0)
-//   fwp  [n_wp, R, S, 4, NXL], fobs [R, S, 4, NXL]  (fields6 layout:
-//                          F[f, c, ch, l] = map[f - S, S*(l-1) + c])
-//   segs [n_seg, 22]       segments mode only: the obstacle edge table of
-//                          step_kernel.py::segment_table (fobs unread)
-//   out  [ny2, K, 8, NXL]  ghost rows 0 and ny2-1 zero; ch 7 = potential,
-//                          or the stay mask in the mover mode
-//   m    [ny2, MK, 8, NXL] mover mode only: each cell's movers in slot
-//                          order, ch 6 = row < movers, ch 7 = min(movers, MK)
-//   movf, mdmx [nb]        mover mode only, per block of rb cell rows:
-//                          sum(max(movers - MK, 0)) and the peak mover count
+//   d      [ny2, K, 8, NXL]  ch 0 pos.x, 1 pos.y, 2 vel.x, 3 vel.y, 4 speed,
+//                            5 dest, 6 active, 7 cell bound (valid at slot 0)
+//   fields [n_wp, R, NXL * S, 8]  texel-major copy of the fields6 planes
+//                            (step_kernel.py::pack_fields): texel
+//                            (f, l * S + c) of plane p holds fwp[p, f, c,
+//                            0..3, l], then fobs[f, c, 0..3, l]
+//   segs   [n_seg, 22]       segments mode only: the obstacle edge table of
+//                            step_kernel.py::segment_table
+//   act    [ny2, K, NXL]     scratch: the post-despawn active flag act'
+//   ea     [ny2, K, NXL, 4]  scratch: e.x, e.y, acc.x, acc.y (goal direction,
+//                            goal + obstacle acceleration), written and read
+//                            only for centre slots with act' > 0.5
+//   out    [ny2, K, 8, NXL]  ghost rows 0 and ny2-1 zero; ch 7 = potential,
+//                            or the stay mask in the mover mode
+//   m      [ny2, MK, 8, NXL] mover mode only: each cell's movers in slot
+//                            order, ch 6 = row < movers, ch 7 = min(movers, MK)
+//   movf, mdmx [nb]          mover mode only, per block of rb cell rows:
+//                            sum(max(movers - MK, 0)) and the peak mover count
 //
-// What bounds it on the card: device-memory traffic and load latency.  Per
-// agent slot pass A reads 7 channels and 24 field taps; pass B reads the 9
-// neighbour cells' candidates (~5 loads each, mostly from L1/L2 since
-// neighbouring lanes share them) — about 1 FLOP per byte from device
-// memory, far under the H100's compute line.
+// What bounds it on the card (NVIDIA H100 80GB HBM3, 700 W, the 1M-agent
+// bench state: 39% of the slots hold an agent, an agent has ~50 candidates
+// in its 3x3 cells of which ~29 are within the cutoff):
+// - the pair pass by instruction throughput: one pair evaluation is ~100
+//   instructions (three rsqrtf, an accurate expf, and no fused multiply-add:
+//   the twin has none), 29.6 M of them a step;
+// - the sample pass by the 32-byte sectors its scattered loads move, not by
+//   the bytes it uses: 4 taps an agent from 4 different sectors.
+// A first design ran one thread per slot, walked (j, dy, dx) warp-wide so
+// that every lane ran the pair body whenever one lane had a candidate
+// (about one lane in seven did work that counted), fetched every candidate
+// from L1/L2 again for every centre agent, and sampled channel-planar
+// fields6 planes at a sector per channel per tap.  PERF.md has both
+// designs' times.
 //
-// Segments mode (the reference's --no-distance-map debug mode) is a
-// compile-time template parameter of pass A, so the distance-map
-// instantiation keeps its code and its registers.  The segment
-// instantiation replaces the obstacle-plane sample by a walk over the edge
-// table, for centre slots whose post-despawn act is set (pass B reads the
-// force of no other slot).  Every thread of a warp reads the same table
-// row, so each load is one broadcast; the table stays in device memory (a
-// 1000-obstacle scenario needs 88 KB, more than constant memory holds).
-// That walk is bound by operations: ~100 float operations per (active
-// agent, obstacle).  Divisions are IEEE and expf the accurate one (the
-// build has no fast math), as the twin's.
-//
-// The simple design: one thread per agent slot (row, k, lane), lanes
-// fastest so every channel read of a warp is one coalesced 128-byte line.
 // The pair force of a centre agent needs every candidate's POST-despawn
 // active flag, which comes from sampling the candidate's own potential; one
 // launch cannot see that without a grid-wide barrier, so the step is two
-// launches:
-//   pass A  every slot of rows 0..ny2-1: sanitize, sample, despawn, goal and
-//           obstacle force -> scratch [6, ny2, K, NXL]
-//           (act', e.x, e.y, acc.x, acc.y, potential);
-//   pass B  every slot: pair force over the 3x3 cells' candidate slots
-//           (slot j outer, then dy, then dx — the reference's summation
-//           order), integration, output.  Ghost rows write zeros.
-// Inactive centre slots skip the pair loop: their outputs are keep-gated
-// pass-through in the reference, so the force would be discarded.
-// A candidate slot j counts only below its cell's count (ch 7, slot 0),
-// which replaces the reference's per-block jmax bound.  After an
-// incremental rebin that channel is the cell's top occupied slot + 1 and
-// the slots below it may hold holes; the post-despawn act test skips them.
+// launches.
 //
-// Mover mode (MK > 0, feeding rebin_incremental.cu): passes A and B run
-// as in the base mode, then a third launch, one thread per cell, walks
-// the cell's K output slots in order.  It overwrites ch 7 with the stay
-// mask act' * same, same = [the integrated position's cell is this cell]
-// (step_kernel.py:697-714), and writes the movers — act' * (1 - same) >
-// 0.5 — to rows 0, 1, ... of M; movers beyond MK are counted in movf only
-// (the step then takes the full rebin).  The cell test is the IEEE divide
-// __fdiv_rn, the one both rebins use, so a stay mask and a rebin never
-// disagree at a cell boundary.  The classification lives in this launch,
-// not in pass B: there it raised pass B's registers from 80 to 90 and cut
-// its occupancy, which cost ~0.18 ms of pass B time at 1M agents (NVIDIA
-// H100 80GB HBM3, 700 W) against ~0.06 ms for this launch.  The TPU's one-hot MAC walk
-// bounded by jmax is not carried over.
+// step_sample<kSeg> (one thread per slot, lanes fastest):
+//   sanitize, sample the agent's waypoint plane, despawn -> act'.  A slot
+//   whose active flag is exactly 0 stops there (act' = 0 whatever it
+//   samples); in the base mode it first samples its potential, which goes
+//   to out ch 7 of every centre slot.  A centre slot with act' > 0.5 goes on
+//   to the goal force and the obstacle force (from the same texels' second
+//   half, or with kSeg from the walk over the edge table) and writes one
+//   float4 of ea.  A texel holds a tap's channels of both fields in one
+//   sector: 4 sectors an agent, where fields6 cost 24.
+// step_pairs (one block per tile of TR rows x 32 lanes of cells; TR, the
+// block size and the shared memory come from step_kernel.py::
+// pair_pass_launch):
+//   1. stage: every slot (row, j) of the tile and its one-cell halo, as
+//      sanitized pos/vel in shared memory, with coalesced loads along the
+//      lanes, all started before any is used.  A warp stages one (row, j)
+//      over the 34 lanes; its ballot of "valid candidate" (below the cell's
+//      bound, ch 7 of slot 0, and act' > 0.5) is that row's lane bitmask
+//      for slot j.  Lanes -1 and NXL and rows past the grid hold no cell.
+//      After this the pair loop touches no device memory.
+//   2. list: the tile's slots with act' > 0.5, cell by cell (prefix sum
+//      over per-cell counts), so neighbouring threads share their 9 cells
+//      and their shared-memory reads are broadcasts.  Empty slots cost no
+//      thread.
+//   3. pairs: one thread per listed agent, in chunks of 7 slot levels.
+//      Light part, without a branch on the data: per level the three row
+//      bitmasks give the 9 cells' candidates as 9 bits, and the cutoff test
+//      of all 9 slots sets the bits of a 63-bit word of hits.  Heavy part:
+//      the lanes that still hold a hit pop their lowest bit and run
+//      pair_force together.
+//      Ascending bits are the reference's summation order (slot j outer,
+//      then dy, then dx), so kernel and twin agree bit for bit.  Holes
+//      below a cell's bound cost nothing (their bit is clear).  Then the
+//      trapezoidal integration, and the new pos/vel go to shared memory.
+//      (Lanes that each walk their own candidate stream to the next hit make
+//      the warp wait for its slowest search every round: that version was
+//      slower than the first design.)
+//   4. movers (mover mode, the tile's first TR warps, one thread per cell):
+//      walk the cell's K slots in order and note the movers — act' * (1 -
+//      same) > 0.5, same = [the integrated position's cell is this cell] by
+//      the IEEE divide __fdiv_rn, the one both rebins use — in shared
+//      memory; per-block movf / mdmx by warp shuffles and one atomic per
+//      warp (integer values, exact in any order).  It runs after the
+//      barrier that ends the pair loop, so its registers do not add to the
+//      loop's, and it replaces a third launch that read G again.
+//   5. output: every slot of the tile as whole 128-byte rows of lanes —
+//      new or passed-through pos/vel, sanitized speed, dest, act', and in
+//      the mover mode the stay mask act' * same; the first and last tile
+//      rows also zero the ghost rows of out and M.
+//   6. mover mode: every row of M of the tile, by all warps, as whole rows
+//      of lanes: the cell's r-th mover, or zeros.
+//
+// Segments mode (the reference's --no-distance-map debug mode) is a
+// compile-time template parameter of step_sample.  Every thread of a warp
+// reads the same table row, so each load is one broadcast; the table stays
+// in device memory (a 1000-obstacle scenario needs 88 KB, more than
+// constant memory holds).  That walk is bound by operations: ~100 float
+// operations per (active agent, obstacle).  Divisions are IEEE and expf the
+// accurate one (the build has no fast math), as the twin's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,6 +119,10 @@ constexpr float kBig = 1073741824.0f;  // 2^30 sanitize sentinel
 constexpr int kRow0 = 3;               // fields6.ROW0
 constexpr float kFpad = 4.0f;          // field-map PAD rings
 constexpr int kSegCols = 22;           // step_kernel.py SEG_COLS
+constexpr int kTileLanes = 32;         // cells of a tile row: one warp
+constexpr int kHaloLanes = kTileLanes + 2;
+constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kChunk = 7;              // slot levels per walk chunk: 63 bits
 
 struct StepConsts {
   float inv_unit;          // 1 / field_unit
@@ -106,15 +144,20 @@ __device__ __forceinline__ float sanitize(float v) {
   return fabsf(v) < kBig ? v : kBig;  // NaN and -inf map to +2^30 too
 }
 
-// Bilinear sample of channels [0, nch) of one fields6 plane at the agent in
-// D row `row`, lane `lane`.  Taps exist only inside the cell's (S+2)^2
-// patch; a tap outside it contributes 0 (not the map value there), exactly
-// as the reference's masked 8x8 patch walk (step_kernel.py:64-101).
-// Summation order (qy outer, qx inner) matches the reference.
-__device__ __forceinline__ void sample(const float* __restrict__ plane,
+// Bilinear sample of one texel-major plane at the agent in D row `row`, lane
+// `lane`: channels [0, nch) of the waypoint field into pv and, with kObs,
+// the 3 channels of the obstacle map (the texel's second float4) into ov.
+// Taps exist only inside the cell's (S+2)^2 patch; a tap outside it
+// contributes 0 (not the map value there), exactly as the reference's masked
+// 8x8 patch walk (step_kernel.py:64-101).  Summation order (qy outer, qx
+// inner) matches the reference, for each field on its own.  The texel of
+// patch column `col` is fields6's (col % S, lane + col / S), the lane
+// circular as the reference's lane roll.
+template <bool kObs>
+__device__ __forceinline__ void sample(const float4* __restrict__ plane,
                                        const Dims& dm, int row, int lane,
                                        float px, float py, int nch,
-                                       float* outv) {
+                                       float* pv, float* ov) {
   const int s = dm.stride;
   const float bx = floorf(px);
   const float by = floorf(py);
@@ -122,7 +165,8 @@ __device__ __forceinline__ void sample(const float* __restrict__ plane,
   const float ty = py - by;
   const float p0 = bx - (float)(lane - 1) * (float)s - (float)kRow0;
   const float q0 = by - (float)(row - 1) * (float)s - (float)kRow0;
-  for (int c = 0; c < nch; ++c) outv[c] = 0.0f;
+  pv[0] = pv[1] = pv[2] = 0.0f;
+  if (kObs) ov[0] = ov[1] = ov[2] = 0.0f;
   const float ext = (float)(s + 1);
   for (int a = 0; a < 2; ++a) {
     const float qy = q0 + (float)a;
@@ -136,9 +180,20 @@ __device__ __forceinline__ void sample(const float* __restrict__ plane,
       const int col = kRow0 + (int)qx;
       int l2 = lane + col / s;
       if (l2 >= dm.nxl) l2 -= dm.nxl;  // circular, as the lane roll
-      const float* base =
-          plane + ((int64_t)(frow * s + col % s) * 4) * dm.nxl + l2;
-      for (int c = 0; c < nch; ++c) outv[c] = outv[c] + w * base[(int64_t)c * dm.nxl];
+      const float4* texel =
+          plane + ((int64_t)frow * dm.nxl * s + l2 * s + col % s) * 2;
+      const float4 t = __ldg(texel);
+      pv[0] = pv[0] + w * t.x;
+      if (nch > 1) {
+        pv[1] = pv[1] + w * t.y;
+        pv[2] = pv[2] + w * t.z;
+      }
+      if (kObs) {
+        const float4 u = __ldg(texel + 1);
+        ov[0] = ov[0] + w * u.x;
+        ov[1] = ov[1] + w * u.y;
+        ov[2] = ov[2] + w * u.z;
+      }
     }
   }
 }
@@ -186,217 +241,415 @@ __device__ __forceinline__ void segment_accel(const float* __restrict__ segs,
 }
 
 template <bool kSeg>
-__global__ void step_pass_a(const float* __restrict__ d,
-                            const float* __restrict__ fwp,
-                            const float* __restrict__ fobs,
-                            float* __restrict__ scr, Dims dm, StepConsts sc,
-                            const float* __restrict__ segs, int n_seg) {
+__global__ void step_sample(const float* __restrict__ d,
+                            const float4* __restrict__ fields,
+                            float* __restrict__ act_out,
+                            float4* __restrict__ ea, float* __restrict__ out,
+                            Dims dm, StepConsts sc,
+                            const float* __restrict__ segs, int n_seg,
+                            int write_pot) {
   const int64_t plane_sz = (int64_t)dm.ny2 * dm.k * dm.nxl;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= plane_sz) return;
   const int lane = (int)(idx % dm.nxl);
   const int64_t rk = idx / dm.nxl;  // row * K + k
   const int row = (int)(rk / dm.k);
-  const float* src = d + rk * 8 * dm.nxl + lane;
+  const int64_t nxl = dm.nxl;
+  const float* src = d + rk * 8 * nxl + lane;
+  const float act = src[6 * nxl];
+  const bool center = row >= 1 && row <= dm.ny2 - 2;
+  const bool pot_out = write_pot && center;
+  // act' = act or 0: a slot whose flag is 0 needs its sample only where the
+  // potential itself is an output
+  if (act == 0.0f && !pot_out) {
+    act_out[idx] = 0.0f;
+    return;
+  }
   const float posx = sanitize(src[0]);
-  const float posy = sanitize(src[(int64_t)dm.nxl]);
-  const float velx = sanitize(src[(int64_t)2 * dm.nxl]);
-  const float vely = sanitize(src[(int64_t)3 * dm.nxl]);
-  const float speed = sanitize(src[(int64_t)4 * dm.nxl]);
-  const float dest = src[(int64_t)5 * dm.nxl];
-  const float act = src[(int64_t)6 * dm.nxl];
-
+  const float posy = sanitize(src[nxl]);
+  const float dest = src[5 * nxl];
   const float px = posx * sc.inv_unit - 0.5f + kFpad;
   const float py = posy * sc.inv_unit - 0.5f + kFpad;
-  const bool center = row >= 1 && row <= dm.ny2 - 2;
-  const int64_t plane_stride = (int64_t)dm.frows * dm.stride * 4 * dm.nxl;
+  const int64_t plane_stride = (int64_t)dm.frows * dm.stride * nxl * 2;
 
   // The agent's own destination plane; a dest that names no plane samples
-  // 0 (and so despawns), as the reference's dest == plane selects do.
+  // 0 (and so despawns), as the reference's dest == plane selects do.  A
+  // slot that may go on to the forces takes the obstacle map, which shares
+  // the texels, in the same pass.
+  const bool full = center && act != 0.0f;
   float pv[3] = {0.0f, 0.0f, 0.0f};
+  float ov[3] = {0.0f, 0.0f, 0.0f};
   if (dest >= 0.0f && dest < (float)dm.n_wp && dest == floorf(dest)) {
-    sample(fwp + (int64_t)dest * plane_stride, dm, row, lane, px, py,
-           center ? 3 : 1, pv);
+    const float4* plane = fields + (int64_t)dest * plane_stride;
+    if (full && !kSeg)
+      sample<true>(plane, dm, row, lane, px, py, 3, pv, ov);
+    else
+      sample<false>(plane, dm, row, lane, px, py, full ? 3 : 1, pv, ov);
   }
   const float pot = pv[0];
   const bool in_grid =
       posx >= 0.0f && posx < sc.grid_w && posy >= 0.0f && posy < sc.grid_h;
   const float act_new = (pot > sc.despawn_potential && in_grid) ? act : 0.0f;
+  act_out[idx] = act_new;
+  if (pot_out) out[(rk * 8 + 7) * nxl + lane] = pot;
+  // the pair pass reads e and acc of no other slot
+  if (!(center && act_new > 0.5f)) return;
 
-  float ex = 0.0f, ey = 0.0f, afx = 0.0f, afy = 0.0f;
-  if (center) {
-    const float gx = pv[1], gy = pv[2];
-    const float g_norm = rsqrtf(fmaxf(gx * gx + gy * gy, PEDONI_EPS));
-    ex = gx * g_norm;
-    ey = gy * g_norm;
-    afx = (ex * speed - velx) / sc.relaxation_time;
-    afy = (ey * speed - vely) / sc.relaxation_time;
-    if constexpr (kSeg) {
-      if (act_new > 0.5f) {
-        float sfx = 0.0f, sfy = 0.0f;
-        segment_accel(segs, n_seg, posx, posy, sc, sfx, sfy);
-        afx = afx + sfx;
-        afy = afy + sfy;
-      }
-    } else {
-      float ov[3];
-      sample(fobs, dm, row, lane, px, py, 3, ov);
-      const float d_norm = rsqrtf(fmaxf(ov[1] * ov[1] + ov[2] * ov[2], PEDONI_EPS));
-      const float mag = sc.obs_strength * expf(-ov[0] / sc.obs_range);
-      afx = afx - mag * ov[1] * d_norm;
-      afy = afy - mag * ov[2] * d_norm;
-    }
-  }
-  scr[idx] = act_new;
-  scr[plane_sz + idx] = ex;
-  scr[2 * plane_sz + idx] = ey;
-  scr[3 * plane_sz + idx] = afx;
-  scr[4 * plane_sz + idx] = afy;
-  scr[5 * plane_sz + idx] = pot;
-}
-
-__global__ void step_pass_b(const float* __restrict__ d,
-                            const float* __restrict__ scr,
-                            float* __restrict__ out, Dims dm, StepConsts sc) {
-  const int64_t plane_sz = (int64_t)dm.ny2 * dm.k * dm.nxl;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= plane_sz) return;
-  const int lane = (int)(idx % dm.nxl);
-  const int64_t rk = idx / dm.nxl;
-  const int row = (int)(rk / dm.k);
-  const int k = (int)(rk % dm.k);
-  float* dst = out + rk * 8 * dm.nxl + lane;
-  if (row == 0 || row == dm.ny2 - 1) {
-    for (int c = 0; c < 8; ++c) dst[(int64_t)c * dm.nxl] = 0.0f;
-    return;
-  }
-  const int64_t nxl = dm.nxl;
-  const float* src = d + rk * 8 * nxl + lane;
-  const float px = sanitize(src[0]);
-  const float py = sanitize(src[nxl]);
   const float velx = sanitize(src[2 * nxl]);
   const float vely = sanitize(src[3 * nxl]);
   const float speed = sanitize(src[4 * nxl]);
-  const float act_c = scr[idx];
-  float npx = px, npy = py, nvx = velx, nvy = vely;
+  const float gx = pv[1], gy = pv[2];
+  const float g_norm = rsqrtf(fmaxf(gx * gx + gy * gy, PEDONI_EPS));
+  const float ex = gx * g_norm;
+  const float ey = gy * g_norm;
+  float afx = (ex * speed - velx) / sc.relaxation_time;
+  float afy = (ey * speed - vely) / sc.relaxation_time;
+  if constexpr (kSeg) {
+    float sfx = 0.0f, sfy = 0.0f;
+    segment_accel(segs, n_seg, posx, posy, sc, sfx, sfy);
+    afx = afx + sfx;
+    afy = afy + sfy;
+  } else {
+    const float d_norm = rsqrtf(fmaxf(ov[1] * ov[1] + ov[2] * ov[2], PEDONI_EPS));
+    const float mag = sc.obs_strength * expf(-ov[0] / sc.obs_range);
+    afx = afx - mag * ov[1] * d_norm;
+    afy = afy - mag * ov[2] * d_norm;
+  }
+  ea[idx] = make_float4(ex, ey, afx, afy);
+}
 
-  if (act_c > 0.5f) {
-    const float ex = scr[plane_sz + idx];
-    const float ey = scr[2 * plane_sz + idx];
-    float accx = scr[3 * plane_sz + idx];
-    float accy = scr[4 * plane_sz + idx];
-    // Counts of the 3x3 neighbour cells; lanes outside [0, NXL) hold no
-    // cell (lane 0 and lanes past nx+1 are empty, so this gives what the
-    // reference's circular roll gives).
-    float cnt[9];
-    int cmax = 0;
-    for (int dy = -1; dy <= 1; ++dy) {
-      for (int dx = -1; dx <= 1; ++dx) {
-        const int l2 = lane + dx;
-        float cv = 0.0f;
-        if (l2 >= 0 && l2 < dm.nxl)
-          cv = d[(((int64_t)(row + dy) * dm.k) * 8 + 7) * nxl + l2];
-        cnt[(dy + 1) * 3 + dx + 1] = cv;
-        const int ci = cv > (float)dm.k ? dm.k : (cv > 0.0f ? (int)ceilf(cv) : 0);
-        cmax = ci > cmax ? ci : cmax;
+// Shared memory of step_pairs for a tile of `tr` rows at `k` slots, in
+// bytes; step_kernel.py::pair_pass_smem_bytes is the same sum.
+__host__ __device__ constexpr int64_t pairs_smem_bytes(int tr, int k) {
+  const int64_t h = tr + 2;
+  return 8 * h * k                        // row bitmasks
+         + 16 * h * k * kHaloLanes        // staged pos.x, pos.y, vel.x, vel.y
+         + 20 * (int64_t)tr * k * kTileLanes  // act', new pos/vel
+         + 4 * h                          // top candidate slot + 1 per row
+         + 4 * ((int64_t)tr + 1)          // live agents per tile row, total
+         + 2 * (int64_t)tr * k * kTileLanes;  // the agent list
+}
+
+__global__ void __launch_bounds__(512)
+step_pairs(const float* __restrict__ d, const float* __restrict__ act_in,
+           const float4* __restrict__ ea, float* __restrict__ out,
+           float* __restrict__ m, float* __restrict__ movf,
+           float* __restrict__ mdmx, Dims dm, StepConsts sc, int tr, int mk,
+           int rb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int K = dm.k;
+  const int H = tr + 2;
+  const int n_halo = H * K * kHaloLanes;
+  const int n_tile = tr * K * kTileLanes;
+  unsigned long long* rowmask = (unsigned long long*)smem_raw;  // [H][K]
+  float* cpx = (float*)(rowmask + H * K);                      // [H][K][34]
+  float* cpy = cpx + n_halo;
+  float* cvx = cpy + n_halo;
+  float* cvy = cvx + n_halo;
+  float* sact = cvy + n_halo;  // [tr][K][32]
+  float* rpx = sact + n_tile;
+  float* rpy = rpx + n_tile;
+  float* rvx = rpy + n_tile;
+  float* rvy = rvx + n_tile;
+  int* jtop = (int*)(rvy + n_tile);  // [H]
+  int* rowlive = jtop + H;           // [tr + 1]
+  unsigned short* list = (unsigned short*)(rowlive + tr + 1);  // [n_tile]
+  // after the pair loop the list's room holds the movers of each cell
+  unsigned char* mslots = (unsigned char*)list;  // [tr * 32][mk] slot indices
+  unsigned char* mcnt = mslots + n_tile;         // [tr * 32] movers, <= K
+
+  const int tid = threadIdx.x;
+  const int t = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int l0 = blockIdx.x * kTileLanes;  // first lane of the tile
+  const int row0 = 1 + blockIdx.y * tr;    // first (centre) row of the tile
+  const int64_t nxl = dm.nxl;
+  const int last = dm.ny2 - 2;             // last centre row
+
+  // 1. one warp per (halo row, slot), 34 lanes in two turns (lanes 0, 1 of
+  // the warp take halo lanes 32, 33).  Every load is started before any is
+  // used; lanes -1 and NXL and rows past the grid hold no cell.
+  for (int it = warp; it < H * K; it += nwarps) {
+    const int hr = it / K;
+    const int j = it - hr * K;
+    const int row = row0 - 1 + hr;
+    const int64_t slot = (int64_t)row * K + j;
+    float a[2], bound[2], v[2][4];
+    bool cell[2];
+#pragma unroll
+    for (int turn = 0; turn < 2; ++turn) {
+      const int lane = l0 - 1 + (turn ? kTileLanes + t : t);
+      cell[turn] = (turn ? t < 2 : true) && row <= last + 1 && lane >= 0 &&
+                   lane < dm.nxl;
+      a[turn] = bound[turn] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[turn][c] = 0.0f;
+      if (cell[turn]) {
+        a[turn] = act_in[slot * nxl + lane];
+        bound[turn] = d[((int64_t)row * K * 8 + 7) * nxl + lane];
+        const float* cs = d + slot * 8 * nxl + lane;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[turn][c] = cs[c * nxl];
       }
     }
-    for (int j = 0; j < cmax; ++j) {
-      for (int dy = -1; dy <= 1; ++dy) {
-        const int64_t rk2 = (int64_t)(row + dy) * dm.k + j;
-        for (int dx = -1; dx <= 1; ++dx) {
-          const int l2 = lane + dx;
-          if (!((float)j < cnt[(dy + 1) * 3 + dx + 1])) continue;
-          if (dy == 0 && dx == 0 && j == k) continue;  // self
-          if (!(scr[rk2 * nxl + l2] > 0.5f)) continue;  // post-despawn act
-          const float* cs = d + rk2 * 8 * nxl + l2;
-          pair_accum(accx, accy, px, py, ex, ey, sanitize(cs[0]),
-                     sanitize(cs[nxl]), sanitize(cs[2 * nxl]),
-                     sanitize(cs[3 * nxl]), sc.pair);
+    unsigned long long mask = 0;
+#pragma unroll
+    for (int turn = 0; turn < 2; ++turn) {
+      const int hl = turn ? kTileLanes + t : t;
+      const bool mine = turn ? t < 2 : true;
+      const bool valid = cell[turn] && a[turn] > 0.5f && (float)j < bound[turn];
+      if (mine) {
+        const int ci = it * kHaloLanes + hl;
+        cpx[ci] = sanitize(v[turn][0]);
+        cpy[ci] = sanitize(v[turn][1]);
+        cvx[ci] = sanitize(v[turn][2]);
+        cvy[ci] = sanitize(v[turn][3]);
+        if (hr >= 1 && hr <= tr && hl >= 1 && hl <= kTileLanes)
+          sact[((hr - 1) * K + j) * kTileLanes + hl - 1] =
+              row <= last ? a[turn] : 0.0f;
+      }
+      const unsigned bal = __ballot_sync(kFullWarp, valid);
+      mask |= turn ? (unsigned long long)(bal & 3u) << kTileLanes
+                   : (unsigned long long)bal;
+    }
+    if (t == 0) rowmask[it] = mask;
+  }
+  __syncthreads();
+
+  // 2. the list of live centre agents, cell by cell: warp w < tr owns tile
+  // row w, one thread per cell
+  int cell_live = 0;
+  if (tid < H) {  // top candidate slot + 1 of each halo row
+    int top = K;
+    while (top > 0 && rowmask[tid * K + top - 1] == 0) --top;
+    jtop[tid] = top;
+  }
+  if (warp < tr) {
+    for (int j = 0; j < K; ++j)
+      cell_live += sact[(warp * K + j) * kTileLanes + t] > 0.5f ? 1 : 0;
+    int incl = cell_live;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFullWarp, incl, off);
+      if (t >= off) incl += v;
+    }
+    if (t == 31) rowlive[warp] = incl;
+    cell_live = incl - cell_live;  // exclusive, within the row
+  }
+  __syncthreads();
+  if (warp < tr) {
+    int at = cell_live;
+    for (int w = 0; w < warp; ++w) at += rowlive[w];
+    for (int j = 0; j < K; ++j)
+      if (sact[(warp * K + j) * kTileLanes + t] > 0.5f)
+        list[at++] = (unsigned short)(((warp * kTileLanes + t) << 8) | j);
+  }
+  __syncthreads();
+  int n_live = 0;
+  for (int w = 0; w < tr; ++w) n_live += rowlive[w];
+
+  // 3. one thread per live agent
+  for (int base = 0; base < n_live; base += blockDim.x) {
+    const int i = base + tid;
+    const bool has = i < n_live;
+    const int entry = has ? list[i] : 0;
+    const int k = entry & 255;
+    const int w = entry >> 13;        // tile row
+    const int lt = (entry >> 8) & 31;  // tile lane
+    const int si = (w * K + k) * kTileLanes + lt;
+    const int own = ((w + 1) * K + k) * kHaloLanes + lt + 1;
+    const float px = cpx[own], py = cpy[own];
+    const float velx = cvx[own], vely = cvy[own];
+    float ex = 0.0f, ey = 0.0f, accx = 0.0f, accy = 0.0f, speed = 0.0f;
+    int jend = 0;
+    if (has) {
+      const int64_t slot = (int64_t)(row0 + w) * K + k;
+      const float4 f = ea[slot * nxl + l0 + lt];
+      ex = f.x;
+      ey = f.y;
+      accx = f.z;
+      accy = f.w;
+      speed = sanitize(d[(slot * 8 + 4) * nxl + l0 + lt]);
+      jend = max(jtop[w], max(jtop[w + 1], jtop[w + 2]));
+    }
+    // The walk, in chunks of kChunk slot levels.  Light part, no branch on
+    // the data: per level j the 9 cells' candidate bits, and the cutoff
+    // test of all 9 slots (a slot that holds no candidate reads whatever
+    // shared memory holds there; its bit is clear).  Bit 9 * (j - j0) +
+    // 3 * (dy + 1) + dx + 1 of `hits` = a candidate within the cutoff, so
+    // ascending bits are the reference's summation order.  Heavy part: the
+    // lanes that still hold a bit pop their lowest and run pair_force
+    // together.
+    const unsigned long long* rm = rowmask + w * K;
+    const int jwarp = __reduce_max_sync(kFullWarp, jend);
+    for (int j0 = 0; j0 < jwarp; j0 += kChunk) {
+      unsigned long long hits = 0;
+      const int j1 = min(j0 + kChunk, jend);
+      for (int j = j0; j < j1; ++j) {
+        unsigned bits = (unsigned)((rm[j] >> lt) & 7ull) |
+                        (unsigned)((rm[K + j] >> lt) & 7ull) << 3 |
+                        (unsigned)((rm[2 * K + j] >> lt) & 7ull) << 6;
+        if (j == k) bits &= ~16u;  // self
+        if (bits == 0) continue;
+        const int c0 = (w * K + j) * kHaloLanes + lt;
+        unsigned in = 0;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const int ci = c0 + dy * K * kHaloLanes + dx;
+            const float ddx = px - cpx[ci];
+            const float ddy = py - cpy[ci];
+            if (pair_in_cutoff(ddx * ddx + ddy * ddy, sc.pair))
+              in |= 1u << (3 * dy + dx);
+          }
+        }
+        hits |= (unsigned long long)(bits & in) << (9 * (j - j0));
+      }
+      while (__any_sync(kFullWarp, hits != 0)) {
+        if (hits) {
+          const int b = __ffsll((long long)hits) - 1;
+          hits &= hits - 1;
+          const int jj = b / 9;
+          const int c = b - 9 * jj;
+          const int dy = c / 3;
+          const int ci =
+              ((w + dy) * K + j0 + jj) * kHaloLanes + lt + (c - 3 * dy);
+          pair_force(accx, accy, px, py, ex, ey, cpx[ci], cpy[ci], cvx[ci],
+                     cvy[ci], sc.pair);
         }
       }
     }
-    // Trapezoidal integration with the speed clamp (sfm.rs:245-254).
-    float vx = velx + accx * sc.dt;
-    float vy = vely + accy * sc.dt;
-    const float vmax = speed * sc.max_speed_factor;
-    const float vlen = sqrtf(fmaxf(vx * vx + vy * vy, PEDONI_EPS));
-    const float scale = fminf(1.0f, vmax / vlen);
-    vx = vx * scale;
-    vy = vy * scale;
-    npx = px + (vx + velx) * sc.dt_half;
-    npy = py + (vy + vely) * sc.dt_half;
-    nvx = vx;
-    nvy = vy;
-  }
-  dst[0] = npx;
-  dst[nxl] = npy;
-  dst[2 * nxl] = nvx;
-  dst[3 * nxl] = nvy;
-  dst[4 * nxl] = speed;
-  dst[5 * nxl] = src[5 * nxl];
-  dst[6 * nxl] = act_c;
-  dst[7 * nxl] = scr[5 * plane_sz + idx];
-}
-
-// One thread per cell (row, lane) of pass B's output G: ch 7 becomes the
-// stay mask, and the cell's movers, walked in slot order, fill rows 0, 1,
-// ... of M with their post-step ch 0-5 (step_kernel.py:697-749).  Per-block
-// movf/mdmx by warp shuffles and one atomic per warp; the values are
-// integers, exact in any order.
-__global__ void step_movers(float* __restrict__ g,
-                            float* __restrict__ m, float* __restrict__ movf,
-                            float* __restrict__ mdmx, Dims dm, int mk, int rb,
-                            float cell_unit) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y;  // every thread of a block shares its row
-  if (lane >= dm.nxl) return;
-  const int64_t nxl = dm.nxl;
-  const int64_t sk = 8 * nxl;  // slot stride
-  float* dst = m + (int64_t)row * mk * sk + lane;
-  if (row == 0 || row == dm.ny2 - 1) {
-    for (int r = 0; r < mk; ++r)
-      for (int c = 0; c < 8; ++c) dst[r * sk + c * nxl] = 0.0f;
-    return;
-  }
-  float* src = g + (int64_t)row * dm.k * sk + lane;
-  int cnt = 0;
-  for (int j = 0; j < dm.k; ++j) {
-    float* cs = src + j * sk;
-    const float act = cs[6 * nxl];
-    const float tgt_lane = floorf(__fdiv_rn(cs[0], cell_unit)) + 1.0f;
-    const float tgt_row = floorf(__fdiv_rn(cs[nxl], cell_unit));
-    const float same =
-        (tgt_lane == (float)lane && tgt_row == (float)(row - 1)) ? 1.0f : 0.0f;
-    cs[7 * nxl] = act * same;
-    if (!(act * (1.0f - same) > 0.5f)) continue;
-    if (cnt < mk) {
-      float* o = dst + cnt * sk;
-      for (int c = 0; c < 6; ++c) o[c * nxl] = cs[c * nxl];
+    if (has) {
+      // Trapezoidal integration with the speed clamp (sfm.rs:245-254).
+      float vx = velx + accx * sc.dt;
+      float vy = vely + accy * sc.dt;
+      const float vmax = speed * sc.max_speed_factor;
+      const float vlen = sqrtf(fmaxf(vx * vx + vy * vy, PEDONI_EPS));
+      const float scale = fminf(1.0f, vmax / vlen);
+      vx = vx * scale;
+      vy = vy * scale;
+      rpx[si] = px + (vx + velx) * sc.dt_half;
+      rpy[si] = py + (vy + vely) * sc.dt_half;
+      rvx[si] = vx;
+      rvy[si] = vy;
     }
-    ++cnt;
   }
-  const int kept = cnt < mk ? cnt : mk;
-  for (int r = 0; r < mk; ++r) {
-    float* o = dst + r * sk;
-    if (r >= kept)
-      for (int c = 0; c < 6; ++c) o[c * nxl] = 0.0f;
-    o[6 * nxl] = r < cnt ? 1.0f : 0.0f;
-    o[7 * nxl] = (float)kept;
+  __syncthreads();
+
+  // 4. mover mode: warp w < tr owns tile row w, one thread per cell: the
+  // cell's movers in slot order, into shared memory
+  const bool top = blockIdx.y == 0;
+  const int ms = mk < K ? mk : K;  // a cell has at most K movers
+  const bool bottom = row0 + tr > last;
+  if (mk > 0 && warp < tr && row0 + warp <= last) {
+    const int row = row0 + warp;
+    const int lane = l0 + t;
+    const int cell = warp * kTileLanes + t;
+    int cnt = 0;
+    for (int j = 0; j < K; ++j) {
+      const int si = (warp * K + j) * kTileLanes + t;
+      const float a = sact[si];
+      if (!(a > 0.5f)) continue;  // a mover is live: its pos/vel are new
+      const float tgt_lane = floorf(__fdiv_rn(rpx[si], sc.cell_unit)) + 1.0f;
+      const float tgt_row = floorf(__fdiv_rn(rpy[si], sc.cell_unit));
+      const float same =
+          (tgt_lane == (float)lane && tgt_row == (float)(row - 1)) ? 1.0f : 0.0f;
+      if (!(a * (1.0f - same) > 0.5f)) continue;
+      if (cnt < mk) mslots[cell * ms + cnt] = (unsigned char)j;
+      ++cnt;
+    }
+    mcnt[cell] = (unsigned char)cnt;
+    float over = (float)(cnt > mk ? cnt - mk : 0);
+    int peak = cnt;
+    for (int off = 16; off > 0; off >>= 1) {
+      over += __shfl_down_sync(kFullWarp, over, off);
+      const int p2 = __shfl_down_sync(kFullWarp, peak, off);
+      peak = p2 > peak ? p2 : peak;
+    }
+    if (t == 0) {
+      const int b = (row - 1) / rb;
+      if (over != 0.0f) atomicAdd(movf + b, over);
+      // non-negative floats order as their bit patterns do
+      if (peak > 0) atomicMax((int*)(mdmx + b), __float_as_int((float)peak));
+    }
   }
-  float over = (float)(cnt > mk ? cnt - mk : 0);
-  int peak = cnt;
-  const unsigned mask = 0xffffffffu;  // full warps: NXL % 128 == 0
-  for (int off = 16; off > 0; off >>= 1) {
-    over += __shfl_down_sync(mask, over, off);
-    const int p2 = __shfl_down_sync(mask, peak, off);
-    peak = p2 > peak ? p2 : peak;
+
+  // 5. output: one warp per (tile row, slot), whole rows of lanes
+  for (int it = warp; it < tr * K; it += nwarps) {
+    const int w = it / K;
+    const int k = it - w * K;
+    const int row = row0 + w;
+    if (row > last) break;  // `it` grows with w
+    const int lane = l0 + t;
+    const int si = it * kTileLanes + t;
+    const int own = ((w + 1) * K + k) * kHaloLanes + t + 1;
+    const int64_t at = ((int64_t)row * K + k) * 8 * nxl + lane;
+    const float* src = d + at;
+    const float speed = src[4 * nxl];
+    const float dest = src[5 * nxl];
+    const float a = sact[si];
+    const bool live = a > 0.5f;
+    const float npx = live ? rpx[si] : cpx[own];
+    const float npy = live ? rpy[si] : cpy[own];
+    float* dst = out + at;
+    dst[0] = npx;
+    dst[nxl] = npy;
+    dst[2 * nxl] = live ? rvx[si] : cvx[own];
+    dst[3 * nxl] = live ? rvy[si] : cvy[own];
+    dst[4 * nxl] = sanitize(speed);
+    dst[5 * nxl] = dest;
+    dst[6 * nxl] = a;
+    if (mk > 0) {  // the stay mask; else ch 7 holds step_sample's potential
+      const float tgt_lane = floorf(__fdiv_rn(npx, sc.cell_unit)) + 1.0f;
+      const float tgt_row = floorf(__fdiv_rn(npy, sc.cell_unit));
+      const float same =
+          (tgt_lane == (float)lane && tgt_row == (float)(row - 1)) ? 1.0f : 0.0f;
+      dst[7 * nxl] = a * same;
+    }
   }
-  if ((threadIdx.x & 31) == 0) {
-    const int b = (row - 1) / rb;
-    if (over != 0.0f) atomicAdd(movf + b, over);
-    // non-negative floats order as their bit patterns do
-    if (peak > 0) atomicMax((int*)(mdmx + b), __float_as_int((float)peak));
+
+  // 6. mover mode: M, one warp per (tile row, mover row), whole rows of lanes
+  if (mk > 0) {
+    __syncthreads();
+    for (int it = warp; it < tr * mk; it += nwarps) {
+      const int w = it / mk;
+      const int r = it - w * mk;
+      const int row = row0 + w;
+      if (row > last) break;
+      const int lane = l0 + t;
+      const int cell = w * kTileLanes + t;
+      const int cnt = mcnt[cell];
+      const int kept = cnt < mk ? cnt : mk;
+      float val[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (r < kept) {
+        const int j = mslots[cell * ms + r];
+        const int si = (w * K + j) * kTileLanes + t;
+        const float* cs = d + ((int64_t)row * K + j) * 8 * nxl + lane;
+        val[0] = rpx[si];
+        val[1] = rpy[si];
+        val[2] = rvx[si];
+        val[3] = rvy[si];
+        val[4] = sanitize(cs[4 * nxl]);
+        val[5] = cs[5 * nxl];
+      }
+      float* o = m + ((int64_t)row * mk + r) * 8 * nxl + lane;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) o[c * nxl] = val[c];
+      o[6 * nxl] = r < cnt ? 1.0f : 0.0f;
+      o[7 * nxl] = (float)kept;
+    }
+  }
+  // ghost rows of out and M: zeros
+  for (int g = 0; g < 2; ++g) {
+    if (!(g ? bottom : top)) continue;
+    const int row = g ? last + 1 : 0;
+    float* o = out + (int64_t)row * K * 8 * nxl + l0 + t;
+    for (int it = warp; it < K * 8; it += nwarps) o[it * nxl] = 0.0f;
+    if (mk > 0) {
+      float* om = m + (int64_t)row * mk * 8 * nxl + l0 + t;
+      for (int it = warp; it < mk * 8; it += nwarps) om[it * nxl] = 0.0f;
+    }
   }
 }
 
@@ -405,14 +658,19 @@ __global__ void step_movers(float* __restrict__ g,
 // consts: 18 floats in StepConsts order (see step_kernel.py::_constants).
 // mk == 0 is the base mode (m, movf, mdmx unused); mk > 0 the mover mode,
 // where movf and mdmx [nb] must be zeroed by the caller.  n_seg < 0 takes
-// the obstacle force from fobs (segs unused); n_seg >= 0 from the n_seg
-// rows of segs.
-extern "C" int pedoni_step_kernel(const float* d, const float* fwp,
-                                  const float* fobs, const float* segs,
-                                  float* scratch, float* out, float* m,
-                                  float* movf, float* mdmx, int ny2, int k,
-                                  int nxl, int n_wp, int frows, int stride,
-                                  int mk, int rb, int n_seg,
+// the obstacle force from the fields' obstacle channels (segs unused); n_seg >= 0
+// from the n_seg rows of segs.  tile_rows, threads and smem_bytes are the
+// pair pass's launch shape (step_kernel.py::pair_pass_launch); smem_bytes
+// must equal pairs_smem_bytes(tile_rows, k).  Returns a cudaError_t, or -1
+// for a launch shape the kernel does not take (pair_pass_launch gives tiles
+// of 1 or 2 rows and blocks of 512 threads).
+extern "C" int pedoni_step_kernel(const float* d, const float* fields,
+                                  const float* segs, float* act, float* ea,
+                                  float* out, float* m, float* movf,
+                                  float* mdmx, int ny2, int k, int nxl,
+                                  int n_wp, int frows, int stride, int mk,
+                                  int rb, int n_seg, int tile_rows,
+                                  int threads, int smem_bytes,
                                   const float* consts, void* stream) {
   StepConsts sc;
   sc.inv_unit = consts[0];
@@ -433,25 +691,32 @@ extern "C" int pedoni_step_kernel(const float* d, const float* fwp,
   sc.pair.cos2 = consts[15];
   sc.pair.fov_damping = consts[16];
   sc.cell_unit = consts[17];
+  if (tile_rows < 1 || tile_rows > 2 || k > 255 || threads != 512 ||
+      nxl % kTileLanes != 0 ||
+      (int64_t)smem_bytes != pairs_smem_bytes(tile_rows, k))
+    return -1;
   Dims dm{ny2, k, nxl, n_wp, frows, stride};
   const int64_t n = (int64_t)ny2 * k * nxl;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const int sthreads = 256;
+  const unsigned sblocks = (unsigned)((n + sthreads - 1) / sthreads);
   cudaStream_t st = (cudaStream_t)stream;
+  const float4* f4 = (const float4*)fields;
   if (n_seg < 0)
-    step_pass_a<false><<<blocks, threads, 0, st>>>(d, fwp, fobs, scratch, dm,
-                                                   sc, segs, n_seg);
+    step_sample<false><<<sblocks, sthreads, 0, st>>>(
+        d, f4, act, (float4*)ea, out, dm, sc, segs, n_seg, mk == 0);
   else
-    step_pass_a<true><<<blocks, threads, 0, st>>>(d, fwp, fobs, scratch, dm,
-                                                  sc, segs, n_seg);
+    step_sample<true><<<sblocks, sthreads, 0, st>>>(
+        d, f4, act, (float4*)ea, out, dm, sc, segs, n_seg, mk == 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  step_pass_b<<<blocks, threads, 0, st>>>(d, scratch, out, dm, sc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || mk == 0) return (int)e;
-  const int mthreads = 128;
-  dim3 grid((unsigned)((nxl + mthreads - 1) / mthreads), (unsigned)ny2);
-  step_movers<<<grid, mthreads, 0, st>>>(out, m, movf, mdmx, dm, mk, rb,
-                                         sc.cell_unit);
+  e = cudaFuncSetAttribute(step_pairs,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)(nxl / kTileLanes),
+            (unsigned)((ny2 - 2 + tile_rows - 1) / tile_rows));
+  step_pairs<<<grid, threads, smem_bytes, st>>>(d, act, (const float4*)ea, out,
+                                                m, movf, mdmx, dm, sc,
+                                                tile_rows, mk, rb);
   return (int)cudaGetLastError();
 }

@@ -11,10 +11,17 @@ sampled potential, or in the mover mode the stay mask, with the per-cell
 mover table M that feeds ``rebin.rebin_incremental``.
 
 ``fused_step`` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel ``csrc/step_kernel.cu`` (two passes, see its header);
-on a CPU tensor it runs ``fused_step_torch``, the plain PyTorch twin that
-mirrors the reference algorithm — vectorised over the grid, lane shifts
-by ``torch.roll``, candidate slots walked j outer, then dy, then dx.
+hand-written kernel ``csrc/step_kernel.cu`` (a sample pass over a
+texel-major copy of the fields, then a pair pass over tiles of cells in
+shared memory; see its header); on a CPU tensor it runs
+``fused_step_torch``, the plain PyTorch twin that mirrors the reference
+algorithm — vectorised over the grid, lane shifts by ``torch.roll``,
+candidate slots walked j outer, then dy, then dx.
+
+The kernel's own inputs are made here, in Python the CPU tests reach:
+``pack_fields`` (the texel-major copy, made once per pair of field
+tensors by ``packed_fields``) and ``pair_pass_launch`` (the pair pass's
+tile, block and shared-memory size for a grid shape).
 
 Layouts are the reference's: d [ny2, K, 8, NXL], fwp [n_wp, R, S, 4, NXL],
 fobs [R, S, 4, NXL]; the output is [ny2, K, 8, NXL], ghost rows zero;
@@ -22,6 +29,8 @@ M is [ny2, MK, 8, NXL].
 """
 
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -34,6 +43,9 @@ BIG = 2.0 ** 30  # non-finite sanitize sentinel (step_kernel.py:394-398)
 ROW0 = 3  # fields6.ROW0: first patch row/col of cell 0 in the padded map
 FPAD = 4.0  # field-map PAD rings
 SEG_COLS = 22  # columns of the obstacle edge table (segment_table)
+TILE_LANES = 32  # cells of a pair-pass tile row: one warp
+SMEM_SM = 233472  # bytes of shared memory on one SM (H100: 228 KB)
+SMEM_BLOCK_RESERVED = 1024  # of which the system keeps this much per block
 
 
 def _constants(phys: Physics, grid_size: tuple[float, float],
@@ -122,6 +134,79 @@ def _check(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
                          f"row_block == 0, got ny2={ny2}, row_block={row_block}")
 
 
+def pair_pass_smem_bytes(k: int, tile_rows: int) -> int:
+    """Shared memory of the pair pass for a tile of ``tile_rows`` rows x
+    TILE_LANES cells at K = ``k`` slots (csrc/step_kernel.cu
+    pairs_smem_bytes, the same sum): row bitmasks, the staged pos/vel of
+    the tile and its halo, act' and the new pos/vel of the tile, per-row
+    counters, the agent list."""
+    h, halo = tile_rows + 2, TILE_LANES + 2
+    n_tile = tile_rows * k * TILE_LANES
+    return (8 * h * k + 16 * h * k * halo + 20 * n_tile + 4 * h
+            + 4 * (tile_rows + 1) + 2 * n_tile)
+
+
+def pair_pass_launch(k: int, ny2: int, nxl: int) -> tuple[int, int, int]:
+    """(tile rows, threads per block, shared-memory bytes) of the pair
+    pass on a grid [ny2, K, 8, NXL].
+
+    A block owns ``tile_rows`` x TILE_LANES cells; blocks tile lanes
+    [0, NXL) and the centre rows 1 .. ny2-2 (the last tile may be ragged).
+    The tallest tile of PAIR_TILE_ROWS that leaves room for two blocks on
+    an SM wins, else the tallest that fits one block; a K at which not
+    even one row fits raises.  Blocks of PAIR_THREADS threads: two of them
+    give an SM the 32 warps that hide the pair loop's latency (at 16 the
+    1M step measured slower, as did taller tiles; PERF.md)."""
+    if nxl % TILE_LANES != 0 or ny2 < 3 or not 1 <= k <= 255:
+        raise ValueError(f"pair pass: unsupported grid ny2={ny2}, K={k}, NXL={nxl}")
+    rows = [t for t in PAIR_TILE_ROWS if t <= max(ny2 - 2, 1)] or [1]
+    for blocks in (2, 1):
+        for t in rows:
+            need = pair_pass_smem_bytes(k, t)
+            if blocks * (need + SMEM_BLOCK_RESERVED) <= SMEM_SM:
+                return t, PAIR_THREADS, need
+    raise ValueError(f"pair pass: K={k} needs {pair_pass_smem_bytes(k, 1)} "
+                     f"bytes of shared memory for one tile row, an SM has "
+                     f"{SMEM_SM - SMEM_BLOCK_RESERVED} for a block")
+
+
+PAIR_TILE_ROWS = (2, 1)  # candidates, tallest first
+PAIR_THREADS = 512
+
+
+def pack_fields(fwp: torch.Tensor, fobs: torch.Tensor) -> torch.Tensor:
+    """The kernel's texel-major copy of the fields6 planes:
+    [max(n_wp, 1), R, NXL * S, 8].  Texel (f, l * S + c) of plane p holds
+    fwp[p, f, c, 0..3, l], then fobs[f, c, 0..3, l]: the channels of a tap
+    are two 16-byte loads from one 32-byte sector whichever fields it
+    needs, and a tap's x-neighbour is the next texel (the next lane's
+    column 0 after column S-1).  Same bits as fwp / fobs; the obstacle map
+    is repeated in every waypoint's plane (without waypoints, one plane of
+    zeros carries it).  Memory: 2 * n_wp planes of fields6's size."""
+    wp = fwp if fwp.shape[0] else torch.zeros_like(fobs)[None]
+    planes = torch.cat([wp, fobs[None].expand_as(wp)], dim=3)  # [P, R, S, 8, NXL]
+    p, r, s, ch, nxl = planes.shape
+    return planes.permute(0, 1, 4, 2, 3).reshape(p, r, nxl * s, ch).contiguous()
+
+
+_packed: dict[tuple[int, int], tuple] = {}
+
+
+def packed_fields(fwp: torch.Tensor, fobs: torch.Tensor) -> torch.Tensor:
+    """``pack_fields(fwp, fobs)``, made once per pair of field tensors and
+    kept until either is freed or written in place — never per step."""
+    key = (id(fwp), id(fobs))
+    version = (fwp._version, fobs._version)
+    hit = _packed.get(key)
+    if hit is not None and hit[0]() is fwp and hit[1]() is fobs and hit[2] == version:
+        return hit[3]
+    packed = pack_fields(fwp, fobs)
+    _packed[key] = (weakref.ref(fwp), weakref.ref(fobs), version, packed)
+    for t in (fwp, fobs):
+        weakref.finalize(t, _packed.pop, key, None)
+    return packed
+
+
 def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
                phys: Physics, grid_size: tuple[float, float], stride: int = 6,
                field_unit: float = 0.25, emit_movers: int = 0,
@@ -150,8 +235,12 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     lib = _build.library()
     ny2, k, _, nxl = d.shape
     mk = emit_movers
+    tile_rows, threads, smem = pair_pass_launch(k, ny2, nxl)
+    fields = packed_fields(fwp, fobs)
     out = torch.empty_like(d)
-    scratch = torch.empty((6, ny2, k, nxl), dtype=torch.float32, device=d.device)
+    # scratch: act' of every slot; e and acc of the live centre slots
+    act = torch.empty((ny2, k, nxl), dtype=torch.float32, device=d.device)
+    ea = torch.empty((ny2, k, nxl, 4), dtype=torch.float32, device=d.device)
     if mk:
         m = torch.empty((ny2, mk, 8, nxl), dtype=torch.float32, device=d.device)
         blocks = torch.zeros((2, (ny2 - 2) // row_block), dtype=torch.float32,
@@ -164,10 +253,11 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     stream = torch.cuda.current_stream(d.device).cuda_stream
     n_seg = -1 if segments is None else segments.shape[0]  # -1: distance map
     rc = lib.pedoni_step_kernel(
-        d.data_ptr(), fwp.data_ptr(), fobs.data_ptr(),
-        None if segments is None else segments.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), *mover_ptrs, ny2, k, nxl, fwp.shape[0], fwp.shape[1],
-        stride, mk, row_block, n_seg, consts.data_ptr(), stream)
+        d.data_ptr(), fields.data_ptr(),
+        None if segments is None else segments.data_ptr(), act.data_ptr(),
+        ea.data_ptr(), out.data_ptr(), *mover_ptrs, ny2, k, nxl, fwp.shape[0],
+        fwp.shape[1], stride, mk, row_block, n_seg, tile_rows, threads, smem,
+        consts.data_ptr(), stream)
     _build.check_launch(rc, "pedoni_step_kernel")
     if segments is not None:
         fused_step.segment_launches += 1

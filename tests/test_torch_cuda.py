@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels vs their plain PyTorch twins, on the card:
-the step kernel (base, mover and segment modes, field strides 6 and 8),
-the full and the incremental rebin, the device gate that makes the hybrid
+the step kernel (base, mover and segment modes, field strides 6 and 8, and
+grids built to break its cell tiles), the full and the incremental rebin, the device gate that makes the hybrid
 step's choice, and the standalone pairwise kernel.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports neither JAX nor the
@@ -186,6 +186,124 @@ def test_step_kernel_stride8_matches_twin():
     got = sk.fused_step(d, fwp, fobs, cfg.physics, sc.size, stride=8)
     want = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size, stride=8)
     _assert_step_close(d, got, want)
+
+
+def _gap_grid(unit, k, pos, seed, dest=None):
+    """gap.toml's fields (two waypoint planes, NXL = 128) with agents at
+    ``pos``: (sc, cfg, d, fwp, fobs, stride) on the card."""
+    sc = load_scenario(GAP)
+    maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
+    cfg = StepConfig.build(sc, capacity=4096, neighbor_grid_unit=unit,
+                           table_capacity=k, use_neighbor_grid=unit == 1.5)
+    rng = np.random.default_rng(seed)
+    n = pos.shape[0]
+    agents = agents_from_numpy(
+        pos, rng.normal(0, 0.6, (n, 2)),
+        np.clip(rng.normal(1.34, 0.26, n), 0.1, None),
+        rng.integers(0, 2, n) if dest is None else dest, np.ones(n, bool), "cuda")
+    d = sfm_grid.bin_state(cfg, SimState(agents, 0)).d
+    fwp, fobs = sfm_grid.field_tensors(cfg, maps, "cuda")
+    return sc, cfg, d, fwp, fobs, sfm_grid.stride_for(cfg)
+
+
+# case -> (K, (tile rows, threads, blocks an SM) that pair_pass_launch gives)
+TALL_K = {"k40_one_row_tiles": (40, (1, 512, 2)),
+          "k50_one_block_an_sm": (50, (2, 512, 1)),
+          "k70_one_row_one_block": (70, (1, 512, 1))}
+
+
+def _tile_case(name):
+    """(sc, cfg, d, fwp, fobs, stride, row_block) of one grid built to break
+    a design that tiles the cells."""
+    rng = np.random.default_rng(11)
+    crowd = rng.uniform(0.01, 23.99, (1500, 2))  # lanes 1 and nx included
+    if name == "full_cell_among_empty":
+        # one cell at exactly K agents, its 8 neighbours empty, a second
+        # full cell diagonally two cells off, a lone agent in a corner
+        k = 12
+        pos = np.concatenate([
+            rng.uniform(0.02, 1.48, (k, 2)) + [9.0, 9.0],
+            rng.uniform(0.02, 1.48, (k, 2)) + [12.0, 12.0], [[0.3, 23.5]]])
+        case = _gap_grid(1.5, k, pos, 1)
+        assert int(case[2][:, 0, 7].max()) == k
+        return (*case, 2)
+    if name == "holes_below_the_top_slot":
+        # the state an incremental rebin leaves: slots 0 and 2 of every
+        # second cell emptied, the bound (ch 7) still the top slot + 1
+        case = _gap_grid(1.5, 14, crowd, 2)
+        d = case[2]
+        bound = d[:, 0, 7].clone()
+        d[:, 0, :, ::2] = 0.0
+        d[:, 2, :, ::2] = 0.0
+        d[:, 0, 7] = bound
+        assert bool(((d[:, :, 6] > 0.5).sum(dim=1) < bound).any())
+        return (*case, 2)
+    if name == "odd_centre_rows":
+        # 15 centre rows (the last tile ragged); the cut-off row acts as the
+        # ghost row and its agents as candidates only
+        sc, cfg, d, fwp, fobs, stride = _gap_grid(1.5, 14, crowd, 3)
+        d = d[:-1].contiguous()
+        assert (d.shape[0] - 2) % 2 == 1 and bool((d[-1, :, 6] > 0.5).any())
+        return sc, cfg, d, fwp, fobs, stride, 1
+    if name == "k29_stride8":
+        case = _gap_grid(2.0, 29, np.concatenate(
+            [crowd, rng.uniform(0.02, 1.98, (29, 2)) + [10.0, 6.0]]), 4)
+        assert case[2].shape[1] == 29 and case[5] == 8
+        return (*case, 2)
+    if name in TALL_K:
+        # a K past the bench's: the pair pass leaves its 2-row tile and its
+        # two blocks an SM; one cell holds exactly K agents
+        k, launch = TALL_K[name]
+        case = _gap_grid(1.5, k, np.concatenate(
+            [crowd, rng.uniform(0.02, 1.48, (k, 2)) + [9.0, 12.0]]), 6)
+        ny2, kk, _, nxl = case[2].shape
+        assert kk == k and int(case[2][:, 0, 7].max()) == k
+        rows, threads, smem = sk.pair_pass_launch(k, ny2, nxl)
+        assert (rows, threads) == launch[:2]
+        assert (2 * (smem + sk.SMEM_BLOCK_RESERVED) <= sk.SMEM_SM) == (launch[2] == 2)
+        return (*case, 2)
+    if name == "single_centre_row":
+        # ny2 = 3: one tile row however small K is; row 2 is the ghost row
+        sc, cfg, d, fwp, fobs, stride = _gap_grid(1.5, 14, crowd, 7)
+        d = d[:3].contiguous()
+        assert sk.pair_pass_launch(14, 3, 128)[0] == 1
+        assert bool((d[1, :, 6] > 0.5).any()) and bool((d[2, :, 6] > 0.5).any())
+        return sc, cfg, d, fwp, fobs, stride, 1
+    if name == "edge_lanes_only":
+        # agents only in lanes 1 and nx, one waypoint plane each
+        n = 300
+        x = np.where(np.arange(n) % 2 == 0, rng.uniform(0.01, 1.49, n),
+                     rng.uniform(22.51, 23.99, n))
+        pos = np.stack([x, rng.uniform(0.01, 23.99, n)], axis=1)
+        return (*_gap_grid(1.5, 14, pos, 5, dest=np.arange(n) % 2), 2)
+    raise ValueError(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full_cell_among_empty",
+                                  "holes_below_the_top_slot", "odd_centre_rows",
+                                  "k29_stride8", "edge_lanes_only",
+                                  "single_centre_row", *TALL_K])
+def test_step_kernel_tile_edges(case):
+    """Kernel vs twin, base and mover mode, on gap.toml's fields (NXL = 128,
+    two waypoint planes with the agents split between them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    sc, cfg, d, fwp, fobs, stride, rb = _tile_case(case)
+    assert d.shape[3] == 128 and fwp.shape[0] == 2
+    assert len(torch.unique(d[:, :, 5][d[:, :, 6] > 0.5])) == 2
+    kw = dict(stride=stride, row_block=rb)
+    got = sk.fused_step(d, fwp, fobs, cfg.physics, sc.size, **kw)
+    want = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size, **kw)
+    _assert_step_close(d, got, want)
+    assert torch.equal(got[[0, -1]], torch.zeros_like(got[[0, -1]]))
+    got = sk.fused_step(d, fwp, fobs, cfg.physics, sc.size, emit_movers=6, **kw)
+    want = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size,
+                               emit_movers=6, **kw)
+    _assert_step_close(d, got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):  # M, movf, mdmx
+        assert torch.equal(a, b)
+    assert float(want[0][:, :, 6].sum()) > 0  # agents survive the step
 
 
 @pytest.mark.cuda

@@ -116,7 +116,7 @@ def test_segment_grid_step_matches_oracle():
                              table_capacity=10, use_distance_map=False)
     pmaps = PFieldMaps.from_field(PField.from_scenario(psc, unit=0.25))
     gs = port_grid.bin_state(pcfg, PSimState(
-        convert.agents_from_numpy(pos, vel, speed, dest, active), 0))
+        convert.agents_from_numpy(pos, vel, speed, dest, active, "cpu"), 0))
     fwp, fobs = port_grid.field_tensors(pcfg, pmaps, "cpu")
     step = port_grid.make_step_grid(pcfg)
     for _ in range(N_STEPS):
@@ -132,7 +132,7 @@ def test_all_pairs_simulator_matches_oracle():
     assert sim.options.table_capacity == 29  # ceil(16 * (2.0 / 1.5)^2)
     assert sim.cfg.grid.unit == 2.0 and sim._fwp.shape[2] == 8  # stride 8
     sim.state = sim._from_flat_state(PSimState(
-        convert.agents_from_numpy(pos, vel, speed, dest, active), 0))
+        convert.agents_from_numpy(pos, vel, speed, dest, active, "cpu"), 0))
     for _ in range(N_STEPS):
         sim.tick()
     o_pos, o_act = _oracle(psc, pos, vel, speed, dest, active, 2.0,
@@ -153,7 +153,7 @@ def test_nonfinite_agent_is_contained():
                              table_capacity=10)
     pmaps = PFieldMaps.from_field(PField.from_scenario(psc, unit=0.25))
     d = port_grid.bin_state(pcfg, PSimState(convert.agents_from_numpy(
-        pos, vel, speed, dest, np.arange(512) < 160), 0)).d
+        pos, vel, speed, dest, np.arange(512) < 160, "cpu"), 0)).d
     fwp, fobs = port_grid.field_tensors(pcfg, pmaps, "cpu")
     r, kslot, lane = torch.nonzero(d[:, :, 6] > 0.5)[0].tolist()
     da, db = d.clone(), d.clone()

@@ -85,7 +85,7 @@ def test_grid_step_matches_reference(grid_setup):
                   key=jax.random.PRNGKey(7), step=jnp.int32(0))
     gs = ref_grid.bin_state(cfg, st)
     pgs = port_grid.bin_state(pcfg, PSimState(
-        convert.agents_from_numpy(pos, vel, speed, dest, active), 0))
+        convert.agents_from_numpy(pos, vel, speed, dest, active, "cpu"), 0))
     np.testing.assert_array_equal(pgs.d.numpy(), np.asarray(gs.d))
 
     fwp, fobs = map(jnp.asarray, sfm_pallas.pallas_device_inputs(cfg, maps))
@@ -111,7 +111,7 @@ def test_bin_unbin_roundtrip():
     _cfg, pcfg = _configs(SCENARIO, 512, 10)
     pos, vel, speed, dest, active = _agents(3, 160)
     gs = port_grid.bin_state(pcfg, PSimState(
-        convert.agents_from_numpy(pos, vel, speed, dest, active), 0))
+        convert.agents_from_numpy(pos, vel, speed, dest, active, "cpu"), 0))
     back = convert.agents_to_numpy(port_grid.unbin_state(pcfg, gs).agents)
 
     def rows(p, v, s, d, a):
@@ -145,7 +145,7 @@ def test_grid_step_matches_oracle(grid_setup):
                                           o_act, psc.size, 1.5)
 
     gs = port_grid.bin_state(pcfg, PSimState(
-        convert.agents_from_numpy(pos, vel, speed, dest, active), 0))
+        convert.agents_from_numpy(pos, vel, speed, dest, active, "cpu"), 0))
     fwp, fobs = port_grid.field_tensors(pcfg, pmaps, "cpu")
     step = port_grid.make_step_grid(pcfg)
     for _ in range(n_steps):
@@ -184,7 +184,8 @@ def test_spawn_scatter_bit_equal(grid_setup, k, n_active):
         key = jax.random.PRNGKey(100 + i)
         d_ref, n_sp, n_dr = scatter(d_ref, key)
         c = _spawn_candidates(cfg, key)
-        cand = convert.agents_from_numpy(c.pos, c.vel, c.speed, c.dest, c.active)
+        cand = convert.agents_from_numpy(c.pos, c.vel, c.speed, c.dest, c.active,
+                                         "cpu")
         d_port, p_sp, p_dr = port_grid.spawn_scatter(pcfg, d_port, cand)
         np.testing.assert_array_equal(d_port.numpy(), np.asarray(d_ref))
         assert (int(p_sp), int(p_dr)) == (int(n_sp), int(n_dr))

@@ -118,7 +118,7 @@ def _spawn_setup():
                              neighbor_grid_unit=1.5, table_capacity=8)
     a = st0.agents
     pgs = port_grid.bin_state(pcfg, PSimState(convert.agents_from_numpy(
-        a.pos, a.vel, a.speed, a.dest, a.active), 0))
+        a.pos, a.vel, a.speed, a.dest, a.active, "cpu"), 0))
     gs = ref_grid.bin_state(cfg, st0)
     np.testing.assert_array_equal(pgs.d.numpy(), np.asarray(gs.d))
     pmaps = PFieldMaps.from_field(PField.from_scenario(loads_scenario(SCENARIO),
@@ -151,7 +151,7 @@ def _reference_run():
         key, k_spawn = jax.random.split(key)
         c = _spawn_candidates(cfg, k_spawn)
         cands.append(convert.agents_from_numpy(c.pos, c.vel, c.speed, c.dest,
-                                               c.active))
+                                               c.active, "cpu"))
         gs, m = ref_step(gs, fwp, fobs)
         metrics.append({f: int(v) for f, v in m._asdict().items()})
     return metrics, cands, _active_rows(np.asarray(gs.d))
