@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Time the step kernel of two checkouts in turns on one NVIDIA GPU.
+"""Time the step and rebin kernels of two checkouts in turns on one NVIDIA GPU.
 
     python ab_step.py --parent DIR
 
@@ -9,9 +9,11 @@ parent, change, change, parent, so that both see the same card and the
 drift between turns shows.  A turn builds that tree's kernels, sets up the
 1M-agent bench problem, runs the full-rebin path and the hybrid for
 chip_smoke.py's warm-up and timed steps (host clock around a synchronised
-run), and times ``fused_step`` on each path's final state with
-chip_smoke.py's ``_median_ms``: base mode on the full path's, mover mode on
-the hybrid's.
+run), and times the kernels on each path's final state with chip_smoke.py's
+``_median_ms``: ``fused_step`` in base mode and ``rebin`` on its output on
+the full path's, ``fused_step`` in mover mode and ``rebin_incremental`` on
+its output on the hybrid's.  Then the same again for the same agents at the
+all-pairs unit (2.0 m cells, K 25, field stride 8; keys ``all_pairs_*``).
 
 Prints one JSON line per turn and a summary with the card's name and power
 limit.  Exits non-zero without a CUDA device.
@@ -39,38 +41,51 @@ def worker(tree: str) -> int:
     import chip_smoke  # before the path changes: this checkout's
     sys.path[:] = [tree] + [p for p in sys.path if p not in ("", str(HERE))]
 
+    from pedoni_tpu_torch import SimulatorOptions
     from pedoni_tpu_torch.bench import build_problem
     from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.models.sfm import StepConfig
     from pedoni_tpu_torch.ops.kernels import _build
+    from pedoni_tpu_torch.ops.kernels import rebin as rb
     from pedoni_tpu_torch.ops.kernels import step_kernel as sk
 
     dev = torch.device("cuda")
     _build.library()
-    _sc, maps, cfg, flat = build_problem(chip_smoke.N_AGENTS, device=dev)
-    fwp, fobs = sfm_grid.field_tensors(cfg, maps, dev)
-    gs0 = sfm_grid.bin_state(cfg, flat)
-    phys, size = cfg.physics, cfg.scenario.size
+    scenario, maps, cfg, flat = build_problem(chip_smoke.N_AGENTS, device=dev)
+    # the same agents at the all-pairs unit (2.0 m, K 25, field stride 8)
+    o = SimulatorOptions(neighbor_grid_unit=1.5, table_capacity=14,
+                         use_neighbor_grid=False).resolved()
+    wide = StepConfig.build(scenario, capacity=cfg.capacity,
+                            neighbor_grid_unit=o.neighbor_grid_unit,
+                            table_capacity=o.table_capacity,
+                            use_neighbor_grid=False)
     res = {"tree": tree}
-    states = {}
-    for name, incremental in (("full", False), ("hybrid", True)):
-        step = sfm_grid.make_step_grid(cfg, incremental=incremental)
-        gs = sfm_grid.GridState(d=gs0.d.clone(), step=0)
-        for _ in range(chip_smoke.WARMUP):
-            gs, _m = step(gs, fwp, fobs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(chip_smoke.TIMED):
-            gs, m = step(gs, fwp, fobs)
-        torch.cuda.synchronize()
-        res[f"{name}_ms_per_step"] = ((time.perf_counter() - t0)
-                                      / chip_smoke.TIMED * 1e3)
-        res[f"{name}_active"] = int(m.n_active)
-        states[name] = gs.d
-    res["step_kernel_ms"] = chip_smoke._median_ms(
-        lambda: sk.fused_step(states["full"], fwp, fobs, phys, size))
-    res["step_kernel_movers_ms"] = chip_smoke._median_ms(
-        lambda: sk.fused_step(states["hybrid"], fwp, fobs, phys, size,
-                              emit_movers=8))
+    for prefix, c in (("", cfg), ("all_pairs_", wide)):
+        fwp, fobs = sfm_grid.field_tensors(c, maps, dev)
+        phys, size, stride = c.physics, c.scenario.size, sfm_grid.stride_for(c)
+        states = {}
+        for name, incremental in (("full", False), ("hybrid", True)):
+            step = sfm_grid.make_step_grid(c, incremental=incremental)
+            gs, m, ms = chip_smoke._run_timed(step, sfm_grid.bin_state(c, flat),
+                                              fwp, fobs)
+            res[f"{prefix}{name}_ms_per_step"] = ms
+            res[f"{prefix}{name}_active"] = int(m.n_active)
+            states[name] = gs.d
+
+        def fused(name, **kw):
+            return sk.fused_step(states[name], fwp, fobs, phys, size,
+                                 stride=stride, **kw)
+
+        unit, nx, ny = c.grid.unit, c.grid.nx, c.grid.ny
+        g = fused("full")
+        g_mv, m_mv = fused("hybrid", emit_movers=8)[:2]
+        for key, fn in (
+                ("step_kernel_ms", lambda: fused("full")),
+                ("step_kernel_movers_ms", lambda: fused("hybrid", emit_movers=8)),
+                ("rebin_ms", lambda: rb.rebin(g, unit, nx, ny)),
+                ("rebin_incremental_ms",
+                 lambda: rb.rebin_incremental(g_mv, m_mv, unit, nx, ny))):
+            res[prefix + key] = chip_smoke._median_ms(fn)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -105,8 +120,9 @@ def main() -> int:
         line["turn"] = label
         turns.append(line)
         print(json.dumps(line), flush=True)
-    for k in ("step_kernel_ms", "step_kernel_movers_ms", "full_ms_per_step",
-              "hybrid_ms_per_step"):
+    keys = ("step_kernel_ms", "step_kernel_movers_ms", "rebin_ms",
+            "rebin_incremental_ms", "full_ms_per_step", "hybrid_ms_per_step")
+    for k in (*keys, *("all_pairs_" + k for k in keys)):
         p = [t[k] for t in turns if t["turn"] == "parent"]
         c = [t[k] for t in turns if t["turn"] == "change"]
         print(f"# {k}: parent {p[0]:.4f}, {p[1]:.4f}; change {c[0]:.4f}, "

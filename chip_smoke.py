@@ -32,7 +32,8 @@ nvcc, one process per source, then:
    incremental rebin on the hybrid's) and times each kernel and its twin
    there (median of 20 runs, CUDA events, each queued behind a device spin
    so that host enqueue time stays out).  Each bound counts the bytes the
-   function needs from this state (see ``_needed_bytes``);
+   function needs from this state (see ``_needed_bytes``).  The step kernel's
+   and the rebins' times are printed beside their first designs';
 6. segment mode (--no-distance-map): the step kernel with the obstacle edge
    table vs its twin on step 1's random grid (gap.toml's obstacles) and on
    both 1M states (the bench's one obstacle), base and mover modes; the 1M
@@ -44,7 +45,8 @@ nvcc, one process per source, then:
 7. all-pairs mode (--no-neighbor-grid): gap.toml through
    ``Simulator(use_neighbor_grid=False)`` (unit 2.0 m, K 29) evacuates
    within 400 steps; the 1M bench problem at unit 2.0 (K grown by the same
-   rule, field stride 8), its ms/step and the step kernel vs its twin there;
+   rule, field stride 8), its ms/step, and the step kernel and both rebins
+   vs their twins there;
 8. the standalone pairwise kernel (2D) vs its twin on a random grid and on
    the 1M full-path state with ch 4/5 replaced by seeded unit vectors, one
    launch counted, kernel and twin timed;
@@ -89,15 +91,17 @@ GAP = ROOT / "scenarios" / "gap.toml"
 RANDOM = ROOT / "scenarios" / "random.toml"  # 1000 obstacles
 RANDOM_STEPS = 200
 SEG_FLOPS = 100  # float operations of one (agent, obstacle) segment test
-# The same measurements with the step kernel's first design (one thread per
-# slot: a sample pass over the fields6 planes, a pair pass with a warp-wide
-# candidate walk, a third launch for the movers), from PERF.md (NVIDIA H100
-# 80GB HBM3, 700 W).  Printed beside this run's for comparison; nothing is
-# gated on them (a card capped below 700 W would fail a timing gate for no
-# fault of the code).
+# The same measurements with the kernels' first designs, from PERF.md (NVIDIA
+# H100 80GB HBM3, 700 W): the step kernel with one thread per slot (a sample
+# pass over the fields6 planes, a pair pass with a warp-wide candidate walk,
+# a third launch for the movers), and the rebins with one thread per output
+# cell (a serial walk of its candidates, beside the redesigned step kernel).
+# Printed beside this run's for comparison; nothing is gated on them (a card
+# capped below 700 W would fail a timing gate for no fault of the code).
 FIRST_DESIGN_MS = {"hybrid": 1.0674, "full": 0.9188, "step_kernel": 0.7499,
                    "step_kernel_movers": 0.9055, "step_kernel_segments": 0.6765,
-                   "segments_full": 0.8441, "all_pairs": 1.4354}
+                   "segments_full": 0.8441, "all_pairs": 1.4354,
+                   "rebin": 0.1286, "rebin_incremental": 0.1248}
 # tests/test_rebin_incremental.py's spawning scenario
 SPAWN_SCENARIO = """
 [field]
@@ -209,13 +213,12 @@ def _compare_step(d, fwp, fobs, phys, size, mk, what, **kw):
     return step_err, mover_err, g_t, mv_t
 
 
-def _compare(d, fwp, fobs, phys, size, unit, nx, ny, mk, what):
-    """All four kernels vs their twins on one grid: returns the step
-    kernel's max abs pos/vel error in base and mover mode."""
+def _compare_rebins(g_t, mv_t, unit, nx, ny, what) -> None:
+    """Both rebin kernels vs their twins, bit-equal on all five outputs, on
+    the step twin's outputs: ``g_t`` (base mode) for the full rebin, ``mv_t``
+    (mover mode: G with the stay mask, M) for the incremental one."""
     from pedoni_tpu_torch.ops.kernels import rebin as rb
 
-    step_err, mover_err, g_t, mv_t = _compare_step(d, fwp, fobs, phys, size,
-                                                   mk, what)
     names = ("D'", "overflow", "demand", "active_in", "active_out")
     for label, got, want in (
             ("rebin", rb.rebin(g_t, unit, nx, ny), rb.rebin_torch(g_t, unit, nx, ny)),
@@ -226,6 +229,14 @@ def _compare(d, fwp, fobs, phys, size, unit, nx, ny, mk, what):
         for name, a, b in zip(names, got, want):
             if not torch.equal(a, b):
                 raise AssertionError(f"{what}: {label} {name} differs from the twin")
+
+
+def _compare(d, fwp, fobs, phys, size, unit, nx, ny, mk, what):
+    """All four kernels vs their twins on one grid: returns the step
+    kernel's max abs pos/vel error in base and mover mode."""
+    step_err, mover_err, g_t, mv_t = _compare_step(d, fwp, fobs, phys, size,
+                                                   mk, what)
+    _compare_rebins(g_t, mv_t, unit, nx, ny, what)
     n_movers = int(mv_t[1][:, 0, 7].sum())
     print(f"# {what}: step kernel max |err| {step_err:.3e} (base), "
           f"{mover_err:.3e} (mover mode, MK {mk}, {n_movers} movers; stay "
@@ -588,7 +599,8 @@ def _segments_phase(dev, card, grid1, bench, states) -> dict:
 
 def _all_pairs_phase(dev, card, sc_gap, bscenario, bmaps, flat, capacity) -> None:
     """7. All-pairs mode: gap.toml evacuates; the 1M problem at the grown
-    unit, its ms/step and the step kernel vs its twin at stride 8."""
+    unit, its ms/step and the step kernel (at stride 8) and both rebins vs
+    their twins there."""
     from pedoni_tpu_torch import Simulator, SimulatorOptions
     from pedoni_tpu_torch.models import sfm_grid
     from pedoni_tpu_torch.models.sfm import StepConfig
@@ -620,14 +632,17 @@ def _all_pairs_phase(dev, card, sc_gap, bscenario, bmaps, flat, capacity) -> Non
     n_active = int(m.n_active)
     if n_active < 0.99 * N_AGENTS or not bool(torch.isfinite(gs.d[:, :, 0:4]).all()):
         raise AssertionError(f"1M all-pairs: {n_active} active or non-finite state")
-    e = _compare_step(gs.d, fwp, fobs, cfg.physics, bscenario.size, 8,
-                      "1M all-pairs state", stride=stride)[:2]
+    *e, g_t, mv_t = _compare_step(gs.d, fwp, fobs, cfg.physics, bscenario.size,
+                                  8, "1M all-pairs state", stride=stride)
+    _compare_rebins(g_t, mv_t, cfg.grid.unit, cfg.grid.nx, cfg.grid.ny,
+                    "1M all-pairs state")
     print(f"# 1M all-pairs (unit {o.neighbor_grid_unit} m, K {o.table_capacity}, "
           f"field stride {stride}, D {tuple(gs.d.shape)}): {n_active} active, "
           f"overflow last step {int(m.n_overflow)}, max demand "
           f"{int(m.max_demand)}; {ms:.4f} ms/step (hybrid, {WARMUP} warm-up, "
           f"{TIMED} timed); step kernel vs twin at stride {stride} max |err| "
-          f"{e[0]:.3e} (base), {e[1]:.3e} (mover mode); "
+          f"{e[0]:.3e} (base), {e[1]:.3e} (mover mode); rebin and "
+          f"rebin_incremental bit-equal to their twins on all 5 outputs there; "
           f"{_vs_first('all_pairs', ms)} on {card}", flush=True)
 
 
@@ -908,6 +923,13 @@ def main() -> int:
           f"pair pass tiles of {tile[0]} rows x {sk.TILE_LANES} lanes, "
           f"{tile[1]} threads, {tile[2]} bytes of shared memory a block",
           flush=True)
+    for label, mk_ in (("rebin", 0), ("rebin_incremental", 8)):
+        t_rows, t_lanes, t_threads, t_smem = rb.rebin_launch(
+            dims[1], mk_, dims[0], dims[3], 2)
+        print(f"# 1M {label}: tiles of {t_rows} rows x {t_lanes} lanes, "
+              f"{t_threads} threads, {t_smem} bytes of shared memory a block, "
+              f"{dims[3] // t_lanes * ((dims[0] - 2) // t_rows)} blocks",
+              flush=True)
     print("# 1M ms/step against the step kernel's first design: " + ", ".join(
         _vs_first(p, paths[p][0] * 1e3) for p in ("hybrid", "full")), flush=True)
 
@@ -967,6 +989,9 @@ def main() -> int:
               flush=True)
     print("# step kernel against its first design: " + ", ".join(
         _vs_first(n, times[n][0]) for n in ("step_kernel", "step_kernel_movers")),
+        flush=True)
+    print("# rebins against their first designs: " + ", ".join(
+        _vs_first(n, times[n][0]) for n in ("rebin", "rebin_incremental")),
         flush=True)
 
     kernels = []

@@ -214,7 +214,7 @@ def assert_movement_fits_rebin(cfg: StepConfig) -> None:
                          f"{cfg.grid.unit} m cell")
 
 
-def debug_segments(cfg: StepConfig, device: torch.device | str = "cpu"
+def debug_segments(cfg: StepConfig, device: torch.device | str = "cuda"
                    ) -> torch.Tensor | None:
     """The obstacle edge table of the --no-distance-map kernel mode
     (reference sfm_pallas.py:49-60, args.rs:27-31): None on the default
@@ -228,8 +228,9 @@ def debug_segments(cfg: StepConfig, device: torch.device | str = "cpu"
 
 
 def _segments_on(cfg: StepConfig) -> Callable[[torch.device], torch.Tensor | None]:
-    """device -> ``debug_segments(cfg)`` there, copied once per device."""
-    table = debug_segments(cfg)
+    """device -> ``debug_segments(cfg)`` there: built once on the host,
+    copied once per device."""
+    table = debug_segments(cfg, "cpu")
     copies: dict[torch.device, torch.Tensor] = {}
 
     def on(device: torch.device) -> torch.Tensor | None:

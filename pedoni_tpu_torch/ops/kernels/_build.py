@@ -100,9 +100,9 @@ def library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pedoni_step_kernel.argtypes = [p] * 9 + [i] * 12 + [p, p]
         lib.pedoni_step_kernel.restype = i
-        lib.pedoni_rebin_full.argtypes = [p] * 7 + [i] * 5 + [f, i, i, p]
+        lib.pedoni_rebin_full.argtypes = [p] * 7 + [i] * 5 + [f] + [i] * 6 + [p]
         lib.pedoni_rebin_full.restype = i
-        lib.pedoni_rebin_incremental.argtypes = [p] * 8 + [i] * 6 + [f, i, i, p]
+        lib.pedoni_rebin_incremental.argtypes = [p] * 8 + [i] * 6 + [f] + [i] * 6 + [p]
         lib.pedoni_rebin_incremental.restype = i
         lib.pedoni_pairwise.argtypes = [p, p, i, i, i, p, p]
         lib.pedoni_pairwise.restype = i

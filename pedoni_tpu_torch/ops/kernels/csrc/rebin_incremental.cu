@@ -16,168 +16,269 @@
 // ovf, dmx, nin, nout [nb] f32 per block of rb cell rows: movers beyond the
 //   free slots, peak (stayers + landers), input active sum over owned
 //   lanes, output active sum.  Integer-valued: float atomics are exact in
-//   any order; the peak is an integer atomicMax on the float's bits.
+//   any order.
 // gate: optional device int; the body runs only where *gate == want (the
 //   step passes the same gate to rebin.cu with the other value).
 //
-// What bounds it on the card: device-memory traffic.  Each output cell
-// reads its K slots' ch 6-7 (ch 0-5 of stayers), the 3x3 mover cells'
-// counts and their mover rows (mostly cache hits, shared by neighbouring
-// threads), and writes its K x 8 slots once.
+// What bounds it on the card: device-memory traffic, and of that the
+// output (K x 8 floats a cell) beside g's two mask planes, the stayers' six
+// floats and the few mover rows.  The first design (one thread per output
+// cell: the stay mask read from device memory up to three times, a serial
+// mover walk, each slot stored in turn) sat at under a third of that bound
+// on latency alone.
 //
-// The simple design: one thread per output cell (row, lane).
-//   1. Count the cell's holes (slots whose stay mask is not set, or any
-//      slot of a lane outside 1..nx: stayers are gated to owned lanes).
-//   2. Walk the mover candidates in the reference's order — mover row j
-//      outer, then dy, then dx (rebin.py:380-406) — with j bounded by the
-//      largest of the 9 cells' mover counts, as the reference's mmax
-//      bound does.  The landing test is rebin.cu's, IEEE divide included.
-//      The n-th lander takes the hole of rank n while n < holes: a cursor
-//      steps over stay slots, so holes fill in slot order, exactly the
-//      reference's exclusive hole rank (rebin.py:358-369).
-//   3. Write every slot once more: stayers copy their ch 0-5, filled holes
-//      keep what step 2 wrote, the rest are zero; ch 6 and ch 7 = topcnt.
-// Deterministic, no atomics on the bins, bit-equal to the twin.
+// The design (rebin.cuh has the shared parts):
+//   1. the block's threads, two to a cell of the tile (three where tiles
+//      are one row tall), read ch 7 and ch 6 of the cell's K slots once,
+//      kStay slots at a time: the stay bit goes into the cell's K-bit stay
+//      mask in shared memory (stayers are gated to the owned lanes 1..nx),
+//      ch 6 into the input active sum;
+//   2. classify: one thread per cell (row, lane) of the tile and its halo
+//      takes that cell's mover rows, kClassify at a time, bounded by the
+//      cell's mover count (a row j counts only where j < count and its ch 6
+//      is set, so a stale row never lands); the landing test runs once a
+//      mover and sets one bit of the landing cell's mask;
+//   3. place: one thread per cell pops the lander bits in ascending order —
+//      the reference's (j, dy, dx) order (rebin.py:380-406) — and the hole
+//      bits (the stay mask's complement) in slot order: the n-th lander
+//      takes the hole of exclusive rank n while holes are left
+//      (rebin.py:358-369).  Shared memory only.  topcnt, overflow and demand
+//      fall out of the two masks' popcounts and the last hole filled;
+//   4. write: the threads of step 1, each every second slot of its cell,
+//      kWrite at a time: a stayer copies its six floats from g, a filled
+//      hole gathers its mover's from m, the rest is zero; ch 6 and ch 7 =
+//      topcnt.  A slot's eight channels leave in one go: copying the
+//      stayers early, in step 1, left lines half written for a while and
+//      cost a third more time (PERF.md).
+// Deterministic, no atomics on the bins, bit-equal to the twin.  Times:
+// PERF.md.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rebin.cuh"
 
 namespace {
 
-__global__ void rebin_inc(const float* __restrict__ g,
-                          const float* __restrict__ m, float* __restrict__ out,
-                          float* __restrict__ ovf, float* __restrict__ dmx,
-                          float* __restrict__ nin, float* __restrict__ nout,
-                          const int* __restrict__ gate, int want, int ny2,
-                          int k, int mk, int nxl, int rb, float unit,
-                          int nx_cells, int ny_cells) {
-  if (gate != nullptr && *gate != want) return;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y;  // every thread of a block shares its row
-  if (lane >= nxl) return;
+using namespace pedoni_rebin;
+
+constexpr int kStay = 4;      // slots whose masks a thread asks for at once
+constexpr int kClassify = 4;  // mover rows a thread has in flight at once
+constexpr int kWrite = 4;     // output slots a thread has in flight at once
+
+// The hole bits of stay-mask word w of a cell: slots below k that no
+// stayer holds.
+__device__ __forceinline__ uint32_t hole_bits(const uint32_t* stay, int w,
+                                              int cell, int cells, int k) {
+  const int left = k - w * 32;
+  const uint32_t valid = left >= 32 ? 0xffffffffu : (1u << left) - 1u;
+  return ~stay[w * cells + cell] & valid;
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 4)
+rebin_inc(const float* __restrict__ g, const float* __restrict__ m,
+          float* __restrict__ out, float* __restrict__ ovf,
+          float* __restrict__ dmx, float* __restrict__ nin,
+          float* __restrict__ nout, const int* __restrict__ gate, int want,
+          Grid gd, int mk, int tile_rows, int tile_lanes) {
+  extern __shared__ uint32_t smem[];
+  __shared__ Sums sums;
+  read_gate(gate, want, &sums);
+  const Tile t = block_tile(tile_rows, tile_lanes);
+  const int k = gd.k, nxl = gd.nxl;
+  const int mwords = mask_words(mk), swords = (k + 31) / 32;
+  uint32_t* mask = smem;                         // [mwords][cells] landers
+  uint32_t* stay = mask + mwords * t.cells;      // [swords][cells]
+  int* fin = (int*)(stay + swords * t.cells);    // [cells] cursor | topcnt << 16
+  uint16_t* src = (uint16_t*)(fin + t.cells);    // [k][cells]
+  const int tid = threadIdx.x, threads = blockDim.x;
   const int64_t sk = (int64_t)8 * nxl;  // slot stride
-  float* dst = out + (int64_t)row * k * sk + lane;
-  if (row == 0 || row == ny2 - 1) {
-    for (int s = 0; s < k; ++s)
-      for (int c = 0; c < 8; ++c) dst[s * sk + (int64_t)c * nxl] = 0.0f;
-    return;
-  }
-  const bool own = lane >= 1 && lane <= nx_cells;
-  const float* gs = g + (int64_t)row * k * sk + lane;
-#define PEDONI_STAY(s) (own && gs[(s) * sk + 7 * nxl] > 0.5f)
+  const Column col = thread_column(t);
+  const int cell = col.r * t.lanes + col.l;  // of the slots this thread owns
+  const int row = t.row0 + col.r, lane = t.l0 + col.l;
+  const float* own = g + (int64_t)row * k * sk + lane;  // that cell's slot 0
 
-  // 1. holes and the input active sum
-  int holes = 0;
-  int top_stay = 0;  // top stay slot + 1
-  float in_act = 0.0f;
-  for (int s = 0; s < k; ++s) {
-    if (PEDONI_STAY(s)) top_stay = s + 1;
-    else ++holes;
-    if (own) in_act += gs[s * sk + 6 * nxl];
+  for (int i = tid; i < (mwords + swords) * t.cells; i += threads) mask[i] = 0u;
+  __syncthreads();
+  if (!sums.go) return;  // gated off: the same for the whole block
+  zero_ghost_rows(out, gd, t);
+
+  // the mover table's halo lanes: this thread's first mover row there is
+  // asked for now and classified in step 2
+  const int n_halo = (t.rows + 2) * mk * 2;
+  const HaloItem first = halo_item(m, tid, mk, t, nxl);
+  float hcount = 0.0f, h6 = 0.0f;
+  if (first.c != nullptr) {
+    hcount = (first.c - first.j * sk)[7 * nxl];
+    h6 = first.c[6 * nxl];
   }
 
-  // 2. mover walk: (j, dy, dx) order, landers into holes by rank
-  const float* mrow[3];
-  int jmax = 0;
-  float mcnt[9];
-  for (int dy = -1; dy <= 1; ++dy) {
-    mrow[dy + 1] = m + (int64_t)(row + dy) * mk * sk;
-    for (int dx = -1; dx <= 1; ++dx) {
-      const int l2 = lane + dx;
-      float cv = 0.0f;
-      if (l2 >= 0 && l2 < nxl) cv = mrow[dy + 1][7 * nxl + l2];
-      mcnt[(dy + 1) * 3 + dx + 1] = cv;
-      const int ci = cv > (float)mk ? mk : (cv > 0.0f ? (int)ceilf(cv) : 0);
-      jmax = ci > jmax ? ci : jmax;
-    }
-  }
-  const float row_f = (float)(row - 1);
-  const float lane_f = (float)lane;
-  int landed = 0;
-  int cur = 0;  // slot index past the last filled hole
-  for (int j = 0; j < jmax; ++j) {
-    for (int dy = -1; dy <= 1; ++dy) {
-      const float* crow = mrow[dy + 1] + j * sk;
-      for (int dx = -1; dx <= 1; ++dx) {
-        const int l2 = lane + dx;
-        if (l2 < 0 || l2 >= nxl) continue;
-        if (!((float)j < mcnt[(dy + 1) * 3 + dx + 1])) continue;
-        const float* cs = crow + l2;
-        if (!(cs[6 * nxl] > 0.5f)) continue;
-        const float x = cs[0];
-        const float y = cs[nxl];
-        const float tgt_lane = floorf(__fdiv_rn(x, unit)) + 1.0f;
-        const float tgt_row = floorf(__fdiv_rn(y, unit));
-        if (!(tgt_row == row_f && tgt_row <= (float)(ny_cells - 1) &&
-              tgt_lane >= 1.0f && tgt_lane <= (float)nx_cells &&
-              tgt_lane == lane_f))
-          continue;
-        if (landed < holes) {
-          while (PEDONI_STAY(cur)) ++cur;
-          float* o = dst + cur * sk;
-          o[0] = x;
-          o[nxl] = y;
-          for (int c = 2; c < 6; ++c) o[(int64_t)c * nxl] = cs[(int64_t)c * nxl];
-          ++cur;
+  // 1. the stay masks and the input active sum: the warps of a cell row
+  // share its K slots, kStay at a time
+  float n_in = 0.0f;
+  if (lane >= 1 && lane <= gd.nx_cells) {
+    for (int s0 = col.part; s0 < k; s0 += kStay * col.parts) {
+      float a7[kStay], a6[kStay];
+#pragma unroll
+      for (int q = 0; q < kStay; ++q) {
+        const int s = s0 + q * col.parts;
+        a7[q] = a6[q] = 0.0f;
+        if (s < k) {
+          a7[q] = own[s * sk + 7 * nxl];
+          a6[q] = own[s * sk + 6 * nxl];
         }
-        ++landed;
+      }
+#pragma unroll
+      for (int q = 0; q < kStay; ++q) {
+        const int s = s0 + q * col.parts;
+        n_in += a6[q];
+        if (a7[q] > 0.5f)
+          atomicOr(stay + (s >> 5) * t.cells + cell, 1u << (s & 31));
       }
     }
   }
 
-  // 3. stayers, the untouched rest, ch 6 and ch 7 = topcnt
-  const int topcnt = cur > top_stay ? cur : top_stay;
-  int n_out = 0;
-  for (int s = 0; s < k; ++s) {
-    float* o = dst + s * sk;
-    const bool stay = PEDONI_STAY(s);
-    const bool filled = !stay && s < cur;
-    if (stay)
-      for (int c = 0; c < 6; ++c) o[(int64_t)c * nxl] = gs[s * sk + (int64_t)c * nxl];
-    else if (!filled)
-      for (int c = 0; c < 6; ++c) o[(int64_t)c * nxl] = 0.0f;
-    o[6 * nxl] = (stay || filled) ? 1.0f : 0.0f;
-    o[7 * nxl] = (float)topcnt;
-    n_out += (stay || filled) ? 1 : 0;
+  // 2. classify: this thread's warp owns 32 lanes of one mover-table row of
+  // the tile and its halo and walks that row's MK mover rows, bounded by
+  // each cell's count
+  {
+    const int clane = t.l0 + col.l;
+    const float* c = m + (int64_t)(t.row0 - 1 + col.h) * mk * sk + clane;
+    const float count = c[7 * nxl];
+    for (int j0 = 0; j0 < mk; j0 += kClassify) {
+      float a6[kClassify], x[kClassify], y[kClassify];
+      bool live[kClassify];
+#pragma unroll
+      for (int q = 0; q < kClassify; ++q)
+        a6[q] = j0 + q < mk ? c[(j0 + q) * sk + 6 * nxl] : 0.0f;
+#pragma unroll
+      for (int q = 0; q < kClassify; ++q)
+        live[q] = (float)(j0 + q) < count && a6[q] > 0.5f;
+#pragma unroll
+      for (int q = 0; q < kClassify; ++q) {
+        x[q] = live[q] ? c[(j0 + q) * sk] : 0.0f;
+        y[q] = live[q] ? c[(j0 + q) * sk + nxl] : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < kClassify; ++q)
+        if (live[q]) mark_lander(mask, t, gd, x[q], y[q], col.h, col.l + 1, j0 + q);
+    }
   }
-#undef PEDONI_STAY
+  if ((float)first.j < hcount && h6 > 0.5f)
+    mark_lander(mask, t, gd, first.c[0], first.c[nxl], first.h, first.hl, first.j);
+  for (int i = tid + threads; i < n_halo; i += threads) {  // a tall MK only
+    const HaloItem it = halo_item(m, i, mk, t, nxl);
+    if (it.c != nullptr && (float)it.j < (it.c - it.j * sk)[7 * nxl] &&
+        it.c[6 * nxl] > 0.5f)
+      mark_lander(mask, t, gd, it.c[0], it.c[nxl], it.h, it.hl, it.j);
+  }
+  __syncthreads();
 
-  // Per-block reductions: warp sums, then one atomic per warp.
-  float over = (float)(landed > holes ? landed - holes : 0);
-  float out_f = (float)n_out;
-  int peak = (k - holes) + landed;
-  const unsigned mask = 0xffffffffu;  // full warps: NXL % 128 == 0
-  for (int off = 16; off > 0; off >>= 1) {
-    over += __shfl_down_sync(mask, over, off);
-    out_f += __shfl_down_sync(mask, out_f, off);
-    in_act += __shfl_down_sync(mask, in_act, off);
-    const int p2 = __shfl_down_sync(mask, peak, off);
-    peak = p2 > peak ? p2 : peak;
+  // 3. place: the n-th lander into the hole of rank n
+  float over = 0.0f, n_out = 0.0f;
+  int peak = 0;
+  for (int pc = tid; pc < t.cells; pc += threads) {
+    int stayers = 0, top_stay = 0;  // top stay slot + 1
+    for (int w = 0; w < swords; ++w) {
+      const uint32_t bits = stay[w * t.cells + pc];
+      stayers += __popc(bits);
+      if (bits) top_stay = w * 32 + 32 - __clz(bits);
+    }
+    const int holes = k - stayers;
+    int landed = 0, cur = 0;  // cur: slot index past the last filled hole
+    int hw = 0;
+    uint32_t hbits = hole_bits(stay, 0, pc, t.cells, k);
+    for (int w = 0; w < mwords; ++w) {
+      uint32_t bits = mask[w * t.cells + pc];
+      while (bits) {
+        const int b = __ffs(bits) - 1;
+        bits &= bits - 1;
+        if (landed < holes) {
+          while (hbits == 0u) hbits = hole_bits(stay, ++hw, pc, t.cells, k);
+          const int slot = hw * 32 + __ffs(hbits) - 1;
+          hbits &= hbits - 1;
+          src[slot * t.cells + pc] = (uint16_t)(w * kBitsPerWord + b);
+          cur = slot + 1;
+        }
+        ++landed;
+      }
+    }
+    fin[pc] = cur | ((cur > top_stay ? cur : top_stay) << 16);
+    const int filled = landed < holes ? landed : holes;
+    over += (float)(landed - filled);
+    n_out += (float)(stayers + filled);
+    const int demand = stayers + landed;
+    peak = demand > peak ? demand : peak;
   }
-  if ((threadIdx.x & 31) == 0) {
-    const int b = (row - 1) / rb;
-    if (over != 0.0f) atomicAdd(ovf + b, over);
-    if (out_f != 0.0f) atomicAdd(nout + b, out_f);
-    if (in_act != 0.0f) atomicAdd(nin + b, in_act);
-    if (peak > 0) atomicMax((int*)(dmx + b), __float_as_int((float)peak));
+  block_add(&sums, over, n_out, n_in, peak);
+  __syncthreads();
+  block_emit(&sums, gd, t, ovf, dmx, nin, nout);
+
+  // 4. write this thread's slots, kWrite at a time: all their loads are
+  // asked for before the first store
+  {
+    const int f = fin[cell];
+    const int cur = f & 0xffff;
+    const float top = (float)(f >> 16);
+    float* o = out + (int64_t)row * k * sk + lane;
+    for (int s0 = col.part; s0 < k; s0 += kWrite * col.parts) {
+      float v[kWrite][6];
+      bool on[kWrite];
+#pragma unroll
+      for (int q = 0; q < kWrite; ++q) {
+        const int s = s0 + q * col.parts;
+        on[q] = false;
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch) v[q][ch] = 0.0f;
+        if (s < k) {
+          const bool stays = (stay[(s >> 5) * t.cells + cell] >> (s & 31)) & 1u;
+          on[q] = stays || s < cur;  // a stayer or a filled hole
+          if (on[q]) {
+            const float* c = stays
+                ? own + s * sk
+                : lander_source(m, src[s * t.cells + cell], row, lane, mk, nxl);
+#pragma unroll
+            for (int ch = 0; ch < 6; ++ch) v[q][ch] = c[ch * nxl];
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kWrite; ++q) {
+        const int s = s0 + q * col.parts;
+        if (s >= k) break;
+        float* os = o + s * sk;
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch) os[ch * nxl] = v[q][ch];
+        os[6 * nxl] = on[q] ? 1.0f : 0.0f;
+        os[7 * nxl] = top;
+      }
+    }
   }
 }
 
 }  // namespace
 
-// ovf/dmx/nin/nout must be zeroed by the caller.  nxl % 32 == 0, so every
-// warp is full and the shuffles see 32 live lanes.  gate may be null.
+// ovf/dmx/nin/nout must be zeroed by the caller.  gate may be null.
+// tile_rows, tile_lanes, threads and smem_bytes are the launch shape
+// (rebin.py::rebin_launch); returns a cudaError_t, or -1 for a launch shape
+// that function cannot return.
 extern "C" int pedoni_rebin_incremental(const float* g, const float* m,
                                         float* out, float* ovf, float* dmx,
                                         float* nin, float* nout,
                                         const int* gate, int want, int ny2,
                                         int k, int mk, int nxl, int rb,
                                         float unit, int nx_cells, int ny_cells,
+                                        int tile_rows, int tile_lanes,
+                                        int threads, int smem_bytes,
                                         void* stream) {
-  const int threads = 128;
-  dim3 grid((unsigned)((nxl + threads - 1) / threads), (unsigned)ny2);
-  rebin_inc<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      g, m, out, ovf, dmx, nin, nout, gate, want, ny2, k, mk, nxl, rb, unit,
-      nx_cells, ny_cells);
+  const pedoni_rebin::Grid gd{ny2, k, nxl, rb, nx_cells, ny_cells, unit};
+  if (mk < 1 || !pedoni_rebin::launch_ok(gd, mk, tile_rows, tile_lanes, threads,
+                                         smem_bytes))
+    return -1;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rebin_inc, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((unsigned)(nxl / tile_lanes), (unsigned)((ny2 - 2) / tile_rows));
+  rebin_inc<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      g, m, out, ovf, dmx, nin, nout, gate, want, gd, mk, tile_rows, tile_lanes);
   return (int)cudaGetLastError();
 }

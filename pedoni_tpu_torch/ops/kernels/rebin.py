@@ -12,12 +12,15 @@ ch 7 = the step kernel's stay mask) keep their slots, and the movers of
 the 3x3 mover tables M fill the holes in hole-rank order.
 
 Each wrapper launches its hand-written kernel (``csrc/rebin.cu``,
-``csrc/rebin_incremental.cu``) on a CUDA tensor and runs its plain
-PyTorch twin (``rebin_torch``, ``rebin_incremental_torch``) on a CPU
-tensor.  Both take an optional device ``gate``: the hybrid step launches
-both with one 0-d int32 flag, each kernel's body runs only where the flag
-selects it (1 = full, 0 = incremental), and both write the same
-preallocated ``out`` — the choice never reaches the host.
+``csrc/rebin_incremental.cu``; a block owns a tile of cells, classifies
+every candidate once into per-cell bit masks in shared memory and writes
+every output slot from its own thread — ``rebin_launch`` sizes the tile)
+on a CUDA tensor and runs its plain PyTorch twin (``rebin_torch``,
+``rebin_incremental_torch``) on a CPU tensor.  Both take an optional
+device ``gate``: the hybrid step launches both with one 0-d int32 flag,
+each kernel's body runs only where the flag selects it (1 = full, 0 =
+incremental), and both write the same preallocated ``out`` — the choice
+never reaches the host.
 """
 
 from __future__ import annotations
@@ -26,9 +29,54 @@ import torch
 
 from ..neighbor import true_divide
 from . import _build
-from .step_kernel import _shift_lane
+from .step_kernel import SMEM_BLOCK_RESERVED, SMEM_SM, _shift_lane
 
 FULL, INCREMENTAL = 1, 0  # gate values that select each rebin
+REBIN_TILE_LANES = (64, 32)  # candidates, widest first
+REBIN_BLOCKS_AN_SM = 4  # blocks an SM should have room for
+SLOTS_PER_WORD = 3  # candidate slots whose 9 offsets share a mask word
+
+
+def rebin_smem_bytes(k: int, mk: int, tile_rows: int, tile_lanes: int) -> int:
+    """Shared memory of a rebin block that owns ``tile_rows`` x
+    ``tile_lanes`` cells at K = ``k`` (csrc/rebin.cuh smem_bytes, the same
+    sum): per cell the lander masks — 9 bits a candidate slot, K slots for
+    the full rebin (``mk`` = 0), MK for the incremental one — a count or
+    cursor word, a 16-bit source code per output slot, and for the
+    incremental rebin the K-bit stay mask."""
+    slots = mk if mk > 0 else k
+    per_cell = 4 * -(-slots // SLOTS_PER_WORD) + 4 + 2 * k
+    if mk > 0:
+        per_cell += 4 * -(-k // 32)
+    return tile_rows * tile_lanes * per_cell
+
+
+def rebin_launch(k: int, mk: int, ny2: int, nxl: int, row_block: int
+                 ) -> tuple[int, int, int, int]:
+    """(tile rows, tile lanes, threads per block, shared-memory bytes) of
+    a rebin kernel on a grid [ny2, K, 8, NXL]: ``mk`` = 0 for the full
+    rebin, the mover table's MK for the incremental one.
+
+    A block owns ``tile rows`` x ``tile lanes`` cells and has one thread
+    per cell of the tile and of the halo rows above and below it (each
+    classifies the candidates of its cell); the tiles cover the centre
+    rows 1 .. ny2-2 and lanes [0, NXL) exactly.  A tile never
+    straddles two blocks of ``row_block`` rows (its sums go to one), so it
+    is two rows tall where ``row_block`` is even and one otherwise.  The
+    widest tile of REBIN_TILE_LANES that leaves room for
+    REBIN_BLOCKS_AN_SM blocks on an SM wins (their warps hide each other's
+    phases), and the narrowest leaves that room at every K and MK up to
+    255."""
+    if (not 1 <= k <= 255 or not 0 <= mk <= 255 or ny2 < 3 or row_block < 1
+            or nxl % 128 != 0 or (ny2 - 2) % row_block != 0):
+        raise ValueError(f"rebin: unsupported grid ny2={ny2}, K={k}, MK={mk}, "
+                         f"NXL={nxl}, row_block={row_block}")
+    rows = 2 if row_block % 2 == 0 else 1
+    for lanes in REBIN_TILE_LANES:
+        need = rebin_smem_bytes(k, mk, rows, lanes)
+        if REBIN_BLOCKS_AN_SM * (need + SMEM_BLOCK_RESERVED) <= SMEM_SM:
+            break
+    return rows, lanes, (rows + 2) * lanes, need
 
 
 def _check(g: torch.Tensor, row_block: int) -> None:
@@ -111,7 +159,8 @@ def rebin(g: torch.Tensor, unit: float, nx_cells: int, ny_cells: int,
     stream = torch.cuda.current_stream(g.device).cuda_stream
     rc = lib.pedoni_rebin_full(
         g.data_ptr(), out[0].data_ptr(), *_ptrs(out, gate), FULL, ny2, k,
-        nxl, row_block, unit, nx_cells, ny_cells, stream)
+        nxl, row_block, unit, nx_cells, ny_cells,
+        *rebin_launch(k, 0, ny2, nxl, row_block), stream)
     _build.check_launch(rc, "pedoni_rebin_full")
     rebin.launches += 1
     return out
@@ -137,7 +186,8 @@ def rebin_incremental(g: torch.Tensor, m: torch.Tensor, unit: float,
     _check(g, row_block)
     ny2, k, _, nxl = g.shape
     if (m.dtype != torch.float32 or not m.is_contiguous() or m.dim() != 4
-            or m.shape[0] != ny2 or tuple(m.shape[2:]) != (8, nxl)
+            or m.shape[0] != ny2 or m.shape[1] < 1
+            or tuple(m.shape[2:]) != (8, nxl)
             or m.device != g.device):
         raise ValueError(f"m must be contiguous float32 [{ny2}, MK, 8, {nxl}] "
                          f"on {g.device}, got {tuple(m.shape)}")
@@ -153,7 +203,7 @@ def rebin_incremental(g: torch.Tensor, m: torch.Tensor, unit: float,
     rc = lib.pedoni_rebin_incremental(
         g.data_ptr(), m.data_ptr(), out[0].data_ptr(), *_ptrs(out, gate),
         INCREMENTAL, ny2, k, m.shape[1], nxl, row_block, unit, nx_cells,
-        ny_cells, stream)
+        ny_cells, *rebin_launch(k, m.shape[1], ny2, nxl, row_block), stream)
     _build.check_launch(rc, "pedoni_rebin_incremental")
     rebin_incremental.launches += 1
     return out

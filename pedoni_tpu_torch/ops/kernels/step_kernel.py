@@ -69,7 +69,7 @@ def _cell_unit(stride: int, field_unit: float) -> float:
     return stride * field_unit
 
 
-def segment_table(obstacles, device: torch.device | str = "cpu"
+def segment_table(obstacles, device: torch.device | str = "cuda"
                   ) -> torch.Tensor:
     """The obstacle edge table of the segment mode: [n_obs, SEG_COLS] f32.
 

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels vs their plain PyTorch twins, on the card:
 the step kernel (base, mover and segment modes, field strides 6 and 8, and
-grids built to break its cell tiles), the full and the incremental rebin, the device gate that makes the hybrid
-step's choice, and the standalone pairwise kernel.
+grids built to break its cell tiles), the full and the incremental rebin
+(and the grids of tests/test_torch_rebin_cases.py, built to break their
+tiles and bit masks), the device gate that makes the hybrid step's choice,
+and the standalone pairwise kernel.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports neither JAX nor the
 reference package, so it runs on a machine with only PyTorch:
@@ -26,6 +28,7 @@ from pedoni_tpu_torch.ops.kernels import pairwise as pw
 from pedoni_tpu_torch.ops.kernels import rebin as rb
 from pedoni_tpu_torch.ops.kernels import step_kernel as sk
 from pedoni_tpu_torch.physics import Physics
+from test_torch_rebin_cases import CASES, rebin_case
 
 SCENARIOS = pathlib.Path(__file__).resolve().parents[1] / "scenarios"
 GAP = SCENARIOS / "gap.toml"
@@ -304,6 +307,39 @@ def test_step_kernel_tile_edges(case):
     for a, b in zip(got[1:], want[1:]):  # M, movf, mdmx
         assert torch.equal(a, b)
     assert float(want[0][:, :, 6].sum()) > 0  # agents survive the step
+
+
+# case -> (tile rows, tile lanes) that rebin_launch gives the full and the
+# incremental rebin where it leaves the bench's 2 x 64
+REBIN_TILES = {"k150": ((2, 32), (2, 64)), "row_block_1": ((1, 64), (1, 64))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_rebin_tile_edges(case):
+    """Both rebin kernels vs their twins, bit-equal on all five outputs, on
+    the grids of tests/test_torch_rebin_cases.py; D' is poisoned beforehand,
+    so a slot the kernel leaves unwritten shows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    c = rebin_case(case)
+    g, gi, m = (torch.from_numpy(c[name]).cuda() for name in ("g", "gi", "m"))
+    ny2, k, _, nxl = g.shape
+    tiles = REBIN_TILES.get(case, ((2, 64), (2, 64)))
+    assert rb.rebin_launch(k, 0, ny2, nxl, c["rb"])[:2] == tiles[0]
+    assert rb.rebin_launch(k, c["mk"], ny2, nxl, c["rb"])[:2] == tiles[1]
+    args = (c["unit"], c["nx"], c["ny"], c["rb"])
+    runs = ((rb.rebin, rb.rebin_torch, (g,)),
+            (rb.rebin_incremental, rb.rebin_incremental_torch, (gi, m)))
+    for kernel, twin, ins in runs:
+        out = rb.new_outputs(g, c["rb"])
+        out[0].fill_(float("nan"))
+        got = kernel(*ins, *args, out=out)
+        want = twin(*ins, *args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("D'", "ovf", "dmx", "nin", "nout"), got, want):
+            assert torch.equal(a, b), f"{kernel.__name__} {name}"
+        assert float(want[4].sum()) > 0  # agents survive the rebin
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import functools
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -65,13 +66,27 @@ def test_segment_step_twin_matches_pallas(step_setup):  # noqa: F811
         jnp.asarray(d), jnp.asarray(f6.wp), jnp.asarray(f6.obs)))
     args = (torch.from_numpy(d), torch.from_numpy(f6.wp),
             torch.from_numpy(f6.obs), PortPhysics(), sc.size)
-    got = port_step.fused_step(*args, segments=port_step.segment_table(segs))
+    got = port_step.fused_step(*args, segments=port_step.segment_table(segs, "cpu"))
     assert port_step.fused_step.segment_launches == 0
     _compare(d, want, got.numpy())
     # the mode switched: the distance map gives other forces
     dmap = port_step.fused_step(*args).numpy()
     held = d[:, :, 6, :] > 0.5
     assert np.abs(dmap[:, :, 2, :] - got.numpy()[:, :, 2, :])[held].max() > 1e-3
+
+
+def test_segment_helpers_default_to_the_card():
+    """Like every entry point of the port, the edge-table functions put their
+    tensor on the card unless asked; the step function builds its table on
+    the host once and copies it to the state's device."""
+    for fn in (port_step.segment_table, port_grid.debug_segments):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    pcfg = PStepConfig.build(ploads_scenario(SCENARIO), capacity=CAP,
+                             neighbor_grid_unit=1.5, table_capacity=10,
+                             use_distance_map=False)
+    table = port_grid._segments_on(pcfg)(torch.device("cpu"))
+    assert table.device.type == "cpu" and table.shape[1] == port_step.SEG_COLS
+    assert torch.equal(table, port_grid.debug_segments(pcfg, "cpu"))
 
 
 def _initial(seed=42):

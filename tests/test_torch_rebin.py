@@ -13,6 +13,7 @@ import torch
 from pedoni_tpu.ops.pallas.rebin import rebin_kernel
 from pedoni_tpu_torch.ops.kernels import rebin as port_rebin
 from test_rebin import K, NX, NXL, UNIT, _block_reductions, _make_grid, _numpy_rebin
+from test_torch_rebin_cases import CASES, rebin_case
 
 torch.set_num_threads(1)
 
@@ -35,6 +36,31 @@ def test_rebin_twin_matches_numpy(ny, seed):
         rows = slice(i * 2 + 1, i * 2 + 3)
         assert nin[i] == g[rows, :, 6, 1:NX + 1].sum()
         assert nout[i] == (got[rows, :, 6, :] > 0.5).sum()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_rebin_twin_tile_edge_cases(case):
+    """The grids built to break a tiled, bit-mask rebin (K = 1, K past 64,
+    nine-neighbour overflow, exact cell boundaries, non-finite positions,
+    the edge lanes, padding rows, odd row counts): the twin equals the
+    NumPy referee bit for bit on all five outputs."""
+    c = rebin_case(case)
+    g, k, nx, ny, rb = c["g"], c["k"], c["nx"], c["ny"], c["rb"]
+    with np.errstate(invalid="ignore", over="ignore"):
+        want, demand = _numpy_rebin(g, c["unit"], nx, ny)
+    got, ovf, dmx, nin, nout = [t.numpy() for t in port_rebin.rebin(
+        torch.from_numpy(g), c["unit"], nx, ny, row_block=rb)]
+    np.testing.assert_array_equal(got, want)
+    want_ovf, want_dmx = _block_reductions(demand, rb, k)
+    np.testing.assert_array_equal(ovf, want_ovf)
+    np.testing.assert_array_equal(dmx, want_dmx)
+    for i in range((g.shape[0] - 2) // rb):
+        rows = slice(i * rb + 1, (i + 1) * rb + 1)
+        assert nin[i] == g[rows, :, 6, 1:nx + 1].sum()
+        assert nout[i] == (want[rows, :, 6, :] > 0.5).sum()
+    assert nout.sum() > 0
+    if case in ("k1", "nine_neighbours_overflow", "full_cell_takes_no_mover"):
+        assert ovf.sum() > 0  # landers genuinely dropped
 
 
 def test_rebin_twin_conservation():
