@@ -12,24 +12,45 @@ chip_smoke.py's warm-up and timed steps (host clock around a synchronised
 run), and times the kernels on each path's final state with chip_smoke.py's
 ``_median_ms``: ``fused_step`` in base mode and ``rebin`` on its output on
 the full path's, ``fused_step`` in mover mode and ``rebin_incremental`` on
-its output on the hybrid's.  Then the same again for the same agents at the
-all-pairs unit (2.0 m cells, K 25, field stride 8; keys ``all_pairs_*``).
+its output on the hybrid's.  Then, at the 1.5 m unit only: the step kernel in
+segment mode (--no-distance-map) on the full path's state with the bench's
+one obstacle, on the state of scenarios/random.toml (1000 obstacles)
+after chip_smoke.py's ticks through ``Simulator(use_distance_map=False)``
+and on funnel.toml's and default.toml's (4 and 3 obstacles) after
+CROSSOVER_TICKS ticks, and the standalone pairwise kernel (2D) on the full
+path's state with chip_smoke.py's seeded unit vectors in ch 4/5.  Then the
+same again for the
+same agents at the all-pairs unit (2.0 m cells, K 25, field stride 8; keys
+``all_pairs_*``).
 
 Prints one JSON line per turn and a summary with the card's name and power
 limit.  Exits non-zero without a CUDA device.
+
+    python ab_step.py --crossover
+
+times, in this checkout alone, where segment mode should walk its edge
+table: the step kernel with the sample pass walking every row against
+the pair pass culling it per tile (chip_smoke.py's ``_segment_walk``),
+both checked bit-equal, at table sizes from 1 row up:
+on the 1M bench state (rows spread over its field as scenarios/generate.py
+spreads them), on random.toml's state after chip_smoke.py's ticks (its
+first n rows), on funnel.toml's state at its own agent count (its 4 rows,
+then more spread over its field), and on default.toml's and
+room-evac.toml's states with their own 3 rows.  One JSON line per state.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
-import time
 
 HERE = pathlib.Path(__file__).resolve().parent
+CROSSOVER_TICKS = 300  # ticks before a shipped scenario's state is timed
 
 
 def worker(tree: str) -> int:
@@ -41,11 +62,12 @@ def worker(tree: str) -> int:
     import chip_smoke  # before the path changes: this checkout's
     sys.path[:] = [tree] + [p for p in sys.path if p not in ("", str(HERE))]
 
-    from pedoni_tpu_torch import SimulatorOptions
+    from pedoni_tpu_torch import Simulator, SimulatorOptions, load_scenario
     from pedoni_tpu_torch.bench import build_problem
     from pedoni_tpu_torch.models import sfm_grid
     from pedoni_tpu_torch.models.sfm import StepConfig
     from pedoni_tpu_torch.ops.kernels import _build
+    from pedoni_tpu_torch.ops.kernels import pairwise as pw
     from pedoni_tpu_torch.ops.kernels import rebin as rb
     from pedoni_tpu_torch.ops.kernels import step_kernel as sk
 
@@ -86,13 +108,130 @@ def worker(tree: str) -> int:
                 ("rebin_incremental_ms",
                  lambda: rb.rebin_incremental(g_mv, m_mv, unit, nx, ny))):
             res[prefix + key] = chip_smoke._median_ms(fn)
+        if prefix:
+            continue
+        # segment mode on the 1M state and on random.toml's; 2D on the 1M state
+        segs = sfm_grid.debug_segments(dataclasses.replace(c, use_distance_map=False),
+                                       dev)
+        res["step_kernel_segments_ms"] = chip_smoke._median_ms(
+            lambda: fused("full", segments=segs))
+        sim = Simulator(SimulatorOptions(device="cuda", seed=1,
+                                         use_distance_map=False),
+                        load_scenario(chip_smoke.RANDOM))
+        for _ in range(chip_smoke.RANDOM_STEPS):
+            sim.tick()
+        rsegs = sfm_grid.debug_segments(sim.cfg, dev)
+        rd, rstride = sim.state.d, sfm_grid.stride_for(sim.cfg)
+        res["random_toml_active"] = int((rd[:, :, 6] > 0.5).sum())
+        res["random_toml_segments_ms"] = chip_smoke._median_ms(
+            lambda: sk.fused_step(rd, sim._fwp, sim._fobs, sim.cfg.physics,
+                                  sim.cfg.scenario.size, stride=rstride,
+                                  segments=rsegs))
+        for name in ("funnel", "default"):  # shipped tables of 4 and 3 rows
+            ssim = Simulator(SimulatorOptions(device="cuda", seed=1,
+                                              use_distance_map=False),
+                             load_scenario(HERE / "scenarios" / f"{name}.toml"))
+            for _ in range(CROSSOVER_TICKS):
+                ssim.tick()
+            ssegs = sfm_grid.debug_segments(ssim.cfg, dev)
+            res[f"{name}_toml_segments_ms"] = chip_smoke._median_ms(
+                lambda: sk.fused_step(ssim.state.d, ssim._fwp, ssim._fobs,
+                                      ssim.cfg.physics, ssim.cfg.scenario.size,
+                                      stride=sfm_grid.stride_for(ssim.cfg),
+                                      segments=ssegs))
+        d2 = states["full"].clone()
+        gen = torch.Generator(device=dev).manual_seed(7)
+        e = torch.randn((d2.shape[0], d2.shape[1], 2, d2.shape[3]),
+                        generator=gen, device=dev)
+        d2[:, :, 4:6] = e / e.norm(dim=2, keepdim=True)
+        res["pairwise_ms"] = chip_smoke._median_ms(lambda: pw.pairwise(d2, phys, 2))
     print(json.dumps(res), flush=True)
+    return 0
+
+
+def _spread_rows(n: int, size, seed: int) -> list[tuple]:
+    """n obstacles as scenarios/generate.py draws them (centre uniform 3 m
+    inside the field, length 1-6 m, any angle, width 0.3-1.5 m)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        x, y = rng.uniform(3.0, size[0] - 3.0), rng.uniform(3.0, size[1] - 3.0)
+        half = rng.uniform(1.0, 6.0) / 2
+        a = rng.uniform(0.0, 6.28318)
+        dx, dy = np.cos(a) * half, np.sin(a) * half
+        rows.append((x - dx, y - dy, x + dx, y + dy, rng.uniform(0.3, 1.5)))
+    return rows
+
+
+def crossover() -> int:
+    """Walk against pass in segment mode (see the module's docstring)."""
+    import torch
+
+    import chip_smoke
+    from pedoni_tpu_torch import Simulator, SimulatorOptions, load_scenario
+    from pedoni_tpu_torch.bench import build_problem
+    from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+
+    dev = torch.device("cuda")
+    card = chip_smoke._card()
+    print(card, flush=True)
+
+    def sim_state(name: str, ticks: int):
+        sim = Simulator(SimulatorOptions(device="cuda", seed=1,
+                                         use_distance_map=False),
+                        load_scenario(HERE / "scenarios" / name))
+        for _ in range(ticks):
+            sim.tick()
+        return (sim.state.d, sim._fwp, sim._fobs, sim.cfg.physics,
+                sim.cfg.scenario.size, sfm_grid.stride_for(sim.cfg),
+                chip_smoke._obstacles(sim.cfg.scenario))
+
+    scenario, maps, cfg, flat = build_problem(chip_smoke.N_AGENTS, device=dev)
+    fwp, fobs = sfm_grid.field_tensors(cfg, maps, dev)
+    gs = chip_smoke._run_timed(sfm_grid.make_step_grid(cfg, incremental=False),
+                               sfm_grid.bin_state(cfg, flat), fwp, fobs)[0]
+    size = cfg.scenario.size
+    states = {
+        "1M": ((gs.d, fwp, fobs, cfg.physics, size, sfm_grid.stride_for(cfg)),
+               {n: _spread_rows(n, size, n) for n in (1, 2, 3, 4, 8, 16, 32, 64, 128)}),
+    }
+    r = sim_state("random.toml", chip_smoke.RANDOM_STEPS)
+    states["random.toml"] = (r[:6], {n: r[6][:n] for n in
+                                     (1, 2, 3, 4, 8, 16, 32, 64, 128, 256, 1000)})
+    f = sim_state("funnel.toml", CROSSOVER_TICKS)
+    states["funnel.toml"] = (f[:6], {n: f[6] + _spread_rows(n - 4, f[4], n)
+                                     for n in (4, 8, 16, 32, 64)})
+    for name in ("default.toml", "room-evac.toml"):
+        s = sim_state(name, CROSSOVER_TICKS)
+        states[name] = (s[:6], {len(s[6]): s[6]})
+    for name, ((d, wp, ob, phys, sz, stride), tables) in states.items():
+        res = {"state": name, "live": int((d[:, :, 6] > 0.5).sum()),
+               "D": list(d.shape), "walk_ms": {}, "pass_ms": {}}
+        for n, rows in tables.items():
+            segs = sk.segment_table(rows, dev)
+
+            def run(pair_pass):
+                with chip_smoke._segment_walk(pair_pass):
+                    return sk.fused_step(d, wp, ob, phys, sz, stride=stride,
+                                         segments=segs)
+
+            if not torch.equal(run(False), run(True)):
+                raise AssertionError(f"{name}, {n} rows: walk and pass differ")
+            res["walk_ms"][n] = chip_smoke._median_ms(lambda: run(False))
+            res["pass_ms"][n] = chip_smoke._median_ms(lambda: run(True))
+        print(json.dumps(res), flush=True)
+    print(f"# walk against pass, medians of 20 CUDA-event runs on {card}",
+          flush=True)
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="directory of the other checkout")
+    ap.add_argument("--crossover", action="store_true",
+                    help="time segment mode's walk against its pass instead")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -101,6 +240,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_step: no CUDA device", file=sys.stderr)
         return 2
+    if args.crossover:
+        return crossover()
     if not args.parent:
         ap.error("--parent is required")
     import chip_smoke
@@ -122,7 +263,9 @@ def main() -> int:
         print(json.dumps(line), flush=True)
     keys = ("step_kernel_ms", "step_kernel_movers_ms", "rebin_ms",
             "rebin_incremental_ms", "full_ms_per_step", "hybrid_ms_per_step")
-    for k in (*keys, *("all_pairs_" + k for k in keys)):
+    for k in (*keys, "step_kernel_segments_ms", "random_toml_segments_ms",
+              "funnel_toml_segments_ms", "default_toml_segments_ms",
+              "pairwise_ms", *("all_pairs_" + k for k in keys)):
         p = [t[k] for t in turns if t["turn"] == "parent"]
         c = [t[k] for t in turns if t["turn"] == "change"]
         print(f"# {k}: parent {p[0]:.4f}, {p[1]:.4f}; change {c[0]:.4f}, "

@@ -29,19 +29,27 @@ nvcc, one process per source, then:
    device's busy share of the unprofiled wall time;
 5. repeats the kernel-vs-twin checks on each path's own 1M state (the
    base step and the full rebin on the full path's, the mover mode and the
-   incremental rebin on the hybrid's) and times each kernel and its twin
+   incremental rebin on the hybrid's; the incremental rebin also on a
+   hand-made M whose rows past each cell's count hold movers) and times
+   each kernel and its twin
    there (median of 20 runs, CUDA events, each queued behind a device spin
    so that host enqueue time stays out).  Each bound counts the bytes the
    function needs from this state (see ``_needed_bytes``).  The step kernel's
    and the rebins' times are printed beside their first designs';
 6. segment mode (--no-distance-map): the step kernel with the obstacle edge
-   table vs its twin on step 1's random grid (gap.toml's obstacles) and on
-   both 1M states (the bench's one obstacle), base and mover modes; the 1M
+   table vs its twin, base and mover modes, the table walked by the sample
+   pass and again by the pair pass, on step 1's random grid (gap.toml's
+   obstacles, then those and random.toml's 1000) and on both 1M states
+   (the bench's one obstacle; the full path's also with random.toml's 1000
+   rows, so that dense tiles meet the pair pass's cull); the 1M
    full path with ``use_distance_map=False`` (launch counts zeroed before,
    read after); scenarios/random.toml (1000 obstacles, 200 x 200 m, 4
    spawn groups) for 200 steps through ``Simulator(use_distance_map=
    False)``, then the kernel vs the twin on its state; kernel, twin and
-   bound on both states;
+   bound on both states, with the (agent, obstacle) pairs a walk of the
+   whole table, the pair pass's tile cull and the data need; then 48 more
+   random.toml ticks under ``torch.profiler``: device us per tick for each
+   kernel and for the glue (spawn scatter, metrics), and the busy share;
 7. all-pairs mode (--no-neighbor-grid): gap.toml through
    ``Simulator(use_neighbor_grid=False)`` (unit 2.0 m, K 29) evacuates
    within 400 steps; the 1M bench problem at unit 2.0 (K grown by the same
@@ -63,6 +71,7 @@ non-zero, with no result line, on any failure or without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import statistics
@@ -91,17 +100,23 @@ GAP = ROOT / "scenarios" / "gap.toml"
 RANDOM = ROOT / "scenarios" / "random.toml"  # 1000 obstacles
 RANDOM_STEPS = 200
 SEG_FLOPS = 100  # float operations of one (agent, obstacle) segment test
+EXP_ZERO_RANGES = 104  # exp(-d / obs_range) is 0 in f32 past this many ranges
+RANDOM_PROFILE_TICKS = 48  # random.toml ticks under torch.profiler
 # The same measurements with the kernels' first designs, from PERF.md (NVIDIA
 # H100 80GB HBM3, 700 W): the step kernel with one thread per slot (a sample
 # pass over the fields6 planes, a pair pass with a warp-wide candidate walk,
-# a third launch for the movers), and the rebins with one thread per output
-# cell (a serial walk of its candidates, beside the redesigned step kernel).
+# a third launch for the movers, in segment mode a walk of the whole edge
+# table), the rebins with one thread per output cell (a serial walk of its
+# candidates, beside the redesigned step kernel), and 2D with one thread
+# per centre slot over all its candidate slots.
 # Printed beside this run's for comparison; nothing is gated on them (a card
 # capped below 700 W would fail a timing gate for no fault of the code).
 FIRST_DESIGN_MS = {"hybrid": 1.0674, "full": 0.9188, "step_kernel": 0.7499,
                    "step_kernel_movers": 0.9055, "step_kernel_segments": 0.6765,
                    "segments_full": 0.8441, "all_pairs": 1.4354,
-                   "rebin": 0.1286, "rebin_incremental": 0.1248}
+                   "rebin": 0.1286, "rebin_incremental": 0.1248,
+                   "step_kernel_segments_random_toml": 0.7328,
+                   "pairwise": 0.5632}
 # tests/test_rebin_incremental.py's spawning scenario
 SPAWN_SCENARIO = """
 [field]
@@ -188,43 +203,75 @@ def _step_err(d, got, want) -> float:
     return err
 
 
+@contextlib.contextmanager
+def _segment_walk(pair_pass: bool | None):
+    """Segment mode's edge table walked by the pair pass (True) or by the
+    sample pass (False) inside the block, whatever its length; None leaves
+    the choice to ``step_kernel.segment_pass``."""
+    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+
+    rule = sk.segment_pass
+    if pair_pass is not None:
+        sk.segment_pass = lambda n_seg: pair_pass
+    try:
+        yield
+    finally:
+        sk.segment_pass = rule
+
+
 def _compare_step(d, fwp, fobs, phys, size, mk, what, **kw):
     """The step kernel vs its twin in base and mover mode (``kw``: the
     segment table, the field stride): returns (base err, mover err, the
-    twin's base output, the twin's mover-mode outputs)."""
+    twin's base output, the twin's mover-mode outputs).  In segment mode the
+    kernel runs twice, the table walked by its sample pass and by its pair
+    pass (``_segment_walk``), each held to the one twin output."""
     from pedoni_tpu_torch.ops.kernels import step_kernel as sk
 
-    g_k = sk.fused_step(d, fwp, fobs, phys, size, **kw)
+    seg = kw.get("segments") is not None
     g_t = sk.fused_step_torch(d, fwp, fobs, phys, size, **kw)
-    torch.cuda.synchronize()
-    ch = slice(4, 8) if kw.get("segments") is not None else slice(4, 7)
-    if not torch.equal(g_k[:, :, ch], g_t[:, :, ch]):
-        raise AssertionError(f"{what}: step kernel channels {ch} differ")
-    step_err = _step_err(d, g_k, g_t)
-    mv_k = sk.fused_step(d, fwp, fobs, phys, size, emit_movers=mk, **kw)
     mv_t = sk.fused_step_torch(d, fwp, fobs, phys, size, emit_movers=mk, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(mv_k[0][:, :, 4:8], mv_t[0][:, :, 4:8]):
-        raise AssertionError(f"{what}: mover mode speed/dest/active/stay differ")
-    mover_err = _step_err(d, mv_k[0], mv_t[0])
-    for name, a, b in zip(("M", "movf", "mdmx"), mv_k[1:], mv_t[1:]):
-        if not torch.equal(a, b):
-            raise AssertionError(f"{what}: mover mode {name} differs from the twin")
+    ch = slice(4, 8) if seg else slice(4, 7)
+    step_err = mover_err = 0.0
+    for path in ((False, True) if seg else (None,)):
+        where = what if path is None else f"{what}, {('sample', 'pair')[path]}-pass walk"
+        with _segment_walk(path):
+            g_k = sk.fused_step(d, fwp, fobs, phys, size, **kw)
+            mv_k = sk.fused_step(d, fwp, fobs, phys, size, emit_movers=mk, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(g_k[:, :, ch], g_t[:, :, ch]):
+            raise AssertionError(f"{where}: step kernel channels {ch} differ")
+        step_err = max(step_err, _step_err(d, g_k, g_t))
+        if not torch.equal(mv_k[0][:, :, 4:8], mv_t[0][:, :, 4:8]):
+            raise AssertionError(f"{where}: mover mode speed/dest/active/stay differ")
+        mover_err = max(mover_err, _step_err(d, mv_k[0], mv_t[0]))
+        for name, a, b in zip(("M", "movf", "mdmx"), mv_k[1:], mv_t[1:]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{where}: mover mode {name} differs from the twin")
     return step_err, mover_err, g_t, mv_t
 
 
 def _compare_rebins(g_t, mv_t, unit, nx, ny, what) -> None:
     """Both rebin kernels vs their twins, bit-equal on all five outputs, on
     the step twin's outputs: ``g_t`` (base mode) for the full rebin, ``mv_t``
-    (mover mode: G with the stay mask, M) for the incremental one."""
+    (mover mode: G with the stay mask, M) for the incremental one, and the
+    incremental one again on a hand-made M: the same rows with every cell's
+    count (ch 7) cut by one, so that a row past the count holds a mover
+    (the reference lands it by its ch 6)."""
     from pedoni_tpu_torch.ops.kernels import rebin as rb
 
     names = ("D'", "overflow", "demand", "active_in", "active_out")
+    m_cut = mv_t[1].clone()
+    m_cut[:, :, 7] = torch.clamp(m_cut[:, :, 7] - 1.0, min=0.0)
+    if not bool((m_cut[:, :, 6] > 0.5).any()):
+        raise AssertionError(f"{what}: no mover rows for the hand-made M")
     for label, got, want in (
             ("rebin", rb.rebin(g_t, unit, nx, ny), rb.rebin_torch(g_t, unit, nx, ny)),
             ("rebin_incremental",
              rb.rebin_incremental(mv_t[0], mv_t[1], unit, nx, ny),
-             rb.rebin_incremental_torch(mv_t[0], mv_t[1], unit, nx, ny))):
+             rb.rebin_incremental_torch(mv_t[0], mv_t[1], unit, nx, ny)),
+            ("rebin_incremental, hand-made M",
+             rb.rebin_incremental(mv_t[0], m_cut, unit, nx, ny),
+             rb.rebin_incremental_torch(mv_t[0], m_cut, unit, nx, ny))):
         torch.cuda.synchronize()
         for name, a, b in zip(names, got, want):
             if not torch.equal(a, b):
@@ -241,7 +288,8 @@ def _compare(d, fwp, fobs, phys, size, unit, nx, ny, mk, what):
     print(f"# {what}: step kernel max |err| {step_err:.3e} (base), "
           f"{mover_err:.3e} (mover mode, MK {mk}, {n_movers} movers; stay "
           f"mask, M, movf, mdmx equal) (tol {TOL}); rebin and "
-          f"rebin_incremental bit-equal on all 5 outputs", flush=True)
+          f"rebin_incremental bit-equal on all 5 outputs, the latter also on "
+          f"M with its counts cut by one", flush=True)
     return step_err, mover_err
 
 
@@ -364,8 +412,8 @@ def _needed_bytes(name: str, ins: tuple, outs: tuple) -> int:
     - rebin: G's ch 6 plane (every slot of the 3x3 walk is tested) and
       ch 0-5 of G's active slots;
     - rebin_incremental: G's ch 6 and ch 7 planes, ch 0-5 of the stay slots,
-      M's count plane, and ch 0-5 of the mover rows below each cell's count
-      (ch 6 of those rows follows from the count)."""
+      M's ch 6 plane (a row lands where its ch 6 is set, as in the
+      reference), and ch 0-5 of the rows that hold a mover."""
     out_b = _nbytes(*outs)
     if name == "step_kernel_segments":
         d, fwp, segs, stride = ins
@@ -387,36 +435,50 @@ def _needed_bytes(name: str, ins: tuple, outs: tuple) -> int:
         return plane + row6 * int((g[:, :, 6] > 0.5).sum()) + out_b
     m = ins[1]
     return (2 * plane + row6 * int((g[:, :, 7] > 0.5).sum())
-            + _nbytes(m[:, 0, 7]) + row6 * int((m[:, :, 6] > 0.5).sum()) + out_b)
+            + _nbytes(m[:, :, 6]) + row6 * int((m[:, :, 6] > 0.5).sum()) + out_b)
 
 
-def _profile(step, gs, fwp, fobs, wall_ms: float, name: str, card: str):
-    """PROFILE_STEPS more steps under torch.profiler: device us/step and
-    launches/step per kernel, and the busy share of ``wall_ms``."""
+def _device_profile(run, n: int, wall_ms: float, what: str, card: str) -> float:
+    """``run()`` n times under torch.profiler: device us and launches per
+    run for each kernel of PROFILED (everything else on the device is
+    "glue"), and the busy share of ``wall_ms``, the unprofiled wall time of
+    one run.  Returns the device ms per run."""
     import collections
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(PROFILE_STEPS):
-            gs, _m = step(gs, fwp, fobs)
+        for _ in range(n):
+            run()
         torch.cuda.synchronize()
     us, launches = collections.Counter(), collections.Counter()
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host events; device kernels, memsets and copies stay
         label = next((k for k in PROFILED if k in ev.key), "glue")
-        us[label] += ev.self_device_time_total / PROFILE_STEPS
-        launches[label] += ev.count / PROFILE_STEPS
+        us[label] += ev.self_device_time_total / n
+        launches[label] += ev.count / n
     dev_ms = sum(us.values()) / 1e3
     if not dev_ms > 0:
-        raise AssertionError(f"1M {name}: the profiler traced no device time")
-    print(f"# 1M {name} profile, {PROFILE_STEPS} steps (torch.profiler): device "
-          f"{dev_ms:.4f} ms/step, unprofiled wall {wall_ms:.4f} ms/step, busy "
-          f"share {dev_ms / wall_ms:.3f} on {card}", flush=True)
+        raise AssertionError(f"{what}: the profiler traced no device time")
+    print(f"# {what} profile, {n} runs (torch.profiler): device {dev_ms:.4f} "
+          f"ms a run, unprofiled wall {wall_ms:.4f} ms a run, busy share "
+          f"{dev_ms / wall_ms:.3f} on {card}", flush=True)
     for label in (*PROFILED, "glue"):
         if label in us:
-            print(f"#   {label:12s} {us[label]:9.2f} us/step {us[label] / 1e3 / dev_ms:6.1%}"
-                  f"  {launches[label]:.2f} launches/step", flush=True)
-    return gs
+            print(f"#   {label:12s} {us[label]:9.2f} us a run {us[label] / 1e3 / dev_ms:6.1%}"
+                  f"  {launches[label]:.2f} launches a run", flush=True)
+    return dev_ms
+
+
+def _profile(step, gs, fwp, fobs, wall_ms: float, name: str, card: str):
+    """PROFILE_STEPS more steps of a 1M path under torch.profiler (see
+    ``_device_profile``); returns the state after them."""
+    state = [gs]
+
+    def run():
+        state[0] = step(state[0], fwp, fobs)[0]
+
+    _device_profile(run, PROFILE_STEPS, wall_ms, f"1M {name} (a run = a step)", card)
+    return state[0]
 
 
 def _pair_candidates(d: torch.Tensor) -> float:
@@ -450,6 +512,48 @@ def _pairwise_flops(d: torch.Tensor, cutoff_sq: float) -> tuple[float, int, int]
             visited += int(act.sum()) * (1 if dy == dx == 0 else k)
     beyond = visited - within
     return within * PAIR_FLOPS + beyond * PAIR_TEST_FLOPS, within, beyond
+
+def _segment_pairs(d: torch.Tensor, g: torch.Tensor, segs: torch.Tensor,
+                   phys, grid_size) -> tuple[int, int, int]:
+    """(agent, obstacle) pairs of segment mode on the grid ``d`` whose
+    agents after despawn are ``g``'s ch 6: (every live agent with every
+    row, as a walk of the whole table; the pairs the kernel evaluates: each
+    tile's live agents with the rows its pair pass's cull keeps, or the
+    whole walk where the sample pass walks a short table; the pairs within
+    EXP_ZERO_RANGES obstacle ranges by box distance, past which a term is
+    exactly 0: the work the data needs)."""
+    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+    ny2, k, _, nxl = d.shape
+    live = g[1:-1, :, 6] > 0.5  # [ny, K, NXL]
+    row, _, lane = torch.nonzero(live, as_tuple=True)
+    ax, ay = d[1:-1, :, 0][live], d[1:-1, :, 1][live]
+    corners = torch.stack([segs[:, 0:2], segs[:, 0:2] + segs[:, 2:4],
+                           segs[:, 5:7], segs[:, 5:7] + segs[:, 7:9]])
+    lo, hi = corners.amin(0), corners.amax(0)  # [n_seg, 2]
+    gx = torch.clamp(torch.maximum(lo[None, :, 0] - ax[:, None],
+                                   ax[:, None] - hi[None, :, 0]), min=0.0)
+    gy = torch.clamp(torch.maximum(lo[None, :, 1] - ay[:, None],
+                                   ay[:, None] - hi[None, :, 1]), min=0.0)
+    near = int((gx * gx + gy * gy < (EXP_ZERO_RANGES * phys.obs_range) ** 2).sum())
+    walk = int(ax.numel()) * segs.shape[0]
+    if not sk.segment_pass(segs.shape[0]):
+        return walk, walk, near
+    rows = sk.pair_pass_launch(k, ny2, nxl, segments=True)[0]
+    n_lt = nxl // sk.TILE_LANES
+    tile = (row // rows) * n_lt + lane // sk.TILE_LANES
+    n_tiles = -(-(ny2 - 2) // rows) * n_lt
+    box = [torch.full((n_tiles,), v, device=d.device).scatter_reduce(
+               0, tile, a, how, include_self=True)
+           for v, a, how in ((float("inf"), ax, "amin"), (float("-inf"), ax, "amax"),
+                             (float("inf"), ay, "amin"), (float("-inf"), ay, "amax"))]
+    cull = sk.segment_cull(phys, grid_size)
+    gap_x = torch.maximum(lo[None, :, 0] - box[1][:, None], box[0][:, None] - hi[None, :, 0])
+    gap_y = torch.maximum(lo[None, :, 1] - box[3][:, None], box[2][:, None] - hi[None, :, 1])
+    keep = ~((gap_x >= cull) | (gap_y >= cull))
+    agents = torch.bincount(tile, minlength=n_tiles)
+    kept = int((keep.sum(dim=1) * agents).sum())
+    return walk, kept, near
+
 
 def _obstacles(sc) -> list[tuple]:
     return [(o.line[0][0], o.line[0][1], o.line[1][0], o.line[1][1], o.width)
@@ -491,25 +595,38 @@ def _segments_phase(dev, card, grid1, bench, states) -> dict:
     from pedoni_tpu_torch.ops.kernels import step_kernel as sk
 
     sc, cfg, d, fwp, fobs = grid1
-    segs = sk.segment_table(_obstacles(sc), dev)
-    errs = list(_compare_step(d, fwp, fobs, cfg.physics, sc.size, 4,
-                              "segments, random grid", segments=segs)[:2])
-    print(f"# segments, random grid (gap.toml's {segs.shape[0]} obstacles, a NaN "
-          f"and an inf agent): step kernel max |err| {errs[0]:.3e} (base), "
-          f"{errs[1]:.3e} (mover mode); other channels, M, movf, mdmx equal "
-          f"(tol {TOL})", flush=True)
+    rsc = load_scenario(RANDOM)
+    errs = []
+    for label, rows in (("gap.toml's", _obstacles(sc)),
+                        ("gap.toml's and random.toml's", _obstacles(sc) + _obstacles(rsc))):
+        segs = sk.segment_table(rows, dev)
+        e = _compare_step(d, fwp, fobs, cfg.physics, sc.size, 4,
+                          f"segments, random grid, {segs.shape[0]} rows",
+                          segments=segs)[:2]
+        errs += e
+        print(f"# segments, random grid ({label} {segs.shape[0]} obstacles, a "
+              f"NaN and an inf agent; walked by the sample pass and by the "
+              f"pair pass): step kernel max |err| {e[0]:.3e} (base), "
+              f"{e[1]:.3e} (mover mode); other channels, M, movf, mdmx equal "
+              f"(tol {TOL})", flush=True)
 
     bcfg, bfwp, bfobs, gs0 = bench
     scfg = dataclasses.replace(bcfg, use_distance_map=False)
     bsegs = sfm_grid.debug_segments(scfg, dev)
     phys, size = bcfg.physics, bcfg.scenario.size
-    for name, sd in (("full", states["full"]), ("hybrid", states["hybrid"])):
+    rsegs = sk.segment_table(_obstacles(rsc), dev)
+    for name, sd, sg in (("full", states["full"], bsegs),
+                         ("hybrid", states["hybrid"], bsegs),
+                         ("full", states["full"], rsegs)):
         e = _compare_step(sd, bfwp, bfobs, phys, size, 8,
-                          f"segments, 1M {name}-path state", segments=bsegs)[:2]
+                          f"segments, 1M {name}-path state, {sg.shape[0]} rows",
+                          segments=sg)[:2]
         errs += e
-        print(f"# segments, 1M {name}-path state ({bsegs.shape[0]} obstacle): "
-              f"step kernel max |err| {e[0]:.3e} (base), {e[1]:.3e} (mover "
-              f"mode); other channels equal (tol {TOL})", flush=True)
+        print(f"# segments, 1M {name}-path state ({sg.shape[0]} obstacle"
+              f"{'s, random.toml' if sg is rsegs else ', the bench'}'s; walked "
+              f"by the sample pass and by the pair pass): step kernel max "
+              f"|err| {e[0]:.3e} (base), {e[1]:.3e} (mover mode); other "
+              f"channels equal (tol {TOL})", flush=True)
 
     step = sfm_grid.make_step_grid(scfg, incremental=False)
     _zero_launch_counts()
@@ -528,7 +645,6 @@ def _segments_phase(dev, card, grid1, bench, states) -> dict:
           f"launches {counts}; {_vs_first('segments_full', ms_1m)} on {card}",
           flush=True)
 
-    rsc = load_scenario(RANDOM)
     _zero_launch_counts()
     t0 = time.perf_counter()
     sim = Simulator(SimulatorOptions(device=dev.type, seed=1,
@@ -571,21 +687,34 @@ def _segments_phase(dev, card, grid1, bench, states) -> dict:
             return sk.fused_step_torch(sd, wp, ob, p, sz, stride=st, segments=sg)
 
         k_ms, t_ms = _median_ms(kernel), _median_ms(twin, n=n_twin)
-        need = _needed_bytes("step_kernel_segments", (sd, wp, sg, st), (twin(),))
-        n_act = int((sd[:, :, 6] > 0.5).sum())
-        b_ms, by = _bound(need, SEG_FLOPS * n_act * sg.shape[0])
+        g_t = twin()
+        need = _needed_bytes("step_kernel_segments", (sd, wp, sg, st), (g_t,))
+        walk, kept, near = _segment_pairs(sd, g_t, sg, p, sz)
+        b_ms, by = _bound(need, SEG_FLOPS * near)
         timing[label] = (k_ms, t_ms, b_ms, by)
-        print(f"# step_kernel_segments on the {label} state ({n_act} active, "
+        print(f"# step_kernel_segments on the {label} state "
+              f"({int((g_t[:, :, 6] > 0.5).sum())} live after despawn, "
               f"{sg.shape[0]} obstacles): ms/step "
               f"{ms_1m if label == '1M' else ms_rand:.4f}, kernel {k_ms:.4f} ms, "
-              f"twin {t_ms:.4f} ms (median of {n_twin}), bound {b_ms:.4f} ms "
-              f"({by}; {need / 1e6:.1f} MB, {SEG_FLOPS} flops x {n_act} agents "
-              f"x {sg.shape[0]} obstacles at {F32_FLOP_PER_S / 1e12:.0f} "
-              f"TFLOP/s; {b_ms / k_ms:.1%} of it) on {card}", flush=True)
+              f"twin {t_ms:.4f} ms (median of {n_twin}); (agent, obstacle) "
+              f"pairs: {walk} in a walk of the whole table, {kept} "
+              f"evaluated by the kernel ({walk / max(kept, 1):.1f}x fewer), "
+              f"{near} within {EXP_ZERO_RANGES} obstacle ranges by box "
+              f"distance; bound {b_ms:.4f} ms ({by}; {need / 1e6:.1f} MB, "
+              f"{SEG_FLOPS} flops x {near} pairs at "
+              f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s; {b_ms / k_ms:.1%} of it) "
+              f"on {card}", flush=True)
     k_ms, t_ms, b_ms, by = timing["1M"]
     rk, rt, rb_ms, rby = timing["random.toml"]
+    _zero_launch_counts()
+    _device_profile(sim.tick, RANDOM_PROFILE_TICKS, ms_rand,
+                    f"random.toml, segments (a run = a tick; glue = spawn "
+                    f"scatter, metrics, zeroing)", card)
+    if _launch_counts()["step_kernel_segments"] != RANDOM_PROFILE_TICKS:
+        raise AssertionError(f"random.toml profile: launches {_launch_counts()}")
     print("# segment mode against the step kernel's first design: "
-          + _vs_first("step_kernel_segments", k_ms), flush=True)
+          + _vs_first("step_kernel_segments", k_ms) + ", "
+          + _vs_first("step_kernel_segments_random_toml", rk), flush=True)
     return {"name": "step_kernel_segments", "route": "cuda",
             "source": CSRC + "step_kernel.cu",
             "replaces": "pedoni_tpu/ops/pallas/step_kernel.py:898",
@@ -693,7 +822,9 @@ def _pairwise_phase(dev, card, d_full, phys) -> dict:
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {within} pairs within the "
           f"cutoff x {PAIR_FLOPS} + {beyond} past it x {PAIR_TEST_FLOPS} = "
           f"{flops / 1e9:.3f} GFLOP at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
-          f"{b_ms / k_ms:.1%} of it) on {card}", flush=True)
+          f"{b_ms / k_ms:.1%} of it); tiles of "
+          f"{pw.pairwise_launch(d.shape[1], d.shape[0], d.shape[3])[0]} "
+          f"rows; {_vs_first('pairwise', k_ms)} on {card}", flush=True)
     return {"name": "pairwise", "route": "cuda", "source": CSRC + "pairwise.cu",
             "replaces": "pedoni_tpu/ops/pallas/pairwise.py:177",
             "path": "standalone", "launches": counts["pairwise"],

@@ -98,13 +98,13 @@ def library() -> ctypes.CDLL:
             _compile(path)
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pedoni_step_kernel.argtypes = [p] * 9 + [i] * 12 + [p, p]
+        lib.pedoni_step_kernel.argtypes = [p] * 9 + [i] * 13 + [p, p]
         lib.pedoni_step_kernel.restype = i
         lib.pedoni_rebin_full.argtypes = [p] * 7 + [i] * 5 + [f] + [i] * 6 + [p]
         lib.pedoni_rebin_full.restype = i
         lib.pedoni_rebin_incremental.argtypes = [p] * 8 + [i] * 6 + [f] + [i] * 6 + [p]
         lib.pedoni_rebin_incremental.restype = i
-        lib.pedoni_pairwise.argtypes = [p, p, i, i, i, p, p]
+        lib.pedoni_pairwise.argtypes = [p, p] + [i] * 6 + [p, p]
         lib.pedoni_pairwise.restype = i
         _lib = lib
         return lib

@@ -33,18 +33,26 @@ __device__ __forceinline__ bool pair_in_cutoff(float d2, const PairConsts& c) {
   return d2 <= c.cutoff_sq;
 }
 
-// Accumulate the repulsion of one ACTIVE candidate (cpx, cpy, cvx, cvy)
-// WITHIN THE CUTOFF onto one centre agent (px, py, ex, ey).  The caller has
-// applied the active, self-exclusion and cutoff masks.
-__device__ __forceinline__ void pair_force(
+// The candidate's velocity terms of pair_force: v.x dt, v.y dt and
+// |v|^2 dt^2, as the reference hoists them (pairwise.py:127-135).
+__device__ __forceinline__ float3 pair_vterms(float cvx, float cvy,
+                                              const PairConsts& c) {
+  return make_float3(cvx * c.dt, cvy * c.dt, (cvx * cvx + cvy * cvy) * c.dt2);
+}
+
+// Accumulate the repulsion of one ACTIVE candidate at (cpx, cpy) with the
+// velocity terms vt = pair_vterms(...) WITHIN THE CUTOFF onto one centre
+// agent (px, py, ex, ey).  The caller has applied the active,
+// self-exclusion and cutoff masks.
+__device__ __forceinline__ void pair_force_vt(
     float& ax, float& ay, float px, float py, float ex, float ey,
-    float cpx, float cpy, float cvx, float cvy, const PairConsts& c) {
+    float cpx, float cpy, float3 vt, const PairConsts& c) {
   const float dx = px - cpx;
   const float dy = py - cpy;
   const float d2 = dx * dx + dy * dy;
-  const float vxdt = cvx * c.dt;
-  const float vydt = cvy * c.dt;
-  const float v2dtt = (cvx * cvx + cvy * cvy) * c.dt2;
+  const float vxdt = vt.x;
+  const float vydt = vt.y;
+  const float v2dtt = vt.z;
   const float t1x = dx - vxdt;
   const float t1y = dy - vydt;
   const float t1l2 = t1x * t1x + t1y * t1y;
@@ -63,6 +71,13 @@ __device__ __forceinline__ void pair_force(
   const float m = (in_front ? 1.0f : c.fov_damping) * mag;
   ax = ax + m * ux;
   ay = ay + m * uy;
+}
+
+// pair_force_vt with the candidate's velocity (cvx, cvy).
+__device__ __forceinline__ void pair_force(
+    float& ax, float& ay, float px, float py, float ex, float ey,
+    float cpx, float cpy, float cvx, float cvy, const PairConsts& c) {
+  pair_force_vt(ax, ay, px, py, ex, ey, cpx, cpy, pair_vterms(cvx, cvy, c), c);
 }
 
 // pair_force behind the cutoff test: the caller has applied the active and

@@ -34,10 +34,10 @@
 //      mask in shared memory (stayers are gated to the owned lanes 1..nx),
 //      ch 6 into the input active sum;
 //   2. classify: one thread per cell (row, lane) of the tile and its halo
-//      takes that cell's mover rows, kClassify at a time, bounded by the
-//      cell's mover count (a row j counts only where j < count and its ch 6
-//      is set, so a stale row never lands); the landing test runs once a
-//      mover and sets one bit of the landing cell's mask;
+//      takes that cell's MK mover rows, kClassify at a time; a row counts
+//      where its ch 6 is set, as in the reference (M's ch 7, the count, is
+//      not read: a row past the count with ch 6 set lands too); the landing
+//      test runs once a mover and sets one bit of the landing cell's mask;
 //   3. place: one thread per cell pops the lander bits in ascending order —
 //      the reference's (j, dy, dx) order (rebin.py:380-406) — and the hole
 //      bits (the stay mask's complement) in slot order: the n-th lander
@@ -104,11 +104,7 @@ rebin_inc(const float* __restrict__ g, const float* __restrict__ m,
   // asked for now and classified in step 2
   const int n_halo = (t.rows + 2) * mk * 2;
   const HaloItem first = halo_item(m, tid, mk, t, nxl);
-  float hcount = 0.0f, h6 = 0.0f;
-  if (first.c != nullptr) {
-    hcount = (first.c - first.j * sk)[7 * nxl];
-    h6 = first.c[6 * nxl];
-  }
+  const float h6 = first.c != nullptr ? first.c[6 * nxl] : 0.0f;
 
   // 1. the stay masks and the input active sum: the warps of a cell row
   // share its K slots, kStay at a time
@@ -136,12 +132,10 @@ rebin_inc(const float* __restrict__ g, const float* __restrict__ m,
   }
 
   // 2. classify: this thread's warp owns 32 lanes of one mover-table row of
-  // the tile and its halo and walks that row's MK mover rows, bounded by
-  // each cell's count
+  // the tile and its halo and walks that row's MK mover rows
   {
     const int clane = t.l0 + col.l;
     const float* c = m + (int64_t)(t.row0 - 1 + col.h) * mk * sk + clane;
-    const float count = c[7 * nxl];
     for (int j0 = 0; j0 < mk; j0 += kClassify) {
       float a6[kClassify], x[kClassify], y[kClassify];
       bool live[kClassify];
@@ -150,7 +144,7 @@ rebin_inc(const float* __restrict__ g, const float* __restrict__ m,
         a6[q] = j0 + q < mk ? c[(j0 + q) * sk + 6 * nxl] : 0.0f;
 #pragma unroll
       for (int q = 0; q < kClassify; ++q)
-        live[q] = (float)(j0 + q) < count && a6[q] > 0.5f;
+        live[q] = a6[q] > 0.5f;
 #pragma unroll
       for (int q = 0; q < kClassify; ++q) {
         x[q] = live[q] ? c[(j0 + q) * sk] : 0.0f;
@@ -161,12 +155,11 @@ rebin_inc(const float* __restrict__ g, const float* __restrict__ m,
         if (live[q]) mark_lander(mask, t, gd, x[q], y[q], col.h, col.l + 1, j0 + q);
     }
   }
-  if ((float)first.j < hcount && h6 > 0.5f)
+  if (h6 > 0.5f)
     mark_lander(mask, t, gd, first.c[0], first.c[nxl], first.h, first.hl, first.j);
   for (int i = tid + threads; i < n_halo; i += threads) {  // a tall MK only
     const HaloItem it = halo_item(m, i, mk, t, nxl);
-    if (it.c != nullptr && (float)it.j < (it.c - it.j * sk)[7 * nxl] &&
-        it.c[6 * nxl] > 0.5f)
+    if (it.c != nullptr && it.c[6 * nxl] > 0.5f)
       mark_lander(mask, t, gd, it.c[0], it.c[nxl], it.h, it.hl, it.j);
   }
   __syncthreads();

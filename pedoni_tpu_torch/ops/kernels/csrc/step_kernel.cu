@@ -20,8 +20,9 @@
 //                            step_kernel.py::segment_table
 //   act    [ny2, K, NXL]     scratch: the post-despawn active flag act'
 //   ea     [ny2, K, NXL, 4]  scratch: e.x, e.y, acc.x, acc.y (goal direction,
-//                            goal + obstacle acceleration), written and read
-//                            only for centre slots with act' > 0.5
+//                            goal + obstacle acceleration; the goal's alone
+//                            in segments mode), written and read only for
+//                            centre slots with act' > 0.5
 //   out    [ny2, K, 8, NXL]  ghost rows 0 and ny2-1 zero; ch 7 = potential,
 //                            or the stay mask in the mover mode
 //   m      [ny2, MK, 8, NXL] mover mode only: each cell's movers in slot
@@ -55,9 +56,10 @@
 //   samples); in the base mode it first samples its potential, which goes
 //   to out ch 7 of every centre slot.  A centre slot with act' > 0.5 goes on
 //   to the goal force and the obstacle force (from the same texels' second
-//   half, or with kSeg from the walk over the edge table) and writes one
-//   float4 of ea.  A texel holds a tap's channels of both fields in one
-//   sector: 4 sectors an agent, where fields6 cost 24.
+//   half; with kSeg, the walk of a short edge table, or the pair pass adds
+//   it) and writes one float4 of ea.
+//   A texel holds a tap's channels of both fields in one sector: 4
+//   sectors an agent, where fields6 cost 24.
 // step_pairs (one block per tile of TR rows x 32 lanes of cells; TR, the
 // block size and the shared memory come from step_kernel.py::
 // pair_pass_launch):
@@ -101,12 +103,44 @@
 //      of lanes: the cell's r-th mover, or zeros.
 //
 // Segments mode (the reference's --no-distance-map debug mode) is a
-// compile-time template parameter of step_sample.  Every thread of a warp
-// reads the same table row, so each load is one broadcast; the table stays
-// in device memory (a 1000-obstacle scenario needs 88 KB, more than
-// constant memory holds).  That walk is bound by operations: ~100 float
-// operations per (active agent, obstacle).  Divisions are IEEE and expf the
-// accurate one (the build has no fast math), as the twin's.
+// compile-time template parameter of both launches, and the caller
+// chooses where the edge table is walked (seg_pass; the rule and its
+// measured crossover are step_kernel.py::segment_pass's).  Walked by
+// step_sample<true> for each live agent, into ea, and the pair pass is the
+// base mode's: on a short table and a dense grid the pass below costs more
+// barriers and staging than such a walk (PERF.md).  Walked by the pair
+// pass, step_sample<true> writes the goal acceleration alone to ea, and
+// the pair pass, as the kernel step_pairs_segments, adds the obstacle
+// force of its listed agents between steps 2 and 3:
+//   2'. segments: the bounding box of the tile's listed agents; then the
+//      edge table in passes: a block-wide prefix sum over the rows, in
+//      chunks of the block, keeps the rows whose widened rectangle's
+//      axis-aligned box (its corners: q0 and q0 + s of edges 0 and 1) lies
+//      within the cull distance of the agents' box on both axes, and stages
+//      up to kSegCap of them in table order in shared memory; then the
+//      terms of (listed agent, kept row) pairs are computed by all threads,
+//      agents fastest, kTermCap at a time, and two threads an agent (x and
+//      y) add that agent's terms in table order to its running sum.  The
+//      sum starts at +0 and goes to the new pos/vel's room (rpx, rpy), free
+//      until step 3 writes it.
+//      Step 3 then starts from ea's goal acceleration + that sum: the
+//      `afx + sfx` of the twin, in its order.
+// The cull changes no bit.  The build keeps denormals and has no fast math,
+// so expf(x) is exactly +0 for x < ln(2^-150) ~ -103.97.  A dropped row's
+// box is at least cull = 110 x obs_range + 2^-12 x (grid_w + grid_h +
+// 110 x obs_range) from every agent of the tile on one axis, so the agent's
+// dmin is at least 110 x obs_range (the second term covers the f32 rounding
+// of corners and closest points, a few ulp of coordinates below that size),
+// -dmin / obs_range < -103.97 and coef = 0: the skipped term is +-0, and
+// adding +-0 to a sum that starts at +0 leaves its bits as they are (such a
+// sum is never -0).  A row the agent stands inside has box distance 0 and
+// is always kept.  A live agent stands in the grid (a non-finite or
+// out-of-grid agent is despawned before any force), so its distances are
+// finite.  fused_step refuses obs_range <= 0 and a non-finite obs_strength,
+// where this would not hold.  The first design walked all rows of the table
+// with one thread per live slot of a strip of lanes: ~100 dependent float
+// operations a row, 1000 rows in random.toml, few live lanes a warp; it sat
+// at 1.7% of its bound (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,6 +157,9 @@ constexpr int kTileLanes = 32;         // cells of a tile row: one warp
 constexpr int kHaloLanes = kTileLanes + 2;
 constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kChunk = 7;              // slot levels per walk chunk: 63 bits
+constexpr int kSegCap = 64;            // segments: kept rows staged at once
+constexpr int kTermCap = 1024;         // segments: (agent, row) terms a round
+constexpr int kMaxWarps = 32;
 
 struct StepConsts {
   float inv_unit;          // 1 / field_unit
@@ -134,6 +171,7 @@ struct StepConsts {
   float max_speed_factor;
   PairConsts pair;
   float cell_unit;         // stride * field_unit: the mover mode's cell size
+  float seg_cull;          // segments: the cull distance (see above)
 };
 
 struct Dims {
@@ -198,46 +236,44 @@ __device__ __forceinline__ void sample(const float4* __restrict__ plane,
   }
 }
 
-// Exact obstacle acceleration at (px, py) from the edge table
-// (step_kernel.py:104-159): per obstacle, the closest point of each of the
-// widened rectangle's 4 edges (t clipped to [0, 1]), the first minimum by a
-// strict < on squared distances, no force inside the rectangle (the
-// reference adds coef = 0 there, which changes no sum).  Row layout: for
-// edge e, q0.x q0.y s.x s.y il2 at 5e .. 5e+4; then width^2, h^2.
-__device__ __forceinline__ void segment_accel(const float* __restrict__ segs,
-                                              int n_seg, float px, float py,
-                                              const StepConsts& sc, float& ax,
-                                              float& ay) {
-  for (int o = 0; o < n_seg; ++o) {
-    const float* r = segs + (int64_t)o * kSegCols;
-    float d2[4], ddx[4], ddy[4];
+// The exact obstacle acceleration term of one obstacle at (px, py)
+// (step_kernel.py:104-159): the closest point of each of the widened
+// rectangle's 4 edges (t clipped to [0, 1]), the first minimum by a strict <
+// on squared distances, +0 inside the rectangle (the reference adds coef = 0
+// there).  Column c of the obstacle's row is r[c * stride]: the edge table
+// itself (stride 1) or its staged column-major copy (stride kSegCap).  A row
+// holds, for edge e, q0.x q0.y s.x s.y il2 at 5e .. 5e+4, then width^2, h^2.
+// Divisions are IEEE and expf the accurate one (the build has no fast
+// math), as the twin's.
+__device__ __forceinline__ void segment_term(const float* r, int stride,
+                                             float px, float py,
+                                             const StepConsts& sc, float& tx,
+                                             float& ty) {
+  float best = 0.0f, bdx = 0.0f, bdy = 0.0f;
+  bool inside = true;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float q0x = __ldg(r + 5 * e), q0y = __ldg(r + 5 * e + 1);
-      const float sx = __ldg(r + 5 * e + 2), sy = __ldg(r + 5 * e + 3);
-      const float il2 = __ldg(r + 5 * e + 4);
-      float t = ((px - q0x) * sx + (py - q0y) * sy) * il2;
-      t = fminf(fmaxf(t, 0.0f), 1.0f);
-      ddx[e] = px - (q0x + t * sx);
-      ddy[e] = py - (q0y + t * sy);
-      d2[e] = ddx[e] * ddx[e] + ddy[e] * ddy[e];
+  for (int e = 0; e < 4; ++e) {
+    const float q0x = r[(5 * e) * stride];
+    const float q0y = r[(5 * e + 1) * stride];
+    const float sx = r[(5 * e + 2) * stride];
+    const float sy = r[(5 * e + 3) * stride];
+    const float il2 = r[(5 * e + 4) * stride];
+    float t = ((px - q0x) * sx + (py - q0y) * sy) * il2;
+    t = fminf(fmaxf(t, 0.0f), 1.0f);
+    const float ddx = px - (q0x + t * sx);
+    const float ddy = py - (q0y + t * sy);
+    const float d2 = ddx * ddx + ddy * ddy;
+    inside = inside && d2 < r[(e < 2 ? 20 : 21) * stride];
+    if (e == 0 || d2 < best) {  // the first minimum
+      best = d2;
+      bdx = ddx;
+      bdy = ddy;
     }
-    const float w2 = __ldg(r + 20), h2 = __ldg(r + 21);
-    if (d2[0] < w2 && d2[1] < w2 && d2[2] < h2 && d2[3] < h2) continue;
-    float best = d2[0], bdx = ddx[0], bdy = ddy[0];
-#pragma unroll
-    for (int e = 1; e < 4; ++e) {
-      if (d2[e] < best) {
-        best = d2[e];
-        bdx = ddx[e];
-        bdy = ddy[e];
-      }
-    }
-    const float dmin = sqrtf(fmaxf(best, PEDONI_EPS));
-    const float coef = sc.obs_strength * expf(-dmin / sc.obs_range) / dmin;
-    ax = ax + coef * bdx;
-    ay = ay + coef * bdy;
   }
+  const float dmin = sqrtf(fmaxf(best, PEDONI_EPS));
+  const float coef = sc.obs_strength * expf(-dmin / sc.obs_range) / dmin;
+  tx = inside ? 0.0f : coef * bdx;
+  ty = inside ? 0.0f : coef * bdy;
 }
 
 template <bool kSeg>
@@ -246,7 +282,7 @@ __global__ void step_sample(const float* __restrict__ d,
                             float* __restrict__ act_out,
                             float4* __restrict__ ea, float* __restrict__ out,
                             Dims dm, StepConsts sc,
-                            const float* __restrict__ segs, int n_seg,
+                            const float* __restrict__ segs, int n_walk,
                             int write_pot) {
   const int64_t plane_sz = (int64_t)dm.ny2 * dm.k * dm.nxl;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -304,9 +340,14 @@ __global__ void step_sample(const float* __restrict__ d,
   const float ey = gy * g_norm;
   float afx = (ex * speed - velx) / sc.relaxation_time;
   float afy = (ey * speed - vely) / sc.relaxation_time;
-  if constexpr (kSeg) {
+  if constexpr (kSeg) {  // a short table is walked here, else in the pass
     float sfx = 0.0f, sfy = 0.0f;
-    segment_accel(segs, n_seg, posx, posy, sc, sfx, sfy);
+    for (int o = 0; o < n_walk; ++o) {
+      float tx, ty;
+      segment_term(segs + o * kSegCols, 1, posx, posy, sc, tx, ty);
+      sfx = sfx + tx;
+      sfy = sfy + ty;
+    }
     afx = afx + sfx;
     afy = afy + sfy;
   } else {
@@ -319,7 +360,8 @@ __global__ void step_sample(const float* __restrict__ d,
 }
 
 // Shared memory of step_pairs for a tile of `tr` rows at `k` slots, in
-// bytes; step_kernel.py::pair_pass_smem_bytes is the same sum.
+// bytes, and what segments mode adds; step_kernel.py::pair_pass_smem_bytes
+// is the same sum.
 __host__ __device__ constexpr int64_t pairs_smem_bytes(int tr, int k) {
   const int64_t h = tr + 2;
   return 8 * h * k                        // row bitmasks
@@ -329,13 +371,150 @@ __host__ __device__ constexpr int64_t pairs_smem_bytes(int tr, int k) {
          + 4 * ((int64_t)tr + 1)          // live agents per tile row, total
          + 2 * (int64_t)tr * k * kTileLanes;  // the agent list
 }
+__host__ __device__ constexpr int64_t segment_smem_bytes() {
+  return 4 * (int64_t)kSegCols * kSegCap  // kept rows, column-major
+         + 8 * (int64_t)kTermCap          // terms (x, y)
+         + 16 * kMaxWarps                 // per-warp box / counts
+         + 16;                            // resume row
+}
 
-__global__ void __launch_bounds__(512)
-step_pairs(const float* __restrict__ d, const float* __restrict__ act_in,
-           const float4* __restrict__ ea, float* __restrict__ out,
-           float* __restrict__ m, float* __restrict__ movf,
-           float* __restrict__ mdmx, Dims dm, StepConsts sc, int tr, int mk,
-           int rb) {
+// 2'. segments mode: the obstacle acceleration of each of the n_live listed
+// agents into sfx[si], sfy[si] (see the header).  `list` entries and the
+// staged positions cpx / cpy are step_pairs'; every thread of the block
+// calls it, and it ends behind a barrier.
+__device__ void segment_pass(const float* __restrict__ segs, int n_seg,
+                             const StepConsts& sc, const unsigned short* list,
+                             int n_live, int K, const float* cpx,
+                             const float* cpy, float* sfx, float* sfy,
+                             unsigned char* smem) {
+  float* obs = (float*)smem;               // [kSegCols][kSegCap]
+  float* tx = obs + kSegCols * kSegCap;    // [kTermCap]
+  float* ty = tx + kTermCap;               // [kTermCap]
+  float* wred = ty + kTermCap;             // [kMaxWarps][4]
+  int* wcnt = (int*)wred;                  // [kMaxWarps], after the box
+  int* resume = (int*)(wred + 4 * kMaxWarps);
+  const int tid = threadIdx.x, t = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const float inf = __int_as_float(0x7f800000);
+
+  // the box of the listed agents; every sum starts at +0
+  float x0 = inf, x1 = -inf, y0 = inf, y1 = -inf;
+  for (int i = tid; i < n_live; i += nthreads) {
+    const int e = list[i];
+    const int k = e & 255, w = e >> 13, lt = (e >> 8) & 31;
+    const int own = ((w + 1) * K + k) * kHaloLanes + lt + 1;
+    const int si = (w * K + k) * kTileLanes + lt;
+    sfx[si] = 0.0f;
+    sfy[si] = 0.0f;
+    x0 = fminf(x0, cpx[own]);
+    x1 = fmaxf(x1, cpx[own]);
+    y0 = fminf(y0, cpy[own]);
+    y1 = fmaxf(y1, cpy[own]);
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    x0 = fminf(x0, __shfl_xor_sync(kFullWarp, x0, off));
+    x1 = fmaxf(x1, __shfl_xor_sync(kFullWarp, x1, off));
+    y0 = fminf(y0, __shfl_xor_sync(kFullWarp, y0, off));
+    y1 = fmaxf(y1, __shfl_xor_sync(kFullWarp, y1, off));
+  }
+  if (t == 0) {
+    wred[4 * warp] = x0;
+    wred[4 * warp + 1] = x1;
+    wred[4 * warp + 2] = y0;
+    wred[4 * warp + 3] = y1;
+  }
+  __syncthreads();
+  for (int w = 0; w < nwarps; ++w) {
+    x0 = fminf(x0, wred[4 * w]);
+    x1 = fmaxf(x1, wred[4 * w + 1]);
+    y0 = fminf(y0, wred[4 * w + 2]);
+    y1 = fmaxf(y1, wred[4 * w + 3]);
+  }
+  __syncthreads();  // wred is reused as wcnt below
+  const float cull = sc.seg_cull;
+  const unsigned below = (1u << t) - 1u;
+
+  for (int start = 0; start < n_seg;) {
+    // the next kept rows from `start`, at most kSegCap, in table order
+    int n_obs = 0, next = n_seg;
+    for (int base = start; base < n_seg; base += nthreads) {
+      const int row = base + tid;
+      const float* r = segs + (int64_t)row * kSegCols;
+      bool keep = false;
+      if (row < n_seg) {
+        const float ax = __ldg(r), ay = __ldg(r + 1);   // edge 0: q0, s
+        const float bx = ax + __ldg(r + 2), by = ay + __ldg(r + 3);
+        const float cx = __ldg(r + 5), cy = __ldg(r + 6);  // edge 1: q0, s
+        const float dx = cx + __ldg(r + 7), dy = cy + __ldg(r + 8);
+        const float ox0 = fminf(fminf(ax, bx), fminf(cx, dx));
+        const float ox1 = fmaxf(fmaxf(ax, bx), fmaxf(cx, dx));
+        const float oy0 = fminf(fminf(ay, by), fminf(cy, dy));
+        const float oy1 = fmaxf(fmaxf(ay, by), fmaxf(cy, dy));
+        const float gx = fmaxf(ox0 - x1, x0 - ox1);  // < 0: the boxes overlap
+        const float gy = fmaxf(oy0 - y1, y0 - oy1);
+        keep = !(gx >= cull || gy >= cull);  // a NaN corner keeps the row
+      }
+      const unsigned bal = __ballot_sync(kFullWarp, keep);
+      if (t == 0) wcnt[warp] = __popc(bal);
+      __syncthreads();
+      int before = 0, total = 0;
+      for (int w = 0; w < nwarps; ++w) {
+        const int c = wcnt[w];
+        before += w < warp ? c : 0;
+        total += c;
+      }
+      const int pos = n_obs + before + __popc(bal & below);
+      if (keep && pos < kSegCap) {
+        for (int c = 0; c < kSegCols; ++c) obs[c * kSegCap + pos] = __ldg(r + c);
+        if (pos == kSegCap - 1) *resume = row + 1;
+      }
+      __syncthreads();
+      if (n_obs + total >= kSegCap) {
+        n_obs = kSegCap;
+        next = *resume;
+        break;
+      }
+      n_obs += total;
+    }
+    // the terms, agents fastest, then each agent's sum in table order
+    if (n_obs > 0) {
+      const int per = kTermCap / n_obs;  // agents a round, >= 16
+      for (int a0 = 0; a0 < n_live; a0 += per) {
+        const int na = min(per, n_live - a0);
+        for (int it = tid; it < na * n_obs; it += nthreads) {
+          const int o = it / na;
+          const int e = list[a0 + it - o * na];
+          const int k = e & 255, w = e >> 13, lt = (e >> 8) & 31;
+          const int own = ((w + 1) * K + k) * kHaloLanes + lt + 1;
+          segment_term(obs + o, kSegCap, cpx[own], cpy[own], sc, tx[it],
+                       ty[it]);
+        }
+        __syncthreads();
+        for (int q = tid; q < 2 * na; q += nthreads) {
+          const int a = q >> 1;
+          const int e = list[a0 + a];
+          const int k = e & 255, w = e >> 13, lt = (e >> 8) & 31;
+          const int si = (w * K + k) * kTileLanes + lt;
+          const float* src = (q & 1) ? ty : tx;
+          float* dst = (q & 1) ? sfy : sfx;
+          float acc = dst[si];
+          for (int o = 0; o < n_obs; ++o) acc = acc + src[o * na + a];
+          dst[si] = acc;
+        }
+        __syncthreads();
+      }
+    }
+    start = next;
+  }
+}
+
+template <bool kSeg>
+__device__ __forceinline__ void pairs_body(
+    const float* __restrict__ d, const float* __restrict__ act_in,
+    const float4* __restrict__ ea, float* __restrict__ out,
+    float* __restrict__ m, float* __restrict__ movf, float* __restrict__ mdmx,
+    const Dims& dm, const StepConsts& sc, int tr, int mk, int rb,
+    const float* __restrict__ segs, int n_seg) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int K = dm.k;
   const int H = tr + 2;
@@ -447,6 +626,11 @@ step_pairs(const float* __restrict__ d, const float* __restrict__ act_in,
   __syncthreads();
   int n_live = 0;
   for (int w = 0; w < tr; ++w) n_live += rowlive[w];
+  if constexpr (kSeg) {
+    if (n_live > 0)  // the same for the whole block
+      segment_pass(segs, n_seg, sc, list, n_live, K, cpx, cpy, rpx, rpy,
+                   (unsigned char*)(list + n_tile));
+  }
 
   // 3. one thread per live agent
   for (int base = 0; base < n_live; base += blockDim.x) {
@@ -469,6 +653,10 @@ step_pairs(const float* __restrict__ d, const float* __restrict__ act_in,
       ey = f.y;
       accx = f.z;
       accy = f.w;
+      if constexpr (kSeg) {  // the goal acceleration + the obstacle sum
+        accx = accx + rpx[si];
+        accy = accy + rpy[si];
+      }
       speed = sanitize(d[(slot * 8 + 4) * nxl + l0 + lt]);
       jend = max(jtop[w], max(jtop[w + 1], jtop[w + 2]));
     }
@@ -653,23 +841,54 @@ step_pairs(const float* __restrict__ d, const float* __restrict__ act_in,
   }
 }
 
+// The pair pass of the base and mover modes, and of segments mode.  The
+// segments kernel asks for three blocks an SM, as the base mode gets at 40
+// registers: at 64 it got two, and the 1M segment state's kernel ran 13%
+// slower (PERF.md).  They are two kernels because an explicit minimum of
+// one block an SM changed the base mode's register allocation and slowed
+// it.
+__global__ void __launch_bounds__(512)
+step_pairs(const float* __restrict__ d, const float* __restrict__ act_in,
+           const float4* __restrict__ ea, float* __restrict__ out,
+           float* __restrict__ m, float* __restrict__ movf,
+           float* __restrict__ mdmx, Dims dm, StepConsts sc, int tr, int mk,
+           int rb, const float* __restrict__ segs, int n_seg) {
+  pairs_body<false>(d, act_in, ea, out, m, movf, mdmx, dm, sc, tr, mk, rb,
+                    segs, n_seg);
+}
+
+__global__ void __launch_bounds__(512, 3)
+step_pairs_segments(const float* __restrict__ d,
+                    const float* __restrict__ act_in,
+                    const float4* __restrict__ ea, float* __restrict__ out,
+                    float* __restrict__ m, float* __restrict__ movf,
+                    float* __restrict__ mdmx, Dims dm, StepConsts sc, int tr,
+                    int mk, int rb, const float* __restrict__ segs,
+                    int n_seg) {
+  pairs_body<true>(d, act_in, ea, out, m, movf, mdmx, dm, sc, tr, mk, rb,
+                   segs, n_seg);
+}
+
 }  // namespace
 
-// consts: 18 floats in StepConsts order (see step_kernel.py::_constants).
+// consts: 19 floats in StepConsts order (see step_kernel.py::_constants).
 // mk == 0 is the base mode (m, movf, mdmx unused); mk > 0 the mover mode,
 // where movf and mdmx [nb] must be zeroed by the caller.  n_seg < 0 takes
 // the obstacle force from the fields' obstacle channels (segs unused); n_seg >= 0
-// from the n_seg rows of segs.  tile_rows, threads and smem_bytes are the
-// pair pass's launch shape (step_kernel.py::pair_pass_launch); smem_bytes
-// must equal pairs_smem_bytes(tile_rows, k).  Returns a cudaError_t, or -1
-// for a launch shape the kernel does not take (pair_pass_launch gives tiles
-// of 1 or 2 rows and blocks of 512 threads).
+// from the n_seg rows of segs: walked by the pair pass where seg_pass != 0,
+// else by the sample pass.  tile_rows, threads and smem_bytes are the pair
+// pass's launch shape (step_kernel.py::pair_pass_launch); smem_bytes must
+// equal pairs_smem_bytes(tile_rows, k), plus segment_smem_bytes() where the
+// pair pass walks the table.  Returns a cudaError_t, or -1 for a launch
+// shape the kernel does not take (pair_pass_launch gives tiles of 1 or 2
+// rows and blocks of 512 threads).
 extern "C" int pedoni_step_kernel(const float* d, const float* fields,
                                   const float* segs, float* act, float* ea,
                                   float* out, float* m, float* movf,
                                   float* mdmx, int ny2, int k, int nxl,
                                   int n_wp, int frows, int stride, int mk,
-                                  int rb, int n_seg, int tile_rows,
+                                  int rb, int n_seg, int seg_pass,
+                                  int tile_rows,
                                   int threads, int smem_bytes,
                                   const float* consts, void* stream) {
   StepConsts sc;
@@ -691,9 +910,13 @@ extern "C" int pedoni_step_kernel(const float* d, const float* fields,
   sc.pair.cos2 = consts[15];
   sc.pair.fov_damping = consts[16];
   sc.cell_unit = consts[17];
+  sc.seg_cull = consts[18];
+  const bool seg = n_seg >= 0;
+  const bool pass = seg && seg_pass != 0;  // else step_sample walks the table
   if (tile_rows < 1 || tile_rows > 2 || k > 255 || threads != 512 ||
       nxl % kTileLanes != 0 ||
-      (int64_t)smem_bytes != pairs_smem_bytes(tile_rows, k))
+      (int64_t)smem_bytes != pairs_smem_bytes(tile_rows, k) +
+                                 (pass ? segment_smem_bytes() : 0))
     return -1;
   Dims dm{ny2, k, nxl, n_wp, frows, stride};
   const int64_t n = (int64_t)ny2 * k * nxl;
@@ -701,22 +924,22 @@ extern "C" int pedoni_step_kernel(const float* d, const float* fields,
   const unsigned sblocks = (unsigned)((n + sthreads - 1) / sthreads);
   cudaStream_t st = (cudaStream_t)stream;
   const float4* f4 = (const float4*)fields;
-  if (n_seg < 0)
-    step_sample<false><<<sblocks, sthreads, 0, st>>>(
-        d, f4, act, (float4*)ea, out, dm, sc, segs, n_seg, mk == 0);
-  else
+  if (seg)
     step_sample<true><<<sblocks, sthreads, 0, st>>>(
-        d, f4, act, (float4*)ea, out, dm, sc, segs, n_seg, mk == 0);
+        d, f4, act, (float4*)ea, out, dm, sc, segs, pass ? 0 : n_seg, mk == 0);
+  else
+    step_sample<false><<<sblocks, sthreads, 0, st>>>(
+        d, f4, act, (float4*)ea, out, dm, sc, segs, 0, mk == 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(step_pairs,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto pairs = pass ? step_pairs_segments : step_pairs;
+  e = cudaFuncSetAttribute(pairs, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem_bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((unsigned)(nxl / kTileLanes),
             (unsigned)((ny2 - 2 + tile_rows - 1) / tile_rows));
-  step_pairs<<<grid, threads, smem_bytes, st>>>(d, act, (const float4*)ea, out,
-                                                m, movf, mdmx, dm, sc,
-                                                tile_rows, mk, rb);
+  pairs<<<grid, threads, smem_bytes, st>>>(d, act, (const float4*)ea, out, m,
+                                           movf, mdmx, dm, sc, tile_rows, mk,
+                                           rb, segs, n_seg);
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,11 @@ pairwise kernel (csrc/pairwise.cu) inline.
 
 ``pairwise`` is the counterpart of ``pallas_pairwise`` (pallas_call at
 pairwise.py:177): pair accelerations over the cell grid alone.  On a CUDA
-tensor it launches ``csrc/pairwise.cu``; on a CPU tensor it runs
-``pairwise_torch``, the twin.  The reference calls it only from its tests;
-here the tests and chip_smoke.py drive it.
+tensor it launches ``csrc/pairwise.cu`` (tiles of cells in shared memory,
+the fused step's pair pass in the reference's candidate order; its tile
+from ``pairwise_launch``); on a CPU tensor it runs ``pairwise_torch``, the
+twin.  The reference calls it only from its tests; here the tests and
+chip_smoke.py drive it.
 
 Both versions take every norm through rsqrt (``torch.rsqrt`` here,
 ``rsqrtf`` in CUDA, which is what ``torch.rsqrt`` runs on the card).
@@ -24,6 +26,7 @@ import torch
 
 from ...physics import Physics
 from . import _build
+from .tiles import TILE_LANES, tile_launch
 
 EPS = 1e-12
 
@@ -104,6 +107,29 @@ def _check(d: torch.Tensor, row_block: int) -> None:
                          f"row_block = {row_block}")
 
 
+def pairwise_smem_bytes(k: int, tile_rows: int) -> int:
+    """Shared memory of a pairwise block for a tile of ``tile_rows`` rows x
+    TILE_LANES cells at K = ``k`` (csrc/pairwise.cu tile_smem_bytes, the
+    same sum): row bitmasks, the staged positions and velocity terms (5
+    floats a slot) of the tile and its halo, the tile's accelerations, its
+    slot list, per-row counters and the per-warp candidate box (32 warps)."""
+    h, n_tile = tile_rows + 2, tile_rows * k * TILE_LANES
+    return (8 * h * k + 20 * h * k * (TILE_LANES + 2) + 8 * n_tile
+            + 2 * n_tile + 4 * h + 4 * (tile_rows + 1) + 16 * 32)
+
+
+def pairwise_launch(k: int, ny2: int, nx: int) -> tuple[int, int, int]:
+    """(tile rows, threads per block, shared-memory bytes) of the pairwise
+    kernel on a grid [ny2, K, 8, NX], from ``tiles.tile_launch``, as the
+    fused step's pair pass (``step_kernel.pair_pass_launch``).  Tiles cover lanes [0, NX) and the
+    centre rows 1 .. ny2-2, the last one possibly ragged.  A K at which not
+    even one row fits raises (K above 97)."""
+    if nx % TILE_LANES != 0 or ny2 < 3 or not 1 <= k <= 255:
+        raise ValueError(f"pairwise: unsupported grid ny2={ny2}, K={k}, NX={nx}")
+    return tile_launch(lambda rows: pairwise_smem_bytes(k, rows), ny2,
+                       f"pairwise: K={k}")
+
+
 def pairwise(d: torch.Tensor, phys: Physics, row_block: int = 4) -> torch.Tensor:
     """Pair accelerations over the x-minor cell grid: acc [ny_pad, K, 2, NX].
 
@@ -118,12 +144,13 @@ def pairwise(d: torch.Tensor, phys: Physics, row_block: int = 4) -> torch.Tensor
         return pairwise_torch(d, phys, row_block)
     if d.device.type != "cuda":
         raise ValueError(f"pairwise: unsupported device {d.device}")
-    lib = _build.library()
     ny2, k, _, nx = d.shape
+    launch = pairwise_launch(k, ny2, nx)
+    lib = _build.library()
     acc = torch.empty((ny2 - 2, k, 2, nx), dtype=torch.float32, device=d.device)
     consts = torch.tensor(pair_constants(phys), dtype=torch.float32)
     stream = torch.cuda.current_stream(d.device).cuda_stream
-    rc = lib.pedoni_pairwise(d.data_ptr(), acc.data_ptr(), ny2, k, nx,
+    rc = lib.pedoni_pairwise(d.data_ptr(), acc.data_ptr(), ny2, k, nx, *launch,
                              consts.data_ptr(), stream)
     _build.check_launch(rc, "pedoni_pairwise")
     pairwise.launches += 1

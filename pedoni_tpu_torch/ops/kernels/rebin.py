@@ -29,7 +29,8 @@ import torch
 
 from ..neighbor import true_divide
 from . import _build
-from .step_kernel import SMEM_BLOCK_RESERVED, SMEM_SM, _shift_lane
+from .pairwise import _shift_lane
+from .tiles import SMEM_BLOCK_RESERVED, SMEM_SM
 
 FULL, INCREMENTAL = 1, 0  # gate values that select each rebin
 REBIN_TILE_LANES = (64, 32)  # candidates, widest first

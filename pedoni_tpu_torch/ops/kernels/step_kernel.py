@@ -13,7 +13,8 @@ mover table M that feeds ``rebin.rebin_incremental``.
 ``fused_step`` is the wrapper: on a CUDA tensor it launches the
 hand-written kernel ``csrc/step_kernel.cu`` (a sample pass over a
 texel-major copy of the fields, then a pair pass over tiles of cells in
-shared memory; see its header); on a CPU tensor it runs
+shared memory, which in segments mode also walks the edge-table rows
+near each tile; see its header); on a CPU tensor it runs
 ``fused_step_torch``, the plain PyTorch twin that mirrors the reference
 algorithm — vectorised over the grid, lane shifts by ``torch.roll``,
 candidate slots walked j outer, then dy, then dx.
@@ -30,6 +31,7 @@ M is [ny2, MK, 8, NXL].
 
 from __future__ import annotations
 
+import math
 import weakref
 
 import torch
@@ -38,14 +40,17 @@ from ...physics import Physics
 from ..neighbor import true_divide
 from . import _build
 from .pairwise import EPS, _shift_lane, pair_accum
+from .tiles import TILE_LANES, tile_launch
 
 BIG = 2.0 ** 30  # non-finite sanitize sentinel (step_kernel.py:394-398)
 ROW0 = 3  # fields6.ROW0: first patch row/col of cell 0 in the padded map
 FPAD = 4.0  # field-map PAD rings
 SEG_COLS = 22  # columns of the obstacle edge table (segment_table)
-TILE_LANES = 32  # cells of a pair-pass tile row: one warp
-SMEM_SM = 233472  # bytes of shared memory on one SM (H100: 228 KB)
-SMEM_BLOCK_RESERVED = 1024  # of which the system keeps this much per block
+SEG_CAP = 64  # segments: kept edge-table rows a pair-pass block stages at once
+SEG_TERM_CAP = 1024  # segments: (agent, row) terms a block holds at once
+SEG_CULL_RANGES = 110  # cull distance in obs_range: exp(-110) is 0 in f32
+SEG_SAMPLE_WALK = 8  # segments: a table this short is walked by the sample pass
+SEG_CULL_SLACK = 2.0 ** -12  # of the coordinates' size: their f32 rounding
 
 
 def _constants(phys: Physics, grid_size: tuple[float, float],
@@ -60,8 +65,18 @@ def _constants(phys: Physics, grid_size: tuple[float, float],
         phys.cutoff_sq, phys.delta_time, phys.delta_time * phys.delta_time,
         0.5 * phys.ped_strength, -0.5 / phys.ped_range,
         phys.cos_phi * phys.cos_phi, phys.fov_damping,
-        _cell_unit(stride, field_unit),
+        _cell_unit(stride, field_unit), segment_cull(phys, grid_size),
     ]
+
+
+def segment_cull(phys: Physics, grid_size: tuple[float, float]) -> float:
+    """Segments mode: the distance past which the pair pass drops an
+    edge-table row for a tile (csrc/step_kernel.cu explains why that
+    changes no bit): SEG_CULL_RANGES obstacle ranges, where
+    exp(-d / obs_range) is 0 in f32, plus room for the f32 rounding of
+    coordinates up to the grid's size."""
+    reach = SEG_CULL_RANGES * phys.obs_range
+    return reach + SEG_CULL_SLACK * (grid_size[0] + grid_size[1] + reach)
 
 
 def _cell_unit(stride: int, field_unit: float) -> float:
@@ -134,44 +149,51 @@ def _check(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
                          f"row_block == 0, got ny2={ny2}, row_block={row_block}")
 
 
-def pair_pass_smem_bytes(k: int, tile_rows: int) -> int:
+def pair_pass_smem_bytes(k: int, tile_rows: int, segments: bool = False) -> int:
     """Shared memory of the pair pass for a tile of ``tile_rows`` rows x
     TILE_LANES cells at K = ``k`` slots (csrc/step_kernel.cu
-    pairs_smem_bytes, the same sum): row bitmasks, the staged pos/vel of
-    the tile and its halo, act' and the new pos/vel of the tile, per-row
-    counters, the agent list."""
+    pairs_smem_bytes and segment_smem_bytes, the same sums): row bitmasks,
+    the staged pos/vel of the tile and its halo, act' and the new pos/vel
+    of the tile, per-row counters, the agent list; in segments mode also
+    SEG_CAP staged edge-table rows, SEG_TERM_CAP (x, y) terms, the per-warp
+    box and counts (32 warps) and a resume index."""
     h, halo = tile_rows + 2, TILE_LANES + 2
     n_tile = tile_rows * k * TILE_LANES
-    return (8 * h * k + 16 * h * k * halo + 20 * n_tile + 4 * h
+    need = (8 * h * k + 16 * h * k * halo + 20 * n_tile + 4 * h
             + 4 * (tile_rows + 1) + 2 * n_tile)
+    if segments:
+        need += 4 * SEG_COLS * SEG_CAP + 8 * SEG_TERM_CAP + 16 * 32 + 16
+    return need
 
 
-def pair_pass_launch(k: int, ny2: int, nxl: int) -> tuple[int, int, int]:
+def pair_pass_launch(k: int, ny2: int, nxl: int, segments: bool = False
+                     ) -> tuple[int, int, int]:
     """(tile rows, threads per block, shared-memory bytes) of the pair
-    pass on a grid [ny2, K, 8, NXL].
+    pass on a grid [ny2, K, 8, NXL]; ``segments``: the pass walks an edge
+    table (segments mode where ``segment_pass`` says so).
 
     A block owns ``tile_rows`` x TILE_LANES cells; blocks tile lanes
     [0, NXL) and the centre rows 1 .. ny2-2 (the last tile may be ragged).
-    The tallest tile of PAIR_TILE_ROWS that leaves room for two blocks on
-    an SM wins, else the tallest that fits one block; a K at which not
-    even one row fits raises.  Blocks of PAIR_THREADS threads: two of them
-    give an SM the 32 warps that hide the pair loop's latency (at 16 the
-    1M step measured slower, as did taller tiles; PERF.md)."""
+    The tile comes from ``tiles.tile_launch``: two rows where two blocks
+    fit an SM.  Blocks of 512 threads: two of them give an SM the 32 warps
+    that hide the pair loop's latency (at 16 the 1M step measured slower,
+    as did taller tiles; PERF.md)."""
     if nxl % TILE_LANES != 0 or ny2 < 3 or not 1 <= k <= 255:
         raise ValueError(f"pair pass: unsupported grid ny2={ny2}, K={k}, NXL={nxl}")
-    rows = [t for t in PAIR_TILE_ROWS if t <= max(ny2 - 2, 1)] or [1]
-    for blocks in (2, 1):
-        for t in rows:
-            need = pair_pass_smem_bytes(k, t)
-            if blocks * (need + SMEM_BLOCK_RESERVED) <= SMEM_SM:
-                return t, PAIR_THREADS, need
-    raise ValueError(f"pair pass: K={k} needs {pair_pass_smem_bytes(k, 1)} "
-                     f"bytes of shared memory for one tile row, an SM has "
-                     f"{SMEM_SM - SMEM_BLOCK_RESERVED} for a block")
+    return tile_launch(lambda rows: pair_pass_smem_bytes(k, rows, segments),
+                       ny2, f"pair pass: K={k}")
 
 
-PAIR_TILE_ROWS = (2, 1)  # candidates, tallest first
-PAIR_THREADS = 512
+def segment_pass(n_seg: int) -> bool:
+    """Segments mode: whether the pair pass (culling the table for each
+    tile) walks an edge table of ``n_seg`` rows, not the sample pass (every
+    row for each live agent).  Timed on the card from 1 to 1000 rows on a
+    1M-agent, a 4873-agent and a 1641-agent state (``ab_step.py
+    --crossover``; PERF.md), the two met between 8 and 16 rows on each: at
+    SEG_SAMPLE_WALK rows the walk was within 0.001 ms of the pass or
+    faster, from 16 rows the pass was faster, whatever the number of
+    agents."""
+    return n_seg > SEG_SAMPLE_WALK
 
 
 def pack_fields(fwp: torch.Tensor, fobs: torch.Tensor) -> torch.Tensor:
@@ -216,7 +238,10 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
 
     ``segments`` (a ``segment_table`` on d's device) switches the obstacle
     force from the distance map to the exact per-segment geometry; fobs is
-    then neither read nor needed beyond its shape.
+    then neither read nor needed beyond its shape.  The kernel walks the
+    table in its sample pass, every row for each agent, or in its pair pass,
+    which culls it for each tile of cells, as ``segment_pass`` picks for
+    the table's length; either gives the same bits.
 
     Channels out: post-step pos, vel; sanitized speed; dest unchanged;
     post-despawn active; ch 7 = sampled potential (base mode) or the stay
@@ -232,10 +257,16 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
                                 field_unit, emit_movers, row_block, segments)
     if d.device.type != "cuda":
         raise ValueError(f"fused_step: unsupported device {d.device}")
+    if segments is not None and not (phys.obs_range > 0
+                                     and math.isfinite(phys.obs_strength)):
+        raise ValueError("segments mode needs obs_range > 0 and a finite "
+                         "obs_strength: the kernel's cull assumes that "
+                         "exp(-d / obs_range) vanishes with distance")
     lib = _build.library()
     ny2, k, _, nxl = d.shape
     mk = emit_movers
-    tile_rows, threads, smem = pair_pass_launch(k, ny2, nxl)
+    seg_pass = segments is not None and segment_pass(segments.shape[0])
+    tile_rows, threads, smem = pair_pass_launch(k, ny2, nxl, seg_pass)
     fields = packed_fields(fwp, fobs)
     out = torch.empty_like(d)
     # scratch: act' of every slot; e and acc of the live centre slots
@@ -256,7 +287,8 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
         d.data_ptr(), fields.data_ptr(),
         None if segments is None else segments.data_ptr(), act.data_ptr(),
         ea.data_ptr(), out.data_ptr(), *mover_ptrs, ny2, k, nxl, fwp.shape[0],
-        fwp.shape[1], stride, mk, row_block, n_seg, tile_rows, threads, smem,
+        fwp.shape[1], stride, mk, row_block, n_seg, int(seg_pass), tile_rows,
+        threads, smem,
         consts.data_ptr(), stream)
     _build.check_launch(rc, "pedoni_step_kernel")
     if segments is not None:

@@ -27,6 +27,7 @@ from pedoni_tpu_torch.models.sfm import SimState, StepConfig
 from pedoni_tpu_torch.ops.kernels import pairwise as pw
 from pedoni_tpu_torch.ops.kernels import rebin as rb
 from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+from pedoni_tpu_torch.ops.kernels import tiles
 from pedoni_tpu_torch.physics import Physics
 from test_torch_rebin_cases import CASES, rebin_case
 
@@ -146,14 +147,18 @@ def _obstacles(sc):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seg_pass", [False, True])
 @pytest.mark.parametrize("scenario", ["gap.toml", "random.toml"])
-def test_step_kernel_segments_matches_twin(card_grid, scenario):
+def test_step_kernel_segments_matches_twin(card_grid, scenario, seg_pass,
+                                           monkeypatch):
     """Segment mode with gap.toml's 2 obstacles and with random.toml's
     1000-row edge table (88 KB, past constant memory), base and mover
-    output modes."""
+    output modes, the table walked by the sample pass and by the pair
+    pass."""
     sc, cfg, d, fwp, fobs = card_grid
     segs = sk.segment_table(_obstacles(load_scenario(SCENARIOS / scenario)), "cuda")
     assert segs.shape[0] == (2 if scenario == "gap.toml" else 1000)
+    monkeypatch.setattr(sk, "segment_pass", lambda n_seg: seg_pass)
     before = sk.fused_step.segment_launches
     got = sk.fused_step(d, fwp, fobs, cfg.physics, sc.size, segments=segs)
     want = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size, segments=segs)
@@ -263,7 +268,7 @@ def _tile_case(name):
         assert kk == k and int(case[2][:, 0, 7].max()) == k
         rows, threads, smem = sk.pair_pass_launch(k, ny2, nxl)
         assert (rows, threads) == launch[:2]
-        assert (2 * (smem + sk.SMEM_BLOCK_RESERVED) <= sk.SMEM_SM) == (launch[2] == 2)
+        assert (2 * (smem + tiles.SMEM_BLOCK_RESERVED) <= tiles.SMEM_SM) == (launch[2] == 2)
         return (*case, 2)
     if name == "single_centre_row":
         # ny2 = 3: one tile row however small K is; row 2 is the ghost row
@@ -365,3 +370,123 @@ def test_pairwise_kernel_matches_twin():
     assert pw.pairwise.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-5
     assert float(want.abs().max()) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_pass", [False, True])
+def test_step_kernel_segments_random_toml_cull(seg_pass, monkeypatch):
+    """Segment mode on random.toml's own fields and 1000-row edge table:
+    ~2000 seeded agents over the 200 x 200 m field, some inside rectangles
+    and some 20 to 24 m from one, so the pair pass's tiles keep and drop
+    rows on both sides of the cull distance; kernel vs twin in base and
+    mover mode, the table walked by the sample pass and by the pair pass."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pedoni_tpu_torch import Simulator, SimulatorOptions
+    sim = Simulator(SimulatorOptions(device="cuda", seed=1, use_distance_map=False),
+                    load_scenario(SCENARIOS / "random.toml"))
+    cfg = sim.cfg
+    segs = sfm_grid.debug_segments(cfg, "cuda")
+    assert segs.shape[0] == 1000
+    rng = np.random.default_rng(9)
+    o = np.asarray(_obstacles(cfg.scenario), np.float64)
+    mid = 0.5 * (o[:, 0:2] + o[:, 2:4])
+    seg = o[:, 2:4] - o[:, 0:2]
+    normal = np.stack([seg[:, 1], -seg[:, 0]], 1) / np.linalg.norm(seg, axis=1)[:, None]
+    ring = mid + normal * (0.5 * o[:, 4:5] + rng.uniform(20.0, 24.0, (len(o), 1)))
+    ring = ring[((ring > 0.5) & (ring < 199.5)).all(axis=1)][:300]
+    pos = np.concatenate([rng.uniform(0.5, 199.5, (1500, 2)),
+                          mid[rng.choice(len(o), 200, replace=False)], ring])
+    n = pos.shape[0]
+    agents = agents_from_numpy(
+        pos, rng.normal(0, 0.6, (n, 2)), np.clip(rng.normal(1.34, 0.26, n), 0.1, None),
+        rng.integers(0, 4, n), np.ones(n, bool), "cuda")
+    d = sfm_grid.bin_state(cfg, SimState(agents, 0)).d
+    stride = sfm_grid.stride_for(cfg)
+    args = (d, sim._fwp, sim._fobs, cfg.physics, cfg.scenario.size)
+    monkeypatch.setattr(sk, "segment_pass", lambda n_seg: seg_pass)
+    got = sk.fused_step(*args, stride=stride, segments=segs)
+    want = sk.fused_step_torch(*args, stride=stride, segments=segs)
+    _assert_step_close(d, got, want)
+    assert float(want[:, :, 6].sum()) > 1000
+    got = sk.fused_step(*args, stride=stride, segments=segs, emit_movers=8)
+    want = sk.fused_step_torch(*args, stride=stride, segments=segs, emit_movers=8)
+    _assert_step_close(d, got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):  # M, movf, mdmx
+        assert torch.equal(a, b)
+
+
+def _pairwise_grid(k, nx, ny_pad, seed):
+    """A 2D input [ny_pad + 2, K, 8, NX] on the card: agents in every row
+    (ghost rows included) and lane, lane NX-1 placed left of lane 0 so that
+    the lane wrap brings them within the cutoff, some slots inactive, unit
+    e; and the one NaN-position active agent's slot."""
+    rng = np.random.default_rng(seed)
+    ny2 = ny_pad + 2
+    d = np.zeros((ny2, k, 8, nx), np.float32)
+    occ = rng.uniform(size=(ny2, k, nx)) < 0.45
+    occ[:, 0, [0, nx - 1]] = True  # the edge lanes hold agents
+    r, j, c = np.nonzero(occ)
+    x = np.where(c == nx - 1, -1, c)  # lane NX-1 sits left of lane 0
+    d[r, j, 0, c] = (x + rng.uniform(size=r.size)) * 1.4
+    d[r, j, 1, c] = (r - 1 + rng.uniform(size=r.size)) * 1.4
+    d[r, j, 2:4, c] = rng.normal(0, 1, (r.size, 2))
+    e = rng.normal(0, 1, (r.size, 2))
+    d[r, j, 4:6, c] = e / np.linalg.norm(e, axis=1, keepdims=True)
+    d[r, j, 6, c] = (rng.uniform(size=r.size) > 0.15).astype(np.float32)
+    nan_at = (2, 0, 1)  # (row, slot, lane): next to the wrapped lane 0
+    d[nan_at[0], nan_at[1], 6, nan_at[2]] = 1.0
+    d[nan_at[0], nan_at[1], 0:2, nan_at[2]] = np.nan
+    return torch.from_numpy(d).cuda(), nan_at
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 14, 29])
+@pytest.mark.parametrize("nx", [128, 256])
+def test_pairwise_tile_edges(k, nx):
+    """2D vs its twin on grids built to break the tiles: the lane wrap,
+    ny_pad = 7 (the last two-row tile ragged), ghost-row candidates,
+    inactive centres, and one active candidate at a NaN position, which
+    fails every cutoff test in the kernel: it is held to the twin with that
+    slot made inactive and moved out of reach (the twin's 0 * NaN would
+    spread the NaN over its neighbours)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    d, (r, j, c) = _pairwise_grid(k, nx, 7, seed=k + nx)
+    assert pw.pairwise_launch(k, d.shape[0], nx)[0] == 2
+    before = pw.pairwise.launches
+    got = pw.pairwise(d, Physics(), row_block=1)
+    torch.cuda.synchronize()
+    assert pw.pairwise.launches == before + 1
+    ref = d.clone()
+    ref[r, j, 6, c] = 0.0
+    ref[r, j, 0:2, c] = 1e4
+    want = pw.pairwise_torch(ref, Physics(), row_block=1)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float(want.abs().max()) > 0.1
+    # the wrap matters: lane 0's accelerations differ without it
+    cut = ref.clone()
+    cut[:, :, 6, nx - 1] = 0.0
+    assert not torch.equal(pw.pairwise_torch(cut, Physics(), row_block=1)[:, :, :, 0],
+                           want[:, :, :, 0])
+
+
+@pytest.mark.cuda
+def test_rebin_incremental_lands_rows_past_the_count():
+    """2B on a hand-made M whose rows past a cell's count (ch 7) hold a
+    mover (ch 6 set): the kernel lands them as the twin does, bit-equal on
+    all five outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    c = rebin_case("k14_mk8")
+    m = c["m"].copy()
+    m[:, :, 7] = np.maximum(m[:, :, 7] - 1.0, 0.0)
+    assert (m[:, :, 6] > 0.5).sum() > (m[:, 0, 7]).sum() + 10
+    gi, m = torch.from_numpy(c["gi"]).cuda(), torch.from_numpy(m).cuda()
+    args = (c["unit"], c["nx"], c["ny"], c["rb"])
+    got = rb.rebin_incremental(gi, m, *args)
+    want = rb.rebin_incremental_torch(gi, m, *args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("D'", "ovf", "dmx", "nin", "nout"), got, want):
+        assert torch.equal(a, b), name

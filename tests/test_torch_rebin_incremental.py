@@ -113,6 +113,26 @@ def test_rebin_incremental_twin_tile_edge_cases(case):
         assert got[1].sum() > 0  # more movers than holes
 
 
+def test_rebin_incremental_twin_lands_rows_past_the_count():
+    """A hand-made M whose rows past a cell's count (ch 7) still hold a
+    mover (ch 6 set): the twin lands every such row, as the reference does,
+    so its per-cell membership is the NumPy full rebin's; the CUDA kernel is
+    held to the twin on the same M on the card."""
+    ny = 8
+    g0 = _make_grid(ny, seed=3)
+    gi, m = _split_stay_movers(g0, mk=K)
+    held = m[:, :, 6] > 0.5
+    m[:, :, 7] = np.maximum(m[:, :, 7] - 1.0, 0.0)  # one row past the count
+    past = held & (np.arange(K)[None, :, None] >= m[:, :, 7])
+    assert past.sum() > 20
+    got = [t.numpy() for t in port_rebin.rebin_incremental(
+        torch.from_numpy(gi), torch.from_numpy(m), UNIT, NX, ny)]
+    want, demand = _numpy_rebin(g0, UNIT, NX, ny)
+    assert demand.max() <= K and got[1].sum() == 0
+    assert _active_cells(got[0]) == _active_cells(want)
+    assert got[4].sum() == demand.sum() and got[2].max() == demand.max()
+
+
 def test_rebin_incremental_cpu_tensor_takes_the_twin():
     g0 = _make_grid(4, seed=7)
     gi, m = map(torch.from_numpy, _split_stay_movers(g0, mk=4))
