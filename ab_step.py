@@ -18,7 +18,10 @@ one obstacle, on the state of scenarios/random.toml (1000 obstacles)
 after chip_smoke.py's ticks through ``Simulator(use_distance_map=False)``
 and on funnel.toml's and default.toml's (4 and 3 obstacles) after
 CROSSOVER_TICKS ticks, and the standalone pairwise kernel (2D) on the full
-path's state with chip_smoke.py's seeded unit vectors in ch 4/5.  Then the
+path's state with chip_smoke.py's seeded unit vectors in ch 4/5.  Each tree
+makes random.toml's state with its own simulator, so the turns print a hash
+of it and also time the kernel on the first turn's state
+(``random_toml_common_segments_ms``).  Then the
 same again for the
 same agents at the all-pairs unit (2.0 m cells, K 25, field stride 8; keys
 ``all_pairs_*``).
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import pathlib
 import statistics
@@ -51,6 +55,8 @@ import sys
 
 HERE = pathlib.Path(__file__).resolve().parent
 CROSSOVER_TICKS = 300  # ticks before a shipped scenario's state is timed
+# random.toml's state as the first turn left it, for the later turns' kernels
+COMMON_STATE = HERE / ".scratch" / "ab_random_toml_state.pt"
 
 
 def worker(tree: str) -> int:
@@ -123,8 +129,20 @@ def worker(tree: str) -> int:
         rsegs = sfm_grid.debug_segments(sim.cfg, dev)
         rd, rstride = sim.state.d, sfm_grid.stride_for(sim.cfg)
         res["random_toml_active"] = int((rd[:, :, 6] > 0.5).sum())
+        # whether both trees time the kernel on the same state
+        res["random_toml_state"] = (f"{tuple(rd.shape)} sha256 " + hashlib.sha256(
+            rd.cpu().numpy().tobytes()).hexdigest()[:16])
         res["random_toml_segments_ms"] = chip_smoke._median_ms(
             lambda: sk.fused_step(rd, sim._fwp, sim._fobs, sim.cfg.physics,
+                                  sim.cfg.scenario.size, stride=rstride,
+                                  segments=rsegs))
+        # the same kernel on the first turn's state, whichever tree made it
+        if not COMMON_STATE.exists():
+            COMMON_STATE.parent.mkdir(parents=True, exist_ok=True)
+            torch.save(rd.cpu(), COMMON_STATE)
+        rc = torch.load(COMMON_STATE).to(dev)
+        res["random_toml_common_segments_ms"] = chip_smoke._median_ms(
+            lambda: sk.fused_step(rc, sim._fwp, sim._fobs, sim.cfg.physics,
                                   sim.cfg.scenario.size, stride=rstride,
                                   segments=rsegs))
         for name in ("funnel", "default"):  # shipped tables of 4 and 3 rows
@@ -249,6 +267,7 @@ def main() -> int:
     card = chip_smoke._card()
     print(card, flush=True)
     turns = []
+    COMMON_STATE.unlink(missing_ok=True)
     for label, tree in (("parent", parent), ("change", str(HERE)),
                         ("change", str(HERE)), ("parent", parent)):
         r = subprocess.run([sys.executable, __file__, "--worker", tree],
@@ -263,7 +282,10 @@ def main() -> int:
         print(json.dumps(line), flush=True)
     keys = ("step_kernel_ms", "step_kernel_movers_ms", "rebin_ms",
             "rebin_incremental_ms", "full_ms_per_step", "hybrid_ms_per_step")
+    print("# random.toml state after the ticks, by turn: " + "; ".join(
+        f"{t['turn']} {t['random_toml_state']}" for t in turns), flush=True)
     for k in (*keys, "step_kernel_segments_ms", "random_toml_segments_ms",
+              "random_toml_common_segments_ms",
               "funnel_toml_segments_ms", "default_toml_segments_ms",
               "pairwise_ms", *("all_pairs_" + k for k in keys)):
         p = [t[k] for t in turns if t["turn"] == "parent"]

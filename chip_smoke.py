@@ -32,7 +32,8 @@ nvcc, one process per source, then:
    incremental rebin on the hybrid's; the incremental rebin also on a
    hand-made M whose rows past each cell's count hold movers) and times
    each kernel and its twin
-   there (median of 20 runs, CUDA events, each queued behind a device spin
+   there (median of 20 runs for a kernel, TWIN_RUNS for a twin, CUDA
+   events, each queued behind a device spin
    so that host enqueue time stays out).  Each bound counts the bytes the
    function needs from this state (see ``_needed_bytes``).  The step kernel's
    and the rebins' times are printed beside their first designs';
@@ -50,6 +51,9 @@ nvcc, one process per source, then:
    whole table, the pair pass's tile cull and the data need; then 48 more
    random.toml ticks under ``torch.profiler``: device us per tick for each
    kernel and for the glue (spawn scatter, metrics), and the busy share;
+   then 16 spawning steps of that grid whole and 16 cut into 2 x 2 tiles
+   on this card, all under ``set_sync_debug_mode("error")``, every metric
+   equal each step and the grids bit-equal;
 7. all-pairs mode (--no-neighbor-grid): gap.toml through
    ``Simulator(use_neighbor_grid=False)`` (unit 2.0 m, K 29) evacuates
    within 400 steps; the 1M bench problem at unit 2.0 (K grown by the same
@@ -62,7 +66,21 @@ nvcc, one process per source, then:
    --no-distance-map --checkpoint-every 100`` for 300 steps (population
    reaches 0, log written), then ``--resume`` from the step-100
    checkpoint: the resumed simulator's agents and generator equal the
-   saved ones exactly, and its later checkpoints equal the first run's.
+   saved ones exactly, and its later checkpoints equal the first run's;
+   ``--devices`` one more than the machine's cards exits non-zero naming
+   the count;
+10. the 1M workload cut into 1 x 2 and 2 x 2 tiles, every tile on this
+   card (parallel/tile2d.py over a device list), full path and hybrid:
+   TILE_STEPS tiled steps equal to the whole grid's (every metric each
+   step, the tiles' own cells bit for bit), the step kernel (base and
+   mover mode) and both rebins at a tile's offsets equal to their twins
+   (max |err| 0), wall ms/step tiled and whole, the tiled step's device
+   ms/step (profiler) and the ghost exchange's device time a step;
+11. the 1M full-path state re-binned at K = BIG_K (121, past the largest
+   K whose one-row tile holds every slot level): the step kernel (base
+   and mover mode) and 2D equal to their twins, timed beside K = 14; then
+   step 1's fields at K = MAX_K (255) with cells filled to K: the step
+   kernel (base, mover and segment mode) and 2D equal to their twins.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}.  Exits
@@ -92,6 +110,7 @@ F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PAIR_FLOPS = 45  # float operations of one pair_accum within the cutoff
 PAIR_TEST_FLOPS = 6  # its distance test alone (a candidate past the cutoff)
 SPIN_CYCLES = 2_000_000  # ~1 ms of device clock ahead of each timed run
+TWIN_RUNS = 5  # runs of a plain PyTorch twin timed (tens of ms to seconds each)
 PROFILE_STEPS = 24  # a multiple of the compaction period of 8
 # kernel names as the profiler reports them, in step order
 PROFILED = ("step_sample", "step_pairs", "rebin_full", "rebin_inc")
@@ -102,6 +121,15 @@ RANDOM_STEPS = 200
 SEG_FLOPS = 100  # float operations of one (agent, obstacle) segment test
 EXP_ZERO_RANGES = 104  # exp(-d / obs_range) is 0 in f32 past this many ranges
 RANDOM_PROFILE_TICKS = 48  # random.toml ticks under torch.profiler
+# random.toml's wall / device ms a tick in segment mode with the spawn scatter
+# that synced the host each step (PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+# Printed beside this run's; nothing is gated on it.
+RANDOM_TICK_MS_SYNCING = (4.9446, 0.3487)
+SPAWN_SYNC_STEPS = 16  # spawning steps under set_sync_debug_mode("error")
+TILES = ((1, 2), (2, 2))  # the 1M workload's tilings, all on one card
+TILE_STEPS = 16  # steps of the tiled and the whole-grid 1M step compared
+BIG_K = 121  # the table capacity after 81 in Simulator._grow_table
+MAX_K = 255  # the largest table capacity the pair passes take
 # The same measurements with the kernels' first designs, from PERF.md (NVIDIA
 # H100 80GB HBM3, 700 W): the step kernel with one thread per slot (a sample
 # pass over the fields6 planes, a pair pass with a warp-wide candidate walk,
@@ -250,13 +278,14 @@ def _compare_step(d, fwp, fobs, phys, size, mk, what, **kw):
     return step_err, mover_err, g_t, mv_t
 
 
-def _compare_rebins(g_t, mv_t, unit, nx, ny, what) -> None:
+def _compare_rebins(g_t, mv_t, unit, nx, ny, what, **tile) -> None:
     """Both rebin kernels vs their twins, bit-equal on all five outputs, on
     the step twin's outputs: ``g_t`` (base mode) for the full rebin, ``mv_t``
     (mover mode: G with the stay mask, M) for the incremental one, and the
     incremental one again on a hand-made M: the same rows with every cell's
     count (ch 7) cut by one, so that a row past the count holds a mover
-    (the reference lands it by its ch 6)."""
+    (the reference lands it by its ch 6).  ``tile``: a tile's offsets and
+    own lanes (parallel/tile2d.py), for all of them."""
     from pedoni_tpu_torch.ops.kernels import rebin as rb
 
     names = ("D'", "overflow", "demand", "active_in", "active_out")
@@ -265,13 +294,14 @@ def _compare_rebins(g_t, mv_t, unit, nx, ny, what) -> None:
     if not bool((m_cut[:, :, 6] > 0.5).any()):
         raise AssertionError(f"{what}: no mover rows for the hand-made M")
     for label, got, want in (
-            ("rebin", rb.rebin(g_t, unit, nx, ny), rb.rebin_torch(g_t, unit, nx, ny)),
+            ("rebin", rb.rebin(g_t, unit, nx, ny, **tile),
+             rb.rebin_torch(g_t, unit, nx, ny, **tile)),
             ("rebin_incremental",
-             rb.rebin_incremental(mv_t[0], mv_t[1], unit, nx, ny),
-             rb.rebin_incremental_torch(mv_t[0], mv_t[1], unit, nx, ny)),
+             rb.rebin_incremental(mv_t[0], mv_t[1], unit, nx, ny, **tile),
+             rb.rebin_incremental_torch(mv_t[0], mv_t[1], unit, nx, ny, **tile)),
             ("rebin_incremental, hand-made M",
-             rb.rebin_incremental(mv_t[0], m_cut, unit, nx, ny),
-             rb.rebin_incremental_torch(mv_t[0], m_cut, unit, nx, ny))):
+             rb.rebin_incremental(mv_t[0], m_cut, unit, nx, ny, **tile),
+             rb.rebin_incremental_torch(mv_t[0], m_cut, unit, nx, ny, **tile))):
         torch.cuda.synchronize()
         for name, a, b in zip(names, got, want):
             if not torch.equal(a, b):
@@ -677,9 +707,9 @@ def _segments_phase(dev, card, grid1, bench, states) -> dict:
 
     timing = {}
     for label, (sd, wp, ob, p, sz, sg, st, n_twin) in {
-            "1M": (gs.d, bfwp, bfobs, phys, size, bsegs, 6, 20),
+            "1M": (gs.d, bfwp, bfobs, phys, size, bsegs, 6, TWIN_RUNS),
             "random.toml": (rd, sim._fwp, sim._fobs, sim.cfg.physics, rsc.size,
-                            rsegs, stride, 5)}.items():
+                            rsegs, stride, 3)}.items():
         def kernel():
             return sk.fused_step(sd, wp, ob, p, sz, stride=st, segments=sg)
 
@@ -707,11 +737,16 @@ def _segments_phase(dev, card, grid1, bench, states) -> dict:
     k_ms, t_ms, b_ms, by = timing["1M"]
     rk, rt, rb_ms, rby = timing["random.toml"]
     _zero_launch_counts()
-    _device_profile(sim.tick, RANDOM_PROFILE_TICKS, ms_rand,
-                    f"random.toml, segments (a run = a tick; glue = spawn "
-                    f"scatter, metrics, zeroing)", card)
+    dev_rand = _device_profile(sim.tick, RANDOM_PROFILE_TICKS, ms_rand,
+                               f"random.toml, segments (a run = a tick; glue = "
+                               f"spawn scatter, metrics, zeroing)", card)
     if _launch_counts()["step_kernel_segments"] != RANDOM_PROFILE_TICKS:
         raise AssertionError(f"random.toml profile: launches {_launch_counts()}")
+    print(f"# random.toml, segments: wall {ms_rand:.4f} / device {dev_rand:.4f} "
+          f"ms a tick; with the spawn scatter that synced the host: "
+          f"{RANDOM_TICK_MS_SYNCING[0]} / {RANDOM_TICK_MS_SYNCING[1]} on {card}",
+          flush=True)
+    _spawn_sync_phase(sim, card)
     print("# segment mode against the step kernel's first design: "
           + _vs_first("step_kernel_segments", k_ms) + ", "
           + _vs_first("step_kernel_segments_random_toml", rk), flush=True)
@@ -724,6 +759,257 @@ def _segments_phase(dev, card, grid1, bench, states) -> dict:
             "random_toml": {"launches": rcounts["step_kernel_segments"],
                             "ms": rk, "plain_ms": rt, "bound_ms": rb_ms,
                             "bound_by": rby, "ms_per_tick": ms_rand}}
+
+
+def _spawn_sync_phase(sim, card) -> None:
+    """Spawning steps: the Simulator's own step on random.toml's state (4
+    spawn groups, segment mode) and the same grid cut into 2 x 2 tiles on
+    this card, SPAWN_SYNC_STEPS steps each under set_sync_debug_mode(
+    "error"), from one state and one generator state: no step waits on the
+    host, and the tiled step's metrics each step and its grid equal the
+    whole grid's."""
+    from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.parallel import tile2d
+
+    dev, o = sim.device, sim.options
+    flat = sim._to_flat_state()
+    tcfg = tile2d.Tile2DConfig.build(sim.cfg, 2, 2, row_block=o.row_block)
+    devices = [dev] * tcfg.n_devices
+    twp, tob = tile2d.device_inputs(tcfg, sim.maps, sfm_grid.stride_for(sim.cfg),
+                                    devices)
+    tgen = torch.Generator(device=dev)
+    tgen.set_state(sim.generator.get_state())
+    tstep = tile2d.make_sharded_step(tcfg, devices,
+                                     incremental=sim._resolve_incremental(),
+                                     mover_k=o.mover_capacity,
+                                     compact_every=o.compact_every, generator=tgen)
+    ts = tile2d.make_sharded_grid_state(tcfg, flat, devices)
+    gs = sim._from_flat_state(flat)
+    torch.cuda.synchronize()
+    runs = {"whole": [], "tiled": []}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(SPAWN_SYNC_STEPS):
+            gs, m = sim._step(gs, sim._fwp, sim._fobs)
+            runs["whole"].append(torch.stack(list(m)))
+        for _ in range(SPAWN_SYNC_STEPS):
+            ts, m = tstep(ts, twp, tob)
+            runs["tiled"].append(torch.stack(list(m)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    whole, tiled = (torch.stack(runs[k]).cpu() for k in ("whole", "tiled"))
+    n_spawned = int(whole[:, 1].sum())
+    if not torch.equal(whole, tiled) or n_spawned == 0:
+        raise AssertionError(f"random.toml spawning steps: whole {whole.tolist()} "
+                             f"tiled {tiled.tolist()}")
+    if not torch.equal(tile2d.gather(tcfg, ts), gs.d):
+        raise AssertionError("random.toml spawning steps: tiled grid != whole grid")
+    print(f"# spawning steps (random.toml, segments, {n_spawned} agents spawned): "
+          f"{SPAWN_SYNC_STEPS} of the whole grid and {SPAWN_SYNC_STEPS} of 2 x 2 "
+          f"tiles on one card under set_sync_debug_mode('error'); every metric "
+          f"equal each step, grids bit-equal", flush=True)
+
+
+def _tiles_phase(dev, card, bench) -> dict:
+    """10. The 1M workload cut into tiles (parallel/tile2d.py over a device
+    list that names this card once a tile), full path and hybrid: each
+    kernel with a tile's offsets vs its twin, the tiled step vs the
+    whole-grid step for TILE_STEPS steps (every metric each step, the grids
+    bit for bit), ms/step tiled and whole, and the ghost exchange's share of
+    a tiled step's device time.  Returns this phase's numbers."""
+    from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.parallel import tile2d
+
+    bcfg, bmaps, bfwp, bfobs, flat, gs0 = bench
+    stride = sfm_grid.stride_for(bcfg)
+    phys, size = bcfg.physics, bcfg.scenario.size
+    unit, nx, ny = bcfg.grid.unit, bcfg.grid.nx, bcfg.grid.ny
+    out = {}
+    for tile in TILES:
+        tcfg = tile2d.Tile2DConfig.build(bcfg, *tile)
+        n_t = tcfg.n_devices
+        devices = [dev] * n_t
+        twp, tob = tile2d.device_inputs(tcfg, bmaps, stride, devices)
+        label = f"{tile[0]}x{tile[1]}"
+        for name, incremental in (("full", False), ("hybrid", True)):
+            step = sfm_grid.make_step_grid(bcfg, incremental=incremental)
+            tstep = tile2d.make_sharded_step(tcfg, devices, incremental=incremental)
+            ts = tile2d.make_sharded_grid_state(tcfg, flat, devices)
+            gs = gs0
+            _zero_launch_counts()
+            wm, tm = [], []
+            for _ in range(TILE_STEPS):
+                gs, m = step(gs, bfwp, bfobs)
+                wm.append(torch.stack(list(m)))
+            counts_w = _launch_counts()
+            _zero_launch_counts()
+            for _ in range(TILE_STEPS):
+                ts, m = tstep(ts, twp, tob)
+                tm.append(torch.stack(list(m)))
+            counts = _launch_counts()
+            kname = "step_kernel_movers" if incremental else "step_kernel"
+            if counts[kname] != n_t * TILE_STEPS or counts_w[kname] != TILE_STEPS:
+                raise AssertionError(f"1M {label} {name}: launches {counts}")
+            wm, tm = torch.stack(wm).cpu(), torch.stack(tm).cpu()
+            if not torch.equal(wm, tm):
+                raise AssertionError(f"1M {label} {name}: metrics differ: whole "
+                                     f"{wm.tolist()} tiled {tm.tolist()}")
+            if not torch.equal(tile2d.gather(tcfg, ts), gs.d):
+                raise AssertionError(f"1M {label} {name}: tiled grid != whole grid")
+            # a tile's own kernels against their twins, at its offsets
+            i = n_t - 1
+            r0, c0 = tcfg.origin(i)
+            tiles = list(ts.d)
+            tile2d.exchange(tcfg, tiles)
+            off = dict(row_offset=r0, col_offset=c0, nx_local=tcfg.cols_local)
+            e_base, e_mv, g_t, mv_t = _compare_step(
+                tiles[i], twp[i], tob[i], phys, size, 8,
+                f"1M {label} tile {i}", **off)
+            _compare_rebins(g_t, mv_t, unit, nx, ny, f"1M {label} tile {i}", **off)
+            if e_base != 0.0 or e_mv != 0.0:
+                raise AssertionError(f"1M {label} tile {i}: step kernel err "
+                                     f"{e_base}, {e_mv}")
+            # times: wall ms/step of each, then device ms/step (profiler)
+            _, _, ms_w = _run_timed(step, gs, bfwp, bfobs)
+            _, _, ms_t = _run_timed(tstep, ts, twp, tob)
+            tensors = [tiles, [torch.empty_like(t) for t in tiles]]
+            if incremental:
+                tensors.append([torch.empty((t.shape[0], 8, 8, t.shape[3]),
+                                            device=dev) for t in tiles])
+            ex_ms = _median_ms(lambda: [tile2d.exchange(tcfg, x) for x in tensors])
+            state = [ts]
+
+            def run():
+                state[0] = tstep(state[0], twp, tob)[0]
+
+            dev_t = _device_profile(run, PROFILE_STEPS // 3, ms_t,
+                                    f"1M {label} tiles, {name} (a run = a step)",
+                                    card)
+            n_agents = int(wm[-1, 0])
+            print(f"# 1M {label} tiles on one card, {name} path: {TILE_STEPS} "
+                  f"steps equal to the whole grid's (metrics each step, grid bit "
+                  f"for bit; {n_agents} active); tile {i} (offsets {r0}, {c0}): "
+                  f"step kernel base and mover mode max |err| {e_base:.1e}, "
+                  f"both rebins bit-equal to their twins; ms/step tiled "
+                  f"{ms_t:.4f} / whole {ms_w:.4f} (wall, {TIMED} steps), tiled "
+                  f"device {dev_t:.4f}; ghost exchange {ex_ms:.4f} ms a step "
+                  f"({len(tensors)} exchanges of {n_t} tiles, "
+                  f"{ex_ms / dev_t:.1%} of the tiled device time) on {card}",
+                  flush=True)
+            out[f"{label}_{name}"] = {"ms_per_step": ms_t, "whole_ms_per_step": ms_w,
+                                      "device_ms_per_step": dev_t,
+                                      "exchange_ms": ex_ms, "max_abs_err": e_base}
+    return out
+
+
+def _unit_e(d: torch.Tensor, seed: int) -> torch.Tensor:
+    """``d`` with seeded unit vectors in ch 4/5 (2D's desired direction)."""
+    gen = torch.Generator(device=d.device).manual_seed(seed)
+    e = torch.randn((d.shape[0], d.shape[1], 2, d.shape[3]), generator=gen,
+                    device=d.device)
+    d2 = d.clone()
+    d2[:, :, 4:6] = e / e.norm(dim=2, keepdim=True)
+    return d2
+
+
+def _max_k_check(dev, grid1) -> float:
+    """K = MAX_K, the most the pair passes take, on step 1's fields (gap.toml)
+    with a crowd and three cells filled to K, K - 9 and K // 2 agents side by
+    side and diagonally, so that a pair pass walks every slot level of a tile
+    and its halo: the step kernel (base and mover mode, and in segment mode
+    with the table walked by either pass) and 2D equal to their twins.
+    Returns the largest |err|."""
+    import dataclasses
+
+    from pedoni_tpu_torch.convert import agents_from_numpy
+    from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.models.sfm import SimState
+    from pedoni_tpu_torch.ops.kernels import pairwise as pw
+    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+
+    sc, cfg1, _, fwp, fobs = grid1
+    k = MAX_K
+    cfg = dataclasses.replace(cfg1, table_capacity=k)
+    rng = np.random.default_rng(k)
+    pos = np.concatenate([
+        rng.uniform(0.01, 23.99, (1500, 2)),
+        rng.uniform(0.02, 1.48, (k, 2)) + [9.0, 9.0],
+        rng.uniform(0.02, 1.48, (k - 9, 2)) + [10.5, 9.0],
+        rng.uniform(0.02, 1.48, (k // 2, 2)) + [12.0, 10.5]])
+    n = pos.shape[0]
+    agents = agents_from_numpy(pos, rng.normal(0, 0.6, (n, 2)),
+                               np.clip(rng.normal(1.34, 0.26, n), 0.1, None),
+                               rng.integers(0, 2, n), np.ones(n, bool), dev)
+    d = sfm_grid.bin_state(cfg, SimState(agents, 0)).d
+    ny2, _, _, nxl = d.shape
+    plans = (sk.pair_pass_launch(k, ny2, nxl), sk.pair_pass_launch(k, ny2, nxl, True),
+             pw.pairwise_launch(k, ny2, nxl))
+    if int(d[:, 0, 7].max()) != k or any(p[3] >= k for p in plans):
+        raise AssertionError(f"K {k}: fullest cell {int(d[:, 0, 7].max())}, "
+                             f"plans {plans}")
+    phys = cfg.physics
+    errs = _compare_step(d, fwp, fobs, phys, sc.size, 8, f"gap.toml grid at K {k}")[:2]
+    errs += _compare_step(d, fwp, fobs, phys, sc.size, 8,
+                          f"gap.toml grid at K {k}, segments",
+                          segments=sk.segment_table(_obstacles(sc), dev))[:2]
+    d2 = _unit_e(d, k)
+    acc, acc_t = pw.pairwise(d2, phys, 2), pw.pairwise_torch(d2, phys, 2)
+    torch.cuda.synchronize()
+    e_2d = float((acc - acc_t).abs().max())
+    if max(errs) != 0.0 or not torch.equal(acc, acc_t):
+        raise AssertionError(f"K {k}: step kernel err {errs}, 2D err {e_2d}")
+    print(f"# gap.toml grid at K {k} ({n} agents, cells of {k}, {k - 9} and "
+          f"{k // 2}): pair passes stage {plans[0][3]} (base, mover), "
+          f"{plans[1][3]} (segments) and {plans[2][3]} (2D) levels at once; "
+          f"step kernel base, mover and segment mode (both walks) and 2D "
+          f"bit-equal to their twins", flush=True)
+    return max(*errs, e_2d)
+
+
+def _large_k_phase(dev, card, bench, d_full, k14_ms, grid1) -> dict:
+    """11. The 1M full-path state re-binned at K = BIG_K (the table after 81
+    in Simulator._grow_table): the pair passes stage the slot levels in
+    chunks there; the step kernel (base and mover mode) and 2D vs their
+    twins, and their times beside those at K 14; then ``_max_k_check`` at
+    K = MAX_K.  Returns the numbers."""
+    import dataclasses
+
+    from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.ops.kernels import pairwise as pw
+    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+
+    bcfg, _bmaps, bfwp, bfobs, _flat, _gs0 = bench
+    cfg = dataclasses.replace(bcfg, table_capacity=BIG_K)
+    flat = sfm_grid.unbin_state(bcfg, sfm_grid.GridState(d_full, 0))
+    d = sfm_grid.bin_state(cfg, flat).d
+    ny2, k, _, nxl = d.shape
+    phys, size = bcfg.physics, bcfg.scenario.size
+    plan = sk.pair_pass_launch(k, ny2, nxl)
+    plan2d = pw.pairwise_launch(k, ny2, nxl)
+    if plan[3] >= k or plan2d[3] >= k:
+        raise AssertionError(f"K {k}: pair passes {plan}, {plan2d} do not chunk")
+    e_base, e_mv, g_t, _ = _compare_step(d, bfwp, bfobs, phys, size, 8,
+                                         f"1M state at K {k}")
+    d2 = _unit_e(d, 7)
+    acc = pw.pairwise(d2, phys, 2)
+    acc_t = pw.pairwise_torch(d2, phys, 2)
+    torch.cuda.synchronize()
+    e_2d = float((acc - acc_t).abs().max())
+    if e_base != 0.0 or e_mv != 0.0 or not torch.equal(acc, acc_t):
+        raise AssertionError(f"K {k}: step err {e_base}, {e_mv}; 2D err {e_2d}")
+    step_ms = _median_ms(lambda: sk.fused_step(d, bfwp, bfobs, phys, size))
+    pw_ms = _median_ms(lambda: pw.pairwise(d2, phys, 2))
+    print(f"# 1M full-path state at K {k} (D {tuple(d.shape)}, "
+          f"{_nbytes(d) / 1e9:.2f} GB, {int((d[:, :, 6] > 0.5).sum())} agents): "
+          f"pair pass stages {plan[3]} of {k} slot levels at once on 1-row tiles "
+          f"({plan[2]} bytes of shared memory), 2D {plan2d[3]} ({plan2d[2]} "
+          f"bytes); step kernel (base, mover mode) and 2D bit-equal to their "
+          f"twins; step kernel {step_ms:.4f} ms (K 14: {k14_ms[0]:.4f}), 2D "
+          f"{pw_ms:.4f} ms (K 14: {k14_ms[1]:.4f}) on {card}", flush=True)
+    e_max = _max_k_check(dev, grid1)
+    return {"k": k, "step_kernel_ms": step_ms, "pairwise_ms": pw_ms,
+            "max_abs_err": max(e_base, e_mv, e_2d), "k_max": MAX_K,
+            "k_max_abs_err": e_max}
 
 
 def _all_pairs_phase(dev, card, sc_gap, bscenario, bmaps, flat, capacity) -> None:
@@ -902,6 +1188,17 @@ def _cli_phase() -> None:
               f"saved {rows.shape[0]} agents exactly and the saved generator "
               f"state; the resumed run's step-200 and step-300 checkpoints "
               f"equal the first run's", flush=True)
+        n = torch.cuda.device_count()
+        r = subprocess.run([sys.executable, "-m", "pedoni_tpu_torch", str(GAP), "-H",
+                            "--devices", str(n + 1), "--max-steps", "1",
+                            "--log-dir", str(tmp / "logs3")],
+                           cwd=ROOT, capture_output=True, text=True, timeout=300)
+        said = f"--devices {n + 1} but only {n} devices are visible"
+        if r.returncode == 0 or said not in r.stderr:
+            raise AssertionError(f"CLI --devices {n + 1}: exit {r.returncode}, "
+                                 f"{r.stderr[-2000:]}")
+        print(f"# CLI --devices {n + 1}: exit {r.returncode}, \"{said}\"",
+              flush=True)
 
 
 def main() -> int:
@@ -1088,17 +1385,19 @@ def main() -> int:
     bounds = {name: _bound(need[name], flops.get(name, 0.0)) for name in io}
     times = {
         "step_kernel": (_median_ms(lambda: sk.fused_step(d_full, bfwp, bfobs, phys, size)),
-                        _median_ms(lambda: sk.fused_step_torch(d_full, bfwp, bfobs, phys, size))),
+                        _median_ms(lambda: sk.fused_step_torch(d_full, bfwp, bfobs, phys, size),
+                                   n=TWIN_RUNS)),
         "step_kernel_movers": (
             _median_ms(lambda: sk.fused_step(d_hyb, bfwp, bfobs, phys, size,
                                              emit_movers=mk)),
             _median_ms(lambda: sk.fused_step_torch(d_hyb, bfwp, bfobs, phys, size,
-                                                   emit_movers=mk))),
+                                                   emit_movers=mk), n=TWIN_RUNS)),
         "rebin": (_median_ms(lambda: rb.rebin(g, unit, nx, ny)),
-                  _median_ms(lambda: rb.rebin_torch(g, unit, nx, ny))),
+                  _median_ms(lambda: rb.rebin_torch(g, unit, nx, ny), n=TWIN_RUNS)),
         "rebin_incremental": (
             _median_ms(lambda: rb.rebin_incremental(g_mv, m_mv, unit, nx, ny)),
-            _median_ms(lambda: rb.rebin_incremental_torch(g_mv, m_mv, unit, nx, ny))),
+            _median_ms(lambda: rb.rebin_incremental_torch(g_mv, m_mv, unit, nx, ny),
+                       n=TWIN_RUNS)),
     }
     meta = {
         "step_kernel": ("step_kernel.cu", "pedoni_tpu/ops/pallas/step_kernel.py:898",
@@ -1116,7 +1415,8 @@ def main() -> int:
               f"ms, twin {t_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; "
               f"{need[name] / 1e6:.1f} MB needed of "
               f"{_nbytes(*io[name][0], *io[name][1]) / 1e6:.1f} MB in the tensors; "
-              f"{b_ms / k_ms:.1%} of it) (median of 20, CUDA events) on {card}",
+              f"{b_ms / k_ms:.1%} of it) (medians of 20 and {TWIN_RUNS}, CUDA "
+              f"events) on {card}",
               flush=True)
     print("# step kernel against its first design: " + ", ".join(
         _vs_first(n, times[n][0]) for n in ("step_kernel", "step_kernel_movers")),
@@ -1151,6 +1451,24 @@ def main() -> int:
     t0 = time.perf_counter()
     _cli_phase()
     print(f"# phase 9 (CLI) took {time.perf_counter() - t0:.1f} s", flush=True)
+    bench = (bcfg, bmaps, bfwp, bfobs, flat, gs0)
+    t0 = time.perf_counter()
+    tiled = _tiles_phase(dev, card, bench)
+    print(f"# phase 10 (tiles) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    big_k = _large_k_phase(dev, card, bench, d_full,
+                           (times["step_kernel"][0], kernels[-1]["ms"]), grid1)
+    print(f"# phase 11 (K {BIG_K}, K {MAX_K}) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for entry in kernels:  # the forms of each kernel this run held to its twin
+        if entry["name"] != "pairwise":
+            entry["tile_offsets"] = "ported"
+        if entry["name"] != "rebin" and entry["name"] != "rebin_incremental":
+            entry["k_up_to"] = big_k["k_max"]  # the largest K compared here
+    kernels[0]["tiles_1m"] = tiled
+    kernels[0][f"k{BIG_K}"] = {n: big_k[n] for n in ("step_kernel_ms", "max_abs_err")}
+    kernels[-1][f"k{BIG_K}"] = {"ms": big_k["pairwise_ms"],
+                                "max_abs_err": big_k["max_abs_err"]}
     print(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the "
           f"kernel build included", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,8 @@
 """pedoni-tpu ported to PyTorch and CUDA for NVIDIA Hopper (H100).
 
 A second package beside ``pedoni_tpu`` (the JAX reference, which it never
-imports).  It covers the grid backend on one device: the plain-torch
-spawn scatter, the hand-written CUDA fused step kernel (distance-map or
+imports).  It covers the grid backend, on one device or cut into tiles
+over a list of devices (``parallel``): the plain-torch spawn scatter, the hand-written CUDA fused step kernel (distance-map or
 segment obstacles, optional mover emit), the full and incremental rebins
 and the standalone pairwise kernel (``ops/kernels/csrc``), each with a
 plain PyTorch twin that runs on CPU tensors; the Simulator with both

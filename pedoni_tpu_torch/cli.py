@@ -13,8 +13,11 @@ Backends: ``auto``, ``grid`` and ``pallas`` run the grid backend on the
 CUDA card; ``cpu`` runs it on the CPU through the kernels' PyTorch twins.
 This diverges from the reference, whose ``auto`` is its XLA backend at the
 1.4 m unit: the port has no flat backend yet, so ``-b xla`` (and ``-b tpu``)
-exit non-zero (ROADMAP queue 1, item 9).  ``--devices``/``--tile`` above one
-device exit non-zero (item 10).  The non-headless mode, ``--render``,
+exit non-zero (ROADMAP queue 1, item 9).  ``--devices N`` and ``--tile RxC``
+cut the grid into tiles (parallel/tile2d.py), with the reference's parsing
+and messages: on the card tile i runs on cuda:i (more devices than the
+machine has exit non-zero, naming the count); with ``-b cpu`` every tile
+runs on the CPU.  The non-headless mode, ``--render``,
 ``--render-web``, ``--record-every``, ``--frame-every`` and ``--profile``
 exit non-zero too (item 8: they need the renderer, the web view, the
 trajectory writer and a profiler trace, not ported yet).  No flag falls
@@ -55,9 +58,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "cpu = the same on the CPU (PyTorch twins); xla and "
                         "tpu are not ported")
     p.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="shard over N devices (not ported: N must be 1)")
+                   help="cut the grid into N row strips, one a device")
     p.add_argument("--tile", default=None, metavar="RxC",
-                   help="2D device tiling (not ported: only 1x1)")
+                   help="2D device tiling: R x C tiles, one a device "
+                        "(--tile alone implies --devices R*C)")
     p.add_argument("-s", "--speed", type=float, default=100.0,
                    help="max playback speed multiple of real time (args.rs:23-24)")
     p.add_argument("--no-neighbor-grid", action="store_true",
@@ -111,20 +115,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
                          "grid backend only (-b auto|grid|pallas on the card, "
                          "-b cpu on the CPU); the flat backend is ROADMAP "
                          "queue 1, item 9")
-    devices = args.devices
-    if args.tile:
-        parts = args.tile.lower().split("x")
-        try:
-            r, c = (int(p) for p in parts)
-        except ValueError:  # wrong count or non-integer parts
-            r = c = 0
-        if r < 1 or c < 1:
-            raise SystemExit(
-                f"--tile must be RxC with positive integers, got {args.tile!r}")
-        devices = max(devices, r * c)
-    if devices != 1:
-        raise SystemExit(f"{devices} devices requested: multi-GPU tiling is not "
-                         "ported (ROADMAP queue 1, item 10)")
     for flag, on in (("--render", args.render),
                      ("--render-web", args.render_web is not None),
                      ("--record-every", args.record_every),
@@ -137,7 +127,31 @@ def _refuse_unported(args: argparse.Namespace) -> None:
                              "trace (ROADMAP queue 1, item 8)")
 
 
+def _tiles(args: argparse.Namespace) -> tuple[int, tuple[int, int] | None]:
+    """(n_devices, tile) of --devices and --tile, as the reference parses
+    them (pedoni_tpu/cli.py:107-125)."""
+    tile = None
+    n_devices = args.devices
+    if args.tile:
+        parts = args.tile.lower().split("x")
+        try:
+            r, c = (int(p) for p in parts)
+        except ValueError:  # wrong count or non-integer parts
+            r = c = 0
+        if r < 1 or c < 1:
+            raise SystemExit(
+                f"--tile must be RxC with positive integers, got {args.tile!r}")
+        tile = (r, c)
+        if n_devices == 1:
+            n_devices = r * c  # --tile 4x2 alone implies --devices 8
+        elif n_devices != r * c:
+            raise SystemExit(
+                f"--tile {r}x{c} does not cover --devices {n_devices}")
+    return n_devices, tile
+
+
 def make_simulator(args: argparse.Namespace) -> Simulator:
+    n_devices, tile = _tiles(args)
     options = SimulatorOptions(
         neighbor_grid_unit=args.neighbor_unit,
         field_grid_unit=args.field_unit,
@@ -148,6 +162,8 @@ def make_simulator(args: argparse.Namespace) -> Simulator:
         capacity=args.capacity,
         seed=args.seed,
         physics=Physics(),
+        n_devices=n_devices,
+        tile=tile,
         device=DEVICE_OF_BACKEND[args.backend],
     )
     return Simulator(options, load_scenario(args.scenario))

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -170,41 +170,53 @@ def make_initial_state(cfg: StepConfig, generator: torch.Generator,
     return SimState(agents=agents.to(device), step=0)
 
 
-def spawn_candidates(cfg: StepConfig, generator: torch.Generator) -> AgentState:
-    """Sample this step's spawn candidates: [S] tensors, S = plan.total
-    static, on the generator's device.  Same distribution as the
+def spawn_sampler(cfg: StepConfig, device: torch.device | str
+                  ) -> Callable[[torch.Generator], AgentState]:
+    """``draw(generator) -> AgentState``: this step's spawn candidates, [S]
+    tensors, S = plan.total static, on ``device`` (the generator's).  The
+    plan's tables are copied to the device here, once, not every step (a
+    copy from the host waits for it).  Same distribution as the
     reference's ``_spawn_candidates``: a Poisson(lam) count per periodic
     group, positions uniform along the origin line, desired speed
     N(speed_mean, speed_std) clamped at 0.1."""
     plan = cfg.spawn
     s = plan.total
-    dev = generator.device
+    dev = torch.device(device)
     if s == 0:
         z2 = torch.zeros((0, 2), dtype=torch.float32, device=dev)
         z1 = torch.zeros((0,), dtype=torch.float32, device=dev)
-        return AgentState(z2, z2, z1, torch.zeros((0,), dtype=torch.int32, device=dev),
-                          torch.zeros((0,), dtype=torch.bool, device=dev))
+        empty = AgentState(z2, z2, z1,
+                           torch.zeros((0,), dtype=torch.int32, device=dev),
+                           torch.zeros((0,), dtype=torch.bool, device=dev))
+        return lambda generator: empty
 
-    lam = torch.as_tensor(plan.lam, device=dev)
-    counts = torch.poisson(lam, generator=generator)  # [G]
-    group_of = torch.as_tensor(np.concatenate(
-        [np.full(cap, g, np.int64) for g, cap in enumerate(plan.caps)]), device=dev)
-    slot_in_group = torch.as_tensor(np.concatenate(
-        [np.arange(cap, dtype=np.float32) for cap in plan.caps]), device=dev)
-    active = slot_in_group < counts[group_of]
+    group_np = np.concatenate(
+        [np.full(cap, g, np.int64) for g, cap in enumerate(plan.caps)])
+    lam, slot_in_group, group_of, p0, p1, dest = (
+        torch.as_tensor(a, device=dev) for a in (
+            plan.lam,
+            np.concatenate([np.arange(cap, dtype=np.float32) for cap in plan.caps]),
+            group_np, plan.p0[group_np], plan.p1[group_np], plan.dest[group_np]))
 
-    t = torch.rand((s,), generator=generator, device=dev)
-    p0 = torch.as_tensor(plan.p0, device=dev)[group_of]
-    p1 = torch.as_tensor(plan.p1, device=dev)[group_of]
-    pos = p0 + t[:, None] * (p1 - p0)
-    speed = cfg.physics.speed_mean + cfg.physics.speed_std * torch.randn(
-        (s,), generator=generator, device=dev)
-    speed = torch.clamp(speed, min=0.1)
-    dest = torch.as_tensor(plan.dest, device=dev)[group_of]
-    return AgentState(
-        pos=pos,
-        vel=torch.zeros((s, 2), dtype=torch.float32, device=dev),
-        speed=speed,
-        dest=dest,
-        active=active,
-    )
+    def draw(generator: torch.Generator) -> AgentState:
+        counts = torch.poisson(lam, generator=generator)  # [G]
+        active = slot_in_group < counts[group_of]
+        t = torch.rand((s,), generator=generator, device=dev)
+        pos = p0 + t[:, None] * (p1 - p0)
+        speed = cfg.physics.speed_mean + cfg.physics.speed_std * torch.randn(
+            (s,), generator=generator, device=dev)
+        speed = torch.clamp(speed, min=0.1)
+        return AgentState(
+            pos=pos,
+            vel=torch.zeros((s, 2), dtype=torch.float32, device=dev),
+            speed=speed,
+            dest=dest,
+            active=active,
+        )
+
+    return draw
+
+
+def spawn_candidates(cfg: StepConfig, generator: torch.Generator) -> AgentState:
+    """One draw of ``spawn_sampler`` on the generator's device."""
+    return spawn_sampler(cfg, generator.device)(generator)

@@ -30,7 +30,7 @@ Obstacles: the distance map by default; with ``cfg.use_distance_map``
 False (the reference's --no-distance-map) the step kernel's segment mode
 reads the obstacle edge table of ``debug_segments``.
 
-One device only.
+One device, or one tile of a grid cut into tiles (parallel/tile2d.py).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ from ..ops.fields6 import Fields6
 from ..ops.kernels.rebin import new_outputs, rebin, rebin_incremental
 from ..ops.kernels.step_kernel import fused_step, segment_table
 from ..ops.neighbor import compute_cell_ids, true_divide
-from .sfm import AgentState, SimState, StepConfig, StepMetrics, spawn_candidates
+from .sfm import AgentState, SimState, StepConfig, StepMetrics, spawn_sampler
 
 
 class GridState(NamedTuple):
@@ -152,31 +152,54 @@ def unbin_state(cfg: StepConfig, gs: GridState, n_out: int | None = None
     return SimState(agents=agents, step=gs.step)
 
 
-def spawn_scatter(cfg: StepConfig, d: torch.Tensor, cand: AgentState
+def spawn_scatter(cfg: StepConfig, d: torch.Tensor, cand: AgentState,
+                  row_lo: int = 0, n_rows: int | None = None,
+                  col_lo: int = 0, n_cols: int | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scatter spawn candidates into free grid slots, IN PLACE in ``d``.
+
+    ``d`` [n_rows+2, K, 8, NXL] holds cell rows [row_lo, row_lo + n_rows)
+    and columns [col_lo, col_lo + n_cols) (lane l = column col_lo + l - 1):
+    the whole grid by default, or one tile of it (parallel/tile2d.py).  A
+    candidate is written iff its cell lies in that window or its one-cell
+    ghost ring, but counted (spawned, dropped) only where the window owns
+    it: every tile runs the same candidates, and a ghost copy lands where
+    the owner's own placement does, since ranks follow the stream's order
+    and the ghost ring's counts were just exchanged (the reference's
+    sfm_grid.py:140-161).
 
     Slot = the cell's count (ch 7, slot 0) + the candidate's rank among
     same-cell candidates in stream order; candidates beyond K are dropped
     and counted.  Written channels 0-6 of the slot, then the count channel
     += 1 per written candidate — bit-equal to the reference's scatter.
-    Returns (d, n_spawned, n_dropped) with 0-d i32 tensors."""
+    Every candidate row takes part in one fixed-size scatter: a row that is
+    not written goes to a dump slot (slot 0 of ghost row 0 in the last,
+    padding lane) and writes back what that slot holds, so nothing waits on
+    the host.  Returns (d, n_spawned, n_dropped) with 0-d i32 tensors."""
     grid = cfg.grid
     k = cfg.table_capacity
     n2, kk, ch, nxl = d.shape
-    if kk != k or ch != 8:
-        raise ValueError(f"d shape {tuple(d.shape)} does not match K={k}")
+    if n_rows is None:
+        n_rows = n2 - 2
+    if n_cols is None:
+        n_cols = grid.nx
+    if kk != k or ch != 8 or n2 != n_rows + 2 or n_cols + 2 >= nxl:
+        raise ValueError(f"d shape {tuple(d.shape)} does not match K={k}, "
+                         f"{n_rows} rows, {n_cols} columns")
     dev = d.device
     cand = cand.to(dev)
     s = cand.pos.shape[0]
     gx = torch.floor(true_divide(cand.pos[:, 0], grid.unit))
     cy = torch.floor(true_divide(cand.pos[:, 1], grid.unit))
-    owned = (cand.active & (gx >= 0) & (gx < grid.nx) & (cy >= 0)
-             & (cy < min(grid.ny, n2 - 2)))
+    ing = cand.active & (gx >= 0) & (gx < grid.nx) & (cy >= 0) & (cy < grid.ny)
+    owned = (ing & (cy >= row_lo) & (cy < row_lo + n_rows)
+             & (gx >= col_lo) & (gx < col_lo + n_cols))
+    writable = (ing & (cy >= row_lo - 1) & (cy < row_lo + n_rows + 1)
+                & (gx >= col_lo - 1) & (gx < col_lo + n_cols + 1))
     n_spawned = owned.sum().to(torch.int32)
-    gx = torch.where(owned, gx, 0.0).long()
-    cy = torch.where(owned, cy, 0.0).long()
-    cell = torch.where(owned, (cy + 1) * (grid.nx + 2) + (gx + 1),
+    ly = torch.where(writable, cy - row_lo, 0.0).long()  # -1 .. n_rows
+    lx = torch.where(writable, gx - col_lo, 0.0).long()  # -1 .. n_cols
+    cell = torch.where(writable, (ly + 1) * (grid.nx + 2) + (lx + 1),
                        n2 * (grid.nx + 2))
     order = torch.sort(cell, stable=True).indices
     cell_s = cell[order]
@@ -184,22 +207,25 @@ def spawn_scatter(cfg: StepConfig, d: torch.Tensor, cand: AgentState
     is_start = torch.ones(s, dtype=torch.bool, device=dev)
     is_start[1:] = cell_s[1:] != cell_s[:-1]
     rank = idx - torch.cummax(torch.where(is_start, idx, 0), dim=0).values
-    gx_s, cy_s, owned_s = gx[order], cy[order], owned[order]
-    base_cnt = d[cy_s + 1, 0, 7, gx_s + 1].long()
-    slot_k = base_cnt + rank
-    ok = owned_s & (slot_k < k)
-    n_drop = (n_spawned - ok.sum()).to(torch.int32)
+    lx_s, ly_s = lx[order], ly[order]
+    writable_s, owned_s = writable[order], owned[order]
+    flat = d.view(-1)
+    row_at = (ly_s + 1) * (k * 8 * nxl) + (lx_s + 1)  # slot 0, ch 0 of the cell
+    slot_k = flat[row_at + 7 * nxl].long() + rank
+    ok = writable_s & (slot_k < k)
+    n_drop = (n_spawned - (owned_s & ok).sum()).to(torch.int32)
 
-    r, sl, ln = cy_s[ok] + 1, slot_k[ok], gx_s[ok] + 1
-    src = order[ok]
-    vals = [cand.pos[src, 0], cand.pos[src, 1],
-            torch.zeros_like(cand.speed[src]), torch.zeros_like(cand.speed[src]),
-            cand.speed[src], cand.dest[src].float(),
-            torch.ones_like(cand.speed[src])]
+    dump = nxl - 1  # ghost row 0, slot 0, ch 0, the last lane: padding
+    tgt = torch.where(ok, row_at + torch.clamp(slot_k, 0, k - 1) * (8 * nxl), dump)
+    speed = cand.speed[order]
+    vals = [cand.pos[order, 0], cand.pos[order, 1], torch.zeros_like(speed),
+            torch.zeros_like(speed), speed, cand.dest[order].float(),
+            torch.ones_like(speed)]
     for c, v in enumerate(vals):
-        d[r, sl, c, ln] = v
-    d.index_put_((r, torch.zeros_like(r), torch.full_like(r, 7), ln),
-                 torch.ones_like(cand.speed[src]), accumulate=True)
+        at = tgt + c * nxl
+        flat.scatter_(0, at, torch.where(ok, v, flat[at]))
+    cnt_at = torch.where(ok, row_at, dump) + 7 * nxl
+    flat.scatter_add_(0, cnt_at, ok.float())
     return d, n_spawned, n_drop
 
 
@@ -229,14 +255,18 @@ def debug_segments(cfg: StepConfig, device: torch.device | str = "cuda"
 
 def _segments_on(cfg: StepConfig) -> Callable[[torch.device], torch.Tensor | None]:
     """device -> ``debug_segments(cfg)`` there: built once on the host,
-    copied once per device."""
+    copied once per device (a copy from the host waits for it)."""
     table = debug_segments(cfg, "cpu")
     copies: dict[torch.device, torch.Tensor] = {}
 
     def on(device: torch.device) -> torch.Tensor | None:
-        if table is not None and device not in copies:
+        if table is None:
+            return None
+        if device.type == "cuda" and device.index is None:  # "cuda": the current card
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in copies:
             copies[device] = table.to(device)
-        return copies.get(device)
+        return copies[device]
 
     return on
 
@@ -258,25 +288,103 @@ def make_kernel_chain(cfg: StepConfig, row_block: int = 2,
     ``(d, fwp, fobs) -> d'`` — the surface behind the kernel-time
     diagnostic slot.  ``incremental`` runs the steady-state branch of the
     hybrid (mover emit + incremental rebin, no choice)."""
-    stride = _check_config(cfg)
+    forces, rebins = tile_kernels(cfg, row_block, incremental, mover_k)
     grid = cfg.grid
-    mk = min(mover_k, cfg.table_capacity)
-    segs_on = _segments_on(cfg)
 
     def chain(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor
               ) -> torch.Tensor:
-        kw = dict(stride=stride, field_unit=cfg.field_unit,
-                  segments=segs_on(d.device))
+        g, m, _mdmx, _flag = forces(d, fwp, fobs, compact=True)
         if incremental:
-            g, m, _movf, _mdmx = fused_step(
-                d, fwp, fobs, cfg.physics, cfg.scenario.size, emit_movers=mk,
-                row_block=row_block, **kw)
             return rebin_incremental(g, m, grid.unit, grid.nx, grid.ny,
                                      row_block=row_block)[0]
-        g = fused_step(d, fwp, fobs, cfg.physics, cfg.scenario.size, **kw)
-        return rebin(g, grid.unit, grid.nx, grid.ny, row_block=row_block)[0]
+        return rebins(g, None, None)[0]
 
     return chain
+
+
+def tile_kernels(cfg: StepConfig, row_block: int = 2, incremental: bool = True,
+                 mover_k: int = 8, devices=()):
+    """The kernels of a grid step on one grid, or on one tile of a grid cut
+    into tiles (parallel/tile2d.py, which exchanges the tiles' ghosts
+    between the two): ``(forces, rebins)``.
+
+    ``forces(d, fwp, fobs, compact, **tile) -> (G, M, mdmx, flag)`` runs the
+    fused step kernel; in the hybrid (``incremental``) it also emits each
+    cell's movers (at most ``mover_k``) and, on a step that ``compact``
+    does not send to the full rebin, makes the device flag of the full
+    rebin: some cell had more movers than the table holds, or the scenario
+    spawns and its fullest cell's slot bound is >= K - 1
+    (sfm_grid.py:396-419).  M, mdmx and flag are None where not made.
+    ``rebins(G, M, flag, **tile) -> (D', ovf, dmx, n_in, n_out)`` runs the
+    full rebin where flag is None, else both rebins launched with the flag,
+    of which only the selected one runs its body: no host sync.  ``tile``
+    holds a tile's ``row_offset``, ``col_offset`` and ``nx_local``; none for
+    a whole grid.  The segment table (segment mode) is copied to each of
+    ``devices`` now, to another device at its first step."""
+    stride = _check_config(cfg)
+    segs_on = _segments_on(cfg)
+    for dev in devices:
+        segs_on(torch.device(dev))
+    grid = cfg.grid
+    k = cfg.table_capacity
+    mk = min(mover_k, k)
+    spawning = cfg.spawn.total > 0
+
+    def forces(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
+               compact: bool, **tile):
+        kw = dict(stride=stride, field_unit=cfg.field_unit,
+                  segments=segs_on(d.device), row_block=row_block, **tile)
+        if not incremental:
+            return (fused_step(d, fwp, fobs, cfg.physics, cfg.scenario.size, **kw),
+                    None, None, None)
+        g, m, movf, mdmx = fused_step(d, fwp, fobs, cfg.physics,
+                                      cfg.scenario.size, emit_movers=mk, **kw)
+        if compact:
+            return g, m, mdmx, None
+        need_full = movf.sum() > 0.0
+        if spawning:
+            need_full = need_full | (d[:, 0, 7, :].amax() >= float(k - 1))
+        return g, m, mdmx, need_full.to(torch.int32)
+
+    def rebins(g: torch.Tensor, m: torch.Tensor | None,
+               flag: torch.Tensor | None, **tile) -> tuple[torch.Tensor, ...]:
+        args = (grid.unit, grid.nx, grid.ny)
+        if flag is None:
+            return rebin(g, *args, row_block=row_block, **tile)
+        out = new_outputs(g, row_block)
+        rebin(g, *args, row_block=row_block, gate=flag, out=out, **tile)
+        rebin_incremental(g, m, *args, row_block=row_block, gate=flag, out=out,
+                          **tile)
+        return out
+
+    return forces, rebins
+
+
+def step_metrics(outs, n_spawned: torch.Tensor, n_dropped: torch.Tensor,
+                 mdmx, home: torch.device) -> StepMetrics:
+    """A step's metrics from the rebins' per-block outputs ``outs`` of each
+    grid (one, or one a tile) and their peak mover counts ``mdmx`` (empty
+    off the hybrid): summed, or max-ed, on ``home``, all on the device."""
+
+    def over(ts, op):  # a whole grid needs no reduction over grids
+        ts = [t.to(home) for t in ts]
+        return ts[0] if len(ts) == 1 else op(torch.stack(ts))
+
+    # Exact: per-block sums are integer-valued f32 far below 2^24.
+    n_active = over([o[3].sum() for o in outs], torch.sum).to(torch.int32)
+    n_overflow = over([o[1].sum() for o in outs], torch.sum).to(torch.int32)
+    n_after = over([o[4].sum() for o in outs], torch.sum).to(torch.int32)
+    return StepMetrics(
+        n_active=n_active,
+        n_spawned=n_spawned,
+        n_dropped=n_dropped,
+        n_overflow=n_overflow,
+        max_demand=over([o[2].max() for o in outs], torch.max).to(torch.int32),
+        n_exited=(n_active - n_after) - n_overflow,
+        max_mover_demand=(over([x.max() for x in mdmx], torch.max).to(torch.int32)
+                          if mdmx else torch.zeros((), dtype=torch.int32,
+                                                   device=home)),
+    )
 
 
 def make_step_grid(cfg: StepConfig, row_block: int = 2,
@@ -291,55 +399,21 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
     rebin is the incremental one unless (a) some cell had more movers
     than the table holds, (b) ``state.step % compact_every == 0``, or (c)
     the scenario spawns and its fullest cell's slot bound is >= K - 1
-    (sfm_grid.py:396-419).  (b) is a host int, so those steps launch the
-    full rebin alone; (a) and (c) are read on the device: both rebins are
-    launched with one 0-d int32 flag and only the selected one runs its
-    body — no host sync.  ``step.full_rebins`` (0-d int32, on the device)
-    counts the steps that took the full rebin.
+    (``tile_kernels``).  (b) is a host int, so those steps launch the
+    full rebin alone; (a) and (c) are read on the device.
+    ``step.full_rebins`` (0-d int32, on the device) counts the steps that
+    took the full rebin.
 
     ``cand`` injects this step's spawn candidates (an AgentState of the
     scenario's S = spawn.total rows); when None they are drawn from
     ``generator``, which must then be given for a spawning scenario.
     The spawn scatter writes into ``state.d`` in place (no ~100 MB copy at
     1M agents): the input state is consumed."""
-    stride = _check_config(cfg)
-    segs_on = _segments_on(cfg)
-    phys = cfg.physics
-    grid = cfg.grid
+    forces, rebins = tile_kernels(cfg, row_block, incremental, mover_k)
     s = cfg.spawn.total
-    k = cfg.table_capacity
-    mk = min(mover_k, k)
     if s > 0 and generator is None:
         raise ValueError("a spawning scenario needs a torch.Generator")
-
-    def kernels(state: GridState, d: torch.Tensor, fwp: torch.Tensor,
-                fobs: torch.Tensor):
-        """Step kernel and rebin: (D', ovf, dmx, n_in, n_out, mover peak)."""
-        kw = dict(stride=stride, field_unit=cfg.field_unit,
-                  segments=segs_on(d.device))
-        if not incremental:
-            g = fused_step(d, fwp, fobs, phys, cfg.scenario.size, **kw)
-            return (*rebin(g, grid.unit, grid.nx, grid.ny, row_block=row_block),
-                    None)
-        g, m, movf, mdmx = fused_step(d, fwp, fobs, phys, cfg.scenario.size,
-                                      emit_movers=mk, row_block=row_block, **kw)
-        if step.full_rebins is None:
-            step.full_rebins = torch.zeros((), dtype=torch.int32, device=d.device)
-        if state.step % compact_every == 0:
-            out = rebin(g, grid.unit, grid.nx, grid.ny, row_block=row_block)
-            step.full_rebins += 1
-        else:
-            need_full = movf.sum() > 0.0
-            if s > 0:
-                need_full = need_full | (d[:, 0, 7, :].amax() >= float(k - 1))
-            flag = need_full.to(torch.int32)
-            out = new_outputs(g, row_block)
-            rebin(g, grid.unit, grid.nx, grid.ny, row_block=row_block,
-                  gate=flag, out=out)
-            rebin_incremental(g, m, grid.unit, grid.nx, grid.ny,
-                              row_block=row_block, gate=flag, out=out)
-            step.full_rebins += flag
-        return (*out, mdmx.max().to(torch.int32))
+    draw = spawn_sampler(cfg, generator.device) if s > 0 else None
 
     def step(state: GridState, fwp: torch.Tensor, fobs: torch.Tensor,
              cand: AgentState | None = None
@@ -349,24 +423,19 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
         n_spawned = n_spawn_drop = zero
         if s > 0:
             if cand is None:
-                cand = spawn_candidates(cfg, generator)
+                cand = draw(generator)
             d, n_spawned, n_spawn_drop = spawn_scatter(cfg, d, cand)
-        d_new, ovf, dmx, nact_in, nact_out, mover_peak = kernels(
-            state, d, fwp, fobs)
-        # Exact: per-block sums are integer-valued f32 far below 2^24.
-        n_active = nact_in.sum().to(torch.int32)
-        n_overflow = ovf.sum().to(torch.int32)
-        n_after = nact_out.sum().to(torch.int32)
-        metrics = StepMetrics(
-            n_active=n_active,
-            n_spawned=n_spawned,
-            n_dropped=n_spawn_drop,
-            n_overflow=n_overflow,
-            max_demand=dmx.max().to(torch.int32),
-            n_exited=(n_active - n_after) - n_overflow,
-            max_mover_demand=zero if mover_peak is None else mover_peak,
-        )
-        return GridState(d=d_new, step=state.step + 1), metrics
+        compact = state.step % compact_every == 0
+        g, m, mdmx, flag = forces(d, fwp, fobs, compact)
+        out = rebins(g, m, flag)
+        if incremental:
+            if step.full_rebins is None:
+                step.full_rebins = torch.zeros((), dtype=torch.int32,
+                                               device=d.device)
+            step.full_rebins += 1 if flag is None else flag
+        metrics = step_metrics([out], n_spawned, n_spawn_drop,
+                               [mdmx] if incremental else [], d.device)
+        return GridState(d=out[0], step=state.step + 1), metrics
 
     step.full_rebins = None
     return step

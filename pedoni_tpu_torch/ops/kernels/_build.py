@@ -98,19 +98,27 @@ def library() -> ctypes.CDLL:
             _compile(path)
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pedoni_step_kernel.argtypes = [p] * 9 + [i] * 13 + [p, p]
+        lib.pedoni_step_kernel.argtypes = [p] * 9 + [i] * 18 + [p, p]
         lib.pedoni_step_kernel.restype = i
-        lib.pedoni_rebin_full.argtypes = [p] * 7 + [i] * 5 + [f] + [i] * 6 + [p]
+        lib.pedoni_rebin_full.argtypes = [p] * 7 + [i] * 5 + [f] + [i] * 9 + [p]
         lib.pedoni_rebin_full.restype = i
-        lib.pedoni_rebin_incremental.argtypes = [p] * 8 + [i] * 6 + [f] + [i] * 6 + [p]
+        lib.pedoni_rebin_incremental.argtypes = [p] * 8 + [i] * 6 + [f] + [i] * 9 + [p]
         lib.pedoni_rebin_incremental.restype = i
-        lib.pedoni_pairwise.argtypes = [p, p] + [i] * 6 + [p, p]
+        lib.pedoni_pairwise.argtypes = [p, p] + [i] * 7 + [p, p]
         lib.pedoni_pairwise.restype = i
         _lib = lib
         return lib
 
 
+WRONG_DEVICE = -2  # csrc/device.cuh: PEDONI_WRONG_DEVICE
+
+
 def check_launch(rc: int, name: str) -> None:
-    """Raise on a refused launch (the C launchers return cudaGetLastError)."""
+    """Raise on a refused launch (the C launchers return cudaGetLastError,
+    -1 for a launch shape they do not take, WRONG_DEVICE for a grid that
+    does not lie on the current device)."""
+    if rc == WRONG_DEVICE:
+        raise RuntimeError(f"{name}: the grid's memory is not on the current "
+                           "CUDA device; the launch would run on another card")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

@@ -57,10 +57,17 @@
 //      agree bit for bit.
 //   4. output: every centre slot of the tile as whole 128-byte rows of
 //      lanes, +0 for the slots that were not listed.
+// Where a one-row tile's K slot levels do not fit a block's shared memory
+// (K above 97), pairwise_tile_chunked stages them in chunks: step 1 takes
+// the masks and the box alone, and step 3 walks one dy row at a time,
+// staging `levels` of its slot levels at once (a multiple of the light
+// part's 21), each listed slot's running sum waiting in shared memory
+// between chunks; the hits still come in (dy, j, dx) order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device.cuh"
 #include "pair.cuh"
 
 namespace {
@@ -73,26 +80,33 @@ constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Shared memory of a block for a tile of `tr` rows at `k` slots, in bytes;
 // pairwise.py::pairwise_smem_bytes is the same sum.
-__host__ __device__ constexpr int64_t tile_smem_bytes(int tr, int k) {
+// Where the levels are staged `levels` at a time (levels < k), the staged
+// rows are the tile's tr rows of one dy at `levels` levels.
+__host__ __device__ constexpr int64_t tile_smem_bytes(int tr, int k,
+                                                      int levels) {
   const int64_t h = tr + 2, n_tile = (int64_t)tr * k * kTileLanes;
-  return 8 * h * k                  // row bitmasks
-         + 20 * h * k * kHaloLanes  // staged pos, velocity terms
-         + 8 * n_tile               // accelerations of the tile's slots
-         + 2 * n_tile               // the slot list
-         + 4 * h                    // top candidate slot + 1 per halo row
-         + 4 * ((int64_t)tr + 1)    // listed slots per tile row
-         + 16 * kMaxWarps;          // per-warp candidate box
+  const int64_t staged = levels < k ? (int64_t)tr * levels : h * k;
+  return 8 * h * k                   // row bitmasks
+         + 20 * staged * kHaloLanes  // staged pos, velocity terms
+         + 8 * n_tile                // accelerations of the tile's slots
+         + 2 * n_tile                // the slot list
+         + 4 * h                     // top candidate slot + 1 per halo row
+         + 4 * ((int64_t)tr + 1)     // listed slots per tile row
+         + 16 * kMaxWarps;           // per-warp candidate box
 }
 
-__global__ void __launch_bounds__(512, 3)
-pairwise_tile(const float* __restrict__ d, float* __restrict__ acc, int ny2,
-              int K, int nx, int tr, PairConsts pc) {
+template <bool kChunked>
+__device__ __forceinline__ void pairwise_body(const float* __restrict__ d,
+                                              float* __restrict__ acc,
+                                              int ny2, int K, int nx, int tr,
+                                              int levels, PairConsts pc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int H = tr + 2;
-  const int n_halo = H * K * kHaloLanes;
+  const int C = kChunked ? levels : K;  // slot levels staged at once
+  const int n_halo = kChunked ? tr * C * kHaloLanes : H * K * kHaloLanes;
   const int n_tile = tr * K * kTileLanes;
   unsigned long long* rowmask = (unsigned long long*)smem_raw;  // [H][K]
-  float* cpx = (float*)(rowmask + H * K);                      // [H][K][34]
+  float* cpx = (float*)(rowmask + H * K);  // [H][K][34], chunked [tr][C][34]
   float* cpy = cpx + n_halo;
   float* cvx = cpy + n_halo;  // vel.x dt, vel.y dt, |vel|^2 dt^2
   float* cvy = cvx + n_halo;
@@ -131,7 +145,7 @@ pairwise_tile(const float* __restrict__ d, float* __restrict__ acc, int ny2,
       if (mine && row_ok) {
         const float* cs = d + ((int64_t)row * K + j) * 8 * nxl + lane;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) v[turn][c] = cs[c * nxl];
+        for (int c = 0; c < (kChunked ? 2 : 4); ++c) v[turn][c] = cs[c * nxl];
         v[turn][4] = cs[6 * nxl];
       }
     }
@@ -141,7 +155,7 @@ pairwise_tile(const float* __restrict__ d, float* __restrict__ acc, int ny2,
       const int hl = turn ? kTileLanes + t : t;
       const bool mine = turn ? t < 2 : true;
       const bool valid = mine && v[turn][4] > 0.5f;
-      if (mine) {
+      if (mine && !kChunked) {
         const int ci = it * kHaloLanes + hl;
         const float3 vt = pair_vterms(v[turn][2], v[turn][3], pc);
         cpx[ci] = v[turn][0];
@@ -192,8 +206,16 @@ pairwise_tile(const float* __restrict__ d, float* __restrict__ acc, int ny2,
   // a slot is listed unless its box distance fails the cutoff test; an
   // empty box (+inf, -inf) lists nothing
   auto listed = [&](int w, int k) {
-    const int own = ((w + 1) * K + k) * kHaloLanes + t + 1;
-    const float px = cpx[own], py = cpy[own];
+    float px, py;
+    if (kChunked) {
+      const float* c = d + ((int64_t)(row0 + w) * K + k) * 8 * nxl + l0 + t;
+      px = c[0];
+      py = c[nxl];
+    } else {
+      const int own = ((w + 1) * K + k) * kHaloLanes + t + 1;
+      px = cpx[own];
+      py = cpy[own];
+    }
     const float gx = fmaxf(fmaxf(x0 - px, px - x1), 0.0f);
     const float gy = fmaxf(fmaxf(y0 - py, py - y1), 0.0f);
     return !(gx * gx + gy * gy > pc.cutoff_sq);
@@ -224,8 +246,105 @@ pairwise_tile(const float* __restrict__ d, float* __restrict__ acc, int ny2,
   int n_list = 0;
   for (int w = 0; w < tr; ++w) n_list += rowcnt[w];
 
+  // 3, in chunks: each dy row's levels [js, js + C) of the tile's rows
+  // staged at once, and every listed slot's walk of them, its sum waiting in
+  // rax / ray
+  if (kChunked) {
+    for (int dy = 0; dy < 3; ++dy) {
+      int jblk = 0;  // top candidate slot + 1 of the staged rows
+      for (int w = 0; w < tr; ++w) jblk = max(jblk, jtop[w + dy]);
+      for (int js = 0; js < jblk; js += C) {
+        const int nc = min(C, jblk - js);
+        __syncthreads();  // the last chunk's walk is done with the room
+        for (int it = warp; it < tr * nc; it += nwarps) {
+          const int w = it / nc;
+          const int jj = it - w * nc;
+          const int row = row0 - 1 + w + dy;
+          float v[2][4];
+#pragma unroll
+          for (int turn = 0; turn < 2; ++turn) {
+            int lane = l0 - 1 + (turn ? kTileLanes + t : t);
+            lane = lane < 0 ? lane + nx : (lane >= nx ? lane - nx : lane);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) v[turn][c] = 0.0f;
+            if ((turn ? t < 2 : true) && row <= ny2 - 1) {
+              const float* cs = d + ((int64_t)row * K + js + jj) * 8 * nxl + lane;
+#pragma unroll
+              for (int c = 0; c < 4; ++c) v[turn][c] = cs[c * nxl];
+            }
+          }
+#pragma unroll
+          for (int turn = 0; turn < 2; ++turn) {
+            if (turn && t >= 2) continue;
+            const int ci = (w * C + jj) * kHaloLanes + (turn ? kTileLanes + t : t);
+            const float3 vt = pair_vterms(v[turn][2], v[turn][3], pc);
+            cpx[ci] = v[turn][0];
+            cpy[ci] = v[turn][1];
+            cvx[ci] = vt.x;
+            cvy[ci] = vt.y;
+            cv2[ci] = vt.z;
+          }
+        }
+        __syncthreads();
+        for (int base = 0; base < n_list; base += blockDim.x) {
+          const int i = base + tid;
+          const bool has = i < n_list;
+          const int entry = has ? list[i] : 0;
+          const int k = entry & 255;
+          const int w = entry >> 13;
+          const int lt = (entry >> 8) & 31;
+          const int si = (w * K + k) * kTileLanes + lt;
+          float px = 0.0f, py = 0.0f, ex = 0.0f, ey = 0.0f, ax = 0.0f, ay = 0.0f;
+          int top = 0;
+          if (has) {
+            const float* c = d + ((int64_t)(row0 + w) * K + k) * 8 * nxl + l0 + lt;
+            px = c[0];
+            py = c[nxl];
+            ex = c[4 * nxl];
+            ey = c[5 * nxl];
+            ax = rax[si];
+            ay = ray[si];
+            top = min(js + nc, jtop[w + dy]);
+          }
+          const unsigned long long* rm = rowmask + (w + dy) * K;
+          const int twarp = __reduce_max_sync(kFullWarp, top);
+          for (int j0 = js; j0 < twarp; j0 += kChunk) {
+            unsigned long long hits = 0;
+            const int j1 = min(j0 + kChunk, twarp);
+            for (int j = j0; j < j1; ++j) {
+              unsigned bits = (unsigned)((rm[j] >> lt) & 7ull);
+              if (dy == 1 && j == k) bits &= ~2u;  // self
+              const int c0 = (w * C + j - js) * kHaloLanes + lt;
+              unsigned in = 0;
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx) {
+                const float ddx = px - cpx[c0 + dx];
+                const float ddy = py - cpy[c0 + dx];
+                in |= pair_in_cutoff(ddx * ddx + ddy * ddy, pc) ? 1u << dx : 0u;
+              }
+              hits |= (unsigned long long)(has ? bits & in : 0u) << (3 * (j - j0));
+            }
+            while (__any_sync(kFullWarp, hits != 0)) {
+              if (hits) {
+                const int b = __ffsll((long long)hits) - 1;
+                hits &= hits - 1;
+                const int ci = (w * C + j0 - js + b / 3) * kHaloLanes + lt + b % 3;
+                pair_force_vt(ax, ay, px, py, ex, ey, cpx[ci], cpy[ci],
+                              make_float3(cvx[ci], cvy[ci], cv2[ci]), pc);
+              }
+            }
+          }
+          if (has) {
+            rax[si] = ax;
+            ray[si] = ay;
+          }
+        }
+      }
+    }
+  }
+
   // 3. one thread per listed slot
-  for (int base = 0; base < n_list; base += blockDim.x) {
+  for (int base = 0; !kChunked && base < n_list; base += blockDim.x) {
     const int i = base + tid;
     const bool has = i < n_list;
     const int entry = has ? list[i] : 0;
@@ -339,16 +458,31 @@ pairwise_tile(const float* __restrict__ d, float* __restrict__ acc, int ny2,
   }
 }
 
+__global__ void __launch_bounds__(512, 3)
+pairwise_tile(const float* __restrict__ d, float* __restrict__ acc, int ny2,
+              int K, int nx, int tr, int levels, PairConsts pc) {
+  pairwise_body<false>(d, acc, ny2, K, nx, tr, levels, pc);
+}
+
+__global__ void __launch_bounds__(512)
+pairwise_tile_chunked(const float* __restrict__ d, float* __restrict__ acc,
+                      int ny2, int K, int nx, int tr, int levels,
+                      PairConsts pc) {
+  pairwise_body<true>(d, acc, ny2, K, nx, tr, levels, pc);
+}
+
 }  // namespace
 
 // consts: the 7 PairConsts floats, in order (pairwise.py::pair_constants).
-// tile_rows, threads and smem_bytes are the launch shape
-// (pairwise.py::pairwise_launch); returns a cudaError_t, or -1 for a shape
-// that function cannot return.
+// tile_rows, threads, smem_bytes and levels (the slot levels staged at once,
+// k for all) are the launch shape (pairwise.py::pairwise_launch); returns a
+// cudaError_t, -1 for a shape that function cannot return, or
+// PEDONI_WRONG_DEVICE (device.cuh) for a grid off the current device.
 extern "C" int pedoni_pairwise(const float* d, float* acc, int ny2, int k,
                                int nx, int tile_rows, int threads,
-                               int smem_bytes, const float* consts,
-                               void* stream) {
+                               int smem_bytes, int levels,
+                               const float* consts, void* stream) {
+  if (const int w = pedoni_on_current_device(d)) return w;
   PairConsts pc;
   pc.cutoff_sq = consts[0];
   pc.dt = consts[1];
@@ -358,15 +492,16 @@ extern "C" int pedoni_pairwise(const float* d, float* acc, int ny2, int k,
   pc.cos2 = consts[5];
   pc.fov_damping = consts[6];
   if (tile_rows < 1 || tile_rows > 2 || k < 1 || k > 255 || threads != 512 ||
-      ny2 < 3 || nx % kTileLanes != 0 ||
-      (int64_t)smem_bytes != tile_smem_bytes(tile_rows, k))
+      ny2 < 3 || nx % kTileLanes != 0 || levels < 1 || levels > k ||
+      (int64_t)smem_bytes != tile_smem_bytes(tile_rows, k, levels))
     return -1;
+  auto kernel = levels < k ? pairwise_tile_chunked : pairwise_tile;
   const cudaError_t e = cudaFuncSetAttribute(
-      pairwise_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((unsigned)(nx / kTileLanes),
             (unsigned)((ny2 - 2 + tile_rows - 1) / tile_rows));
-  pairwise_tile<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-      d, acc, ny2, k, nx, tile_rows, pc);
+  kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      d, acc, ny2, k, nx, tile_rows, levels, pc);
   return (int)cudaGetLastError();
 }

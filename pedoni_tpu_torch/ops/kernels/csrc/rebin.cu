@@ -97,7 +97,7 @@ rebin_full(const float* __restrict__ g, float* __restrict__ out,
     const int lane = t.l0 + col.l;
     const float* c = g + (int64_t)(t.row0 - 1 + col.h) * k * sk + lane;
     const bool counted = col.h >= 1 && col.h <= t.rows && lane >= 1 &&
-                         lane <= gd.nx_cells;
+                         lane <= gd.lane_hi;
     for (int j0 = 0; j0 < k; j0 += kClassify) {
       float a6[kClassify], x[kClassify], y[kClassify];
 #pragma unroll
@@ -187,17 +187,22 @@ rebin_full(const float* __restrict__ g, float* __restrict__ out,
 
 }  // namespace
 
-// ovf/dmx/nin/nout must be zeroed by the caller.  gate may be null.
+// ovf/dmx/nin/nout must be zeroed by the caller.  gate may be null.  roff,
+// coff and lane_hi place a tile of a larger grid (rebin.cuh; 0, 0, nx_cells
+// for a whole grid).
 // tile_rows, tile_lanes, threads and smem_bytes are the launch shape
-// (rebin.py::rebin_launch); returns a cudaError_t, or -1 for a launch shape
-// that function cannot return.
+// (rebin.py::rebin_launch); returns a cudaError_t, -1 for a launch shape
+// that function cannot return, or PEDONI_WRONG_DEVICE (device.cuh).
 extern "C" int pedoni_rebin_full(const float* g, float* out, float* ovf,
                                  float* dmx, float* nin, float* nout,
                                  const int* gate, int want, int ny2, int k,
                                  int nxl, int rb, float unit, int nx_cells,
-                                 int ny_cells, int tile_rows, int tile_lanes,
+                                 int ny_cells, int roff, int coff,
+                                 int lane_hi, int tile_rows, int tile_lanes,
                                  int threads, int smem_bytes, void* stream) {
-  const pedoni_rebin::Grid gd{ny2, k, nxl, rb, nx_cells, ny_cells, unit};
+  if (const int w = pedoni_on_current_device(g)) return w;
+  const pedoni_rebin::Grid gd{ny2,      k,    nxl,  rb,   nx_cells,
+                              ny_cells, unit, roff, coff, lane_hi};
   if (!pedoni_rebin::launch_ok(gd, 0, tile_rows, tile_lanes, threads, smem_bytes)) return -1;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

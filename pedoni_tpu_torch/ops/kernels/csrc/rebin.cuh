@@ -14,11 +14,20 @@
 // words in ascending order walks the landers exactly as the reference's
 // serial walk meets them.  The bits are set with atomicOr, whose result does
 // not depend on the order of the threads.
+//
+// A grid may be one tile of a larger one (parallel/tile2d.py): lane l holds
+// global cell column coff + l - 1 and row r global cell row roff + r - 1,
+// positions are global, and only the tile's own lanes [1, lane_hi] keep
+// agents (an agent landing in a ghost lane is the lane neighbour's) and
+// count towards the input active sum.  A whole grid has roff = coff = 0 and
+// lane_hi = nx_cells.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "device.cuh"
 
 namespace pedoni_rebin {
 
@@ -29,6 +38,7 @@ constexpr int kBitsPerWord = 9 * kSlotsPerWord;
 struct Grid {
   int ny2, k, nxl, rb, nx_cells, ny_cells;
   float unit;
+  int roff, coff, lane_hi;  // the tile: offsets, last own lane
 };
 
 // The tile of this block: first grid row and lane, rows, lanes, cells.
@@ -108,19 +118,21 @@ __device__ __forceinline__ void zero_ghost_rows(float* __restrict__ out,
 // The landing test, once per candidate.  A candidate at grid row `row`
 // (cell row row-1) and lane `lane` with position (x, y) lands in the cell
 // (ty, tx) away from its own, or nowhere the 3x3 walk of an output cell
-// would see it: off the field, or further than one cell.  The divide is the
-// IEEE one (the reference's), never a multiply by the inverse.  floorf gives
-// integers, so the differences are exact wherever they are small; huge,
-// infinite and NaN positions fail the range test.
+// would see it: off the field or the tile's own lanes, or further than one
+// cell.  The divide is the IEEE one (the reference's), never a multiply by
+// the inverse.  floorf gives integers, so the differences are exact
+// wherever they are small; huge, infinite and NaN positions fail the range
+// test.  The target is global, compared with global rows and lanes.
 __device__ __forceinline__ bool landing(float x, float y, int row, int lane,
                                         const Grid& gd, int* ty, int* tx) {
   const float tgt_lane = floorf(__fdiv_rn(x, gd.unit)) + 1.0f;
   const float tgt_row = floorf(__fdiv_rn(y, gd.unit));
-  const float fy = tgt_row - (float)(row - 1);
-  const float fx = tgt_lane - (float)lane;
+  const float fy = tgt_row - (float)(row - 1 + gd.roff);
+  const float fx = tgt_lane - (float)(lane + gd.coff);
   if (!(fy >= -1.0f && fy <= 1.0f && fx >= -1.0f && fx <= 1.0f &&
-        tgt_row <= (float)(gd.ny_cells - 1) && tgt_lane >= 1.0f &&
-        tgt_lane <= (float)gd.nx_cells))
+        tgt_row <= (float)(gd.ny_cells - 1) &&
+        tgt_lane >= (float)(gd.coff + 1) &&
+        tgt_lane <= (float)(gd.lane_hi + gd.coff)))
     return false;
   *ty = (int)fy;
   *tx = (int)fx;
@@ -217,6 +229,7 @@ __device__ __forceinline__ void block_emit(const Sums* s, const Grid& gd,
 inline bool launch_ok(const Grid& gd, int mk, int tile_rows, int tile_lanes,
                       int threads, int smem) {
   return gd.k >= 1 && gd.k <= 255 && mk >= 0 && mk <= 255 && gd.ny2 >= 3 &&
+         gd.lane_hi < gd.nxl &&
          gd.rb >= 1 && (tile_rows == 1 || tile_rows == 2) &&
          gd.rb % tile_rows == 0 && (gd.ny2 - 2) % gd.rb == 0 &&
          (tile_lanes == 32 || tile_lanes == 64) &&

@@ -109,7 +109,7 @@ rebin_inc(const float* __restrict__ g, const float* __restrict__ m,
   // 1. the stay masks and the input active sum: the warps of a cell row
   // share its K slots, kStay at a time
   float n_in = 0.0f;
-  if (lane >= 1 && lane <= gd.nx_cells) {
+  if (lane >= 1 && lane <= gd.lane_hi) {  // own lanes only
     for (int s0 = col.part; s0 < k; s0 += kStay * col.parts) {
       float a7[kStay], a6[kStay];
 #pragma unroll
@@ -248,20 +248,26 @@ rebin_inc(const float* __restrict__ g, const float* __restrict__ m,
 
 }  // namespace
 
-// ovf/dmx/nin/nout must be zeroed by the caller.  gate may be null.
+// ovf/dmx/nin/nout must be zeroed by the caller.  gate may be null.  roff,
+// coff and lane_hi place a tile of a larger grid (rebin.cuh; 0, 0, nx_cells
+// for a whole grid): stayers are kept in the own lanes only, as landers
+// are, since a tile's ghost lanes hold its neighbour's edge.
 // tile_rows, tile_lanes, threads and smem_bytes are the launch shape
-// (rebin.py::rebin_launch); returns a cudaError_t, or -1 for a launch shape
-// that function cannot return.
+// (rebin.py::rebin_launch); returns a cudaError_t, -1 for a launch shape
+// that function cannot return, or PEDONI_WRONG_DEVICE (device.cuh).
 extern "C" int pedoni_rebin_incremental(const float* g, const float* m,
                                         float* out, float* ovf, float* dmx,
                                         float* nin, float* nout,
                                         const int* gate, int want, int ny2,
                                         int k, int mk, int nxl, int rb,
                                         float unit, int nx_cells, int ny_cells,
+                                        int roff, int coff, int lane_hi,
                                         int tile_rows, int tile_lanes,
                                         int threads, int smem_bytes,
                                         void* stream) {
-  const pedoni_rebin::Grid gd{ny2, k, nxl, rb, nx_cells, ny_cells, unit};
+  if (const int w = pedoni_on_current_device(g)) return w;
+  const pedoni_rebin::Grid gd{ny2,      k,    nxl,  rb,   nx_cells,
+                              ny_cells, unit, roff, coff, lane_hi};
   if (mk < 1 || !pedoni_rebin::launch_ok(gd, mk, tile_rows, tile_lanes, threads,
                                          smem_bytes))
     return -1;

@@ -102,6 +102,24 @@
 //   6. mover mode: every row of M of the tile, by all warps, as whole rows
 //      of lanes: the cell's r-th mover, or zeros.
 //
+// Where a one-row tile's K slot levels do not fit a block's shared memory
+// (K above 98, above 92 in segments mode; step_kernel.py::pair_pass_launch),
+// the _chunked kernels stage them `levels` at a time: step 1 takes the row
+// bitmasks and act' of every level and the tile's own positions (into the
+// new pos's room), step 3 stages the levels [j0, j0 + levels) of the tile
+// and its halo in turn and every listed agent walks them as above, its
+// acceleration waiting in the new vel's room between chunks; then the
+// integration.  The chunks come in slot order, so each agent's terms are
+// summed in the same order and the result has the same bits.  A slot that
+// is not live passes its sanitized pos/vel through from d.
+//
+// A grid may be one tile of a larger one (parallel/tile2d.py): d's row r
+// and lane l are global cell row roff + r - 1 and column coff + l - 1, the
+// field planes are the tile's slab, positions are global.  The sample pass
+// and the mover classification add the offsets; the mover mode emits
+// movers from lanes [mlo, mhi] only (a tile's own; every lane for a whole
+// grid).
+//
 // Segments mode (the reference's --no-distance-map debug mode) is a
 // compile-time template parameter of both launches, and the caller
 // chooses where the edge table is walked (seg_pass; the rule and its
@@ -145,6 +163,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device.cuh"
 #include "pair.cuh"
 
 namespace {
@@ -176,6 +195,8 @@ struct StepConsts {
 
 struct Dims {
   int ny2, k, nxl, n_wp, frows, stride;
+  int roff, coff;  // a tile's global cell row and column of its row 1, lane 1
+  int mlo, mhi;    // mover mode: the lanes that emit movers
 };
 
 __device__ __forceinline__ float sanitize(float v) {
@@ -183,7 +204,9 @@ __device__ __forceinline__ float sanitize(float v) {
 }
 
 // Bilinear sample of one texel-major plane at the agent in D row `row`, lane
-// `lane`: channels [0, nch) of the waypoint field into pv and, with kObs,
+// `lane` (global cell row row - 1 + roff, column lane - 1 + coff; the plane
+// is the tile's slab): channels [0, nch) of the waypoint field into pv and,
+// with kObs,
 // the 3 channels of the obstacle map (the texel's second float4) into ov.
 // Taps exist only inside the cell's (S+2)^2 patch; a tap outside it
 // contributes 0 (not the map value there), exactly as the reference's masked
@@ -201,8 +224,8 @@ __device__ __forceinline__ void sample(const float4* __restrict__ plane,
   const float by = floorf(py);
   const float tx = px - bx;
   const float ty = py - by;
-  const float p0 = bx - (float)(lane - 1) * (float)s - (float)kRow0;
-  const float q0 = by - (float)(row - 1) * (float)s - (float)kRow0;
+  const float p0 = bx - (float)(lane - 1 + dm.coff) * (float)s - (float)kRow0;
+  const float q0 = by - (float)(row - 1 + dm.roff) * (float)s - (float)kRow0;
   pv[0] = pv[1] = pv[2] = 0.0f;
   if (kObs) ov[0] = ov[1] = ov[2] = 0.0f;
   const float ext = (float)(s + 1);
@@ -377,11 +400,24 @@ __host__ __device__ constexpr int64_t segment_smem_bytes() {
          + 16 * kMaxWarps                 // per-warp box / counts
          + 16;                            // resume row
 }
+// Where the levels are staged `levels` at a time (levels < k): the staged
+// pos/vel of that many levels, which the segment pass's room shares.
+__host__ __device__ constexpr int64_t chunked_smem_bytes(int tr, int k,
+                                                         int levels,
+                                                         bool seg) {
+  const int64_t h = tr + 2, stage = 16 * h * levels * kHaloLanes;
+  const int64_t room = seg && segment_smem_bytes() > stage
+                           ? segment_smem_bytes() : stage;
+  return pairs_smem_bytes(tr, k) - 16 * h * k * kHaloLanes + room;
+}
 
 // 2'. segments mode: the obstacle acceleration of each of the n_live listed
 // agents into sfx[si], sfy[si] (see the header).  `list` entries and the
-// staged positions cpx / cpy are step_pairs'; every thread of the block
-// calls it, and it ends behind a barrier.
+// positions cpx / cpy are step_pairs': the staged halo (kTileIdx false) or
+// the tile's own slots, indexed as sfx (kTileIdx true, where the levels are
+// staged in chunks); every thread of the block calls it, and it ends
+// behind a barrier.
+template <bool kTileIdx>
 __device__ void segment_pass(const float* __restrict__ segs, int n_seg,
                              const StepConsts& sc, const unsigned short* list,
                              int n_live, int K, const float* cpx,
@@ -402,8 +438,8 @@ __device__ void segment_pass(const float* __restrict__ segs, int n_seg,
   for (int i = tid; i < n_live; i += nthreads) {
     const int e = list[i];
     const int k = e & 255, w = e >> 13, lt = (e >> 8) & 31;
-    const int own = ((w + 1) * K + k) * kHaloLanes + lt + 1;
     const int si = (w * K + k) * kTileLanes + lt;
+    const int own = kTileIdx ? si : ((w + 1) * K + k) * kHaloLanes + lt + 1;
     sfx[si] = 0.0f;
     sfy[si] = 0.0f;
     x0 = fminf(x0, cpx[own]);
@@ -485,7 +521,8 @@ __device__ void segment_pass(const float* __restrict__ segs, int n_seg,
           const int o = it / na;
           const int e = list[a0 + it - o * na];
           const int k = e & 255, w = e >> 13, lt = (e >> 8) & 31;
-          const int own = ((w + 1) * K + k) * kHaloLanes + lt + 1;
+          const int own = kTileIdx ? (w * K + k) * kTileLanes + lt
+                                   : ((w + 1) * K + k) * kHaloLanes + lt + 1;
           segment_term(obs + o, kSegCap, cpx[own], cpy[own], sc, tx[it],
                        ty[it]);
         }
@@ -508,24 +545,24 @@ __device__ void segment_pass(const float* __restrict__ segs, int n_seg,
   }
 }
 
-template <bool kSeg>
+template <bool kSeg, bool kChunked>
 __device__ __forceinline__ void pairs_body(
     const float* __restrict__ d, const float* __restrict__ act_in,
     const float4* __restrict__ ea, float* __restrict__ out,
     float* __restrict__ m, float* __restrict__ movf, float* __restrict__ mdmx,
     const Dims& dm, const StepConsts& sc, int tr, int mk, int rb,
-    const float* __restrict__ segs, int n_seg) {
+    const float* __restrict__ segs, int n_seg, int levels) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int K = dm.k;
   const int H = tr + 2;
-  const int n_halo = H * K * kHaloLanes;
+  const int C = kChunked ? levels : K;  // slot levels staged at once
+  const int n_halo = H * C * kHaloLanes;
   const int n_tile = tr * K * kTileLanes;
   unsigned long long* rowmask = (unsigned long long*)smem_raw;  // [H][K]
-  float* cpx = (float*)(rowmask + H * K);                      // [H][K][34]
-  float* cpy = cpx + n_halo;
-  float* cvx = cpy + n_halo;
-  float* cvy = cvx + n_halo;
-  float* sact = cvy + n_halo;  // [tr][K][32]
+  // the staged pos/vel [H][C][34]: after the masks, or where the levels are
+  // staged in chunks, after the list (the segment pass's room too)
+  float* cpx = (float*)(rowmask + H * K);
+  float* sact = kChunked ? cpx : cpx + 4 * n_halo;  // [tr][K][32]
   float* rpx = sact + n_tile;
   float* rpy = rpx + n_tile;
   float* rvx = rpy + n_tile;
@@ -533,6 +570,10 @@ __device__ __forceinline__ void pairs_body(
   int* jtop = (int*)(rvy + n_tile);  // [H]
   int* rowlive = jtop + H;           // [tr + 1]
   unsigned short* list = (unsigned short*)(rowlive + tr + 1);  // [n_tile]
+  if (kChunked) cpx = (float*)(list + n_tile);
+  float* cpy = cpx + n_halo;
+  float* cvx = cpy + n_halo;
+  float* cvy = cvx + n_halo;
   // after the pair loop the list's room holds the movers of each cell
   unsigned char* mslots = (unsigned char*)list;  // [tr * 32][mk] slot indices
   unsigned char* mcnt = mslots + n_tile;         // [tr * 32] movers, <= K
@@ -548,7 +589,9 @@ __device__ __forceinline__ void pairs_body(
 
   // 1. one warp per (halo row, slot), 34 lanes in two turns (lanes 0, 1 of
   // the warp take halo lanes 32, 33).  Every load is started before any is
-  // used; lanes -1 and NXL and rows past the grid hold no cell.
+  // used; lanes -1 and NXL and rows past the grid hold no cell.  Where the
+  // levels are staged in chunks, this pass takes the masks and act' alone
+  // (the pos/vel come in step 3), and the tile's own positions next.
   for (int it = warp; it < H * K; it += nwarps) {
     const int hr = it / K;
     const int j = it - hr * K;
@@ -568,8 +611,10 @@ __device__ __forceinline__ void pairs_body(
         a[turn] = act_in[slot * nxl + lane];
         bound[turn] = d[((int64_t)row * K * 8 + 7) * nxl + lane];
         const float* cs = d + slot * 8 * nxl + lane;
+        if (!kChunked) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) v[turn][c] = cs[c * nxl];
+          for (int c = 0; c < 4; ++c) v[turn][c] = cs[c * nxl];
+        }
       }
     }
     unsigned long long mask = 0;
@@ -579,11 +624,13 @@ __device__ __forceinline__ void pairs_body(
       const bool mine = turn ? t < 2 : true;
       const bool valid = cell[turn] && a[turn] > 0.5f && (float)j < bound[turn];
       if (mine) {
-        const int ci = it * kHaloLanes + hl;
-        cpx[ci] = sanitize(v[turn][0]);
-        cpy[ci] = sanitize(v[turn][1]);
-        cvx[ci] = sanitize(v[turn][2]);
-        cvy[ci] = sanitize(v[turn][3]);
+        if (!kChunked) {
+          const int ci = it * kHaloLanes + hl;
+          cpx[ci] = sanitize(v[turn][0]);
+          cpy[ci] = sanitize(v[turn][1]);
+          cvx[ci] = sanitize(v[turn][2]);
+          cvy[ci] = sanitize(v[turn][3]);
+        }
         if (hr >= 1 && hr <= tr && hl >= 1 && hl <= kTileLanes)
           sact[((hr - 1) * K + j) * kTileLanes + hl - 1] =
               row <= last ? a[turn] : 0.0f;
@@ -593,6 +640,15 @@ __device__ __forceinline__ void pairs_body(
                    : (unsigned long long)bal;
     }
     if (t == 0) rowmask[it] = mask;
+  }
+  if (kChunked) {  // the tile's own positions wait in the new pos's room
+    for (int it = warp; it < tr * K; it += nwarps) {
+      const int row = row0 + it / K;
+      if (row > last) break;  // `it` grows with the row
+      const float* cs = d + ((int64_t)row * K + it % K) * 8 * nxl + l0 + t;
+      rpx[it * kTileLanes + t] = sanitize(cs[0]);
+      rpy[it * kTileLanes + t] = sanitize(cs[nxl]);
+    }
   }
   __syncthreads();
 
@@ -627,91 +683,144 @@ __device__ __forceinline__ void pairs_body(
   int n_live = 0;
   for (int w = 0; w < tr; ++w) n_live += rowlive[w];
   if constexpr (kSeg) {
-    if (n_live > 0)  // the same for the whole block
-      segment_pass(segs, n_seg, sc, list, n_live, K, cpx, cpy, rpx, rpy,
-                   (unsigned char*)(list + n_tile));
+    if (n_live > 0) {  // the same for the whole block
+      if constexpr (kChunked)  // the sums go to the new vel's room
+        segment_pass<true>(segs, n_seg, sc, list, n_live, K, rpx, rpy, rvx,
+                           rvy, (unsigned char*)cpx);
+      else
+        segment_pass<false>(segs, n_seg, sc, list, n_live, K, cpx, cpy, rpx,
+                            rpy, (unsigned char*)(list + n_tile));
+    }
   }
 
-  // 3. one thread per live agent
-  for (int base = 0; base < n_live; base += blockDim.x) {
-    const int i = base + tid;
-    const bool has = i < n_live;
-    const int entry = has ? list[i] : 0;
-    const int k = entry & 255;
-    const int w = entry >> 13;        // tile row
-    const int lt = (entry >> 8) & 31;  // tile lane
-    const int si = (w * K + k) * kTileLanes + lt;
-    const int own = ((w + 1) * K + k) * kHaloLanes + lt + 1;
-    const float px = cpx[own], py = cpy[own];
-    const float velx = cvx[own], vely = cvy[own];
-    float ex = 0.0f, ey = 0.0f, accx = 0.0f, accy = 0.0f, speed = 0.0f;
-    int jend = 0;
-    if (has) {
-      const int64_t slot = (int64_t)(row0 + w) * K + k;
-      const float4 f = ea[slot * nxl + l0 + lt];
-      ex = f.x;
-      ey = f.y;
-      accx = f.z;
-      accy = f.w;
+  if constexpr (kChunked) {
+    // 3, in chunks: each listed agent's acceleration waits in the new vel's
+    // room; the levels [j0, j0 + C) of the tile and its halo are staged, and
+    // every agent walks them as below; then the integration.  The chunks
+    // come in slot order, so the sums are taken in the same order.
+    for (int i = tid; i < n_live; i += blockDim.x) {
+      const int e = list[i];
+      const int k = e & 255, w = e >> 13, lt = (e >> 8) & 31;
+      const int si = (w * K + k) * kTileLanes + lt;
+      const float4 f = ea[((int64_t)(row0 + w) * K + k) * nxl + l0 + lt];
+      float accx = f.z, accy = f.w;
       if constexpr (kSeg) {  // the goal acceleration + the obstacle sum
-        accx = accx + rpx[si];
-        accy = accy + rpy[si];
+        accx = accx + rvx[si];
+        accy = accy + rvy[si];
       }
-      speed = sanitize(d[(slot * 8 + 4) * nxl + l0 + lt]);
-      jend = max(jtop[w], max(jtop[w + 1], jtop[w + 2]));
+      rvx[si] = accx;
+      rvy[si] = accy;
     }
-    // The walk, in chunks of kChunk slot levels.  Light part, no branch on
-    // the data: per level j the 9 cells' candidate bits, and the cutoff
-    // test of all 9 slots (a slot that holds no candidate reads whatever
-    // shared memory holds there; its bit is clear).  Bit 9 * (j - j0) +
-    // 3 * (dy + 1) + dx + 1 of `hits` = a candidate within the cutoff, so
-    // ascending bits are the reference's summation order.  Heavy part: the
-    // lanes that still hold a bit pop their lowest and run pair_force
-    // together.
-    const unsigned long long* rm = rowmask + w * K;
-    const int jwarp = __reduce_max_sync(kFullWarp, jend);
-    for (int j0 = 0; j0 < jwarp; j0 += kChunk) {
-      unsigned long long hits = 0;
-      const int j1 = min(j0 + kChunk, jend);
-      for (int j = j0; j < j1; ++j) {
-        unsigned bits = (unsigned)((rm[j] >> lt) & 7ull) |
-                        (unsigned)((rm[K + j] >> lt) & 7ull) << 3 |
-                        (unsigned)((rm[2 * K + j] >> lt) & 7ull) << 6;
-        if (j == k) bits &= ~16u;  // self
-        if (bits == 0) continue;
-        const int c0 = (w * K + j) * kHaloLanes + lt;
-        unsigned in = 0;
+    int jblk = 0;  // top candidate slot + 1 of the block
+    for (int h = 0; h < H; ++h) jblk = max(jblk, jtop[h]);
+    for (int js = 0; js < jblk; js += C) {
+      const int nc = min(C, jblk - js);
+      __syncthreads();  // the last chunk's walk is done with the staging room
+      for (int it = warp; it < H * nc; it += nwarps) {
+        const int hr = it / nc;
+        const int jj = it - hr * nc;
+        const int row = row0 - 1 + hr;
+        float v[2][4];
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
+        for (int turn = 0; turn < 2; ++turn) {
+          const int lane = l0 - 1 + (turn ? kTileLanes + t : t);
 #pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const int ci = c0 + dy * K * kHaloLanes + dx;
-            const float ddx = px - cpx[ci];
-            const float ddy = py - cpy[ci];
-            if (pair_in_cutoff(ddx * ddx + ddy * ddy, sc.pair))
-              in |= 1u << (3 * dy + dx);
+          for (int c = 0; c < 4; ++c) v[turn][c] = 0.0f;
+          if ((turn ? t < 2 : true) && row <= last + 1 && lane >= 0 &&
+              lane < dm.nxl) {
+            const float* cs = d + ((int64_t)row * K + js + jj) * 8 * nxl + lane;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) v[turn][c] = cs[c * nxl];
           }
         }
-        hits |= (unsigned long long)(bits & in) << (9 * (j - j0));
+#pragma unroll
+        for (int turn = 0; turn < 2; ++turn) {
+          if (turn && t >= 2) continue;
+          const int ci = (hr * C + jj) * kHaloLanes + (turn ? kTileLanes + t : t);
+          cpx[ci] = sanitize(v[turn][0]);
+          cpy[ci] = sanitize(v[turn][1]);
+          cvx[ci] = sanitize(v[turn][2]);
+          cvy[ci] = sanitize(v[turn][3]);
+        }
       }
-      while (__any_sync(kFullWarp, hits != 0)) {
-        if (hits) {
-          const int b = __ffsll((long long)hits) - 1;
-          hits &= hits - 1;
-          const int jj = b / 9;
-          const int c = b - 9 * jj;
-          const int dy = c / 3;
-          const int ci =
-              ((w + dy) * K + j0 + jj) * kHaloLanes + lt + (c - 3 * dy);
-          pair_force(accx, accy, px, py, ex, ey, cpx[ci], cpy[ci], cvx[ci],
-                     cvy[ci], sc.pair);
+      __syncthreads();
+      for (int base = 0; base < n_live; base += blockDim.x) {
+        const int i = base + tid;
+        const bool has = i < n_live;
+        const int entry = has ? list[i] : 0;
+        const int k = entry & 255;
+        const int w = entry >> 13;
+        const int lt = (entry >> 8) & 31;
+        const int si = (w * K + k) * kTileLanes + lt;
+        const float px = rpx[si], py = rpy[si];
+        float ex = 0.0f, ey = 0.0f, accx = 0.0f, accy = 0.0f;
+        int jend = 0;
+        if (has) {
+          const float4 f = ea[((int64_t)(row0 + w) * K + k) * nxl + l0 + lt];
+          ex = f.x;
+          ey = f.y;
+          accx = rvx[si];
+          accy = rvy[si];
+          jend = min(js + nc, max(jtop[w], max(jtop[w + 1], jtop[w + 2])));
+        }
+        const unsigned long long* rm = rowmask + w * K;
+        const int jwarp = __reduce_max_sync(kFullWarp, jend);
+        for (int j0 = js; j0 < jwarp; j0 += kChunk) {
+          unsigned long long hits = 0;
+          const int j1 = min(j0 + kChunk, jend);
+          for (int j = j0; j < j1; ++j) {
+            unsigned bits = (unsigned)((rm[j] >> lt) & 7ull) |
+                            (unsigned)((rm[K + j] >> lt) & 7ull) << 3 |
+                            (unsigned)((rm[2 * K + j] >> lt) & 7ull) << 6;
+            if (j == k) bits &= ~16u;  // self
+            if (bits == 0) continue;
+            const int c0 = (w * C + j - js) * kHaloLanes + lt;
+            unsigned in = 0;
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx) {
+                const int ci = c0 + dy * C * kHaloLanes + dx;
+                const float ddx = px - cpx[ci];
+                const float ddy = py - cpy[ci];
+                if (pair_in_cutoff(ddx * ddx + ddy * ddy, sc.pair))
+                  in |= 1u << (3 * dy + dx);
+              }
+            }
+            hits |= (unsigned long long)(bits & in) << (9 * (j - j0));
+          }
+          while (__any_sync(kFullWarp, hits != 0)) {
+            if (hits) {
+              const int b = __ffsll((long long)hits) - 1;
+              hits &= hits - 1;
+              const int jj = b / 9;
+              const int c = b - 9 * jj;
+              const int dy = c / 3;
+              const int ci = ((w + dy) * C + j0 - js + jj) * kHaloLanes + lt +
+                             (c - 3 * dy);
+              pair_force(accx, accy, px, py, ex, ey, cpx[ci], cpy[ci],
+                         cvx[ci], cvy[ci], sc.pair);
+            }
+          }
+        }
+        if (has) {
+          rvx[si] = accx;
+          rvy[si] = accy;
         }
       }
     }
-    if (has) {
+    __syncthreads();
+    for (int i = tid; i < n_live; i += blockDim.x) {
+      const int e = list[i];
+      const int k = e & 255, w = e >> 13, lt = (e >> 8) & 31;
+      const int si = (w * K + k) * kTileLanes + lt;
+      const float* cs = d + ((int64_t)(row0 + w) * K + k) * 8 * nxl + l0 + lt;
+      const float velx = sanitize(cs[2 * nxl]), vely = sanitize(cs[3 * nxl]);
+      const float speed = sanitize(cs[4 * nxl]);
+      const float px = rpx[si], py = rpy[si];
       // Trapezoidal integration with the speed clamp (sfm.rs:245-254).
-      float vx = velx + accx * sc.dt;
-      float vy = vely + accy * sc.dt;
+      float vx = velx + rvx[si] * sc.dt;
+      float vy = vely + rvy[si] * sc.dt;
       const float vmax = speed * sc.max_speed_factor;
       const float vlen = sqrtf(fmaxf(vx * vx + vy * vy, PEDONI_EPS));
       const float scale = fminf(1.0f, vmax / vlen);
@@ -721,6 +830,98 @@ __device__ __forceinline__ void pairs_body(
       rpy[si] = py + (vy + vely) * sc.dt_half;
       rvx[si] = vx;
       rvy[si] = vy;
+    }
+  } else {
+    // 3. one thread per live agent
+    for (int base = 0; base < n_live; base += blockDim.x) {
+      const int i = base + tid;
+      const bool has = i < n_live;
+      const int entry = has ? list[i] : 0;
+      const int k = entry & 255;
+      const int w = entry >> 13;        // tile row
+      const int lt = (entry >> 8) & 31;  // tile lane
+      const int si = (w * K + k) * kTileLanes + lt;
+      const int own = ((w + 1) * K + k) * kHaloLanes + lt + 1;
+      const float px = cpx[own], py = cpy[own];
+      const float velx = cvx[own], vely = cvy[own];
+      float ex = 0.0f, ey = 0.0f, accx = 0.0f, accy = 0.0f, speed = 0.0f;
+      int jend = 0;
+      if (has) {
+        const int64_t slot = (int64_t)(row0 + w) * K + k;
+        const float4 f = ea[slot * nxl + l0 + lt];
+        ex = f.x;
+        ey = f.y;
+        accx = f.z;
+        accy = f.w;
+        if constexpr (kSeg) {  // the goal acceleration + the obstacle sum
+          accx = accx + rpx[si];
+          accy = accy + rpy[si];
+        }
+        speed = sanitize(d[(slot * 8 + 4) * nxl + l0 + lt]);
+        jend = max(jtop[w], max(jtop[w + 1], jtop[w + 2]));
+      }
+      // The walk, in chunks of kChunk slot levels.  Light part, no branch on
+      // the data: per level j the 9 cells' candidate bits, and the cutoff
+      // test of all 9 slots (a slot that holds no candidate reads whatever
+      // shared memory holds there; its bit is clear).  Bit 9 * (j - j0) +
+      // 3 * (dy + 1) + dx + 1 of `hits` = a candidate within the cutoff, so
+      // ascending bits are the reference's summation order.  Heavy part: the
+      // lanes that still hold a bit pop their lowest and run pair_force
+      // together.
+      const unsigned long long* rm = rowmask + w * K;
+      const int jwarp = __reduce_max_sync(kFullWarp, jend);
+      for (int j0 = 0; j0 < jwarp; j0 += kChunk) {
+        unsigned long long hits = 0;
+        const int j1 = min(j0 + kChunk, jend);
+        for (int j = j0; j < j1; ++j) {
+          unsigned bits = (unsigned)((rm[j] >> lt) & 7ull) |
+                          (unsigned)((rm[K + j] >> lt) & 7ull) << 3 |
+                          (unsigned)((rm[2 * K + j] >> lt) & 7ull) << 6;
+          if (j == k) bits &= ~16u;  // self
+          if (bits == 0) continue;
+          const int c0 = (w * K + j) * kHaloLanes + lt;
+          unsigned in = 0;
+  #pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+  #pragma unroll
+            for (int dx = 0; dx < 3; ++dx) {
+              const int ci = c0 + dy * K * kHaloLanes + dx;
+              const float ddx = px - cpx[ci];
+              const float ddy = py - cpy[ci];
+              if (pair_in_cutoff(ddx * ddx + ddy * ddy, sc.pair))
+                in |= 1u << (3 * dy + dx);
+            }
+          }
+          hits |= (unsigned long long)(bits & in) << (9 * (j - j0));
+        }
+        while (__any_sync(kFullWarp, hits != 0)) {
+          if (hits) {
+            const int b = __ffsll((long long)hits) - 1;
+            hits &= hits - 1;
+            const int jj = b / 9;
+            const int c = b - 9 * jj;
+            const int dy = c / 3;
+            const int ci =
+                ((w + dy) * K + j0 + jj) * kHaloLanes + lt + (c - 3 * dy);
+            pair_force(accx, accy, px, py, ex, ey, cpx[ci], cpy[ci], cvx[ci],
+                       cvy[ci], sc.pair);
+          }
+        }
+      }
+      if (has) {
+        // Trapezoidal integration with the speed clamp (sfm.rs:245-254).
+        float vx = velx + accx * sc.dt;
+        float vy = vely + accy * sc.dt;
+        const float vmax = speed * sc.max_speed_factor;
+        const float vlen = sqrtf(fmaxf(vx * vx + vy * vy, PEDONI_EPS));
+        const float scale = fminf(1.0f, vmax / vlen);
+        vx = vx * scale;
+        vy = vy * scale;
+        rpx[si] = px + (vx + velx) * sc.dt_half;
+        rpy[si] = py + (vy + vely) * sc.dt_half;
+        rvx[si] = vx;
+        rvy[si] = vy;
+      }
     }
   }
   __syncthreads();
@@ -734,15 +935,17 @@ __device__ __forceinline__ void pairs_body(
     const int row = row0 + warp;
     const int lane = l0 + t;
     const int cell = warp * kTileLanes + t;
+    const bool emits = lane >= dm.mlo && lane <= dm.mhi;
     int cnt = 0;
-    for (int j = 0; j < K; ++j) {
+    for (int j = 0; emits && j < K; ++j) {
       const int si = (warp * K + j) * kTileLanes + t;
       const float a = sact[si];
       if (!(a > 0.5f)) continue;  // a mover is live: its pos/vel are new
       const float tgt_lane = floorf(__fdiv_rn(rpx[si], sc.cell_unit)) + 1.0f;
       const float tgt_row = floorf(__fdiv_rn(rpy[si], sc.cell_unit));
-      const float same =
-          (tgt_lane == (float)lane && tgt_row == (float)(row - 1)) ? 1.0f : 0.0f;
+      const float same = (tgt_lane == (float)(lane + dm.coff) &&
+                          tgt_row == (float)(row - 1 + dm.roff))
+                             ? 1.0f : 0.0f;
       if (!(a * (1.0f - same) > 0.5f)) continue;
       if (cnt < mk) mslots[cell * ms + cnt] = (unsigned char)j;
       ++cnt;
@@ -778,21 +981,24 @@ __device__ __forceinline__ void pairs_body(
     const float dest = src[5 * nxl];
     const float a = sact[si];
     const bool live = a > 0.5f;
-    const float npx = live ? rpx[si] : cpx[own];
-    const float npy = live ? rpy[si] : cpy[own];
+    // a slot that is not live passes its sanitized pos/vel through: staged,
+    // or where the levels were staged in chunks, read again
+    const float npx = live ? rpx[si] : kChunked ? sanitize(src[0]) : cpx[own];
+    const float npy = live ? rpy[si] : kChunked ? sanitize(src[nxl]) : cpy[own];
     float* dst = out + at;
     dst[0] = npx;
     dst[nxl] = npy;
-    dst[2 * nxl] = live ? rvx[si] : cvx[own];
-    dst[3 * nxl] = live ? rvy[si] : cvy[own];
+    dst[2 * nxl] = live ? rvx[si] : kChunked ? sanitize(src[2 * nxl]) : cvx[own];
+    dst[3 * nxl] = live ? rvy[si] : kChunked ? sanitize(src[3 * nxl]) : cvy[own];
     dst[4 * nxl] = sanitize(speed);
     dst[5 * nxl] = dest;
     dst[6 * nxl] = a;
     if (mk > 0) {  // the stay mask; else ch 7 holds step_sample's potential
       const float tgt_lane = floorf(__fdiv_rn(npx, sc.cell_unit)) + 1.0f;
       const float tgt_row = floorf(__fdiv_rn(npy, sc.cell_unit));
-      const float same =
-          (tgt_lane == (float)lane && tgt_row == (float)(row - 1)) ? 1.0f : 0.0f;
+      const float same = (tgt_lane == (float)(lane + dm.coff) &&
+                          tgt_row == (float)(row - 1 + dm.roff))
+                             ? 1.0f : 0.0f;
       dst[7 * nxl] = a * same;
     }
   }
@@ -846,28 +1052,25 @@ __device__ __forceinline__ void pairs_body(
 // registers: at 64 it got two, and the 1M segment state's kernel ran 13%
 // slower (PERF.md).  They are two kernels because an explicit minimum of
 // one block an SM changed the base mode's register allocation and slowed
-// it.
-__global__ void __launch_bounds__(512)
-step_pairs(const float* __restrict__ d, const float* __restrict__ act_in,
-           const float4* __restrict__ ea, float* __restrict__ out,
-           float* __restrict__ m, float* __restrict__ movf,
-           float* __restrict__ mdmx, Dims dm, StepConsts sc, int tr, int mk,
-           int rb, const float* __restrict__ segs, int n_seg) {
-  pairs_body<false>(d, act_in, ea, out, m, movf, mdmx, dm, sc, tr, mk, rb,
-                    segs, n_seg);
-}
-
-__global__ void __launch_bounds__(512, 3)
-step_pairs_segments(const float* __restrict__ d,
-                    const float* __restrict__ act_in,
-                    const float4* __restrict__ ea, float* __restrict__ out,
-                    float* __restrict__ m, float* __restrict__ movf,
-                    float* __restrict__ mdmx, Dims dm, StepConsts sc, int tr,
-                    int mk, int rb, const float* __restrict__ segs,
-                    int n_seg) {
-  pairs_body<true>(d, act_in, ea, out, m, movf, mdmx, dm, sc, tr, mk, rb,
-                   segs, n_seg);
-}
+// it.  The _chunked kernels stage the slot levels `levels` at a time, for a
+// K whose one-row tile does not fit a block's shared memory (one block an
+// SM).
+#define PEDONI_PAIRS_KERNEL(name, bounds, seg, chunked)                       \
+  __global__ void bounds name(                                               \
+      const float* __restrict__ d, const float* __restrict__ act_in,         \
+      const float4* __restrict__ ea, float* __restrict__ out,                \
+      float* __restrict__ m, float* __restrict__ movf,                       \
+      float* __restrict__ mdmx, Dims dm, StepConsts sc, int tr, int mk,      \
+      int rb, const float* __restrict__ segs, int n_seg, int levels) {       \
+    pairs_body<seg, chunked>(d, act_in, ea, out, m, movf, mdmx, dm, sc, tr,  \
+                             mk, rb, segs, n_seg, levels);                   \
+  }
+PEDONI_PAIRS_KERNEL(step_pairs, __launch_bounds__(512), false, false)
+PEDONI_PAIRS_KERNEL(step_pairs_segments, __launch_bounds__(512, 3), true, false)
+PEDONI_PAIRS_KERNEL(step_pairs_chunked, __launch_bounds__(512), false, true)
+PEDONI_PAIRS_KERNEL(step_pairs_segments_chunked, __launch_bounds__(512), true,
+                    true)
+#undef PEDONI_PAIRS_KERNEL
 
 }  // namespace
 
@@ -877,20 +1080,26 @@ step_pairs_segments(const float* __restrict__ d,
 // the obstacle force from the fields' obstacle channels (segs unused); n_seg >= 0
 // from the n_seg rows of segs: walked by the pair pass where seg_pass != 0,
 // else by the sample pass.  tile_rows, threads and smem_bytes are the pair
-// pass's launch shape (step_kernel.py::pair_pass_launch); smem_bytes must
-// equal pairs_smem_bytes(tile_rows, k), plus segment_smem_bytes() where the
-// pair pass walks the table.  Returns a cudaError_t, or -1 for a launch
-// shape the kernel does not take (pair_pass_launch gives tiles of 1 or 2
-// rows and blocks of 512 threads).
+// pass's launch shape (step_kernel.py::pair_pass_launch), with `levels`
+// the slot levels it stages at once (k: all); smem_bytes must equal
+// pairs_smem_bytes(tile_rows, k), plus segment_smem_bytes() where the pair
+// pass walks the table, or chunked_smem_bytes where levels < k.  roff and
+// coff place a tile of a larger grid (0 for a whole grid); in the mover
+// mode only lanes [movers_lo, movers_hi] emit movers.  Returns a
+// cudaError_t, -1 for a launch shape the kernel does not take
+// (pair_pass_launch gives tiles of 1 or 2 rows and blocks of 512 threads),
+// or PEDONI_WRONG_DEVICE (device.cuh) for a grid off the current device.
 extern "C" int pedoni_step_kernel(const float* d, const float* fields,
                                   const float* segs, float* act, float* ea,
                                   float* out, float* m, float* movf,
                                   float* mdmx, int ny2, int k, int nxl,
                                   int n_wp, int frows, int stride, int mk,
                                   int rb, int n_seg, int seg_pass,
-                                  int tile_rows,
-                                  int threads, int smem_bytes,
+                                  int tile_rows, int threads, int smem_bytes,
+                                  int levels, int roff, int coff,
+                                  int movers_lo, int movers_hi,
                                   const float* consts, void* stream) {
+  if (const int w = pedoni_on_current_device(d)) return w;
   StepConsts sc;
   sc.inv_unit = consts[0];
   sc.grid_w = consts[1];
@@ -913,12 +1122,15 @@ extern "C" int pedoni_step_kernel(const float* d, const float* fields,
   sc.seg_cull = consts[18];
   const bool seg = n_seg >= 0;
   const bool pass = seg && seg_pass != 0;  // else step_sample walks the table
+  const bool chunked = levels < k;
   if (tile_rows < 1 || tile_rows > 2 || k > 255 || threads != 512 ||
-      nxl % kTileLanes != 0 ||
-      (int64_t)smem_bytes != pairs_smem_bytes(tile_rows, k) +
-                                 (pass ? segment_smem_bytes() : 0))
+      nxl % kTileLanes != 0 || levels < 1 || levels > k ||
+      (int64_t)smem_bytes !=
+          (chunked ? chunked_smem_bytes(tile_rows, k, levels, pass)
+                   : pairs_smem_bytes(tile_rows, k) +
+                         (pass ? segment_smem_bytes() : 0)))
     return -1;
-  Dims dm{ny2, k, nxl, n_wp, frows, stride};
+  Dims dm{ny2, k, nxl, n_wp, frows, stride, roff, coff, movers_lo, movers_hi};
   const int64_t n = (int64_t)ny2 * k * nxl;
   const int sthreads = 256;
   const unsigned sblocks = (unsigned)((n + sthreads - 1) / sthreads);
@@ -932,7 +1144,8 @@ extern "C" int pedoni_step_kernel(const float* d, const float* fields,
         d, f4, act, (float4*)ea, out, dm, sc, segs, 0, mk == 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  auto pairs = pass ? step_pairs_segments : step_pairs;
+  auto pairs = chunked ? (pass ? step_pairs_segments_chunked : step_pairs_chunked)
+                       : (pass ? step_pairs_segments : step_pairs);
   e = cudaFuncSetAttribute(pairs, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem_bytes);
   if (e != cudaSuccess) return (int)e;
@@ -940,6 +1153,6 @@ extern "C" int pedoni_step_kernel(const float* d, const float* fields,
             (unsigned)((ny2 - 2 + tile_rows - 1) / tile_rows));
   pairs<<<grid, threads, smem_bytes, st>>>(d, act, (const float4*)ea, out, m,
                                            movf, mdmx, dm, sc, tile_rows, mk,
-                                           rb, segs, n_seg);
+                                           rb, segs, n_seg, levels);
   return (int)cudaGetLastError();
 }

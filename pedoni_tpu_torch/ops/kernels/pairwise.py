@@ -29,6 +29,7 @@ from . import _build
 from .tiles import TILE_LANES, tile_launch
 
 EPS = 1e-12
+HIT_LEVELS = 21  # slot levels of 2D's 63-bit word of hits (csrc kChunk)
 
 
 def _shift_lane(x: torch.Tensor, delta: int) -> torch.Tensor:
@@ -107,27 +108,33 @@ def _check(d: torch.Tensor, row_block: int) -> None:
                          f"row_block = {row_block}")
 
 
-def pairwise_smem_bytes(k: int, tile_rows: int) -> int:
+def pairwise_smem_bytes(k: int, tile_rows: int, levels: int | None = None
+                        ) -> int:
     """Shared memory of a pairwise block for a tile of ``tile_rows`` rows x
     TILE_LANES cells at K = ``k`` (csrc/pairwise.cu tile_smem_bytes, the
     same sum): row bitmasks, the staged positions and velocity terms (5
-    floats a slot) of the tile and its halo, the tile's accelerations, its
-    slot list, per-row counters and the per-warp candidate box (32 warps)."""
+    floats a slot) of the tile and its halo — or with ``levels`` < K, of the
+    tile's rows at one dy, that many levels at a time — the tile's
+    accelerations, its slot list, per-row counters and the per-warp
+    candidate box (32 warps)."""
     h, n_tile = tile_rows + 2, tile_rows * k * TILE_LANES
-    return (8 * h * k + 20 * h * k * (TILE_LANES + 2) + 8 * n_tile
+    staged = h * k if levels is None or levels >= k else tile_rows * levels
+    return (8 * h * k + 20 * staged * (TILE_LANES + 2) + 8 * n_tile
             + 2 * n_tile + 4 * h + 4 * (tile_rows + 1) + 16 * 32)
 
 
-def pairwise_launch(k: int, ny2: int, nx: int) -> tuple[int, int, int]:
-    """(tile rows, threads per block, shared-memory bytes) of the pairwise
-    kernel on a grid [ny2, K, 8, NX], from ``tiles.tile_launch``, as the
-    fused step's pair pass (``step_kernel.pair_pass_launch``).  Tiles cover lanes [0, NX) and the
-    centre rows 1 .. ny2-2, the last one possibly ragged.  A K at which not
-    even one row fits raises (K above 97)."""
+def pairwise_launch(k: int, ny2: int, nx: int) -> tuple[int, int, int, int]:
+    """(tile rows, threads per block, shared-memory bytes, staged levels) of
+    the pairwise kernel on a grid [ny2, K, 8, NX], from
+    ``tiles.tile_launch``, as the fused step's pair pass
+    (``step_kernel.pair_pass_launch``).  Tiles cover lanes [0, NX) and the
+    centre rows 1 .. ny2-2, the last one possibly ragged.  Where a one-row
+    tile's K slot levels do not fit a block (K above 97), one-row tiles
+    stage a dy row's levels in chunks of a multiple of HIT_LEVELS."""
     if nx % TILE_LANES != 0 or ny2 < 3 or not 1 <= k <= 255:
         raise ValueError(f"pairwise: unsupported grid ny2={ny2}, K={k}, NX={nx}")
-    return tile_launch(lambda rows: pairwise_smem_bytes(k, rows), ny2,
-                       f"pairwise: K={k}")
+    return tile_launch(lambda rows, levels: pairwise_smem_bytes(k, rows, levels),
+                       ny2, k, HIT_LEVELS, f"pairwise: K={k}")
 
 
 def pairwise(d: torch.Tensor, phys: Physics, row_block: int = 4) -> torch.Tensor:
@@ -149,9 +156,10 @@ def pairwise(d: torch.Tensor, phys: Physics, row_block: int = 4) -> torch.Tensor
     lib = _build.library()
     acc = torch.empty((ny2 - 2, k, 2, nx), dtype=torch.float32, device=d.device)
     consts = torch.tensor(pair_constants(phys), dtype=torch.float32)
-    stream = torch.cuda.current_stream(d.device).cuda_stream
-    rc = lib.pedoni_pairwise(d.data_ptr(), acc.data_ptr(), ny2, k, nx, *launch,
-                             consts.data_ptr(), stream)
+    with torch.cuda.device(d.device):  # a launch goes to the current card
+        rc = lib.pedoni_pairwise(d.data_ptr(), acc.data_ptr(), ny2, k, nx,
+                                 *launch, consts.data_ptr(),
+                                 torch.cuda.current_stream(d.device).cuda_stream)
     _build.check_launch(rc, "pedoni_pairwise")
     pairwise.launches += 1
     return acc

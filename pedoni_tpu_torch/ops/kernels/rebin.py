@@ -21,6 +21,15 @@ device ``gate``: the hybrid step launches both with one 0-d int32 flag,
 each kernel's body runs only where the flag selects it (1 = full, 0 =
 incremental), and both write the same preallocated ``out`` — the choice
 never reaches the host.
+
+Both also take a tile of a larger grid (parallel/tile2d.py), as the
+reference's kernels do: ``row_offset`` and ``col_offset`` place the tile
+(lane l holds global cell column ``col_offset + l - 1``, row r global cell
+row ``row_offset + r - 1``; positions are global), and only the tile's own
+lanes [1, min(nx_local + col_offset, nx_cells) - col_offset] keep agents:
+an agent that lands in a ghost lane belongs to the lane neighbour, and the
+input active count reads the own lanes only.  The defaults are one whole
+grid.
 """
 
 from __future__ import annotations
@@ -136,9 +145,16 @@ def _ptrs(out, gate: torch.Tensor | None) -> tuple:
             gate.data_ptr() if gate is not None else None)
 
 
+def _lane_hi(nx_cells: int, col_offset: int, nx_local: int | None) -> int:
+    """The last own lane of a tile; see the module's docstring."""
+    nx_local = nx_cells if nx_local is None else nx_local
+    return min(nx_local + col_offset, nx_cells) - col_offset
+
+
 def rebin(g: torch.Tensor, unit: float, nx_cells: int, ny_cells: int,
           row_block: int = 2, gate: torch.Tensor | None = None,
-          out: tuple[torch.Tensor, ...] | None = None
+          out: tuple[torch.Tensor, ...] | None = None, row_offset: int = 0,
+          col_offset: int = 0, nx_local: int | None = None
           ) -> tuple[torch.Tensor, ...]:
     """Returns (D' [ny2, K, 8, NXL], overflow, demand_max, active_in,
     active_out), the last four [nb] f32 per block of ``row_block`` rows.
@@ -149,19 +165,22 @@ def rebin(g: torch.Tensor, unit: float, nx_cells: int, ny_cells: int,
     tensors run the kernel (or raise); CPU tensors the twin."""
     _check(g, row_block)
     _check_out(g, row_block, gate, out)
+    tile = (row_offset, col_offset, nx_local)
     if g.device.type == "cpu":
         return _twin(gate, FULL, out, lambda: rebin_torch(
-            g, unit, nx_cells, ny_cells, row_block))
+            g, unit, nx_cells, ny_cells, row_block, *tile))
     if g.device.type != "cuda":
         raise ValueError(f"rebin: unsupported device {g.device}")
     lib = _build.library()
     ny2, k, _, nxl = g.shape
     out = out if out is not None else new_outputs(g, row_block)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    rc = lib.pedoni_rebin_full(
-        g.data_ptr(), out[0].data_ptr(), *_ptrs(out, gate), FULL, ny2, k,
-        nxl, row_block, unit, nx_cells, ny_cells,
-        *rebin_launch(k, 0, ny2, nxl, row_block), stream)
+    with torch.cuda.device(g.device):  # a launch goes to the current card
+        rc = lib.pedoni_rebin_full(
+            g.data_ptr(), out[0].data_ptr(), *_ptrs(out, gate), FULL, ny2, k,
+            nxl, row_block, unit, nx_cells, ny_cells, row_offset, col_offset,
+            _lane_hi(nx_cells, col_offset, nx_local),
+            *rebin_launch(k, 0, ny2, nxl, row_block),
+            torch.cuda.current_stream(g.device).cuda_stream)
     _build.check_launch(rc, "pedoni_rebin_full")
     rebin.launches += 1
     return out
@@ -173,7 +192,9 @@ rebin.launches = 0
 def rebin_incremental(g: torch.Tensor, m: torch.Tensor, unit: float,
                       nx_cells: int, ny_cells: int, row_block: int = 2,
                       gate: torch.Tensor | None = None,
-                      out: tuple[torch.Tensor, ...] | None = None
+                      out: tuple[torch.Tensor, ...] | None = None,
+                      row_offset: int = 0, col_offset: int = 0,
+                      nx_local: int | None = None
                       ) -> tuple[torch.Tensor, ...]:
     """Hole-preserving rebin: returns (D', overflow, demand_max, active_in,
     active_out), the contract of ``rebin`` except that bins may hold holes
@@ -193,18 +214,22 @@ def rebin_incremental(g: torch.Tensor, m: torch.Tensor, unit: float,
         raise ValueError(f"m must be contiguous float32 [{ny2}, MK, 8, {nxl}] "
                          f"on {g.device}, got {tuple(m.shape)}")
     _check_out(g, row_block, gate, out)
+    tile = (row_offset, col_offset, nx_local)
     if g.device.type == "cpu":
         return _twin(gate, INCREMENTAL, out, lambda: rebin_incremental_torch(
-            g, m, unit, nx_cells, ny_cells, row_block))
+            g, m, unit, nx_cells, ny_cells, row_block, *tile))
     if g.device.type != "cuda":
         raise ValueError(f"rebin_incremental: unsupported device {g.device}")
     lib = _build.library()
     out = out if out is not None else new_outputs(g, row_block)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    rc = lib.pedoni_rebin_incremental(
-        g.data_ptr(), m.data_ptr(), out[0].data_ptr(), *_ptrs(out, gate),
-        INCREMENTAL, ny2, k, m.shape[1], nxl, row_block, unit, nx_cells,
-        ny_cells, *rebin_launch(k, m.shape[1], ny2, nxl, row_block), stream)
+    with torch.cuda.device(g.device):  # a launch goes to the current card
+        rc = lib.pedoni_rebin_incremental(
+            g.data_ptr(), m.data_ptr(), out[0].data_ptr(), *_ptrs(out, gate),
+            INCREMENTAL, ny2, k, m.shape[1], nxl, row_block, unit, nx_cells,
+            ny_cells, row_offset, col_offset,
+            _lane_hi(nx_cells, col_offset, nx_local),
+            *rebin_launch(k, m.shape[1], ny2, nxl, row_block),
+            torch.cuda.current_stream(g.device).cuda_stream)
     _build.check_launch(rc, "pedoni_rebin_incremental")
     rebin_incremental.launches += 1
     return out
@@ -213,15 +238,18 @@ def rebin_incremental(g: torch.Tensor, m: torch.Tensor, unit: float,
 rebin_incremental.launches = 0
 
 
-def _landing(src: torch.Tensor, unit: float, nx_cells: int, ny_cells: int,
-             row_f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _landing(src: torch.Tensor, unit: float, ny_cells: int, row_f: torch.Tensor,
+             col_offset: int, lane_hi: int) -> tuple[torch.Tensor, torch.Tensor]:
     """rebin.cu's landing test for candidates ``src`` [ny, C >= 7, NXL] of
-    a row band: (lands in its row and in the field, target lane)."""
+    a row band whose global cell rows are ``row_f``: (lands in its row and
+    in the tile's own lanes [1, lane_hi] of the field, global target
+    lane)."""
     tgt_lane = torch.floor(true_divide(src[:, 0], unit)) + 1.0
     tgt_row = torch.floor(true_divide(src[:, 1], unit))
     lands = ((src[:, 6] > 0.5) & (tgt_row == row_f)
              & (tgt_row <= ny_cells - 1)
-             & (tgt_lane >= 1.0) & (tgt_lane <= nx_cells))
+             & (tgt_lane >= col_offset + 1.0)
+             & (tgt_lane <= lane_hi + col_offset))
     return lands, tgt_lane
 
 
@@ -239,21 +267,39 @@ def _lands_at(landing: tuple[torch.Tensor, torch.Tensor], lane_f: torch.Tensor,
     return lands
 
 
+def _rows_lanes(ny: int, nxl: int, dev, row_offset: int, col_offset: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Global cell rows [ny, 1] and global lanes [1, NXL] of a tile's centre
+    rows (f32), and its local lanes [1, NXL]."""
+    lane = torch.arange(nxl, device=dev).view(1, nxl)
+    row_f = (torch.arange(ny, device=dev) + row_offset).float().view(ny, 1)
+    return row_f, (lane + col_offset).float(), lane
+
+
+def _slots_in_use(t: torch.Tensor) -> int:
+    """The top slot + 1 that holds an active row anywhere in ``t`` [ny2,
+    slots, 8, NXL]: the twins walk no further (a slot above it has no
+    candidate).  Reads the device: the twins' business, not the kernels'."""
+    occ = torch.nonzero((t[:, :, 6] > 0.5).any(dim=2).any(dim=0))
+    return int(occ.max()) + 1 if occ.numel() else 0
+
+
 def rebin_torch(g: torch.Tensor, unit: float, nx_cells: int, ny_cells: int,
-                row_block: int = 2) -> tuple[torch.Tensor, ...]:
+                row_block: int = 2, row_offset: int = 0, col_offset: int = 0,
+                nx_local: int | None = None) -> tuple[torch.Tensor, ...]:
     """Plain PyTorch twin of the rebin kernel (same contract)."""
     ny2, k, _, nxl = g.shape
     ny = ny2 - 2
     dev = g.device
-    row_f = torch.arange(ny, device=dev, dtype=torch.float32).view(ny, 1)
-    lane_f = torch.arange(nxl, device=dev, dtype=torch.float32).view(1, nxl)
+    lane_hi = _lane_hi(nx_cells, col_offset, nx_local)
+    row_f, lane_f, lane = _rows_lanes(ny, nxl, dev, row_offset, col_offset)
     slot = torch.arange(k, device=dev).view(1, k, 1, 1)
     cnt = torch.zeros((ny, nxl), dtype=torch.int64, device=dev)
     outs = torch.zeros((ny, k, 6, nxl), dtype=torch.float32, device=dev)
-    for j in range(k):
+    for j in range(_slots_in_use(g)):
         for dy in (-1, 0, 1):
             src = g[1 + dy : 1 + dy + ny, j]  # [ny, 8, NXL]
-            landing = _landing(src, unit, nx_cells, ny_cells, row_f)
+            landing = _landing(src, unit, ny_cells, row_f, col_offset, lane_hi)
             for dxo in (-1, 0, 1):
                 # candidate at lane l comes from lane l + dxo (no wrap)
                 sh = _shift_lane(src[:, :6], dxo)
@@ -269,8 +315,7 @@ def rebin_torch(g: torch.Tensor, unit: float, nx_cells: int, ny_cells: int,
 
     nb = ny // row_block
     per_row = lambda x: x.float().view(nb, row_block, -1)  # noqa: E731
-    own = torch.zeros((1, nxl), dtype=torch.float32, device=dev)
-    own[0, 1 : nx_cells + 1] = 1.0
+    own = ((lane >= 1) & (lane <= lane_hi)).float()
     act_in = g[1:-1, :, 6].sum(dim=1) * own  # [ny, NXL]
     return (out,
             per_row(torch.clamp(cnt - k, min=0)).sum(dim=(1, 2)),
@@ -280,17 +325,20 @@ def rebin_torch(g: torch.Tensor, unit: float, nx_cells: int, ny_cells: int,
 
 
 def rebin_incremental_torch(g: torch.Tensor, m: torch.Tensor, unit: float,
-                            nx_cells: int, ny_cells: int, row_block: int = 2
+                            nx_cells: int, ny_cells: int, row_block: int = 2,
+                            row_offset: int = 0, col_offset: int = 0,
+                            nx_local: int | None = None
                             ) -> tuple[torch.Tensor, ...]:
     """Plain PyTorch twin of the incremental rebin kernel (same contract),
-    the reference's _compute_inc (rebin.py:323-430) on the whole grid."""
+    the reference's _compute_inc (rebin.py:323-430): stayers are kept in
+    the tile's own lanes only (ghost lanes hold the neighbour's edge)."""
     ny2, k, _, nxl = g.shape
     ny = ny2 - 2
     mk = m.shape[1]
     dev = g.device
-    row_f = torch.arange(ny, device=dev, dtype=torch.float32).view(ny, 1)
-    lane_f = torch.arange(nxl, device=dev, dtype=torch.float32).view(1, nxl)
-    own = (lane_f >= 1.0) & (lane_f <= nx_cells)  # [1, NXL]
+    lane_hi = _lane_hi(nx_cells, col_offset, nx_local)
+    row_f, lane_f, lane = _rows_lanes(ny, nxl, dev, row_offset, col_offset)
+    own = (lane >= 1) & (lane <= lane_hi)  # [1, NXL]
     gc = g[1:-1]
     stay = (gc[:, :, 7] > 0.5) & own[:, None]  # [ny, K, NXL]
     outs = torch.where(stay[:, :, None], gc[:, :, :6], 0.0)
@@ -299,10 +347,10 @@ def rebin_incremental_torch(g: torch.Tensor, m: torch.Tensor, unit: float,
     rank = torch.where(stay, -1, torch.cumsum(hole, dim=1) - hole)
     holes = hole.sum(dim=1)  # [ny, NXL]
     landed = torch.zeros((ny, nxl), dtype=torch.int64, device=dev)
-    for j in range(mk):
+    for j in range(_slots_in_use(m)):
         for dy in (-1, 0, 1):
             src = m[1 + dy : 1 + dy + ny, j]  # [ny, 8, NXL]
-            landing = _landing(src, unit, nx_cells, ny_cells, row_f)
+            landing = _landing(src, unit, ny_cells, row_f, col_offset, lane_hi)
             for dxo in (-1, 0, 1):
                 sh = _shift_lane(src[:, :6], dxo)
                 lands = _lands_at(landing, lane_f, dxo)

@@ -51,6 +51,7 @@ SEG_TERM_CAP = 1024  # segments: (agent, row) terms a block holds at once
 SEG_CULL_RANGES = 110  # cull distance in obs_range: exp(-110) is 0 in f32
 SEG_SAMPLE_WALK = 8  # segments: a table this short is walked by the sample pass
 SEG_CULL_SLACK = 2.0 ** -12  # of the coordinates' size: their f32 rounding
+WALK_LEVELS = 7  # slot levels of the pair walk's 63-bit word (csrc kChunk)
 
 
 def _constants(phys: Physics, grid_size: tuple[float, float],
@@ -149,39 +150,48 @@ def _check(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
                          f"row_block == 0, got ny2={ny2}, row_block={row_block}")
 
 
-def pair_pass_smem_bytes(k: int, tile_rows: int, segments: bool = False) -> int:
+def pair_pass_smem_bytes(k: int, tile_rows: int, segments: bool = False,
+                         levels: int | None = None) -> int:
     """Shared memory of the pair pass for a tile of ``tile_rows`` rows x
     TILE_LANES cells at K = ``k`` slots (csrc/step_kernel.cu
-    pairs_smem_bytes and segment_smem_bytes, the same sums): row bitmasks,
-    the staged pos/vel of the tile and its halo, act' and the new pos/vel
-    of the tile, per-row counters, the agent list; in segments mode also
-    SEG_CAP staged edge-table rows, SEG_TERM_CAP (x, y) terms, the per-warp
-    box and counts (32 warps) and a resume index."""
+    pairs_smem_bytes, chunked_smem_bytes and segment_smem_bytes, the same
+    sums): row bitmasks, act' and the new pos/vel of the tile, per-row
+    counters, the agent list, and the staged pos/vel of the tile and its
+    halo: all K slot levels, or with ``levels`` < K that many at a time (the
+    tile's own positions and sums then wait in the new pos/vel's room).  In
+    segments mode also SEG_CAP staged edge-table rows, SEG_TERM_CAP (x, y)
+    terms, the per-warp box and counts (32 warps) and a resume index; where
+    the levels are chunked, these share the staging room."""
     h, halo = tile_rows + 2, TILE_LANES + 2
     n_tile = tile_rows * k * TILE_LANES
-    need = (8 * h * k + 16 * h * k * halo + 20 * n_tile + 4 * h
-            + 4 * (tile_rows + 1) + 2 * n_tile)
-    if segments:
-        need += 4 * SEG_COLS * SEG_CAP + 8 * SEG_TERM_CAP + 16 * 32 + 16
-    return need
+    need = 8 * h * k + 20 * n_tile + 4 * h + 4 * (tile_rows + 1) + 2 * n_tile
+    seg = (4 * SEG_COLS * SEG_CAP + 8 * SEG_TERM_CAP + 16 * 32 + 16
+           if segments else 0)
+    if levels is None or levels >= k:
+        return need + 16 * h * k * halo + seg
+    return need + max(16 * h * levels * halo, seg)
 
 
 def pair_pass_launch(k: int, ny2: int, nxl: int, segments: bool = False
-                     ) -> tuple[int, int, int]:
-    """(tile rows, threads per block, shared-memory bytes) of the pair
-    pass on a grid [ny2, K, 8, NXL]; ``segments``: the pass walks an edge
-    table (segments mode where ``segment_pass`` says so).
+                     ) -> tuple[int, int, int, int]:
+    """(tile rows, threads per block, shared-memory bytes, staged levels) of
+    the pair pass on a grid [ny2, K, 8, NXL]; ``segments``: the pass walks
+    an edge table (segments mode where ``segment_pass`` says so).
 
     A block owns ``tile_rows`` x TILE_LANES cells; blocks tile lanes
     [0, NXL) and the centre rows 1 .. ny2-2 (the last tile may be ragged).
     The tile comes from ``tiles.tile_launch``: two rows where two blocks
     fit an SM.  Blocks of 512 threads: two of them give an SM the 32 warps
     that hide the pair loop's latency (at 16 the 1M step measured slower,
-    as did taller tiles; PERF.md)."""
+    as did taller tiles; PERF.md).  Where a one-row tile's K slot levels do
+    not fit a block (K above 98; above 92 in segments mode), one-row tiles stage
+    them in chunks of a multiple of the walk's 7 levels, which keeps the
+    summation order."""
     if nxl % TILE_LANES != 0 or ny2 < 3 or not 1 <= k <= 255:
         raise ValueError(f"pair pass: unsupported grid ny2={ny2}, K={k}, NXL={nxl}")
-    return tile_launch(lambda rows: pair_pass_smem_bytes(k, rows, segments),
-                       ny2, f"pair pass: K={k}")
+    return tile_launch(
+        lambda rows, levels: pair_pass_smem_bytes(k, rows, segments, levels),
+        ny2, k, WALK_LEVELS, f"pair pass: K={k}")
 
 
 def segment_pass(n_seg: int) -> bool:
@@ -232,9 +242,20 @@ def packed_fields(fwp: torch.Tensor, fobs: torch.Tensor) -> torch.Tensor:
 def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
                phys: Physics, grid_size: tuple[float, float], stride: int = 6,
                field_unit: float = 0.25, emit_movers: int = 0,
-               row_block: int = 2, segments: torch.Tensor | None = None):
+               row_block: int = 2, segments: torch.Tensor | None = None,
+               row_offset: int = 0, col_offset: int = 0,
+               nx_local: int | None = None):
     """One fused step over the grid: returns G [ny2, K, 8, NXL], or with
     ``emit_movers`` = MK > 0 the tuple (G, M, movf, mdmx).
+
+    ``d`` may be one tile of a larger grid (parallel/tile2d.py): lane l
+    holds global cell column ``col_offset + l - 1`` and row r global cell
+    row ``row_offset + r - 1``; positions stay global, so the field sample
+    and the despawn test run in global coordinates, and fwp / fobs are the
+    tile's slabs (sliced in rows and lanes at the same offsets).  With
+    ``nx_local`` only lanes [1, nx_local] (the tile's own) emit movers: the
+    ghost lanes' outputs come from incomplete windows and are replaced by
+    the neighbour's.  The defaults are one whole grid.
 
     ``segments`` (a ``segment_table`` on d's device) switches the obstacle
     force from the distance map to the exact per-segment geometry; fobs is
@@ -254,7 +275,8 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     _check(d, fwp, fobs, segments, stride, emit_movers, row_block)
     if d.device.type == "cpu":
         return fused_step_torch(d, fwp, fobs, phys, grid_size, stride,
-                                field_unit, emit_movers, row_block, segments)
+                                field_unit, emit_movers, row_block, segments,
+                                row_offset, col_offset, nx_local)
     if d.device.type != "cuda":
         raise ValueError(f"fused_step: unsupported device {d.device}")
     if segments is not None and not (phys.obs_range > 0
@@ -266,7 +288,8 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     ny2, k, _, nxl = d.shape
     mk = emit_movers
     seg_pass = segments is not None and segment_pass(segments.shape[0])
-    tile_rows, threads, smem = pair_pass_launch(k, ny2, nxl, seg_pass)
+    tile_rows, threads, smem, levels = pair_pass_launch(k, ny2, nxl, seg_pass)
+    movers_lo, movers_hi = (0, nxl - 1) if nx_local is None else (1, nx_local)
     fields = packed_fields(fwp, fobs)
     out = torch.empty_like(d)
     # scratch: act' of every slot; e and acc of the live centre slots
@@ -281,15 +304,16 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
         mover_ptrs = (None, None, None)
     consts = torch.tensor(_constants(phys, grid_size, field_unit, stride),
                           dtype=torch.float32)  # host array, read at launch
-    stream = torch.cuda.current_stream(d.device).cuda_stream
     n_seg = -1 if segments is None else segments.shape[0]  # -1: distance map
-    rc = lib.pedoni_step_kernel(
-        d.data_ptr(), fields.data_ptr(),
-        None if segments is None else segments.data_ptr(), act.data_ptr(),
-        ea.data_ptr(), out.data_ptr(), *mover_ptrs, ny2, k, nxl, fwp.shape[0],
-        fwp.shape[1], stride, mk, row_block, n_seg, int(seg_pass), tile_rows,
-        threads, smem,
-        consts.data_ptr(), stream)
+    with torch.cuda.device(d.device):  # a launch goes to the current card
+        rc = lib.pedoni_step_kernel(
+            d.data_ptr(), fields.data_ptr(),
+            None if segments is None else segments.data_ptr(), act.data_ptr(),
+            ea.data_ptr(), out.data_ptr(), *mover_ptrs, ny2, k, nxl,
+            fwp.shape[0], fwp.shape[1], stride, mk, row_block, n_seg,
+            int(seg_pass), tile_rows, threads, smem, levels, row_offset,
+            col_offset, movers_lo, movers_hi, consts.data_ptr(),
+            torch.cuda.current_stream(d.device).cuda_stream)
     _build.check_launch(rc, "pedoni_step_kernel")
     if segments is not None:
         fused_step.segment_launches += 1
@@ -307,13 +331,16 @@ fused_step.segment_launches = 0  # segment-mode launches, either output mode
 
 def _sample(planes: torch.Tensor, plane_idx: torch.Tensor | None,
             plane_ok: torch.Tensor | None, px: torch.Tensor, py: torch.Tensor,
-            stride: int, channels: int) -> list[torch.Tensor]:
+            stride: int, channels: int, row_offset: int = 0,
+            col_offset: int = 0) -> list[torch.Tensor]:
     """Bilinear sample of fields6 planes for every slot of the grid.
 
     planes [P, R, S, 4, NXL]; plane_idx/plane_ok [ny2, K, NXL] select each
-    slot's plane (None: plane 0 for all).  px/py [ny2, K, NXL] are field
-    coordinates.  A tap outside the cell's (S+2)^2 patch contributes 0, and
-    the taps are summed in the reference's order (qy outer, qx inner)."""
+    slot's plane (None: plane 0 for all).  px/py [ny2, K, NXL] are global
+    field coordinates; the grid's row r and lane l are global row
+    ``row_offset + r`` and lane ``col_offset + l``, the planes sliced to
+    match.  A tap outside the cell's (S+2)^2 patch contributes 0, and the
+    taps are summed in the reference's order (qy outer, qx inner)."""
     ny2, k, nxl = px.shape
     dev = px.device
     row = torch.arange(ny2, device=dev, dtype=torch.float32).view(ny2, 1, 1)
@@ -322,8 +349,8 @@ def _sample(planes: torch.Tensor, plane_idx: torch.Tensor | None,
     by = torch.floor(py)
     tx = px - bx
     ty = py - by
-    p0 = bx - (lane - 1.0) * stride - ROW0
-    q0 = by - (row - 1.0) * stride - ROW0
+    p0 = bx - (lane + (col_offset - 1.0)) * stride - ROW0
+    q0 = by - (row + (row_offset - 1.0)) * stride - ROW0
     row_i = torch.arange(ny2, device=dev).view(ny2, 1, 1)
     lane_i = torch.arange(nxl, device=dev).view(1, 1, nxl)
     pidx = (torch.zeros_like(row_i) if plane_idx is None else plane_idx)
@@ -352,7 +379,9 @@ def fused_step_torch(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
                      phys: Physics, grid_size: tuple[float, float],
                      stride: int = 6, field_unit: float = 0.25,
                      emit_movers: int = 0, row_block: int = 2,
-                     segments: torch.Tensor | None = None):
+                     segments: torch.Tensor | None = None,
+                     row_offset: int = 0, col_offset: int = 0,
+                     nx_local: int | None = None):
     """Plain PyTorch twin of the fused step kernel (same contract)."""
     ny2, k, _, nxl = d.shape
     n_wp = fwp.shape[0]
@@ -368,7 +397,8 @@ def fused_step_torch(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     py = posy * (1.0 / field_unit) - 0.5 + FPAD
     plane_ok = (dest >= 0) & (dest < n_wp) & (dest == torch.floor(dest))
     plane_idx = torch.where(plane_ok, dest, 0.0).long()
-    pot, gx, gy = _sample(fwp, plane_idx, plane_ok, px, py, stride, 3)
+    off = dict(row_offset=row_offset, col_offset=col_offset)
+    pot, gx, gy = _sample(fwp, plane_idx, plane_ok, px, py, stride, 3, **off)
 
     # 3. despawn at the goal or off the grid
     in_grid = ((posx >= 0.0) & (posx < grid_size[0])
@@ -384,7 +414,8 @@ def fused_step_torch(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     afx = true_divide(ex * speed - velx, phys.relaxation_time)
     afy = true_divide(ey * speed - vely, phys.relaxation_time)
     if segments is None:
-        dist, dgx, dgy = _sample(fobs[None], None, None, px, py, stride, 3)
+        dist, dgx, dgy = _sample(fobs[None], None, None, px, py, stride, 3,
+                                 **off)
         d_norm = torch.rsqrt(torch.clamp(dgx * dgx + dgy * dgy, min=EPS))
         mag = phys.obs_strength * torch.exp(true_divide(-dist, phys.obs_range))
         acc = ((afx - mag * dgx * d_norm)[c], (afy - mag * dgy * d_norm)[c])
@@ -445,14 +476,18 @@ def fused_step_torch(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     # 8'. mover mode (step_kernel.py:697-749): ch 7 = stay mask; movers of
     # each cell, in slot order, fill the rows of M
     cu = _cell_unit(stride, field_unit)
-    lane_f = torch.arange(nxl, device=d.device, dtype=torch.float32).view(1, 1, nxl)
-    row_f = torch.arange(ny2 - 2, device=d.device, dtype=torch.float32).view(-1, 1, 1)
+    lane_i = torch.arange(nxl, device=d.device)
+    lane_f = (lane_i + col_offset).float().view(1, 1, nxl)
+    row_f = (torch.arange(ny2 - 2, device=d.device)
+             + row_offset).float().view(-1, 1, 1)
     same = ((torch.floor(true_divide(npx, cu)) + 1.0 == lane_f)
             & (torch.floor(true_divide(npy, cu)) == row_f)).float()
     act_c = act_new[c]
     out[c] = torch.stack([npx, npy, nvx, nvy, speed[c], dest[c], act_c,
                           act_c * same], dim=2)
     mover = act_c * (1.0 - same) > 0.5
+    if nx_local is not None:  # only the tile's own lanes emit movers
+        mover = mover & ((lane_i >= 1) & (lane_i <= nx_local)).view(1, 1, nxl)
     return (out, *_movers_torch(out, mover, emit_movers, row_block))
 
 

@@ -37,8 +37,10 @@ class CellGrid(NamedTuple):
 def true_divide(x: torch.Tensor, divisor: float) -> torch.Tensor:
     """``x / divisor`` as an IEEE f32 divide on every device.  (PyTorch's
     CUDA division by a Python scalar multiplies by the reciprocal instead,
-    which rounds differently; a 0-d tensor on x's device avoids that.)"""
-    return x / torch.tensor(divisor, dtype=x.dtype, device=x.device)
+    which rounds differently; a 0-d tensor on x's device avoids that.  It
+    is filled there, not copied from the host, which would wait for the
+    device.)"""
+    return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
 
 
 def compute_cell_ids(pos: torch.Tensor, active: torch.Tensor,

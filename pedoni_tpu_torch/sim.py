@@ -1,4 +1,5 @@
-"""Simulator orchestration for the grid backend on one device.
+"""Simulator orchestration for the grid backend, on one device or tiled
+over several.
 
 Counterpart of pedoni_tpu/sim.py with the same surface:
 
@@ -11,9 +12,11 @@ Covered: the cell-resident grid step with the hybrid rebin (incremental,
 or full every ``compact_every``-th step and on fallback; auto-chosen by
 cell occupancy), distance-map or exact segment obstacles
 (``use_distance_map=False``), all-pairs interactions through a cell unit
-grown to cover the cutoff (``use_neighbor_grid=False``), one device,
-drop-free table growth, mover-table growth, the on-device run totals and
-the lagged growth guard of ``run``, and checkpoints (checkpoint.py).
+grown to cover the cutoff (``use_neighbor_grid=False``), one device or
+``n_devices`` tiles (parallel/tile2d.py: row strips, or ``tile`` = (rows,
+cols)), drop-free table growth, mover-table growth, the on-device run
+totals and the lagged growth guard of ``run``, and checkpoints
+(checkpoint.py), which cross device counts.
 Options outside that slice raise ``ValueError`` naming the ROADMAP item
 that will port them.
 """
@@ -30,6 +33,7 @@ from .diagnostics import DiagnosticLog, StepRecord
 from .field import Field, FieldMaps
 from .models import sfm_grid
 from .models.sfm import SimState, StepConfig, StepMetrics, make_initial_state
+from .parallel import tile2d
 from .physics import Physics
 from .scenario import Scenario
 from .utils.timing import Timer
@@ -69,7 +73,9 @@ class SimulatorOptions:
     capacity: int = 0  # 0 = auto-size from the scenario
     seed: int = 0
     physics: Physics = Physics()
-    n_devices: int = 1
+    n_devices: int = 1  # > 1: the grid cut into tiles, one a device
+    tile: tuple[int, int] | None = None  # (rows, cols) of tiles; None =
+    #                        row strips (rows = n_devices, cols = 1)
     # Hybrid rebin (the reference's sim.py:75-98): incremental on most
     # steps, full every compact_every-th step and on fallback.  None =
     # auto by expected cell occupancy (_resolve_incremental).
@@ -77,7 +83,16 @@ class SimulatorOptions:
     incremental_rebin: bool | None = None
     mover_capacity: int = 8
     compact_every: int = 8
-    device: str = "cuda"
+    device: str = "cuda"  # "cuda": tile i on cuda:i; "cpu": every tile there
+
+    def resolve_tile(self) -> tuple[int, int]:
+        if self.tile is not None:
+            r, c = self.tile
+            if r * c != self.n_devices:
+                raise ValueError(
+                    f"tile {r}x{c} does not cover n_devices={self.n_devices}")
+            return r, c
+        return self.n_devices, 1
 
     @property
     def row_block(self) -> int:
@@ -90,9 +105,7 @@ class SimulatorOptions:
         if self.backend != "grid":
             raise ValueError(f"backend {self.backend!r} is not ported; only "
                              "'grid' is (ROADMAP queue 1, item 9)")
-        if self.n_devices > 1:
-            raise ValueError("n_devices > 1 is not ported (ROADMAP queue 1, "
-                             "item 10: multi-GPU tiling)")
+        self.resolve_tile()
 
     def resolved(self) -> "SimulatorOptions":
         """The options the grid step runs with (the reference's sim.py:
@@ -126,6 +139,16 @@ class Simulator:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {options.device!r} requested but "
                                "torch.cuda.is_available() is False")
+        n_dev = options.n_devices
+        if self.device.type == "cuda" and torch.cuda.device_count() < n_dev:
+            raise ValueError(f"--devices {n_dev} but only "
+                             f"{torch.cuda.device_count()} devices are visible")
+        # the tiles' devices; the generator and the metrics live on the first
+        self.devices = ([torch.device("cuda", i) for i in range(n_dev)]
+                        if self.device.type == "cuda" and n_dev > 1
+                        else [self.device] * n_dev)
+        if n_dev > 1:
+            self.device = self.devices[0]
         self.options = options
         self.scenario = scenario
 
@@ -179,16 +202,26 @@ class Simulator:
             neighbor_grid_unit=o.neighbor_grid_unit, field_unit=o.field_grid_unit,
             table_capacity=o.table_capacity, use_neighbor_grid=o.use_neighbor_grid,
             use_distance_map=o.use_distance_map)
-        self._fwp, self._fobs = sfm_grid.field_tensors(
-            self.cfg, self.maps, self.device, row_block=o.row_block)
-        self._step = sfm_grid.make_step_grid(
-            self.cfg, row_block=o.row_block,
-            incremental=self._resolve_incremental(),
-            mover_k=o.mover_capacity, compact_every=o.compact_every,
-            generator=self.generator)
+        step_kw = dict(incremental=self._resolve_incremental(),
+                       mover_k=o.mover_capacity, compact_every=o.compact_every,
+                       generator=self.generator)
+        self._tcfg = None
+        if o.n_devices > 1:  # the step's field arguments are per-tile lists
+            self._tcfg = tile2d.Tile2DConfig.build(
+                self.cfg, *o.resolve_tile(), row_block=o.row_block)
+            self._fwp, self._fobs = tile2d.device_inputs(
+                self._tcfg, self.maps, sfm_grid.stride_for(self.cfg),
+                self.devices)
+            self._step = tile2d.make_sharded_step(self._tcfg, self.devices,
+                                                  **step_kw)
+        else:
+            self._fwp, self._fobs = sfm_grid.field_tensors(
+                self.cfg, self.maps, self.device, row_block=o.row_block)
+            self._step = sfm_grid.make_step_grid(
+                self.cfg, row_block=o.row_block, **step_kw)
         self._kernel_chain = None  # shapes depend on K
-        log.info("step function built: capacity=%d K=%d device=%s",
-                 capacity, o.table_capacity, self.device)
+        log.info("step function built: capacity=%d K=%d device=%s tiles=%s",
+                 capacity, o.table_capacity, self.device, o.resolve_tile())
 
     def tick(self) -> StepRecord:
         """Advance one step (lib.rs:64-100) and return host-side metrics."""
@@ -299,7 +332,10 @@ class Simulator:
         spawn, no metrics; the incremental branch when the step is the
         hybrid), chained ``n`` times from the current state.  On a CUDA
         device timed with CUDA events; on the CPU (twins) with the host
-        clock."""
+        clock.  One device only."""
+        if self._tcfg is not None:
+            raise ValueError("measure_kernel_time times one device's kernels; "
+                             "this simulator runs tiles")
         if self._kernel_chain is None:
             self._kernel_chain = sfm_grid.make_kernel_chain(
                 self.cfg, row_block=self.options.row_block,
@@ -321,15 +357,19 @@ class Simulator:
         return start.elapsed_time(end) / 1000.0 / n
 
     def _to_flat_state(self) -> SimState:
-        """The state as flat agent tensors: the checkpoint, render and
-        diagnostic exchange format."""
+        """The state as flat agent tensors, whatever the device count: the
+        checkpoint, render and diagnostic exchange format."""
+        if self._tcfg is not None:
+            return tile2d.unbin_sharded(self._tcfg, self.state)
         return sfm_grid.unbin_state(self.cfg, self.state)
 
-    def _from_flat_state(self, state: SimState) -> sfm_grid.GridState:
+    def _from_flat_state(self, state: SimState):
         """Inverse of :meth:`_to_flat_state` (the reference's sim.py:
-        550-563, one device): the agents binned on this simulator's
-        device."""
+        543-560): the agents binned on this simulator's device, or cut into
+        its tiles — so checkpoints restore across device counts."""
         state = SimState(agents=state.agents.to(self.device), step=state.step)
+        if self._tcfg is not None:
+            return tile2d.make_sharded_grid_state(self._tcfg, state, self.devices)
         return sfm_grid.bin_state(self.cfg, state,
                                   row_block=self.options.row_block)
 
@@ -342,6 +382,8 @@ class Simulator:
 
     @property
     def pedestrian_count(self) -> int:
+        if self._tcfg is not None:
+            return tile2d.population(self.state)
         return int((self.state.d[:, :, 6, :] > 0.5).sum())
 
     def new_log(self, scenario_name: str = "") -> DiagnosticLog:

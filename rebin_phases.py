@@ -61,7 +61,8 @@ def _cut_builds(build) -> dict[int, ctypes.CDLL]:
     work = build.BUILD_DIR / "rebin_phases"
     work.mkdir(parents=True, exist_ok=True)
     (work / "rebin.cu").write_text(src)
-    (work / "rebin.cuh").write_text((build.CSRC / "rebin.cuh").read_text())
+    for header in build.CSRC.glob("*.cuh"):
+        (work / header.name).write_text(header.read_text())
     procs = {p: subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, f"-DPEDONI_PHASE={p}", "-shared",
          "-o", str(work / f"phase{p}.so"), str(work / "rebin.cu")],
@@ -113,7 +114,7 @@ def main() -> int:
     mk = m_mv.shape[1]
     stream = torch.cuda.current_stream().cuda_stream
     out = rb.new_outputs(g)
-    tail = (unit, nx, ny)
+    tail = (unit, nx, ny, 0, 0, nx)  # a whole grid: no tile offsets
 
     def full(library, rows, lanes):
         return library.pedoni_rebin_full(

@@ -8,10 +8,14 @@ cli.py), on the CPU:
 - ``cli.main([... "-b", "cpu", "--no-distance-map", ...])`` writes a log
   with the reference's schema (tests/test_api.py:88-147), checkpoints
   every N steps, and a resumed run restores agents and generator exactly;
-- the flags the port does not cover exit non-zero before any work.
+- the flags the port does not cover exit non-zero before any work;
+- ``--tile 2x2 -b cpu`` runs gap.toml on four tiles until the population
+  reaches 0, and ``--devices`` / ``--tile`` are parsed with the
+  reference's messages.
 """
 
 import json
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -142,7 +146,7 @@ def test_cli_checkpoint_and_resume(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-b", "xla"], ["-b", "tpu"], ["--devices", "2"], ["--tile", "2x1"],
+    ["-b", "xla"], ["-b", "tpu"],
     ["--render"], ["--render-web"], ["--record-every", "5"],
     ["--frame-every", "5"], ["--profile", "trace"], ["--no-headless"],
 ], ids=lambda e: e[-1].lstrip("-"))
@@ -157,3 +161,47 @@ def test_unported_flags_exit_nonzero(tmp_path, extra):
     assert exc.value.code not in (0, None)
     assert "ROADMAP" in str(exc.value.code)
     assert not (tmp_path / "logs").exists()
+
+
+def test_cli_tiles_evacuate_gap(tmp_path):
+    """``python -m pedoni_tpu_torch gap.toml -H -b cpu --tile 2x2``: four
+    tiles on the CPU, until the population reaches 0 (step 263 at seed 0,
+    as on one device)."""
+    gap = pathlib.Path(__file__).resolve().parents[1] / "scenarios" / "gap.toml"
+    argv = [str(gap), "-H", "-b", "cpu", "--tile", "2x2", "-s", "0",
+            "--max-steps", "280", "--log-dir", str(tmp_path / "logs")]
+    sim = cli.make_simulator(cli.build_parser().parse_args(argv))
+    assert sim.options.resolve_tile() == (2, 2) and sim.options.n_devices == 4
+    assert cli.main(argv) == 0
+    (out,) = (tmp_path / "logs").glob("*_log.json")
+    pops = json.loads(out.read_text())["step_metrics"]["active_ped_count"]
+    assert pops[0] == 64 and pops[-1] == 0 and pops.index(0) + 1 == 263
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--tile", "0x2"], "positive integers"),
+    (["--tile", "2by2"], "positive integers"),
+    (["--tile", "2x2", "--devices", "3"], "does not cover --devices 3"),
+], ids=["zero", "malformed", "mismatch"])
+def test_cli_tile_parsing(tmp_path, extra, message):
+    """--tile and --devices as the reference parses them (its cli.py:107-
+    125): bad tiles exit non-zero with its messages, before any work."""
+    with pytest.raises(SystemExit, match=message):
+        cli.main(_argv(tmp_path, "--max-steps", "1", *extra))
+    assert not (tmp_path / "logs").exists()
+
+
+def test_cli_devices_cut_row_strips(tmp_path):
+    """--devices 2 alone: two row strips, as the reference's row-strip
+    shim; the run equals one device's."""
+    logs = {}
+    for n in ("1", "2"):
+        argv = _argv(tmp_path, "--max-steps", "8", "--devices", n,
+                     "--log-dir", str(tmp_path / n))
+        assert cli.main(argv) == 0
+        (out,) = (tmp_path / n).glob("*_log.json")
+        logs[n] = json.loads(out.read_text())["step_metrics"]["active_ped_count"]
+    sim = cli.make_simulator(cli.build_parser().parse_args(
+        _argv(tmp_path, "--devices", "2")))
+    assert sim.options.resolve_tile() == (2, 1)
+    assert logs["2"] == logs["1"] and logs["1"][0] == 10

@@ -266,7 +266,7 @@ def _tile_case(name):
             [crowd, rng.uniform(0.02, 1.48, (k, 2)) + [9.0, 12.0]]), 6)
         ny2, kk, _, nxl = case[2].shape
         assert kk == k and int(case[2][:, 0, 7].max()) == k
-        rows, threads, smem = sk.pair_pass_launch(k, ny2, nxl)
+        rows, threads, smem, _levels = sk.pair_pass_launch(k, ny2, nxl)
         assert (rows, threads) == launch[:2]
         assert (2 * (smem + tiles.SMEM_BLOCK_RESERVED) <= tiles.SMEM_SM) == (launch[2] == 2)
         return (*case, 2)
@@ -490,3 +490,192 @@ def test_rebin_incremental_lands_rows_past_the_count():
     torch.cuda.synchronize()
     for name, a, b in zip(("D'", "ovf", "dmx", "nin", "nout"), got, want):
         assert torch.equal(a, b), name
+
+
+def _crowded_grid(k, seed):
+    """gap.toml's fields (NXL = 128) with a crowd and three cells filled to
+    K, K - 9 and K // 2 agents side by side and diagonally, so that a pair
+    pass walks every slot level of a tile and its halo."""
+    rng = np.random.default_rng(seed)
+    pos = np.concatenate([
+        rng.uniform(0.01, 23.99, (1500, 2)),
+        rng.uniform(0.02, 1.48, (k, 2)) + [9.0, 9.0],
+        rng.uniform(0.02, 1.48, (k - 9, 2)) + [10.5, 9.0],
+        rng.uniform(0.02, 1.48, (k // 2, 2)) + [12.0, 10.5]])
+    case = _gap_grid(1.5, k, pos, seed)
+    assert int(case[2][:, 0, 7].max()) == k
+    return case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [98, 120, 255])
+def test_pair_passes_at_large_k(k, monkeypatch):
+    """Past K 97 a one-row tile's slot levels no longer fit a block's shared
+    memory and the pair passes stage them in chunks: the step kernel (base
+    and mover mode, segment mode with the table walked by the pair pass)
+    and 2D equal their twins bit for bit, as they do at small K."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    sc, cfg, d, fwp, fobs, stride = _crowded_grid(k, seed=k)
+    ny2, _, _, nxl = d.shape
+    assert sk.pair_pass_launch(k, ny2, nxl, segments=True)[3] < k
+    assert (sk.pair_pass_launch(k, ny2, nxl)[3] < k) == (k > 98)
+    assert pw.pairwise_launch(k, ny2, nxl)[3] < k
+    args = (d, fwp, fobs, cfg.physics, sc.size)
+    got = sk.fused_step(*args)
+    want = sk.fused_step_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    got = sk.fused_step(*args, emit_movers=8)
+    want = sk.fused_step_torch(*args, emit_movers=8)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):  # G, M, movf, mdmx
+        assert torch.equal(a, b)
+    monkeypatch.setattr(sk, "segment_pass", lambda n_seg: True)
+    segs = sk.segment_table(_obstacles(sc), "cuda")
+    got = sk.fused_step(*args, segments=segs)
+    want = sk.fused_step_torch(*args, segments=segs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    e = torch.randn((ny2, k, 2, nxl), generator=torch.Generator("cuda").manual_seed(k),
+                    device="cuda")
+    d2 = d.clone()
+    d2[:, :, 4:6] = e / e.norm(dim=2, keepdim=True)
+    got = pw.pairwise(d2, Physics(), row_block=2)
+    want = pw.pairwise_torch(d2, Physics(), row_block=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and float(want.abs().max()) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(2, 2), (1, 3)])
+def test_kernels_at_tile_offsets(tile):
+    """Each tile of gap.toml's grid cut into tiles (parallel/tile2d.py),
+    its ghosts exchanged: the step kernel (base and mover mode) and both
+    rebins with the tile's row and column offsets equal their twins bit for
+    bit on all outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pedoni_tpu_torch.parallel import tile2d
+    sc, cfg, d, fwp, fobs, stride = _crowded_grid(14, seed=5)
+    tcfg = tile2d.Tile2DConfig.build(cfg, *tile)
+    devices = ["cuda"] * tcfg.n_devices
+    flat = sfm_grid.unbin_state(cfg, sfm_grid.GridState(d, 0))
+    tiles = list(tile2d.make_sharded_grid_state(tcfg, flat, devices).d)
+    tile2d.exchange(tcfg, tiles)
+    maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
+    fwps, fobss = tile2d.device_inputs(tcfg, maps, stride, devices)
+    unit, nx, ny = cfg.grid.unit, cfg.grid.nx, cfg.grid.ny
+    for i, (dt, wp, ob) in enumerate(zip(tiles, fwps, fobss)):
+        r0, c0 = tcfg.origin(i)
+        off = dict(row_offset=r0, col_offset=c0, nx_local=tcfg.cols_local)
+        args = (dt, wp, ob, cfg.physics, sc.size)
+        g = sk.fused_step(*args, **off)
+        g_t = sk.fused_step_torch(*args, **off)
+        mv = sk.fused_step(*args, emit_movers=6, **off)
+        mv_t = sk.fused_step_torch(*args, emit_movers=6, **off)
+        torch.cuda.synchronize()
+        assert torch.equal(g, g_t)
+        for a, b in zip(mv, mv_t):
+            assert torch.equal(a, b)
+        # the wrappers run the twins on CPU tensors
+        for kernel, ins in ((rb.rebin, (g_t,)),
+                            (rb.rebin_incremental, (mv_t[0], mv_t[1]))):
+            got = kernel(*ins, unit, nx, ny, **off)
+            want = kernel(*(t.cpu() for t in ins), unit, nx, ny, **off)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
+        assert float(g_t[:, :, 6].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cli_more_devices_than_cards_exits_naming_the_count(tmp_path):
+    """On the card, tile i runs on cuda:i: asking for one device more than
+    the machine has exits non-zero before any step, naming the count (the
+    reference's message); it never falls back to fewer tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import subprocess
+    import sys
+    n = torch.cuda.device_count()
+    r = subprocess.run([sys.executable, "-m", "pedoni_tpu_torch", str(GAP), "-H",
+                        "--devices", str(n + 1), "--max-steps", "1",
+                        "--log-dir", str(tmp_path)],
+                       cwd=pathlib.Path(__file__).resolve().parents[1],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert f"--devices {n + 1} but only {n} devices are visible" in r.stderr
+    assert not list(tmp_path.glob("*_log.json"))
+
+
+@pytest.mark.cuda
+def test_launch_off_the_current_card_is_refused():
+    """A kernel launches on the current card.  A grid on cuda:1 handed to a
+    launcher while cuda:0 is current is refused by the launcher's device
+    check (csrc/device.cuh); through the wrappers, which make the grid's
+    card current, the step kernel, both rebins and 2D run on cuda:1 and
+    equal the same kernels on cuda:0 bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: tiles run on cuda:i")
+    from pedoni_tpu_torch.ops.kernels import _build
+    sc, cfg, d, fwp, fobs, stride = _crowded_grid(14, seed=3)
+    on1 = [t.to("cuda:1") for t in (d, fwp, fobs)]
+    unit, nx, ny = cfg.grid.unit, cfg.grid.nx, cfg.grid.ny
+    ny2, k, _, nxl = d.shape
+    phys, size = cfg.physics, sc.size
+
+    def run(d, fwp, fobs):
+        g, m = sk.fused_step(d, fwp, fobs, phys, size, emit_movers=8)[:2]
+        outs = (sk.fused_step(d, fwp, fobs, phys, size),
+                rb.rebin(g, unit, nx, ny)[0],
+                rb.rebin_incremental(g, m, unit, nx, ny)[0],
+                pw.pairwise(d, Physics(), row_block=2))
+        torch.cuda.synchronize(d.device)
+        return outs
+
+    lib = _build.library()
+    with torch.cuda.device(0):
+        out = rb.new_outputs(on1[0])
+        rc = lib.pedoni_rebin_full(
+            on1[0].data_ptr(), out[0].data_ptr(), *rb._ptrs(out, None), rb.FULL,
+            ny2, k, nxl, 2, unit, nx, ny, 0, 0, nx,
+            *rb.rebin_launch(k, 0, ny2, nxl, 2), None)
+        assert rc == _build.WRONG_DEVICE
+        with pytest.raises(RuntimeError, match="not on the current CUDA device"):
+            _build.check_launch(rc, "pedoni_rebin_full")
+        want = run(d, fwp, fobs)
+        got = run(*on1)
+    assert all(t.device == torch.device("cuda", 1) for t in got)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("incremental", [False, True])
+def test_tiles_on_several_cards(incremental):
+    """Simulator(n_devices=n) puts tile i on cuda:i: corridor.toml (two
+    periodic streams) on 2 x 2 tiles over four cards (1 x 2 over two)
+    equals one card's run, every metric each tick and the agents after it,
+    on the full path and on the hybrid (``compact_every=1000``)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices or more: tile i runs on cuda:i")
+    from pedoni_tpu_torch import Simulator, SimulatorOptions
+    tile = (2, 2) if n >= 4 else (1, 2)
+    n_t = tile[0] * tile[1]
+    sc = load_scenario(SCENARIOS / "corridor.toml")
+    opts = dict(device="cuda", seed=3, incremental_rebin=incremental,
+                compact_every=1000 if incremental else 8)
+    one = Simulator(SimulatorOptions(**opts), sc)
+    tiled = Simulator(SimulatorOptions(n_devices=n_t, tile=tile, **opts), sc)
+    assert [t.device for t in tiled.state.d] == [torch.device("cuda", i)
+                                                 for i in range(n_t)]
+    spawned = 0
+    for _ in range(60):
+        one.tick()
+        tiled.tick()
+        assert tiled.last_metrics == one.last_metrics
+        spawned += one.last_metrics.n_spawned
+    assert spawned > 0 and one.last_metrics.n_active > 0
+    for a, b in zip(one.list_pedestrians(), tiled.list_pedestrians()):
+        assert np.array_equal(a, b)

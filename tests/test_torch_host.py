@@ -90,8 +90,9 @@ def test_package_never_imports_jax_or_reference():
 
 
 @pytest.mark.parametrize("option", [
-    {"backend": "xla"}, {"n_devices": 2},
-    {"backend": "pallas"}, {"n_devices": 4},
+    # tiles (n_devices > 1) are ported; on a backend that is not, they raise
+    {"backend": "xla"}, {"backend": "xla", "n_devices": 2},
+    {"backend": "pallas"}, {"backend": "pallas", "n_devices": 4},
 ])
 def test_unported_options_raise(option):
     with pytest.raises(ValueError, match="ROADMAP"):

@@ -134,13 +134,20 @@ def test_segment_walk_choice():
 def test_segment_pair_pass_launch(k, ny2, nxl):
     """Segments mode adds its staged rows and terms to the pair pass's
     shared memory; the tile still fits a block and covers the grid once;
-    K = 150 fits no tile in either mode."""
+    at K = 150 no tile holds every slot level in either mode, and one-row
+    tiles stage them in chunks, the segment pass's room shared with the
+    staging."""
     if k == 150:
         for seg in (False, True):
-            with pytest.raises(ValueError, match="shared memory"):
-                sk.pair_pass_launch(k, ny2, nxl, segments=seg)
+            rows, threads, smem, levels = sk.pair_pass_launch(k, ny2, nxl,
+                                                              segments=seg)
+            assert (rows, threads) == (1, 512) and levels < k
+            assert levels % sk.WALK_LEVELS == 0
+            assert smem == sk.pair_pass_smem_bytes(k, 1, seg, levels) <= SMEM_BLOCK
+        _assert_covers(1, ny2, nxl)
         return
-    rows, threads, smem = sk.pair_pass_launch(k, ny2, nxl, segments=True)
+    rows, threads, smem, levels = sk.pair_pass_launch(k, ny2, nxl, segments=True)
+    assert levels == k
     extra = (4 * sk.SEG_COLS * sk.SEG_CAP + 8 * sk.SEG_TERM_CAP + 16 * 32 + 16)
     assert smem == sk.pair_pass_smem_bytes(k, rows) + extra <= SMEM_BLOCK
     assert smem == sk.pair_pass_smem_bytes(k, rows, segments=True)
@@ -154,13 +161,20 @@ def test_segment_pair_pass_launch(k, ny2, nxl):
 @pytest.mark.parametrize("ny2,nx", [(178, 1024), (18, 128), (19, 256), (3, 128)])
 def test_pairwise_launch(k, ny2, nx):
     """2D's tile: 512 threads, 1 or 2 rows, the shared memory of
-    csrc/pairwise.cu's sum, room for two blocks an SM up to K 29; K = 150
-    fits no tile."""
+    csrc/pairwise.cu's sum, room for two blocks an SM up to K 29; at K =
+    150 no tile holds every slot level, and one-row tiles stage a dy row's
+    levels in chunks."""
     if k == 150:
-        with pytest.raises(ValueError, match="shared memory"):
-            pw.pairwise_launch(k, ny2, nx)
+        rows, threads, smem, levels = pw.pairwise_launch(k, ny2, nx)
+        assert (rows, threads) == (1, 512) and levels < k
+        assert levels % pw.HIT_LEVELS == 0
+        assert smem == pw.pairwise_smem_bytes(k, 1, levels) <= SMEM_BLOCK
+        # masks, one dy row's staged levels, accelerations, list, counters, box
+        assert smem == 8 * 3 * k + 20 * levels * 34 + 10 * k * 32 + 12 + 8 + 512
+        _assert_covers(1, ny2, nx)
         return
-    rows, threads, smem = pw.pairwise_launch(k, ny2, nx)
+    rows, threads, smem, levels = pw.pairwise_launch(k, ny2, nx)
+    assert levels == k
     assert smem == pw.pairwise_smem_bytes(k, rows) <= SMEM_BLOCK
     assert threads == 512 and rows in (1, 2) and rows <= ny2 - 2
     assert 2 * (smem + tiles.SMEM_BLOCK_RESERVED) <= tiles.SMEM_SM

@@ -41,8 +41,9 @@ SHAPES = [(178, 1024), (136, 256), (134, 896), (19, 128), (3, 128)]
 @pytest.mark.parametrize("k", [14, 16, 25, 29])
 @pytest.mark.parametrize("ny2,nxl", SHAPES)
 def test_pair_pass_launch_fits_and_covers(k, ny2, nxl):
-    rows, threads, smem = sk.pair_pass_launch(k, ny2, nxl)
+    rows, threads, smem, levels = sk.pair_pass_launch(k, ny2, nxl)
     assert smem == sk.pair_pass_smem_bytes(k, rows) <= SMEM_BLOCK
+    assert levels == k  # every slot level staged at once
     assert threads == 512 and rows in (1, 2)  # all csrc/step_kernel.cu takes
     # the launch grid of csrc/step_kernel.cu: every centre cell once
     grid_x, grid_y = nxl // sk.TILE_LANES, -(-(ny2 - 2) // rows)
@@ -64,7 +65,7 @@ def test_pair_pass_launch_prefers_two_blocks_an_sm():
         assert 2 * (sk.pair_pass_launch(k, 178, 1024)[2] + 1024) <= 228 * 1024
 
 
-@pytest.mark.parametrize("k,ny2,nxl", [(120, 178, 1024), (0, 178, 1024),
+@pytest.mark.parametrize("k,ny2,nxl", [(256, 178, 1024), (0, 178, 1024),
                                        (14, 178, 1000), (14, 2, 128)])
 def test_pair_pass_launch_raises_where_nothing_fits(k, ny2, nxl):
     with pytest.raises(ValueError):
@@ -74,8 +75,9 @@ def test_pair_pass_launch_raises_where_nothing_fits(k, ny2, nxl):
 def test_pair_pass_launch_falls_back_to_one_row():
     """A K at which two blocks of two rows no longer fit an SM takes one
     row; a grid with one centre row does too; smem grows with K."""
-    rows, threads, smem = sk.pair_pass_launch(40, 178, 1024)
+    rows, threads, smem, levels = sk.pair_pass_launch(40, 178, 1024)
     assert rows == 1 and threads == 512 and 2 * (smem + 1024) <= 228 * 1024
+    assert levels == 40
     assert sk.pair_pass_launch(14, 3, 128)[0] == 1
     assert sk.pair_pass_smem_bytes(29, 2) > sk.pair_pass_smem_bytes(25, 2)
 
