@@ -80,11 +80,25 @@ nvcc, one process per source, then:
    K whose one-row tile holds every slot level): the step kernel (base
    and mover mode) and 2D equal to their twins, timed beside K = 14; then
    step 1's fields at K = MAX_K (255) with cells filled to K: the step
-   kernel (base, mover and segment mode) and 2D equal to their twins.
+   kernel (base, mover and segment mode) and 2D equal to their twins;
+12, 13. the bench problem at 8 and at 33 waypoints (``build_problem(
+   waypoints=W)``, 1M agents on the full 1024 lanes):
+   16 hybrid steps (launch counts zeroed before, read after; >= 99% of the
+   agents active, positions finite, agents bound for every plane), their
+   peak device memory (``max_memory_allocated`` after
+   ``reset_peak_memory_stats``) within ``sfm_grid.device_bytes``; the step
+   kernel (base, mover and segment mode) and both rebins against their
+   twins on the state they leave; the step kernel's ms beside W = 1's; and
+   ``sfm_grid.supports`` refusing the configuration one byte below
+   ``device_bytes``;
+14. ``python -m pedoni_tpu_torch.bench --steps 8 --warmup 2`` as a
+   subprocess: exit 0, exactly one JSON line, value > 0, its ``device`` this
+   card, and the hybrid's kernels launched in its timed rounds.
 
-Prints the card's name and power limit, one JSON line describing the
-kernels, and as its last line {"ok": true, "device": {...}}.  Exits
-non-zero, with no result line, on any failure or without a CUDA device.
+Each phase from 6 on prints its seconds.  Prints the card's name and power
+limit, one JSON line describing the kernels, and as its last line
+{"ok": true, "device": {...}}.  Exits non-zero, with no result line, on any
+failure or without a CUDA device.
 """
 
 from __future__ import annotations
@@ -129,6 +143,7 @@ SPAWN_SYNC_STEPS = 16  # spawning steps under set_sync_debug_mode("error")
 TILES = ((1, 2), (2, 2))  # the 1M workload's tilings, all on one card
 TILE_STEPS = 16  # steps of the tiled and the whole-grid 1M step compared
 BIG_K = 121  # the table capacity after 81 in Simulator._grow_table
+WP_STEPS = 16  # hybrid steps of the bench problem at 8 and 33 waypoints
 MAX_K = 255  # the largest table capacity the pair passes take
 # The same measurements with the kernels' first designs, from PERF.md (NVIDIA
 # H100 80GB HBM3, 700 W): the step kernel with one thread per slot (a sample
@@ -196,25 +211,13 @@ def _vs_first(key: str, ms: float) -> str:
 
 
 def _launch_counts() -> dict[str, int]:
-    from pedoni_tpu_torch.ops.kernels import pairwise as pw
-    from pedoni_tpu_torch.ops.kernels import rebin as rb
-    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
-    return {"step_kernel": sk.fused_step.launches,
-            "step_kernel_movers": sk.fused_step.mover_launches,
-            "step_kernel_segments": sk.fused_step.segment_launches,
-            "rebin": rb.rebin.launches,
-            "rebin_incremental": rb.rebin_incremental.launches,
-            "pairwise": pw.pairwise.launches}
+    from pedoni_tpu_torch.ops.kernels import launch_counts
+    return launch_counts()
 
 
 def _zero_launch_counts() -> None:
-    from pedoni_tpu_torch.ops.kernels import pairwise as pw
-    from pedoni_tpu_torch.ops.kernels import rebin as rb
-    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
-    sk.fused_step.launches = sk.fused_step.mover_launches = 0
-    sk.fused_step.segment_launches = 0
-    rb.rebin.launches = rb.rebin_incremental.launches = 0
-    pw.pairwise.launches = 0
+    from pedoni_tpu_torch.ops.kernels import zero_launch_counts
+    zero_launch_counts()
 
 
 def _step_err(d, got, want) -> float:
@@ -1201,6 +1204,125 @@ def _cli_phase() -> None:
               flush=True)
 
 
+def _waypoints_phase(dev, card, n_wp: int, w1_ms: dict) -> dict:
+    """12, 13. The bench problem at ``n_wp`` waypoints (full 1024-lane
+    width): WP_STEPS hybrid steps (launch counts zeroed before, read after;
+    peak memory beside ``device_bytes``), the step kernel in base, mover and
+    segment mode and both rebins against their twins on the state they
+    leave, the step kernel's ms beside W = 1's (``w1_ms``), and ``supports``
+    refusing one byte below ``device_bytes``.  Returns the phase's numbers."""
+    from pedoni_tpu_torch.bench import build_problem
+    from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+
+    what = f"1M W={n_wp}"
+    t0 = time.perf_counter()
+    _sc, maps, cfg, flat = build_problem(N_AGENTS, device=dev, waypoints=n_wp)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwp, fobs = sfm_grid.field_tensors(cfg, maps, dev)
+    gs = sfm_grid.bin_state(cfg, flat)  # flat stays: peak counts from base
+    step = sfm_grid.make_step_grid(cfg)
+    _zero_launch_counts()
+    for _ in range(WP_STEPS):
+        gs, m = step(gs, fwp, fobs)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    need = sfm_grid.device_bytes(cfg)
+    n_compact = -(-WP_STEPS // 8)
+    want = {"step_kernel": 0, "step_kernel_movers": WP_STEPS,
+            "step_kernel_segments": 0, "rebin": WP_STEPS,
+            "rebin_incremental": WP_STEPS - n_compact, "pairwise": 0}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts} != {want}")
+    if peak > need:
+        raise AssertionError(f"{what}: peak memory {peak} > device_bytes {need}")
+    d = gs.d
+    n_active = int(m.n_active)
+    held = (d[:, :, 6] > 0.5).unsqueeze(2).expand(-1, -1, 4, -1)
+    if not bool(torch.isfinite(d[:, :, 0:4][held]).all()):
+        raise AssertionError(f"{what}: non-finite positions or velocities")
+    if n_active < 0.99e6:
+        raise AssertionError(f"{what}: only {n_active} agents active")
+    planes = d[:, :, 5][d[:, :, 6] > 0.5].unique().numel()
+    if planes != n_wp:
+        raise AssertionError(f"{what}: agents bound for {planes} of {n_wp} planes")
+    print(f"# {what}: grid {cfg.grid.nx} x {cfg.grid.ny} cells, D "
+          f"{tuple(d.shape)}, fwp {_nbytes(fwp) / 1e6:.1f} MB, texel-major "
+          f"copy {_nbytes(sk.packed_fields(fwp, fobs)) / 1e6:.1f} MB; problem "
+          f"built in {t_build:.1f} s; {WP_STEPS} hybrid steps, {n_active} "
+          f"active, agents bound for all {n_wp} planes; launches {counts}; "
+          f"peak memory {peak} bytes, device_bytes {need} ({peak / need:.1%}) "
+          f"on {card}", flush=True)
+
+    phys, size = cfg.physics, cfg.scenario.size
+    unit, nx, ny = cfg.grid.unit, cfg.grid.nx, cfg.grid.ny
+    step_err, mover_err = _compare(d, fwp, fobs, phys, size, unit, nx, ny, 8,
+                                   f"{what} state")
+    segs = sk.segment_table(_obstacles(cfg.scenario), dev)
+    seg_err, seg_mover_err, _, _ = _compare_step(d, fwp, fobs, phys, size, 8,
+                                                 f"{what} state, segments",
+                                                 segments=segs)
+    print(f"# {what} state, segment mode: step kernel max |err| {seg_err:.3e} "
+          f"(base), {seg_mover_err:.3e} (mover mode), both walks", flush=True)
+    ms = {"step_kernel": _median_ms(lambda: sk.fused_step(d, fwp, fobs, phys, size)),
+          "step_kernel_movers": _median_ms(
+              lambda: sk.fused_step(d, fwp, fobs, phys, size, emit_movers=8))}
+    print(f"# {what} step kernel: {ms['step_kernel']:.4f} ms base, "
+          f"{ms['step_kernel_movers']:.4f} ms mover mode; W=1 on its path's "
+          f"1M state {w1_ms['step_kernel']:.4f} / "
+          f"{w1_ms['step_kernel_movers']:.4f} (medians of 20, CUDA events) "
+          f"on {card}", flush=True)
+    if not (sfm_grid.supports(cfg, free_bytes=need)
+            and not sfm_grid.supports(cfg, free_bytes=need - 1)):
+        raise AssertionError(f"{what}: supports does not turn at device_bytes")
+    try:
+        sfm_grid.check_fits(need, dev, free_bytes=need - 1)
+    except ValueError as e:
+        said = str(e)
+    else:
+        raise AssertionError(f"{what}: check_fits let {need} bytes into {need - 1}")
+    print(f"# {what}: supports true at free_bytes = device_bytes, false one "
+          f"byte below; check_fits: \"{said}\"", flush=True)
+    return {"max_abs_err": max(step_err, mover_err, seg_err,
+                                                   seg_mover_err),
+            "step_kernel_ms": ms["step_kernel"],
+            "step_kernel_movers_ms": ms["step_kernel_movers"],
+            "peak_bytes": peak, "device_bytes": need}
+
+
+def _bench_phase(card: str) -> dict:
+    """14. ``python -m pedoni_tpu_torch.bench --steps 8 --warmup 2`` as a
+    subprocess: exit 0, one JSON line, value > 0, ``device`` naming this
+    card, and the launch counts of its timed rounds (``--verbose``) showing
+    the hybrid's kernels."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "pedoni_tpu_torch.bench", "--steps",
+                        "8", "--warmup", "2", "--verbose"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"bench exited {r.returncode}:\n{r.stderr[-3000:]}")
+    lines = [line for line in r.stdout.splitlines() if line.strip()]
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} lines:\n{r.stdout[-3000:]}")
+    rec = json.loads(lines[0])
+    launches = [line for line in r.stderr.splitlines()
+                if line.startswith("# launches ")]
+    counts = json.loads(launches[0][len("# launches "):]) if launches else {}
+    if not (rec["value"] > 0 and rec["device"] == card.splitlines()[0]):
+        raise AssertionError(f"bench record {rec} (card {card!r})")
+    used = ("step_kernel_movers", "rebin", "rebin_incremental")
+    if not all(counts.get(name, 0) > 0 for name in used):
+        raise AssertionError(f"bench timed rounds launched {counts}")
+    print(f"# bench (python -m pedoni_tpu_torch.bench --steps 8 --warmup 2): "
+          f"exit 0 in {time.perf_counter() - t0:.1f} s, {lines[0]}; launches "
+          f"in its timed rounds {counts}", flush=True)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -1460,12 +1582,25 @@ def main() -> int:
                            (times["step_kernel"][0], kernels[-1]["ms"]), grid1)
     print(f"# phase 11 (K {BIG_K}, K {MAX_K}) took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    w1_ms = {n: times[n][0] for n in ("step_kernel", "step_kernel_movers")}
+    by_wp = {}
+    for n_wp, phase in ((8, 12), (33, 13)):
+        t0 = time.perf_counter()
+        by_wp[n_wp] = _waypoints_phase(dev, card, n_wp, w1_ms)
+        print(f"# phase {phase} (W {n_wp}) took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    t0 = time.perf_counter()
+    _bench_phase(card)
+    print(f"# phase 14 (bench) took {time.perf_counter() - t0:.1f} s", flush=True)
     for entry in kernels:  # the forms of each kernel this run held to its twin
         if entry["name"] != "pairwise":
             entry["tile_offsets"] = "ported"
         if entry["name"] != "rebin" and entry["name"] != "rebin_incremental":
             entry["k_up_to"] = big_k["k_max"]  # the largest K compared here
+        if entry["name"].startswith("step_kernel"):
+            entry["waypoints"] = [1, 2, 8, 33]  # W compared here (2: step 1)
     kernels[0]["tiles_1m"] = tiled
+    kernels[0]["by_waypoints"] = by_wp
     kernels[0][f"k{BIG_K}"] = {n: big_k[n] for n in ("step_kernel_ms", "max_abs_err")}
     kernels[-1][f"k{BIG_K}"] = {"ms": big_k["pairwise_ms"],
                                 "max_abs_err": big_k["max_abs_err"]}

@@ -6,8 +6,9 @@ over a list of devices (``parallel``): the plain-torch spawn scatter, the hand-w
 segment obstacles, optional mover emit), the full and incremental rebins
 and the standalone pairwise kernel (``ops/kernels/csrc``), each with a
 plain PyTorch twin that runs on CPU tensors; the Simulator with both
-debug modes, checkpoints (``checkpoint``) and the headless CLI
-(``python -m pedoni_tpu_torch``).  Host modules (scenario, field,
+debug modes, checkpoints (``checkpoint``), the headless CLI
+(``python -m pedoni_tpu_torch``) and the headline benchmark
+(``python -m pedoni_tpu_torch.bench``).  Host modules (scenario, field,
 physics, diagnostics, fields6, utils, the native FMM) are copies of the
 reference's, since importing any of the reference's modules loads JAX.
 """

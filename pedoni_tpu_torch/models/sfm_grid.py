@@ -42,7 +42,7 @@ import torch
 from ..field import FieldMaps
 from ..ops.fields6 import Fields6
 from ..ops.kernels.rebin import new_outputs, rebin, rebin_incremental
-from ..ops.kernels.step_kernel import fused_step, segment_table
+from ..ops.kernels.step_kernel import SEG_COLS, fused_step, segment_table
 from ..ops.neighbor import compute_cell_ids, true_divide
 from .sfm import AgentState, SimState, StepConfig, StepMetrics, spawn_sampler
 
@@ -87,6 +87,73 @@ def field_tensors(cfg: StepConfig, maps: FieldMaps, device: torch.device | str,
     f6 = Fields6.build(maps, cfg.grid.nx, ny_pad, stride=stride_for(cfg) or 6)
     return (torch.from_numpy(f6.wp).to(device),
             torch.from_numpy(f6.obs).to(device))
+
+
+def device_bytes(cfg: StepConfig, row_block: int = 2, incremental: bool = True,
+                 mover_k: int = 8, tile: tuple[int, int] | None = None) -> int:
+    """Bytes that one step of ``make_step_grid(cfg, row_block, incremental,
+    mover_k)`` holds on its device: the port's counterpart of the
+    reference's ``sfm_pallas.vmem_need_bytes``, for the card's memory.
+    ``tile`` = (cell rows, lanes) of one tile of a grid cut into tiles
+    (parallel/tile2d.py); by default the whole grid.
+
+    D and the step kernel's output G; its scratch act' [ny2, K, NXL] and
+    (e, acc) [ny2, K, NXL, 4] (``step_kernel.step_scratch``); fwp and fobs;
+    their texel-major copy (``step_kernel.pack_fields``), 2 * n_wp planes
+    of their size; the rebin's D' and its four per-block sums; in the
+    hybrid the mover table M and the per-block movf and mdmx; in segment
+    mode the edge table.  The sum of the tensors, not the peak: the scratch
+    is freed before the rebin allocates D'."""
+    dims = GridDims.build(cfg, row_block)
+    ny_pad, nxl = tile or (dims.ny_pad, dims.nxl)
+    k, s = dims.k, stride_for(cfg) or 6
+    mk = min(mover_k, k) if incremental else 0
+    n_wp = len(cfg.scenario.waypoints)
+    n_obs = 0 if cfg.use_distance_map else len(cfg.scenario.obstacles)
+    ny2, nb = ny_pad + 2, ny_pad // row_block
+    slots = ny2 * k * nxl
+    plane = (s * ny_pad + 3 * s + 5) * s * 4 * nxl  # Fields6.build's rows
+    return 4 * (3 * slots * 8  # D, G, D'
+                + slots * 5  # act', (e, acc)
+                + 4 * nb  # the rebin's overflow, demand, active in and out
+                + ny2 * mk * 8 * nxl + (2 * nb if mk else 0)  # M, movf, mdmx
+                + n_obs * SEG_COLS
+                + (n_wp + 1) * plane + 2 * max(n_wp, 1) * plane)
+
+
+def card_free_bytes(device: torch.device | str = "cuda") -> int:
+    """Bytes a new tensor can take on the card ``device``: the free memory
+    ``torch.cuda.mem_get_info`` reports and what PyTorch's caching
+    allocator holds unused."""
+    free, _total = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def supports(cfg: StepConfig, row_block: int = 2, incremental: bool = True,
+             mover_k: int = 8, free_bytes: int | None = None) -> bool:
+    """Whether the grid step of ``cfg`` fits ``free_bytes`` (by default the
+    current card's ``card_free_bytes``): the reference's
+    ``sfm_pallas.supports`` with the card's memory in place of VMEM."""
+    if free_bytes is None:
+        free_bytes = card_free_bytes()
+    return device_bytes(cfg, row_block, incremental, mover_k) <= free_bytes
+
+
+def check_fits(need: int, device: torch.device | str,
+               free_bytes: int | None = None) -> None:
+    """Raise ValueError, naming the bytes, where ``need`` bytes (a step's
+    ``device_bytes``) do not fit the free memory of the card ``device``
+    (``free_bytes``: as if that much were free).  Called before the step's
+    tensors are allocated; a CPU device has no such limit here."""
+    device = torch.device(device)
+    if device.type != "cuda" and free_bytes is None:
+        return
+    free = card_free_bytes(device) if free_bytes is None else free_bytes
+    if need > free:
+        raise ValueError(f"the grid step needs {need} bytes on {device} and "
+                         f"{free} are free: fewer agents, waypoints or lanes, "
+                         "or tiles over more cards")
 
 
 def bin_state(cfg: StepConfig, sim: SimState, row_block: int = 2) -> GridState:

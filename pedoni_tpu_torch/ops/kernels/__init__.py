@@ -1,1 +1,26 @@
 """Hand-written CUDA kernels (csrc/) with their plain PyTorch twins."""
+
+
+def launch_counts() -> dict[str, int]:
+    """Each wrapper's count of its kernel's launches, by kernel and mode:
+    a wrapper adds one where it launches on the card, never on the CPU."""
+    from . import pairwise as pw
+    from . import rebin as rb
+    from . import step_kernel as sk
+    return {"step_kernel": sk.fused_step.launches,
+            "step_kernel_movers": sk.fused_step.mover_launches,
+            "step_kernel_segments": sk.fused_step.segment_launches,
+            "rebin": rb.rebin.launches,
+            "rebin_incremental": rb.rebin_incremental.launches,
+            "pairwise": pw.pairwise.launches}
+
+
+def zero_launch_counts() -> None:
+    """Set every count of ``launch_counts`` to 0."""
+    from . import pairwise as pw
+    from . import rebin as rb
+    from . import step_kernel as sk
+    sk.fused_step.launches = sk.fused_step.mover_launches = 0
+    sk.fused_step.segment_launches = 0
+    rb.rebin.launches = rb.rebin_incremental.launches = 0
+    pw.pairwise.launches = 0

@@ -214,11 +214,14 @@ def pack_fields(fwp: torch.Tensor, fobs: torch.Tensor) -> torch.Tensor:
     needs, and a tap's x-neighbour is the next texel (the next lane's
     column 0 after column S-1).  Same bits as fwp / fobs; the obstacle map
     is repeated in every waypoint's plane (without waypoints, one plane of
-    zeros carries it).  Memory: 2 * n_wp planes of fields6's size."""
-    wp = fwp if fwp.shape[0] else torch.zeros_like(fobs)[None]
-    planes = torch.cat([wp, fobs[None].expand_as(wp)], dim=3)  # [P, R, S, 8, NXL]
-    p, r, s, ch, nxl = planes.shape
-    return planes.permute(0, 1, 4, 2, 3).reshape(p, r, nxl * s, ch).contiguous()
+    zeros carries it).  Memory: 2 * max(n_wp, 1) planes of fields6's size,
+    written in place: no second copy of that size is made on the way."""
+    r, s, _, nxl = fobs.shape
+    p = max(fwp.shape[0], 1)
+    packed = torch.empty((p, r, nxl, s, 8), dtype=fobs.dtype, device=fobs.device)
+    packed[..., :4] = fwp.permute(0, 1, 4, 2, 3) if fwp.shape[0] else 0.0
+    packed[..., 4:] = fobs.permute(0, 3, 1, 2)
+    return packed.view(p, r, nxl * s, 8)
 
 
 _packed: dict[tuple[int, int], tuple] = {}
@@ -237,6 +240,15 @@ def packed_fields(fwp: torch.Tensor, fobs: torch.Tensor) -> torch.Tensor:
     for t in (fwp, fobs):
         weakref.finalize(t, _packed.pop, key, None)
     return packed
+
+
+def step_scratch(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's scratch for the grid ``d`` [ny2, K, 8, NXL]: act' of
+    every slot [ny2, K, NXL], and e and acc of the live centre slots
+    [ny2, K, NXL, 4] (``sfm_grid.device_bytes`` counts them)."""
+    ny2, k, _, nxl = d.shape
+    return (torch.empty((ny2, k, nxl), dtype=torch.float32, device=d.device),
+            torch.empty((ny2, k, nxl, 4), dtype=torch.float32, device=d.device))
 
 
 def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
@@ -292,9 +304,7 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     movers_lo, movers_hi = (0, nxl - 1) if nx_local is None else (1, nx_local)
     fields = packed_fields(fwp, fobs)
     out = torch.empty_like(d)
-    # scratch: act' of every slot; e and acc of the live centre slots
-    act = torch.empty((ny2, k, nxl), dtype=torch.float32, device=d.device)
-    ea = torch.empty((ny2, k, nxl, 4), dtype=torch.float32, device=d.device)
+    act, ea = step_scratch(d)
     if mk:
         m = torch.empty((ny2, mk, 8, nxl), dtype=torch.float32, device=d.device)
         blocks = torch.zeros((2, (ny2 - 2) // row_block), dtype=torch.float32,

@@ -206,9 +206,14 @@ class Simulator:
                        mover_k=o.mover_capacity, compact_every=o.compact_every,
                        generator=self.generator)
         self._tcfg = None
+        # the old fields, and the packed copy cached for them, go before the
+        # new ones are made (a rebuild would otherwise hold both)
+        self._fwp = self._fobs = None
         if o.n_devices > 1:  # the step's field arguments are per-tile lists
             self._tcfg = tile2d.Tile2DConfig.build(
                 self.cfg, *o.resolve_tile(), row_block=o.row_block)
+        self._check_fits(step_kw["incremental"])
+        if self._tcfg is not None:
             self._fwp, self._fobs = tile2d.device_inputs(
                 self._tcfg, self.maps, sfm_grid.stride_for(self.cfg),
                 self.devices)
@@ -222,6 +227,17 @@ class Simulator:
         self._kernel_chain = None  # shapes depend on K
         log.info("step function built: capacity=%d K=%d device=%s tiles=%s",
                  capacity, o.table_capacity, self.device, o.resolve_tile())
+
+    def _check_fits(self, incremental: bool) -> None:
+        """Refuse, before any of its tensors exist, a step whose tensors
+        (``sfm_grid.device_bytes``) do not fit a card's free memory; tiles
+        that share a card add up there."""
+        o, tcfg = self.options, self._tcfg
+        need = sfm_grid.device_bytes(
+            self.cfg, o.row_block, incremental, o.mover_capacity,
+            None if tcfg is None else (tcfg.rows_local, tcfg.nxl_local))
+        for dev in set(self.devices):
+            sfm_grid.check_fits(need * self.devices.count(dev), dev)
 
     def tick(self) -> StepRecord:
         """Advance one step (lib.rs:64-100) and return host-side metrics."""
@@ -323,6 +339,7 @@ class Simulator:
     def _rebuild(self, **changes) -> None:
         """Apply option changes, rebuild the step and re-bin the agents."""
         flat = self._to_flat_state()
+        self.state = None  # the old grid goes before the new step is sized
         self.options = dataclasses.replace(self.options, **changes)
         self._build(self.cfg.capacity)
         self.state = self._from_flat_state(flat)
@@ -369,9 +386,19 @@ class Simulator:
         its tiles — so checkpoints restore across device counts."""
         state = SimState(agents=state.agents.to(self.device), step=state.step)
         if self._tcfg is not None:
-            return tile2d.make_sharded_grid_state(self._tcfg, state, self.devices)
-        return sfm_grid.bin_state(self.cfg, state,
-                                  row_block=self.options.row_block)
+            gs = tile2d.make_sharded_grid_state(self._tcfg, state, self.devices)
+            n_binned = tile2d.population(gs)
+        else:
+            gs = sfm_grid.bin_state(self.cfg, state,
+                                    row_block=self.options.row_block)
+            n_binned = int((gs.d[:, :, 6] > 0.5).sum())
+        # bin_state drops agents beyond K in their cells, as the reference's
+        # does; the count is logged, no tensor changes
+        n_flat = int(state.agents.active.sum())
+        (log.warning if n_binned < n_flat else log.info)(
+            "binned %d of %d agents (%d beyond K=%d in their cells, dropped)",
+            n_binned, n_flat, n_flat - n_binned, self.options.table_capacity)
+        return gs
 
     def list_pedestrians(self):
         """Positions [n, 2] and destinations [n] of active agents, as

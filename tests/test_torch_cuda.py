@@ -679,3 +679,86 @@ def test_tiles_on_several_cards(incremental):
     assert spawned > 0 and one.last_metrics.n_active > 0
     for a, b in zip(one.list_pedestrians(), tiled.list_pedestrians()):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_wp", [8, 33])
+def test_kernels_at_many_waypoints(n_wp):
+    """The bench problem at W = 8 and 33 on one 128-lane tile (20 000
+    agents, ``bench.build_problem(domain="tiles:1")``): the step kernel in
+    base and mover mode equal to its twin (pos/vel within 1e-5), both
+    rebins bit-equal on the twin's outputs, the mover mode's M, movf and
+    mdmx equal; and a step's peak memory within ``device_bytes`` and the
+    caching allocator's slack: it keeps a block whole where the rest would
+    be 1 MiB or less, so each of the step's nine large tensors (D, G, D',
+    act', (e, acc), M, fwp, fobs, the packed copy) may take up to 1 MiB
+    more than its bytes.  At this size that slack exceeds the margin the
+    freed scratch leaves (chip_smoke.py holds the 1M steps to
+    ``device_bytes`` itself)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pedoni_tpu_torch.bench import build_problem
+    _sc, maps, cfg, flat = build_problem(20_000, waypoints=n_wp,
+                                         domain="tiles:1", device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwp, fobs = sfm_grid.field_tensors(cfg, maps, "cuda")
+    gs = sfm_grid.bin_state(cfg, flat)
+    step = sfm_grid.make_step_grid(cfg)
+    for _ in range(3):
+        gs, m = step(gs, fwp, fobs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    need = sfm_grid.device_bytes(cfg)
+    assert peak <= need + 9 * 2**20, (peak, need)
+    assert int(m.n_active) > 15_000
+    d = gs.d
+    assert set(d[:, :, 5][d[:, :, 6] > 0.5].unique().long().tolist()) \
+        == set(range(n_wp))
+    phys, size = cfg.physics, cfg.scenario.size
+    got = sk.fused_step(d, fwp, fobs, phys, size)
+    want = sk.fused_step_torch(d, fwp, fobs, phys, size)
+    _assert_step_close(d, got, want)
+    mv = sk.fused_step(d, fwp, fobs, phys, size, emit_movers=8)
+    mv_t = sk.fused_step_torch(d, fwp, fobs, phys, size, emit_movers=8)
+    _assert_step_close(d, mv[0], mv_t[0])
+    for a, b in zip(mv[1:], mv_t[1:]):
+        assert torch.equal(a, b)
+    unit, nx, ny = cfg.grid.unit, cfg.grid.nx, cfg.grid.ny
+    for kernel, twin, ins in ((rb.rebin, rb.rebin_torch, (want,)),
+                              (rb.rebin_incremental, rb.rebin_incremental_torch,
+                               mv_t[:2])):
+        got_r = kernel(*ins, unit, nx, ny)
+        want_r = twin(*ins, unit, nx, ny)
+        torch.cuda.synchronize()
+        for a, b in zip(got_r, want_r):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_supports_reads_the_card_memory(monkeypatch):
+    """``card_free_bytes`` is mem_get_info's free memory plus what the
+    caching allocator holds unused; ``supports`` compares ``device_bytes``
+    with it; ``Simulator`` and the bench refuse a step that does not fit
+    before allocating its grid, naming the bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pedoni_tpu_torch import Simulator, SimulatorOptions, bench
+    free, total = torch.cuda.mem_get_info()
+    card = sfm_grid.card_free_bytes()
+    assert free <= card <= total
+    sc = load_scenario(GAP)
+    cfg = StepConfig.build(sc, capacity=2048, neighbor_grid_unit=1.5,
+                           table_capacity=14)
+    need = sfm_grid.device_bytes(cfg)
+    assert sfm_grid.supports(cfg) and need < card
+    assert not sfm_grid.supports(cfg, free_bytes=need - 1)
+    monkeypatch.setattr(sfm_grid, "card_free_bytes", lambda device="cuda": 4096)
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(ValueError, match="bytes on cuda and 4096 are free"):
+        Simulator(SimulatorOptions(device="cuda"), sc)
+    with pytest.raises(ValueError, match="bytes on cuda and 4096 are free"):
+        bench.capture(bench.build_parser().parse_args(["--agents", "20000"]))
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before < need

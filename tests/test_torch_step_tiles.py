@@ -91,7 +91,7 @@ def _fields(stride, n_wp, ny2=7, nxl=128, seed=0):
 
 
 @pytest.mark.parametrize("stride", [6, 8])
-@pytest.mark.parametrize("n_wp", [1, 2, 3])
+@pytest.mark.parametrize("n_wp", [1, 2, 3, 8, 33])
 def test_pack_fields_holds_fields6_at_every_tap(stride, n_wp):
     """For every (row, lane) and every tap (qy, qx) of the cell's (S+2)^2
     patch, the texel the kernel addresses — plane, field row, lane' * S +
