@@ -81,7 +81,7 @@ def worker(tree: str) -> int:
     _build.library()
     scenario, maps, cfg, flat = build_problem(chip_smoke.N_AGENTS, device=dev)
     # the same agents at the all-pairs unit (2.0 m, K 25, field stride 8)
-    o = SimulatorOptions(neighbor_grid_unit=1.5, table_capacity=14,
+    o = SimulatorOptions(backend="grid", neighbor_grid_unit=1.5, table_capacity=14,
                          use_neighbor_grid=False).resolved()
     wide = StepConfig.build(scenario, capacity=cfg.capacity,
                             neighbor_grid_unit=o.neighbor_grid_unit,
@@ -121,7 +121,7 @@ def worker(tree: str) -> int:
                                        dev)
         res["step_kernel_segments_ms"] = chip_smoke._median_ms(
             lambda: fused("full", segments=segs))
-        sim = Simulator(SimulatorOptions(device="cuda", seed=1,
+        sim = Simulator(SimulatorOptions(backend="grid", device="cuda", seed=1,
                                          use_distance_map=False),
                         load_scenario(chip_smoke.RANDOM))
         for _ in range(chip_smoke.RANDOM_STEPS):
@@ -146,7 +146,7 @@ def worker(tree: str) -> int:
                                   sim.cfg.scenario.size, stride=rstride,
                                   segments=rsegs))
         for name in ("funnel", "default"):  # shipped tables of 4 and 3 rows
-            ssim = Simulator(SimulatorOptions(device="cuda", seed=1,
+            ssim = Simulator(SimulatorOptions(backend="grid", device="cuda", seed=1,
                                               use_distance_map=False),
                              load_scenario(HERE / "scenarios" / f"{name}.toml"))
             for _ in range(CROSSOVER_TICKS):
@@ -197,7 +197,7 @@ def crossover() -> int:
     print(card, flush=True)
 
     def sim_state(name: str, ticks: int):
-        sim = Simulator(SimulatorOptions(device="cuda", seed=1,
+        sim = Simulator(SimulatorOptions(backend="grid", device="cuda", seed=1,
                                          use_distance_map=False),
                         load_scenario(HERE / "scenarios" / name))
         for _ in range(ticks):

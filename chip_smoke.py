@@ -93,7 +93,24 @@ nvcc, one process per source, then:
    ``device_bytes``;
 14. ``python -m pedoni_tpu_torch.bench --steps 8 --warmup 2`` as a
    subprocess: exit 0, exactly one JSON line, value > 0, its ``device`` this
-   card, and the hybrid's kernels launched in its timed rounds.
+   card, and the hybrid's kernels launched in its timed rounds;
+15. the flat backend (``backend="xla"``, the default since it was ported;
+   no hand kernel, so every launch count stays 0 through each of its
+   runs): gap.toml through ``Simulator`` evacuates within 400 ticks at the
+   1.4 m unit; one flat step on the card against the same step on the CPU
+   from the same state and candidates (pos/vel within 1e-5, every metric
+   and the rest equal) on the spawning scenario in all three modes and on
+   the xla bench problem at 20 000 agents; 16 spawning flat steps under
+   ``set_sync_debug_mode("error")``; the 1M xla bench problem (square
+   field, 452 x 452 cells of 1.4 m): ms/step on the host clock over steps
+   run under ``set_sync_debug_mode("error")``, device ms/step, launches a
+   step and busy share from ``torch.profiler``, peak memory; ``python -m
+   pedoni_tpu_torch.bench --backend xla``, the CLI on gap.toml with ``-b
+   auto`` and ``-b xla`` (population 0, model ``sfm-torch/xla``) and
+   ``python -m pedoni_tpu_torch.entry`` as subprocesses;
+   ``SocialForceModel`` on the card against its CPU run; and
+   ``examples/quickstart_torch.py``.  Every earlier phase that means the
+   grid passes ``backend="grid"`` (``-b grid``).
 
 Each phase from 6 on prints its seconds.  Prints the card's name and power
 limit, one JSON line describing the kernels, and as its last line
@@ -145,6 +162,8 @@ TILE_STEPS = 16  # steps of the tiled and the whole-grid 1M step compared
 BIG_K = 121  # the table capacity after 81 in Simulator._grow_table
 WP_STEPS = 16  # hybrid steps of the bench problem at 8 and 33 waypoints
 MAX_K = 255  # the largest table capacity the pair passes take
+FLAT_WARMUP, FLAT_TIMED = 2, 10  # steps of the 1M flat (xla) problem
+FLAT_PROFILE_STEPS = 4
 # The same measurements with the kernels' first designs, from PERF.md (NVIDIA
 # H100 80GB HBM3, 700 W): the step kernel with one thread per slot (a sample
 # pass over the fields6 planes, a pair pass with a warp-wide candidate walk,
@@ -680,7 +699,7 @@ def _segments_phase(dev, card, grid1, bench, states) -> dict:
 
     _zero_launch_counts()
     t0 = time.perf_counter()
-    sim = Simulator(SimulatorOptions(device=dev.type, seed=1,
+    sim = Simulator(SimulatorOptions(backend="grid", device=dev.type, seed=1,
                                      use_distance_map=False), rsc)
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1024,7 +1043,7 @@ def _all_pairs_phase(dev, card, sc_gap, bscenario, bmaps, flat, capacity) -> Non
     from pedoni_tpu_torch.models.sfm import StepConfig
 
     _zero_launch_counts()
-    sim = Simulator(SimulatorOptions(device=dev.type, seed=1,
+    sim = Simulator(SimulatorOptions(backend="grid", device=dev.type, seed=1,
                                      use_neighbor_grid=False), sc_gap)
     if (sim.options.neighbor_grid_unit, sim.options.table_capacity) != (2.0, 29):
         raise AssertionError(f"all-pairs options {sim.options}")
@@ -1036,7 +1055,7 @@ def _all_pairs_phase(dev, card, sc_gap, bscenario, bmaps, flat, capacity) -> Non
           f"{n0} agents evacuated in {steps} steps (limit {GAP_MAX_STEPS}); "
           f"launches {counts}", flush=True)
 
-    o = SimulatorOptions(neighbor_grid_unit=1.5, table_capacity=14,
+    o = SimulatorOptions(backend="grid", neighbor_grid_unit=1.5, table_capacity=14,
                          use_neighbor_grid=False).resolved()
     cfg = StepConfig.build(bscenario, capacity=capacity,
                            neighbor_grid_unit=o.neighbor_grid_unit,
@@ -1144,8 +1163,8 @@ def _cli_phase() -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        base = [str(GAP), "-H", "-s", "0", "--seed", "1", "--no-distance-map",
-                "--checkpoint-every", "100"]
+        base = [str(GAP), "-H", "-b", "grid", "-s", "0", "--seed", "1",
+                "--no-distance-map", "--checkpoint-every", "100"]
         ck100 = tmp / "ck" / "step_00000100.npz"
         runs = {"first": (base + ["--max-steps", "300", "--log-dir", str(tmp / "logs"),
                                   "--checkpoint-dir", str(tmp / "ck")], 300),
@@ -1193,7 +1212,7 @@ def _cli_phase() -> None:
               f"equal the first run's", flush=True)
         n = torch.cuda.device_count()
         r = subprocess.run([sys.executable, "-m", "pedoni_tpu_torch", str(GAP), "-H",
-                            "--devices", str(n + 1), "--max-steps", "1",
+                            "-b", "grid", "--devices", str(n + 1), "--max-steps", "1",
                             "--log-dir", str(tmp / "logs3")],
                            cwd=ROOT, capture_output=True, text=True, timeout=300)
         said = f"--devices {n + 1} but only {n} devices are visible"
@@ -1323,6 +1342,282 @@ def _bench_phase(card: str) -> dict:
     return rec
 
 
+def _flat_rows(agents) -> np.ndarray:
+    """Every slot's (pos, vel, speed, dest, active) of flat agent tensors."""
+    a = {k: t.detach().cpu().numpy() for k, t in agents._asdict().items()}
+    return np.concatenate([a["pos"], a["vel"], a["speed"][:, None],
+                           a["dest"][:, None], a["active"][:, None]], 1
+                          ).astype(np.float64)
+
+
+def _flat_vs_cpu(dev, what, sc, cfg_kw, agents, cand=None) -> float:
+    """One flat step on the card against the same step on the CPU from the
+    same state and candidates: slot by slot (the sort's cell ids come
+    from the same IEEE divide on both), pos/vel within TOL, the rest and
+    every metric equal.  Returns the max |err|."""
+    from pedoni_tpu_torch.field import Field, FieldMaps
+    from pedoni_tpu_torch.models import sfm
+    from pedoni_tpu_torch.models.sfm import SimState
+
+    maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
+    cfg = sfm.StepConfig.build(sc, **cfg_kw)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        field, obstacles = sfm.device_inputs(cfg, maps, d)
+        step = sfm.make_step(cfg, torch.Generator(device=d))
+        st, m = step(SimState(agents.to(d), 0), field.rows, obstacles,
+                     None if cand is None else cand.to(d))
+        out.append((_flat_rows(st.agents),
+                    {k: int(v) for k, v in m._asdict().items()}))
+    (got, gm), (want, wm) = out
+    err = float(np.abs(got[:, :4] - want[:, :4]).max())
+    if gm != wm or err > TOL or not np.array_equal(got[:, 4:], want[:, 4:]):
+        raise AssertionError(f"flat step {what}: card {gm} vs CPU {wm}, "
+                             f"pos/vel err {err:.3e}")
+    print(f"# flat step {what}, card vs CPU: metrics equal {gm}, pos/vel max "
+          f"|err| {err:.3e}, speed/dest/active equal", flush=True)
+    return err
+
+
+def _flat_sim_checks(dev) -> dict:
+    """15a. gap.toml through the flat Simulator; one step against the CPU's
+    in all three modes and on 20 000 agents of the xla bench problem;
+    16 spawning steps under sync debug mode "error"."""
+    from pedoni_tpu_torch import Simulator, SimulatorOptions, load_scenario
+    from pedoni_tpu_torch.bench import build_problem
+    from pedoni_tpu_torch.convert import agents_from_numpy
+    from pedoni_tpu_torch.models import sfm
+    from pedoni_tpu_torch.scenario import loads_scenario
+
+    none = {k: 0 for k in _launch_counts()}
+    t0 = time.perf_counter()
+    _zero_launch_counts()
+    sim = Simulator(SimulatorOptions(device=dev.type, seed=1), load_scenario(GAP))
+    n0, steps = _evacuate(sim, "gap.toml (flat)")
+    if _launch_counts() != none or sim.cfg.grid.unit != 1.4:
+        raise AssertionError(f"gap.toml (flat): launches {_launch_counts()}, "
+                             f"unit {sim.cfg.grid.unit}")
+    print(f"# gap.toml (backend xla, 1.4 m): {n0} agents evacuated in {steps} "
+          f"ticks (limit {GAP_MAX_STEPS}), {time.perf_counter() - t0:.1f} s; "
+          f"hand-kernel launches {_launch_counts()}", flush=True)
+
+    sc = loads_scenario(SPAWN_SCENARIO)
+    rng = np.random.default_rng(6)
+    n = 600
+    agents = agents_from_numpy(
+        rng.uniform(0.8, 11.2, (n, 2)) * np.array([1.5, 1.0]),
+        rng.normal(0, 0.4, (n, 2)), rng.uniform(0.8, 1.7, n),
+        rng.integers(0, 2, n), np.arange(n) < 500, "cpu")
+    cand = sfm.spawn_candidates(sfm.StepConfig.build(sc),
+                                torch.Generator().manual_seed(3))
+    cand = cand._replace(active=torch.arange(cand.active.shape[0]) < 3)
+    errs = [_flat_vs_cpu(dev, f"spawning scenario, {mode}", sc,
+                         dict(capacity=n, table_capacity=12, **kw), agents, cand)
+            for mode, kw in (("distance map", {}),
+                             ("segments", {"use_distance_map": False}),
+                             ("all-pairs", {"use_neighbor_grid": False}))]
+    bsc, _bmaps, bcfg, bflat = build_problem(20_000, device="cpu", backend="xla")
+    errs += [_flat_vs_cpu(dev, f"xla bench problem at 20 000 agents{what}", bsc,
+                          dict(capacity=bcfg.capacity, table_capacity=14, **kw),
+                          bflat.agents)
+             for what, kw in (("", {}), (", segments", {"use_distance_map": False}))]
+
+    sim = Simulator(SimulatorOptions(device=dev.type, seed=2), sc)
+    for _ in range(2):
+        sim.tick()
+    torch.cuda.synchronize()
+    spawned = []
+    with _no_sync():
+        for _ in range(SPAWN_SYNC_STEPS):
+            sim.state, m = sim._step(sim.state, sim._fwp, sim._fobs)
+            spawned.append(m.n_spawned)
+    n_sp = int(sum(spawned))
+    if n_sp == 0:
+        raise AssertionError("flat spawning steps spawned nobody")
+    print(f"# flat step, spawning: {SPAWN_SYNC_STEPS} steps under "
+          f"set_sync_debug_mode('error'), {n_sp} spawned, "
+          f"{sim.pedestrian_count} active", flush=True)
+    return {"gap_steps": steps, "max_abs_err_vs_cpu": max(errs)}
+
+
+@contextlib.contextmanager
+def _no_sync():
+    """Raise on any host sync inside."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _flat_1m(dev, card) -> dict:
+    """15b. The 1M xla bench problem: FLAT_TIMED steps after FLAT_WARMUP
+    under sync debug mode "error", host clock; peak memory; then
+    FLAT_PROFILE_STEPS under torch.profiler: device ms, launches a step,
+    busy share and the dearest kernels."""
+    import collections
+
+    from pedoni_tpu_torch.bench import build_problem
+    from pedoni_tpu_torch.models import sfm
+
+    none = {k: 0 for k in _launch_counts()}
+    t0 = time.perf_counter()
+    _sc, maps, cfg, flat = build_problem(N_AGENTS, device=dev, backend="xla")
+    field, obstacles = sfm.device_inputs(cfg, maps, dev)
+    step = sfm.make_step(cfg)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = flat
+    _zero_launch_counts()
+    for _ in range(FLAT_WARMUP):
+        st, m = step(st, field.rows, obstacles)
+    torch.cuda.synchronize()
+    with _no_sync():
+        t0 = time.perf_counter()
+        for _ in range(FLAT_TIMED):
+            st, m = step(st, field.rows, obstacles)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / FLAT_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    if _launch_counts() != none:
+        raise AssertionError(f"1M flat: hand-kernel launches {_launch_counts()}")
+    n_active = int(m.n_active)
+    a = st.agents
+    if n_active < 0.99e6 or not bool(torch.isfinite(a.pos[a.active]).all()):
+        raise AssertionError(f"1M flat: {n_active} active, or non-finite positions")
+    print(f"# 1M flat (xla) problem: grid {cfg.grid.nx} x {cfg.grid.ny} cells of "
+          f"{cfg.grid.unit} m, K {cfg.table_capacity}, capacity {cfg.capacity}; "
+          f"built in {t_build:.1f} s; {FLAT_WARMUP} warm-up + {FLAT_TIMED} timed "
+          f"steps (under set_sync_debug_mode('error')): {wall:.4f} ms/step wall, "
+          f"{n_active} active, overflow last step {int(m.n_overflow)}, dropped "
+          f"{int(m.n_dropped)}; peak memory {peak} bytes above the "
+          f"{base_bytes} held before; hand-kernel launches {_launch_counts()} on "
+          f"{card}", flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(FLAT_PROFILE_STEPS):
+            st, m = step(st, field.rows, obstacles)
+        torch.cuda.synchronize()
+    us, launches = collections.Counter(), 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us[ev.key] += ev.self_device_time_total / FLAT_PROFILE_STEPS
+            launches += ev.count / FLAT_PROFILE_STEPS
+    dev_ms = sum(us.values()) / 1e3
+    if not dev_ms > 0:
+        raise AssertionError("1M flat: the profiler traced no device time")
+    print(f"# 1M flat profile, {FLAT_PROFILE_STEPS} steps (torch.profiler): "
+          f"device {dev_ms:.4f} ms/step, {launches:.1f} launches a step, wall "
+          f"{wall:.4f} ms/step unprofiled, busy share {dev_ms / wall:.3f}; top "
+          f"kernels (us/step): " + "; ".join(
+              f"{k[:60]} {v:.1f}" for k, v in us.most_common(6)), flush=True)
+    return {"ms_per_step": wall, "device_ms_per_step": dev_ms,
+            "launches_per_step": launches, "busy_share": dev_ms / wall,
+            "peak_bytes": peak, "n_active": n_active}
+
+
+def _flat_subprocesses(card) -> dict:
+    """15c. ``python -m pedoni_tpu_torch.bench --backend xla``, the CLI on
+    gap.toml with ``-b auto`` and ``-b xla``, and ``python -m
+    pedoni_tpu_torch.entry``, as subprocesses.  Returns the bench line."""
+    import tempfile
+
+    rec = None
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = [str(GAP), "-H", "-s", "0", "--seed", "1", "--max-steps", "300"]
+        runs = (("bench", ["pedoni_tpu_torch.bench", "--backend", "xla",
+                           "--steps", "8", "--warmup", "2"]),
+                *((f"CLI -b {b}", ["pedoni_tpu_torch", *cli, "-b", b, "--log-dir",
+                                   str(pathlib.Path(tmp) / b)])
+                  for b in ("auto", "xla")),
+                ("entry", ["pedoni_tpu_torch.entry"]))
+        for name, argv in runs:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                               capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"{name} exited {r.returncode}:\n"
+                                     f"{r.stderr[-3000:]}")
+            dt = time.perf_counter() - t0
+            if name == "bench":
+                lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+                rec = json.loads(lines[0])
+                if len(lines) != 1 or not (rec["value"] > 0 and rec["device"]
+                                           == card.splitlines()[0]):
+                    raise AssertionError(f"bench --backend xla printed {r.stdout}")
+                said = lines[0]
+            elif name == "entry":
+                said = " / ".join(r.stdout.strip().splitlines())
+            else:
+                (out,) = pathlib.Path(argv[-1]).glob("*_log.json")
+                log = json.loads(out.read_text())
+                pops = log["step_metrics"]["active_ped_count"]
+                if log["model"] != "sfm-torch/xla" or pops[-1] != 0:
+                    raise AssertionError(f"{name}: model {log['model']}, "
+                                         f"population {pops[-1]} at the end")
+                said = (f"model {log['model']}, population {pops[0]} -> 0 at "
+                        f"logged step {pops.index(0) + 1}")
+            print(f"# {name} (python -m {argv[0]}): exit 0 in {dt:.1f} s; "
+                  f"{said}", flush=True)
+    return {"bench": rec}
+
+
+def _flat_model_and_quickstart(dev) -> None:
+    """15d. ``SocialForceModel`` on ``dev`` against its CPU run over three
+    spawn/update rounds; ``examples/quickstart_torch.py`` on ``dev``."""
+    import importlib.util
+
+    from pedoni_tpu_torch.field import Field
+    from pedoni_tpu_torch.models import base
+    from pedoni_tpu_torch.scenario import loads_scenario
+
+    sc = loads_scenario(SPAWN_SCENARIO)
+    fld = Field.from_scenario(sc, unit=0.25)
+    models = [base.SocialForceModel(None, sc, fld, capacity=512, device=d)
+              for d in (dev.type, "cpu")]
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        batch = [base.Pedestrian((float(x), float(y)), int(dd)) for x, y, dd in zip(
+            rng.uniform(3, 15, 40), rng.uniform(1, 11, 40), rng.integers(0, 2, 40))]
+        for mdl in models:
+            mdl.spawn_pedestrians(fld, batch)
+            for _ in range(3):
+                mdl.update_states(sc, fld)
+    got, want = ([(p.pos[0], p.pos[1], p.destination) for p in mdl.list_pedestrians()]
+                 for mdl in models)
+    if len(got) != len(want) or len(got) < 100:
+        raise AssertionError(f"SocialForceModel {dev.type} vs CPU: {len(got)} / "
+                             f"{len(want)} pedestrians")
+    err = float(np.abs(np.array(sorted(got)) - np.array(sorted(want))).max())
+    if err > 1e-4:
+        raise AssertionError(f"SocialForceModel {dev.type} vs CPU: err {err:.3e}")
+    print(f"# SocialForceModel on {dev.type}: {len(got)} pedestrians after 3 "
+          f"spawn rounds and 9 updates, positions within {err:.3e} m of the "
+          f"CPU's", flush=True)
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    t0 = time.perf_counter()
+    qsim = qs.main(dev.type)
+    print(f"# examples/quickstart_torch.py on {dev.type}: {qsim.step_count} "
+          f"ticks, {qsim.pedestrian_count} active, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _flat_phase(dev, card) -> dict:
+    """15. The flat backend on the card (module docstring, item 15).
+    Returns the phase's numbers."""
+    res = _flat_sim_checks(dev)
+    res.update(_flat_1m(dev, card))
+    torch.cuda.empty_cache()  # the 1M problem's tensors are gone
+    res.update(_flat_subprocesses(card))
+    _flat_model_and_quickstart(dev)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -1382,7 +1677,7 @@ def main() -> int:
     # auto rule picks (full at this occupancy) and on the forced hybrid
     for forced in (None, True):
         _zero_launch_counts()
-        sim = Simulator(SimulatorOptions(device="cuda", seed=1,
+        sim = Simulator(SimulatorOptions(backend="grid", device="cuda", seed=1,
                                          incremental_rebin=forced), sc)
         n0, steps = _evacuate(sim, f"gap.toml ({forced=})")
         counts = _launch_counts()
@@ -1592,6 +1887,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _bench_phase(card)
     print(f"# phase 14 (bench) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    flat = _flat_phase(dev, card)
+    print(f"# phase 15 (flat backend) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for entry in kernels:  # the forms of each kernel this run held to its twin
         if entry["name"] != "pairwise":
             entry["tile_offsets"] = "ported"
@@ -1604,6 +1903,8 @@ def main() -> int:
     kernels[0][f"k{BIG_K}"] = {n: big_k[n] for n in ("step_kernel_ms", "max_abs_err")}
     kernels[-1][f"k{BIG_K}"] = {"ms": big_k["pairwise_ms"],
                                 "max_abs_err": big_k["max_abs_err"]}
+    print("# flat backend (no hand kernel; phase 15): " + json.dumps(flat),
+          flush=True)
     print(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the "
           f"kernel build included", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,7 @@
 """The port's headline benchmark: agent-steps/s of the grid step.
 
     python -m pedoni_tpu_torch.bench [--agents N] [--waypoints W] [--suite]
-                                     [--backend grid|cpu] [--verbose]
+                                     [--backend grid|xla|cpu] [--verbose]
 
 Counterpart of the reference's bench.py, without JAX.  ``build_problem``
 builds the same problem as bench.py:33-143 for the grid backend, bit for
@@ -12,7 +12,8 @@ lane-exact rectangle, nx + 3 cell columns a multiple of 128 (1024 lanes
 when the field keeps >= 16 cell rows; the reference's TPU-measured rule,
 copied, not re-measured): at 1M agents and density 2.5, 1021 x 175 cells
 of 1.5 m, K = 14.  ``square`` is the square field of the same area,
-``tiles:T`` forces T x 128 lanes of width.
+``tiles:T`` forces T x 128 lanes of width.  For ``--backend xla`` the
+problem is the reference's xla one: always the square field, 1.4 m cells.
 
 ``main`` times the hybrid grid step (``make_step_grid(incremental=True)``,
 the reference's default) as the reference's ``capture`` does: windows of
@@ -29,7 +30,9 @@ headline, 1M at 8 waypoints and 8M agents, the headline first.
 
 ``--backend grid`` (the default) runs on the CUDA card and exits 2 where
 there is none; ``cpu`` runs the same path on the CPU through the kernels'
-PyTorch twins.  The reference's other backends and its ``--allow-fallback``,
+PyTorch twins.  ``--backend xla`` times the flat step (``models/sfm.py::
+make_step``) on the card, with the same timing contract and keys.  The
+reference's ``pallas`` backend and its ``--allow-fallback``,
 ``--no-wp-skip`` and ``--chunk-size`` exit non-zero with the reason.  A
 configuration whose step does not fit the card's free memory is refused
 before its grid is allocated (``sfm_grid.device_bytes``, ``check_fits``).
@@ -49,7 +52,7 @@ import torch
 from .convert import agents_from_numpy
 from .field import Field, FieldMaps
 from .models import sfm_grid
-from .models.sfm import SimState, StepConfig
+from .models.sfm import SimState, StepConfig, device_inputs, make_step
 from .ops.kernels import launch_counts, zero_launch_counts
 from .scenario import Scenario, Segment
 
@@ -59,7 +62,7 @@ SUITE = (
     ("waypoints8_1M", {"waypoints": 8}),
     ("scale_8M", {"agents": 8_000_000}),
 )
-DEVICE_OF_BACKEND = {"grid": "cuda", "cpu": "cpu"}
+DEVICE_OF_BACKEND = {"grid": "cuda", "xla": "cuda", "cpu": "cpu"}
 # The reference's flags that the port refuses, and why.
 REFUSED = {
     "--allow-fallback": "the port has no slower backend to fall back to; a "
@@ -67,14 +70,14 @@ REFUSED = {
     "--no-wp-skip": "the port has no waypoint slot walk to disable: each "
                     "agent samples its own plane (not ported by decision, "
                     "ROADMAP queue 2)",
-    "--chunk-size": "the port has no flat chunked backend (ROADMAP queue 1, "
-                    "item 9)",
+    "--chunk-size": "no step reads it: the flat step's pair pass is sized by "
+                    "a byte budget (ops/forcepass.py), the grid step's "
+                    "blocks by --row-block",
 }
 BACKEND_REFUSED = {
     "pallas": "the reference's flat fused kernel, make_step_pallas, is not "
               "ported by decision (ROADMAP queue 1, item 9); --backend grid "
               "runs the grid step on the card",
-    "xla": "the flat XLA backend is not ported yet (ROADMAP queue 1, item 9)",
 }
 
 
@@ -99,15 +102,19 @@ def lane_tiles(domain: str) -> int | None:
 def build_problem(n_agents: int = 1_000_000, density: float = 2.5,
                   seed: int = 0, table_capacity: int = 14,
                   device: torch.device | str = "cuda", waypoints: int = 1,
-                  domain: str = "auto"
+                  domain: str = "auto", backend: str = "grid"
                   ) -> tuple[Scenario, FieldMaps, StepConfig, SimState]:
     """(scenario, maps, cfg, flat state on ``device``) of the bench
     workload; the domain is shaped and the agents drawn from ``seed`` with
-    NumPy exactly as the reference's grid backend does."""
+    NumPy exactly as the reference's bench does for ``backend`` ("grid",
+    or "xla": the square field at 1.4 m whatever ``domain`` says)."""
     tiles = lane_tiles(domain)
     area = n_agents / density
     unit = 1.5
-    if tiles is not None:
+    if backend == "xla":
+        unit = 1.4
+        w = h = float(np.sqrt(area))
+    elif tiles is not None:
         nx = tiles * 128 - 3
         w = nx * unit
         h = area / w
@@ -174,14 +181,23 @@ def _log(args, msg: str) -> None:
         print(msg, file=sys.stderr, flush=True)
 
 
-def capture(args: argparse.Namespace) -> dict:
-    """Build and time one configuration; returns the JSON record."""
-    device = torch.device(DEVICE_OF_BACKEND[args.backend])
+def build(args: argparse.Namespace, device: torch.device):
+    """(step, state, cfg) of one configuration: the hybrid grid step on the
+    binned problem, or with ``--backend xla`` the flat step on the flat
+    agents (the reference's bench.py:146-190).  ``step(state) -> (state,
+    metrics)``."""
     rb = args.row_block
-    t0 = time.perf_counter()
+    backend = "xla" if args.backend == "xla" else "grid"
     _scenario, maps, cfg, flat = build_problem(
         args.agents, args.density, args.seed, args.table_capacity, device,
-        args.waypoints, args.domain)
+        args.waypoints, args.domain, backend)
+    if backend == "xla":
+        field, obstacles = device_inputs(cfg, maps, device)
+        raw_flat = make_step(cfg)  # the bench problem spawns nothing
+        _log(args, f"# capacity={cfg.capacity}, grid {cfg.grid.nx} x "
+                   f"{cfg.grid.ny} cells of {cfg.grid.unit} m, "
+                   f"K={cfg.table_capacity}")
+        return (lambda s: raw_flat(s, field.rows, obstacles)), flat, cfg
     need = sfm_grid.device_bytes(cfg, rb)
     sfm_grid.check_fits(need, device)  # before the grid and fields exist
     fwp, fobs = sfm_grid.field_tensors(cfg, maps, device, row_block=rb)
@@ -189,18 +205,23 @@ def capture(args: argparse.Namespace) -> dict:
     del flat
     n_binned = int((state.d[:, :, 6] > 0.5).sum())
     raw_step = sfm_grid.make_step_grid(cfg, row_block=rb)
-
-    def step(s):
-        return raw_step(s, fwp, fobs)
-
-    state, metrics = step(state)  # the kernels build at their first launch
-    int(metrics.n_active)
-    _log(args, f"# build: {time.perf_counter() - t0:.1f}s, capacity="
-               f"{cfg.capacity}, grid {cfg.grid.nx} x {cfg.grid.ny} cells, "
-               f"K={cfg.table_capacity}, device bytes of a step {need}")
+    _log(args, f"# capacity={cfg.capacity}, grid {cfg.grid.nx} x "
+               f"{cfg.grid.ny} cells, K={cfg.table_capacity}, device bytes "
+               f"of a step {need}")
     _log(args, f"# binned {n_binned} of {args.agents} agents "
                f"({args.agents - n_binned} beyond K={cfg.table_capacity} in "
                "their cells, dropped at binning as the reference does)")
+    return (lambda s: raw_step(s, fwp, fobs)), state, cfg
+
+
+def capture(args: argparse.Namespace) -> dict:
+    """Build and time one configuration; returns the JSON record."""
+    device = torch.device(DEVICE_OF_BACKEND[args.backend])
+    t0 = time.perf_counter()
+    step, state, _cfg = build(args, device)
+    state, metrics = step(state)  # the kernels build at their first launch
+    int(metrics.n_active)
+    _log(args, f"# build: {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
     for _ in range(args.warmup):
@@ -271,9 +292,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default="grid",
                     choices=["grid", "cpu", "pallas", "xla"],
-                    help="grid = the grid step on the CUDA card; cpu = the "
-                         "same on the CPU (PyTorch twins); pallas and xla "
-                         "are not ported")
+                    help="grid = the grid step on the CUDA card (1.5 m "
+                         "cells); xla = the flat step there (1.4 m cells, "
+                         "square field); cpu = the grid step on the CPU "
+                         "(PyTorch twins); pallas is not ported")
     ap.add_argument("--allow-fallback", action="store_true",
                     help="refused: " + REFUSED["--allow-fallback"])
     ap.add_argument("--table-capacity", type=int, default=14,
@@ -308,13 +330,18 @@ def main(argv: list[str] | None = None) -> int:
         ap.error(str(e))
     if args.backend in BACKEND_REFUSED:
         ap.error(f"--backend {args.backend}: {BACKEND_REFUSED[args.backend]}")
+    if args.domain != "auto" and args.backend == "xla":
+        ap.error(f"--domain {args.domain!r} has no effect with --backend xla "
+                 "(domain shaping is a grid-backend knob; the xla problem "
+                 "is always the square field)")
     for flag, on in (("--allow-fallback", args.allow_fallback),
                      ("--no-wp-skip", args.no_wp_skip),
                      ("--chunk-size", args.chunk_size is not None)):
         if on:
             ap.error(f"{flag} is refused: {REFUSED[flag]}")
-    if args.backend == "grid" and not torch.cuda.is_available():
-        print("FATAL: --backend grid needs a CUDA device and "
+    if (DEVICE_OF_BACKEND[args.backend] == "cuda"
+            and not torch.cuda.is_available()):
+        print(f"FATAL: --backend {args.backend} needs a CUDA device and "
               "torch.cuda.is_available() is False; the bench does not run "
               "on the CPU instead (--backend cpu does, on purpose)",
               file=sys.stderr)

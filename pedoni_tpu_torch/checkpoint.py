@@ -1,6 +1,7 @@
 """Checkpoint / resume, in the reference's npz schema (pedoni_tpu/
 checkpoint.py:17-54), so a checkpoint crosses between the two packages
-with its agents exact.
+and between the flat and the grid backend with its agents exact: it holds
+the flat agents, which the grid backend bins on restore.
 
 Fields: ``version``, ``pos``, ``vel``, ``speed``, ``dest``, ``active``,
 ``key``, ``step`` and ``step_count``, with the reference's dtypes and

@@ -9,15 +9,18 @@ JSON diagnostic log to ``<log-dir>/<timestamp>_log.json``.
 
     python -m pedoni_tpu_torch scenario.toml -H --max-steps 1000 -s 0
 
-Backends: ``auto``, ``grid`` and ``pallas`` run the grid backend on the
-CUDA card; ``cpu`` runs it on the CPU through the kernels' PyTorch twins.
-This diverges from the reference, whose ``auto`` is its XLA backend at the
-1.4 m unit: the port has no flat backend yet, so ``-b xla`` (and ``-b tpu``)
-exit non-zero (ROADMAP queue 1, item 9).  ``--devices N`` and ``--tile RxC``
-cut the grid into tiles (parallel/tile2d.py), with the reference's parsing
-and messages: on the card tile i runs on cuda:i (more devices than the
-machine has exit non-zero, naming the count); with ``-b cpu`` every tile
-runs on the CPU.  The non-headless mode, ``--render``,
+Backends follow the reference's ``make_simulator`` (its cli.py:101-158):
+``auto``, ``xla`` and ``tpu`` run the flat backend at the 1.4 m unit on the
+CUDA card, ``grid`` and ``pallas`` the grid backend at 1.5 m there.
+``--devices N`` and ``--tile RxC`` cut the grid into tiles (parallel/
+tile2d.py), with the reference's parsing and messages: ``auto`` then runs
+the grid backend, and an explicit ``xla`` or ``tpu`` exits non-zero; on the
+card tile i runs on cuda:i (more devices than the machine has exit
+non-zero, naming the count).  ``cpu`` runs the grid backend on the CPU
+through the kernels' PyTorch twins, every tile there: a kept divergence,
+since the reference's ``cpu`` is its flat step on the CPU (ROADMAP queue
+3); ``Simulator(SimulatorOptions(backend="xla", device="cpu"))`` runs the
+flat step there.  The non-headless mode, ``--render``,
 ``--render-web``, ``--record-every``, ``--frame-every`` and ``--profile``
 exit non-zero too (item 8: they need the renderer, the web view, the
 trajectory writer and a profiler trace, not ported yet).  No flag falls
@@ -41,7 +44,10 @@ from .sim import Simulator, SimulatorOptions
 log = logging.getLogger("pedoni_tpu_torch")
 
 DEFAULT_SCENARIO = Path(__file__).resolve().parents[1] / "scenarios" / "default.toml"
-DEVICE_OF_BACKEND = {"auto": "cuda", "grid": "cuda", "pallas": "cuda", "cpu": "cpu"}
+# -b -> (the Simulator's backend, its device)
+BACKENDS = {"auto": ("xla", "cuda"), "xla": ("xla", "cuda"),
+            "tpu": ("xla", "cuda"), "grid": ("grid", "cuda"),
+            "pallas": ("grid", "cuda"), "cpu": ("grid", "cpu")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,9 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run headless (args.rs:17)")
     p.add_argument("-b", "--backend", default="auto",
                    choices=["auto", "cpu", "tpu", "xla", "pallas", "grid"],
-                   help="auto/grid/pallas = the grid backend on the CUDA card; "
-                        "cpu = the same on the CPU (PyTorch twins); xla and "
-                        "tpu are not ported")
+                   help="auto/xla/tpu = the flat backend (1.4 m cells) on "
+                        "the CUDA card, or the grid backend with --devices/"
+                        "--tile > 1 (auto); grid/pallas = the grid backend "
+                        "(1.5 m cells) there; cpu = the grid backend on the "
+                        "CPU (PyTorch twins)")
     p.add_argument("--devices", type=int, default=1, metavar="N",
                    help="cut the grid into N row strips, one a device")
     p.add_argument("--tile", default=None, metavar="RxC",
@@ -73,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="field grid cell size in meters (args.rs:33-34)")
     p.add_argument("--neighbor-unit", type=float, default=1.4,
                    help="neighbor grid cell size in meters (args.rs:36-37); "
-                        "1.4 runs as 1.5 (the stride-6 field layout)")
+                        "the grid backend runs 1.4 as 1.5 (the stride-6 "
+                        "field layout)")
     p.add_argument("--work-size", type=int, default=2048,
                    help="agent slots per dispatch block (args.rs:39-40 "
                         "analog; sets row_block = work-size/1024 cell rows, "
@@ -110,11 +119,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Exit non-zero, naming the ROADMAP item, on what the port lacks."""
-    if args.backend in ("xla", "tpu"):
-        raise SystemExit(f"-b {args.backend} is not ported: the port runs the "
-                         "grid backend only (-b auto|grid|pallas on the card, "
-                         "-b cpu on the CPU); the flat backend is ROADMAP "
-                         "queue 1, item 9")
     for flag, on in (("--render", args.render),
                      ("--render-web", args.render_web is not None),
                      ("--record-every", args.record_every),
@@ -150,10 +154,25 @@ def _tiles(args: argparse.Namespace) -> tuple[int, tuple[int, int] | None]:
     return n_devices, tile
 
 
-def make_simulator(args: argparse.Namespace) -> Simulator:
+def options_from_args(args: argparse.Namespace) -> SimulatorOptions:
+    """The Simulator's options for parsed arguments (the reference's
+    ``make_simulator``, cli.py:101-158): the backend and device of ``-b``,
+    the grid's 1.5 m unit in place of the default 1.4, and tiles, which
+    ``auto`` runs on the grid backend and an explicit flat one refuses."""
     n_devices, tile = _tiles(args)
-    options = SimulatorOptions(
-        neighbor_grid_unit=args.neighbor_unit,
+    backend, device = BACKENDS[args.backend]
+    if n_devices > 1 and backend != "grid":
+        if args.backend != "auto":
+            raise SystemExit(f"--devices {n_devices} requires the grid "
+                             f"backend; drop '-b {args.backend}' or pass "
+                             "'-b grid'")
+        backend = "grid"  # auto: tiles run on the grid backend
+    neighbor_unit = args.neighbor_unit
+    if backend == "grid" and neighbor_unit == 1.4:
+        neighbor_unit = 1.5  # the grid step's stride-6 field layout
+    return SimulatorOptions(
+        backend=backend,
+        neighbor_grid_unit=neighbor_unit,
         field_grid_unit=args.field_unit,
         use_neighbor_grid=not args.no_neighbor_grid,
         use_distance_map=not args.no_distance_map,
@@ -164,9 +183,12 @@ def make_simulator(args: argparse.Namespace) -> Simulator:
         physics=Physics(),
         n_devices=n_devices,
         tile=tile,
-        device=DEVICE_OF_BACKEND[args.backend],
+        device=device,
     )
-    return Simulator(options, load_scenario(args.scenario))
+
+
+def make_simulator(args: argparse.Namespace) -> Simulator:
+    return Simulator(options_from_args(args), load_scenario(args.scenario))
 
 
 def run_headless(args: argparse.Namespace) -> Path:

@@ -1,10 +1,25 @@
-"""Agent state, step configuration and spawn sampling, in torch.
+"""The social-force model as one device step on flat agent tensors, in
+torch (counterpart of pedoni_tpu/models/sfm.py).
 
-Counterpart of the pieces of pedoni_tpu/models/sfm.py that the grid
-backend uses.  Randomness comes from explicit ``torch.Generator``s: the
-reference's ``jax.random`` streams cannot be reproduced in torch, so the
-grid step takes its spawn candidates as an injectable ``AgentState`` and
-tests hold the port's own generator to the reference only statistically.
+Agent state, step configuration and spawn sampling, shared with the grid
+backend (models/sfm_grid.py), and the flat step (``make_step``, the
+reference's default ``backend="xla"``), whose phases are:
+
+1. spawn     -- this step's Poisson arrivals per periodic group (lib.rs:
+                70-84), appended past the capacity window;
+2. despawn   -- agents whose destination potential is <= 0.25 (sfm.rs:69)
+                or that left the neighbour grid (neighbor_grid.rs:29);
+3. sort      -- a stable sort by cell id (the counting sort of sfm.rs:
+                61-77); active agents compact to the front, and the tail
+                past the capacity is cut (counted in ``n_dropped``);
+4. forces    -- goal + obstacle + pairwise over the dense 3x3-cell layout
+                (ops/forcepass.py), or over all pairs;
+5. integrate -- trapezoidal with speed clamp (sfm.rs:245-254).
+
+Randomness comes from explicit ``torch.Generator``s: the reference's
+``jax.random`` streams cannot be reproduced in torch, so both steps take
+their spawn candidates as an injectable ``AgentState``, and tests hold the
+port's own generator to the reference only statistically.
 """
 
 from __future__ import annotations
@@ -16,7 +31,10 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..ops.neighbor import CellGrid
+from ..field import PAD, FieldMaps
+from ..ops import forcepass, forces as F
+from ..ops.neighbor import CellGrid, compute_cell_ids
+from ..ops.sampling import DeviceField, sample_field
 from ..physics import Physics
 from ..scenario import Scenario
 
@@ -104,6 +122,9 @@ class StepConfig:
     spawn: SpawnPlan
     field_unit: float
     table_capacity: int = 16
+    row_block: int = 4  # cell rows a block of the flat step's pair pass
+    chunk_size: int = 2048  # --work-size; SimulatorOptions.row_block derives
+    #                         the grid step's metric blocks from it
     use_neighbor_grid: bool = True
     use_distance_map: bool = True
 
@@ -116,6 +137,8 @@ class StepConfig:
         neighbor_grid_unit: float = 1.4,
         field_unit: float = 0.25,
         table_capacity: int = 16,
+        row_block: int = 4,
+        chunk_size: int = 2048,
         use_neighbor_grid: bool = True,
         use_distance_map: bool = True,
     ) -> "StepConfig":
@@ -127,9 +150,22 @@ class StepConfig:
             spawn=SpawnPlan.from_scenario(scenario, physics),
             field_unit=field_unit,
             table_capacity=table_capacity,
+            row_block=row_block,
+            chunk_size=chunk_size,
             use_neighbor_grid=use_neighbor_grid,
             use_distance_map=use_distance_map,
         )
+
+    def obstacle_arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The obstacle segments as (p0 [O, 2], p1 [O, 2], width [O]) f32."""
+        obs = self.scenario.obstacles
+        if not obs:
+            return (np.zeros((0, 2), np.float32), np.zeros((0, 2), np.float32),
+                    np.zeros((0,), np.float32))
+        p0 = np.array([o.line[0] for o in obs], np.float32)
+        p1 = np.array([o.line[1] for o in obs], np.float32)
+        w = np.array([o.width for o in obs], np.float32)
+        return p0, p1, w
 
 
 def make_initial_state(cfg: StepConfig, generator: torch.Generator,
@@ -220,3 +256,133 @@ def spawn_sampler(cfg: StepConfig, device: torch.device | str
 def spawn_candidates(cfg: StepConfig, generator: torch.Generator) -> AgentState:
     """One draw of ``spawn_sampler`` on the generator's device."""
     return spawn_sampler(cfg, generator.device)(generator)
+
+
+def _all_pairs_acc(cfg: StepConfig, agents: AgentState, e: torch.Tensor
+                   ) -> torch.Tensor:
+    """All-pairs pairwise forces, the --no-neighbor-grid path (sfm.rs:
+    158-184).  O(C^2) memory and time: for small scenarios only."""
+    c = cfg.capacity
+    idx = torch.arange(c, device=agents.pos.device)
+    cand_ok = agents.active[None, :] & (idx[None, :] != idx[:, None])
+    return F.pairwise_force(agents.pos, agents.vel, e,
+                            agents.pos[None].expand(c, c, 2),
+                            agents.vel[None].expand(c, c, 2), cand_ok,
+                            cfg.physics)
+
+
+def device_inputs(cfg: StepConfig, maps: FieldMaps,
+                  device: torch.device | str = "cuda"
+                  ) -> tuple[DeviceField, tuple[torch.Tensor, ...]]:
+    """The tensors the flat step takes as arguments on ``device``: the
+    packed field maps and the obstacle segments (p0, p1, width)."""
+    obstacles = tuple(torch.from_numpy(a).to(device) for a in cfg.obstacle_arrays())
+    return DeviceField.from_maps(maps, device), obstacles
+
+
+def _concat(a: AgentState, b: AgentState) -> AgentState:
+    return AgentState(*(torch.cat([x, y.to(x.device)]) for x, y in zip(a, b)))
+
+
+def make_step(cfg: StepConfig, generator: torch.Generator | None = None):
+    """Build the flat step: ``step(state, field_rows, obstacles,
+    candidates=None) -> (SimState, StepMetrics)``.
+
+    ``field_rows`` and ``obstacles`` come from :func:`device_inputs`;
+    everything runs on their device.  ``candidates`` injects this step's
+    spawn candidates (an AgentState of the scenario's S = spawn.total
+    rows); when None they are drawn from ``generator``, which must then be
+    given for a spawning scenario.  No phase reads a value back to the
+    host.  ``n_dropped`` counts the agents cut at the capacity, and
+    ``n_overflow`` those past K in their cells, who neither exert nor
+    receive pair forces this step; ``max_demand``, ``n_exited`` and
+    ``max_mover_demand`` are the grid step's and stay 0 here."""
+    phys = cfg.physics
+    c = cfg.capacity
+    grid = cfg.grid
+    k = cfg.table_capacity
+    s = cfg.spawn.total
+    if s > 0 and generator is None:
+        raise ValueError("a spawning scenario needs a torch.Generator")
+    draw = spawn_sampler(cfg, generator.device) if s > 0 else None
+    map_h = int(math.ceil(cfg.scenario.size[1] / cfg.field_unit)) + 2 * PAD
+    map_w = int(math.ceil(cfg.scenario.size[0] / cfg.field_unit)) + 2 * PAD
+
+    def step(state: SimState, field_rows: torch.Tensor,
+             obstacles: tuple[torch.Tensor, ...],
+             candidates: AgentState | None = None
+             ) -> tuple[SimState, StepMetrics]:
+        dev = field_rows.device
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        ext, n_spawned = state.agents, zero
+        if candidates is None and s > 0:
+            candidates = draw(generator)
+        if candidates is not None:  # appended past the capacity window
+            ext = _concat(ext, candidates)
+            n_spawned = candidates.active.sum().to(torch.int32).to(dev)
+
+        # one field-sampling pass: destination potential (despawn + goal
+        # direction) and obstacle distance, four row gathers in all
+        fs = sample_field(field_rows, map_h, map_w, ext.dest, ext.pos,
+                          cfg.field_unit)
+        e = F.safe_normalize(fs.pot_grad)
+        # despawn: arrived (sfm.rs:69) or out of the grid, where the cell
+        # id's sentinel doubles as the in-grid test
+        alive = ext.active & (fs.potential > phys.despawn_potential)
+        cid = compute_cell_ids(ext.pos, alive, grid)
+        alive = cid < grid.n_cells
+
+        # cell-sort and cut back to the capacity; every channel rides in
+        # one packed [*, 12] tensor, so the permutation is one row gather.
+        # Fault containment: a non-finite velocity would poison its whole
+        # 3x3 neighbourhood through 0 * NaN in the masked pair sum, and a
+        # non-finite speed the goal force; a huge finite sentinel keeps the
+        # math finite and flings the agent out of the grid, where it is
+        # despawned and counted next step (non-finite positions are dead
+        # already: NaN fails the despawn test, inf the cell-id bound).
+        order = torch.argsort(cid, stable=True)[:c]
+        vel_f = torch.where(ext.vel.abs() < 2.0 ** 30, ext.vel, 2.0 ** 30)
+        speed_f = torch.where(ext.speed.abs() < 2.0 ** 30, ext.speed, 2.0 ** 30)
+        packed = torch.cat([
+            ext.pos, vel_f, speed_f[:, None],
+            ext.dest.to(torch.float32)[:, None],
+            alive.to(torch.float32)[:, None],
+            e, fs.obs_dist[:, None], fs.obs_grad,
+        ], dim=1)
+        sp = packed.index_select(0, order)
+        cid_sorted = cid.index_select(0, order)
+        agents = AgentState(pos=sp[:, 0:2], vel=sp[:, 2:4], speed=sp[:, 4],
+                            dest=sp[:, 5].to(torch.int32), active=sp[:, 6] > 0.5)
+        e_s = sp[:, 7:9]
+        n_active = agents.active.sum().to(torch.int32)
+        n_dropped = alive.sum().to(torch.int32) - n_active
+
+        # forces: goal (sfm.rs:107-109) + obstacle (sfm.rs:188-237) +
+        # pairwise over the dense cell layout, or over all pairs
+        acc = F.goal_force(e_s, agents.vel, agents.speed, phys)
+        if cfg.use_distance_map:
+            acc = acc + F.obstacle_force(sp[:, 9], sp[:, 10:12], phys)
+        elif obstacles[0].shape[0] > 0:
+            acc = acc + F.segment_obstacle_force(agents.pos, *obstacles, phys)
+        if cfg.use_neighbor_grid:
+            layout = forcepass.build_layout(cid_sorted, agents.active, grid, k)
+            data = forcepass.scatter_cell_data(layout, grid, k, agents.pos,
+                                               agents.vel, e_s)
+            acc_flat = forcepass.dense_pairwise(data, grid, k, phys,
+                                                row_block=cfg.row_block)
+            acc = acc + forcepass.gather_pair_acc(acc_flat, layout)
+            n_overflow = layout.n_overflow
+        else:
+            acc = acc + _all_pairs_acc(cfg, agents, e_s)
+            n_overflow = zero
+
+        pos, vel = F.integrate(agents.pos, agents.vel, acc, agents.speed,
+                               agents.active, phys)
+        metrics = StepMetrics(n_active=n_active, n_spawned=n_spawned,
+                              n_dropped=n_dropped, n_overflow=n_overflow,
+                              max_demand=zero, n_exited=zero,
+                              max_mover_demand=zero)
+        return SimState(agents=agents._replace(pos=pos, vel=vel),
+                        step=state.step + 1), metrics
+
+    return step

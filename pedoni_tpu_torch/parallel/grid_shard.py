@@ -4,13 +4,15 @@ Counterpart of pedoni_tpu/parallel/grid_shard.py: shard the grid ``D`` on
 its cell-row axis and a step's communication is two one-row ghost
 exchanges (``tile2d.exchange`` with no lane neighbours); migration is the
 rebin picking movers out of a ghost row.  Everything else is
-parallel/tile2d.py's, on the configuration this module builds.
+parallel/tile2d.py's, on the configuration this module builds.  ``dryrun``
+is tile2d's on n x 1 tiles.
 """
 
 from __future__ import annotations
 
 from ..models.sfm import StepConfig
 from .tile2d import Tile2DConfig
+from .tile2d import dryrun as dryrun_2d
 
 
 class GridShardConfig:
@@ -19,3 +21,9 @@ class GridShardConfig:
     @staticmethod
     def build(cfg: StepConfig, n_devices: int, row_block: int = 2) -> Tile2DConfig:
         return Tile2DConfig.build(cfg, n_devices, 1, row_block=row_block)
+
+
+def dryrun(n_devices: int, device: str = "cuda") -> None:
+    """Entry hook: the row-strip step on ``n_devices`` strips (tile2d's
+    dryrun on n x 1 tiles)."""
+    dryrun_2d(n_devices, 1, device=device)

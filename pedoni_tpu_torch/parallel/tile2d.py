@@ -32,9 +32,9 @@ A step (``make_sharded_step``):
 Every kernel block sees exactly the window one grid would, so R x C tiles
 give the whole grid's result bit for bit.
 
-Not ported: ``make_mesh`` (a device list takes its place), the waypoint
-plane lists and slot split (the port's kernels need neither) and
-``dryrun`` (chip_smoke.py drives the tiled step on the card).
+``dryrun`` runs a few tiled steps on tiny shapes.  Not ported:
+``make_mesh`` (a device list takes its place), the waypoint plane lists
+and slot split (the port's kernels need neither).
 """
 
 from __future__ import annotations
@@ -45,8 +45,9 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..field import FieldMaps
-from ..models.sfm import AgentState, SimState, StepConfig, StepMetrics, spawn_sampler
+from ..field import Field, FieldMaps
+from ..models.sfm import (AgentState, SimState, StepConfig, StepMetrics,
+                          make_initial_state, spawn_sampler)
 from ..models.sfm_grid import (
     GridDims,
     GridState,
@@ -54,10 +55,12 @@ from ..models.sfm_grid import (
     bin_state,
     spawn_scatter,
     step_metrics,
+    stride_for,
     tile_kernels,
     unbin_state,
 )
 from ..ops.fields6 import Fields6
+from ..scenario import loads_scenario
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,3 +296,64 @@ def make_sharded_step(tcfg: Tile2DConfig, devices: Sequence[torch.device | str],
 
     step.full_rebins = None
     return step
+
+
+DRYRUN_SCENARIO = """
+[field]
+size = [24, 24]
+[[waypoints]]
+line = [[2, 2], [2, 22]]
+[[waypoints]]
+line = [[22, 2], [22, 22]]
+[[obstacles]]
+line = [[12, 0], [12, 8]]
+width = 1
+[[pedestrians]]
+origin = 0
+destination = 1
+spawn = { kind = "periodic", frequency = 8.0 }
+[[pedestrians]]
+origin = 1
+destination = 0
+spawn = { kind = "once", count = 40 }
+"""
+
+
+def dryrun(rows: int, cols: int, device: str = "cuda") -> None:
+    """Entry hook: three tiled grid steps of a rows x cols tiling on
+    tiny shapes (a spawning 24 x 24 m scenario), tile i on cuda:i, then a
+    sanity check.  Where the machine has fewer cards than tiles, tile i
+    runs on cuda:(i mod cards), which the printed line says: tiles that
+    share a card run the same code as on as many cards.  ``device="cpu"``
+    puts every tile on the CPU."""
+    n = rows * cols
+    if device == "cpu":
+        devices = [torch.device("cpu")] * n
+    else:
+        n_cards = torch.cuda.device_count()
+        if n_cards == 0:
+            raise RuntimeError("dryrun on cuda, and torch.cuda.device_count() is 0")
+        devices = [torch.device("cuda", i % n_cards) for i in range(n)]
+    scenario = loads_scenario(DRYRUN_SCENARIO)
+    maps = FieldMaps.from_field(Field.from_scenario(scenario, unit=0.25))
+    cfg = StepConfig.build(scenario, capacity=1024, neighbor_grid_unit=1.5,
+                           table_capacity=8)
+    tcfg = Tile2DConfig.build(cfg, rows, cols)
+    generator = torch.Generator(device=devices[0]).manual_seed(0)
+    fwp, fobs = device_inputs(tcfg, maps, stride_for(cfg), devices)
+    state = make_sharded_grid_state(
+        tcfg, make_initial_state(cfg, generator, devices[0]), devices)
+    step = make_sharded_step(tcfg, devices, generator=generator)
+    for _ in range(3):
+        state, metrics = step(state, fwp, fobs)
+    n_active = int(metrics.n_active)
+    if not 0 < n_active <= cfg.capacity:
+        raise AssertionError(f"implausible active count {n_active}")
+    flat = unbin_sharded(tcfg, state).agents
+    if not bool(torch.isfinite(flat.pos[flat.active]).all()):
+        raise AssertionError("non-finite positions after the tiled steps")
+    names = ", ".join(f"tile {i} on {d}" for i, d in enumerate(devices))
+    shared = ("" if device == "cpu" or len(set(devices)) == n
+              else " (fewer cards than tiles: cards named more than once)")
+    print(f"tile2d dryrun {rows}x{cols}: 3 steps, {n_active} active; "
+          f"{names}{shared}", flush=True)

@@ -1,5 +1,4 @@
-"""Simulator orchestration for the grid backend, on one device or tiled
-over several.
+"""Simulator orchestration: state, capacity growth, ticking.
 
 Counterpart of pedoni_tpu/sim.py with the same surface:
 
@@ -8,17 +7,25 @@ Counterpart of pedoni_tpu/sim.py with the same surface:
     pos, dest = sim.list_pedestrians()
     sim.pedestrian_count
 
-Covered: the cell-resident grid step with the hybrid rebin (incremental,
-or full every ``compact_every``-th step and on fallback; auto-chosen by
-cell occupancy), distance-map or exact segment obstacles
-(``use_distance_map=False``), all-pairs interactions through a cell unit
-grown to cover the cutoff (``use_neighbor_grid=False``), one device or
-``n_devices`` tiles (parallel/tile2d.py: row strips, or ``tile`` = (rows,
-cols)), drop-free table growth, mover-table growth, the on-device run
-totals and the lagged growth guard of ``run``, and checkpoints
-(checkpoint.py), which cross device counts.
-Options outside that slice raise ``ValueError`` naming the ROADMAP item
-that will port them.
+Two backends, as in the reference:
+
+- ``"xla"`` (the default): the flat step (models/sfm.py::make_step) on
+  fixed-capacity agent tensors at the 1.4 m unit, whose capacity doubles
+  when the population passes 80% of it; one device.  Its all-pairs mode
+  (``use_neighbor_grid=False``) is the true O(C^2) pass.
+- ``"grid"``: the cell-resident grid step with the hybrid rebin
+  (incremental, or full every ``compact_every``-th step and on fallback;
+  auto-chosen by cell occupancy), at the 1.5 m unit, on one device or
+  ``n_devices`` tiles (parallel/tile2d.py: row strips, or ``tile`` =
+  (rows, cols)), with drop-free table growth and mover-table growth; its
+  all-pairs mode grows the cell unit to cover the cutoff.
+
+Both take distance-map or exact segment obstacles (``use_distance_map=
+False``), keep ``run``'s totals on the device behind its lagged growth
+guard, and checkpoint as flat agents (checkpoint.py), so a checkpoint
+crosses backends and device counts.  ``backend="pallas"`` (the
+reference's flat fused kernel) is not ported, by decision: it raises,
+and the CLI runs ``-b pallas`` on the grid backend.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ import torch
 from .diagnostics import DiagnosticLog, StepRecord
 from .field import Field, FieldMaps
 from .models import sfm_grid
-from .models.sfm import SimState, StepConfig, StepMetrics, make_initial_state
+from .models.sfm import (AgentState, SimState, StepConfig, StepMetrics,
+                          device_inputs, make_initial_state, make_step)
 from .parallel import tile2d
 from .physics import Physics
 from .scenario import Scenario
@@ -61,10 +69,11 @@ def _to_host(m: StepMetrics) -> StepMetrics:
 
 @dataclasses.dataclass(frozen=True)
 class SimulatorOptions:
-    """Counterpart of the reference's options, grid backend only."""
+    """Counterpart of the reference's options (lib.rs:109-135), with the
+    same defaults."""
 
-    backend: str = "grid"
-    neighbor_grid_unit: float = 1.4  # auto-switched to 1.5 (stride-6 fields)
+    backend: str = "xla"  # "xla": the flat step; "grid": the grid step
+    neighbor_grid_unit: float = 1.4  # the grid step runs 1.4 as 1.5
     field_grid_unit: float = 0.25
     use_neighbor_grid: bool = True
     use_distance_map: bool = True
@@ -73,7 +82,7 @@ class SimulatorOptions:
     capacity: int = 0  # 0 = auto-size from the scenario
     seed: int = 0
     physics: Physics = Physics()
-    n_devices: int = 1  # > 1: the grid cut into tiles, one a device
+    n_devices: int = 1  # > 1: the grid cut into tiles, one a device (grid)
     tile: tuple[int, int] | None = None  # (rows, cols) of tiles; None =
     #                        row strips (rows = n_devices, cols = 1)
     # Hybrid rebin (the reference's sim.py:75-98): incremental on most
@@ -101,20 +110,29 @@ class SimulatorOptions:
         return max(1, min(8, self.chunk_size // 1024))
 
     def check(self) -> None:
-        """Raise on what this port does not cover yet."""
-        if self.backend != "grid":
-            raise ValueError(f"backend {self.backend!r} is not ported; only "
-                             "'grid' is (ROADMAP queue 1, item 9)")
+        """Raise on what this port does not cover."""
+        if self.backend == "pallas":
+            raise ValueError("backend 'pallas' (the reference's flat fused "
+                             "kernel, make_step_pallas) is not ported, by "
+                             "decision (ROADMAP queue 1, item 9); 'grid' runs "
+                             "the grid step")
+        if self.backend not in ("xla", "grid"):
+            raise ValueError(f"unknown backend {self.backend!r}: 'xla' or 'grid'")
+        if self.n_devices > 1 and self.backend != "grid":
+            raise ValueError("--devices > 1 requires the grid backend")
         self.resolve_tile()
 
     def resolved(self) -> "SimulatorOptions":
-        """The options the grid step runs with (the reference's sim.py:
-        124-152): the 1.4 m default unit becomes 1.5 m (the stride-6 field
-        layout); in all-pairs mode the unit grows to cover the interaction
-        cutoff, in whole field units, and K by the cell-area ratio.  The
-        reference's all-pairs branch keeps the same cutoff (sfm.rs:158-184),
-        so a 3x3 window of such cells finds exactly its interacting pairs."""
+        """The options the step runs with (the reference's sim.py:124-152).
+        The flat step takes them as they are.  For the grid step the 1.4 m
+        default unit becomes 1.5 m (the stride-6 field layout), and in
+        all-pairs mode the unit grows to cover the interaction cutoff, in
+        whole field units, and K by the cell-area ratio; the reference's
+        all-pairs branch keeps the same cutoff (sfm.rs:158-184), so a 3x3
+        window of such cells finds exactly its interacting pairs."""
         o = self
+        if o.backend != "grid":
+            return o
         if o.neighbor_grid_unit == 1.4:
             o = dataclasses.replace(o, neighbor_grid_unit=1.5)
         if not o.use_neighbor_grid:
@@ -195,17 +213,32 @@ class Simulator:
         lam = est_n / max(w * h, 1e-9) * o.neighbor_grid_unit ** 2
         return lam >= 1.75
 
+    @property
+    def _flat(self) -> bool:
+        return self.options.backend == "xla"
+
     def _build(self, capacity: int) -> None:
         o = self.options
         self.cfg = StepConfig.build(
             self.scenario, physics=o.physics, capacity=capacity,
             neighbor_grid_unit=o.neighbor_grid_unit, field_unit=o.field_grid_unit,
-            table_capacity=o.table_capacity, use_neighbor_grid=o.use_neighbor_grid,
+            table_capacity=o.table_capacity, chunk_size=o.chunk_size,
+            use_neighbor_grid=o.use_neighbor_grid,
             use_distance_map=o.use_distance_map)
+        self._tcfg = None
+        self._kernel_chain = None  # shapes depend on K
+        if self._flat:
+            # the step's two input arguments: on this backend the packed
+            # field rows and the obstacle segments
+            field, self._fobs = device_inputs(self.cfg, self.maps, self.device)
+            self._fwp = field.rows
+            self._step = make_step(self.cfg, generator=self.generator)
+            log.info("step function built: capacity=%d backend=xla device=%s",
+                     capacity, self.device)
+            return
         step_kw = dict(incremental=self._resolve_incremental(),
                        mover_k=o.mover_capacity, compact_every=o.compact_every,
                        generator=self.generator)
-        self._tcfg = None
         # the old fields, and the packed copy cached for them, go before the
         # new ones are made (a rebuild would otherwise hold both)
         self._fwp = self._fobs = None
@@ -224,7 +257,6 @@ class Simulator:
                 self.cfg, self.maps, self.device, row_block=o.row_block)
             self._step = sfm_grid.make_step_grid(
                 self.cfg, row_block=o.row_block, **step_kw)
-        self._kernel_chain = None  # shapes depend on K
         log.info("step function built: capacity=%d K=%d device=%s tiles=%s",
                  capacity, o.table_capacity, self.device, o.resolve_tile())
 
@@ -247,12 +279,15 @@ class Simulator:
         self.step_count += 1
         self.last_metrics = metrics
         if metrics.n_dropped > 0:
-            log.warning("step %d: %d spawn candidates dropped into full cells",
-                        self.step_count, metrics.n_dropped)
+            log.warning("step %d: %d %s", self.step_count, metrics.n_dropped,
+                        self._dropped_what)
         if metrics.n_exited > 0:
             log.debug("step %d: %d agents left the field", self.step_count,
                       metrics.n_exited)
-        if metrics.n_overflow > 0:
+        if self._flat:
+            if metrics.n_active > 0.8 * self.cfg.capacity:
+                self._grow()
+        elif metrics.n_overflow > 0:
             # Reactive: a cell jumped past K within one step.  Counted.
             self._grow_table(metrics.n_overflow)
         elif metrics.max_demand >= self.options.table_capacity - 1:
@@ -266,6 +301,25 @@ class Simulator:
         return StepRecord(active_ped_count=metrics.n_active, time_spawn=0.0,
                           time_calc_state=t.elapsed)
 
+    @property
+    def _dropped_what(self) -> str:
+        """What ``n_dropped`` counts on this backend."""
+        return ("agents dropped at capacity" if self._flat
+                else "spawn candidates dropped into full cells")
+
+    def _needs_growth(self, m: StepMetrics) -> bool:
+        """The preemptive growth rule of ``run``'s guard: the flat tensors
+        at 80% of the capacity, the grid's peak cell demand at K - 1."""
+        if self._flat:
+            return int(m.n_active) > 0.8 * self.cfg.capacity
+        return int(m.max_demand) >= self.options.table_capacity - 1
+
+    def _grow_now(self) -> None:
+        if self._flat:
+            self._grow()
+        else:
+            self._grow_table(0)
+
     def run(self, n_steps: int, sync_every: int = 0,
             guard_every: int = 4) -> StepRecord:
         """Advance ``n_steps`` without per-step host syncs: metrics
@@ -274,7 +328,10 @@ class Simulator:
         metrics of the step ``guard_every`` launches ago are read and the
         table grows preemptively at peak demand >= K-1, as tick() does; a
         cell sprinting past K within the lag still falls to the counted
-        reactive path.  ``sync_every`` > 0 adds full syncs."""
+        reactive path.  The flat backend's guard doubles the capacity at 80%
+        occupancy instead, and a population that outruns it within the lag
+        is cut at the capacity and counted in ``n_dropped``.  ``sync_every``
+        > 0 adds full syncs."""
         totals = None
         pending: list[StepMetrics] = []
         with Timer() as t:
@@ -287,27 +344,44 @@ class Simulator:
                     pending.append(metrics)
                     if len(pending) > guard_every:
                         pending.pop(0)
-                    if (i + 1) % guard_every == 0:
-                        old = pending[0]
-                        if int(old.max_demand) >= self.options.table_capacity - 1:
-                            self._grow_table(0)
-                            pending.clear()
+                    if ((i + 1) % guard_every == 0
+                            and self._needs_growth(pending[0])):
+                        self._grow_now()
+                        pending.clear()
                 if sync_every and (i + 1) % sync_every == 0:
-                    if int(metrics.max_demand) >= self.options.table_capacity - 1:
-                        self._grow_table(0)
+                    if self._needs_growth(metrics):
+                        self._grow_now()
             host = _to_host(totals) if totals is not None else None
         self.step_count += n_steps
         self.last_run_metrics = host
         if host is not None:
             if host.n_dropped > 0:
-                log.warning("run(%d): %d spawn candidates dropped into full "
-                            "cells over the run", n_steps, host.n_dropped)
+                log.warning("run(%d): %d %s over the run", n_steps,
+                            host.n_dropped, self._dropped_what)
             if host.n_overflow > 0:
                 log.warning("run(%d): %d agents lost to cell overflow over "
                             "the run", n_steps, host.n_overflow)
         return StepRecord(
             active_ped_count=host.n_active if host is not None else 0,
             time_spawn=0.0, time_calc_state=t.elapsed / max(n_steps, 1))
+
+    def _grow(self) -> None:
+        """Flat backend: double the capacity, padding the agent tensors
+        with inactive slots (the reference's sim.py:282-297)."""
+        old_cap = self.cfg.capacity
+        a = self.state.agents
+        self._build(old_cap * 2)
+        pad = self.cfg.capacity - old_cap
+        dev = a.pos.device
+        self.state = self.state._replace(agents=AgentState(
+            pos=torch.cat([a.pos, torch.zeros((pad, 2), device=dev)]),
+            vel=torch.cat([a.vel, torch.zeros((pad, 2), device=dev)]),
+            speed=torch.cat([a.speed, torch.ones((pad,), device=dev)]),
+            dest=torch.cat([a.dest, torch.zeros((pad,), dtype=torch.int32,
+                                                device=dev)]),
+            active=torch.cat([a.active, torch.zeros((pad,), dtype=torch.bool,
+                                                    device=dev)])))
+        log.info("capacity grown: %d -> %d", old_cap, self.cfg.capacity)
 
     def _grow_table(self, n_lost: int) -> None:
         """Grow the per-cell table K and re-bin (preemptively when
@@ -344,12 +418,15 @@ class Simulator:
         self._build(self.cfg.capacity)
         self.state = self._from_flat_state(flat)
 
-    def measure_kernel_time(self, n: int = 10) -> float:
-        """Seconds per step of the kernels alone (fused step + rebin, no
-        spawn, no metrics; the incremental branch when the step is the
-        hybrid), chained ``n`` times from the current state.  On a CUDA
-        device timed with CUDA events; on the CPU (twins) with the host
-        clock.  One device only."""
+    def measure_kernel_time(self, n: int = 10) -> float | None:
+        """Seconds per step of the grid step's kernels alone (fused step +
+        rebin, no spawn, no metrics; the incremental branch when the step
+        is the hybrid), chained ``n`` times from the current state.  On a
+        CUDA device timed with CUDA events; on the CPU (twins) with the
+        host clock.  One device only; None on the flat backend, which runs
+        no hand kernel."""
+        if self._flat:
+            return None
         if self._tcfg is not None:
             raise ValueError("measure_kernel_time times one device's kernels; "
                              "this simulator runs tiles")
@@ -374,8 +451,10 @@ class Simulator:
         return start.elapsed_time(end) / 1000.0 / n
 
     def _to_flat_state(self) -> SimState:
-        """The state as flat agent tensors, whatever the device count: the
-        checkpoint, render and diagnostic exchange format."""
+        """The state as flat agent tensors, whatever the backend or device
+        count: the checkpoint, render and diagnostic exchange format."""
+        if self._flat:
+            return self.state
         if self._tcfg is not None:
             return tile2d.unbin_sharded(self._tcfg, self.state)
         return sfm_grid.unbin_state(self.cfg, self.state)
@@ -383,8 +462,11 @@ class Simulator:
     def _from_flat_state(self, state: SimState):
         """Inverse of :meth:`_to_flat_state` (the reference's sim.py:
         543-560): the agents binned on this simulator's device, or cut into
-        its tiles — so checkpoints restore across device counts."""
+        its tiles, or the flat agents themselves on the flat backend -- so
+        checkpoints restore across backends and device counts."""
         state = SimState(agents=state.agents.to(self.device), step=state.step)
+        if self._flat:
+            return state
         if self._tcfg is not None:
             gs = tile2d.make_sharded_grid_state(self._tcfg, state, self.devices)
             n_binned = tile2d.population(gs)
@@ -409,11 +491,14 @@ class Simulator:
 
     @property
     def pedestrian_count(self) -> int:
+        if self._flat:
+            return int(self.state.agents.active.sum())
         if self._tcfg is not None:
             return tile2d.population(self.state)
         return int((self.state.d[:, :, 6, :] > 0.5).sum())
 
     def new_log(self, scenario_name: str = "") -> DiagnosticLog:
-        lg = DiagnosticLog(model="sfm-torch/grid", scenario=scenario_name)
+        lg = DiagnosticLog(model=f"sfm-torch/{self.options.backend}",
+                           scenario=scenario_name)
         lg.time_calc_field = self.time_calc_field
         return lg

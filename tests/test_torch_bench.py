@@ -3,7 +3,8 @@
 - ``build_problem`` is bit-equal to the reference's (root bench.py) for
   W in {1, 8, 33} x domain in {auto, square, tiles:2} at 20 000 agents: the
   scenario's segments and size, the cell grid, and the agents' pos, vel,
-  speed, dest and active;
+  speed, dest and active; so is the reference's xla problem (the square
+  field at 1.4 m), which ``build`` steps with the flat step;
 - ``python -m pedoni_tpu_torch.bench --backend cpu`` prints exactly one
   JSON line with the reference's keys (tests/test_bench_contract.py) and
   ``device``, and importing the module loads neither JAX nor the reference;
@@ -60,6 +61,39 @@ def test_build_problem_bit_equal_to_reference(waypoints, domain):
     assert int(dest.max()) == waypoints - 1 or domain == "tiles:2"
     if domain == "tiles:2":
         assert pcfg.grid.nx == 2 * 128 - 3
+
+
+@pytest.mark.parametrize("n_agents", [2000, 20_000])
+def test_xla_problem_bit_equal_to_reference(n_agents):
+    """``--backend xla``: the reference's square field at 1.4 m, capacity
+    the next power of two, the same NumPy draw (bench.py:33-143), and the
+    same field maps."""
+    sc, maps, cfg, st = ref_bench.build_problem(n_agents, 2.5, 3, "xla", 14, 16384)
+    psc, pmaps, pcfg, pst = bench.build_problem(n_agents, 2.5, 3, 14, "cpu",
+                                                backend="xla")
+    assert psc.size == sc.size and psc.size[0] == psc.size[1]
+    assert _segments(psc.waypoints) == _segments(sc.waypoints)
+    assert _segments(psc.obstacles) == _segments(sc.obstacles)
+    assert (pcfg.capacity, pcfg.table_capacity) == (cfg.capacity, cfg.table_capacity)
+    assert ((pcfg.grid.nx, pcfg.grid.ny, pcfg.grid.unit)
+            == (cfg.grid.nx, cfg.grid.ny, 1.4))
+    for name in ("pos", "vel", "speed", "dest", "active"):
+        np.testing.assert_array_equal(getattr(pst.agents, name).numpy(),
+                                      np.asarray(getattr(st.agents, name)),
+                                      err_msg=name)
+    for name in ("pot", "dist", "dist_gx"):
+        np.testing.assert_array_equal(getattr(pmaps, name), getattr(maps, name))
+
+
+def test_xla_build_steps_the_flat_problem():
+    """``build`` for ``--backend xla``, on the CPU: the flat step over the
+    flat agents, all of them kept (1.4 m cells, K = 14)."""
+    args = bench.build_parser().parse_args(["--backend", "xla", "--agents", "2000"])
+    step, state, cfg = bench.build(args, torch.device("cpu"))
+    assert cfg.grid.unit == 1.4 and state.agents.pos.shape == (2048, 2)
+    state, m = step(state)
+    assert int(m.n_active) == 2000 and int(m.n_dropped) == 0
+    assert state.step == 1 and bool(torch.isfinite(state.agents.pos).all())
 
 
 def _env():
@@ -119,10 +153,11 @@ def _main(argv, capsys):
 
 @pytest.mark.parametrize("argv,said", [
     (["--backend", "pallas"], "make_step_pallas"),
-    (["--backend", "xla"], "item 9"),
+    (["--backend", "xla"], "needs a CUDA device"),
+    (["--backend", "xla", "--domain", "square"], "no effect with --backend xla"),
     (["--allow-fallback"], "--allow-fallback is refused"),
     (["--no-wp-skip"], "no waypoint slot walk"),
-    (["--chunk-size", "16384"], "no flat chunked backend"),
+    (["--chunk-size", "16384"], "no step reads it"),
     (["--domain", "tiles:0"], "needs a positive integer T"),
     (["--domain", "round"], "must be auto, square, or tiles:T"),
     ([], "needs a CUDA device"),  # --backend grid, the default

@@ -9,6 +9,11 @@ cli.py), on the CPU:
   with the reference's schema (tests/test_api.py:88-147), checkpoints
   every N steps, and a resumed run restores agents and generator exactly;
 - the flags the port does not cover exit non-zero before any work;
+- ``-b`` resolves as the reference's ``make_simulator`` does (auto, xla
+  and tpu: the flat backend at 1.4 m; with tiles, auto: the grid at
+  1.5 m; an explicit flat backend with tiles exits non-zero), but for the
+  kept divergences ``-b cpu`` (the grid backend on the CPU) and ``-b
+  pallas`` (the grid backend);
 - ``--tile 2x2 -b cpu`` runs gap.toml on four tiles until the population
   reaches 0, and ``--devices`` / ``--tile`` are parsed with the
   reference's messages.
@@ -24,6 +29,7 @@ import pytest
 import torch
 
 from pedoni_tpu import checkpoint as ref_ckpt
+from pedoni_tpu import cli as ref_cli
 from pedoni_tpu.models.sfm import AgentState, SimState
 from pedoni_tpu_torch import Simulator, SimulatorOptions, cli, convert
 from pedoni_tpu_torch import checkpoint as port_ckpt
@@ -54,7 +60,7 @@ def _sim_rows(sim):
 
 
 def test_port_checkpoint_loads_in_reference(tmp_path):
-    sim = Simulator(SimulatorOptions(device="cpu", seed=3), loads_scenario(SCENARIO))
+    sim = Simulator(SimulatorOptions(backend="grid", device="cpu", seed=3), loads_scenario(SCENARIO))
     for _ in range(5):
         sim.tick()
     path = tmp_path / "port.npz"
@@ -82,7 +88,7 @@ def test_reference_checkpoint_restores_in_port(tmp_path):
         agents=AgentState(*map(jnp.asarray, (pos, vel, speed, dest, active))),
         key=jax.random.PRNGKey(9), step=jnp.int32(40)), path, step_count=40)
 
-    sim = Simulator(SimulatorOptions(device="cpu", seed=11, capacity=256,
+    sim = Simulator(SimulatorOptions(backend="grid", device="cpu", seed=11, capacity=256,
                                      table_capacity=32),
                     loads_scenario(SCENARIO))
     sim.generator.manual_seed(999)
@@ -146,7 +152,6 @@ def test_cli_checkpoint_and_resume(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-b", "xla"], ["-b", "tpu"],
     ["--render"], ["--render-web"], ["--record-every", "5"],
     ["--frame-every", "5"], ["--profile", "trace"], ["--no-headless"],
 ], ids=lambda e: e[-1].lstrip("-"))
@@ -161,6 +166,69 @@ def test_unported_flags_exit_nonzero(tmp_path, extra):
     assert exc.value.code not in (0, None)
     assert "ROADMAP" in str(exc.value.code)
     assert not (tmp_path / "logs").exists()
+
+
+def _reference_options(argv, monkeypatch):
+    """The options the reference's ``make_simulator`` builds for ``argv``
+    (its Simulator replaced by a stub that returns them)."""
+    monkeypatch.setattr(ref_cli, "Simulator", lambda options, scenario: options)
+    try:
+        options, _ = ref_cli.make_simulator(ref_cli.build_parser().parse_args(argv))
+    finally:  # -b cpu / tpu set JAX's default device: back to unset
+        jax.config.update("jax_default_device", None)
+    return options
+
+
+@pytest.mark.parametrize("extra", [
+    ["-b", "auto"], ["-b", "xla"], ["-b", "tpu"], ["-b", "grid"],
+    ["-b", "auto", "--tile", "2x2"], ["-b", "auto", "--devices", "2"],
+    ["-b", "xla", "--neighbor-unit", "2.0"], ["-b", "grid", "--tile", "1x2"],
+], ids=lambda e: "_".join(a.lstrip("-") for a in e[1:]))
+def test_cli_backends_resolve_as_the_reference(tmp_path, extra, monkeypatch):
+    """``-b auto`` runs the flat backend at 1.4 m, and with tiles the grid
+    at 1.5 m; the port's backend, unit, device count and tiles are the
+    reference's, on the CUDA card."""
+    argv = _argv(tmp_path)[:2] + extra  # the scenario, -H
+    got = cli.options_from_args(cli.build_parser().parse_args(argv))
+    want = _reference_options(argv, monkeypatch)
+    assert ((got.backend, got.neighbor_grid_unit, got.n_devices, got.tile)
+            == (want.backend, want.neighbor_grid_unit, want.n_devices, want.tile))
+    assert got.device == "cuda"
+    if extra[1:] == ["auto"]:
+        assert (got.backend, got.neighbor_grid_unit) == ("xla", 1.4)
+    if "--tile" in extra and extra[1] == "auto":
+        assert (got.backend, got.neighbor_grid_unit) == ("grid", 1.5)
+
+
+@pytest.mark.parametrize("extra,backend,device", [
+    (["-b", "cpu"], "grid", "cpu"), (["-b", "pallas"], "grid", "cuda"),
+], ids=["cpu", "pallas"])
+def test_cli_kept_divergences(tmp_path, extra, backend, device, monkeypatch):
+    """``-b cpu`` runs the grid backend (its kernels' twins) on the CPU,
+    where the reference runs its flat step there; ``-b pallas`` runs the
+    grid backend, where the reference runs its flat fused kernel (not
+    ported, by decision).  Both at the grid's 1.5 m, as the reference's
+    pallas."""
+    argv = _argv(tmp_path)[:2] + extra  # the scenario, -H
+    got = cli.options_from_args(cli.build_parser().parse_args(argv))
+    assert (got.backend, got.device, got.neighbor_grid_unit) == (backend, device, 1.5)
+    want = _reference_options(argv, monkeypatch)
+    assert want.backend == ("xla" if extra[1] == "cpu" else "pallas")
+
+
+@pytest.mark.parametrize("backend", ["xla", "tpu"])
+def test_cli_flat_backend_with_devices_exits_nonzero(tmp_path, backend,
+                                                     monkeypatch):
+    """An explicit flat backend cannot run tiles: ``-b xla --devices 2``
+    exits non-zero with the reference's message, before any work."""
+    argv = _argv(tmp_path, "--devices", "2", "--max-steps", "1")
+    argv[argv.index("cpu")] = backend
+    with pytest.raises(SystemExit, match="requires the grid backend") as exc:
+        cli.main(argv)
+    assert exc.value.code not in (0, None)
+    assert not (tmp_path / "logs").exists()
+    with pytest.raises(SystemExit, match="requires the grid backend"):
+        _reference_options(argv, monkeypatch)
 
 
 def test_cli_tiles_evacuate_gap(tmp_path):

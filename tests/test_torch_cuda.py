@@ -383,7 +383,7 @@ def test_step_kernel_segments_random_toml_cull(seg_pass, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from pedoni_tpu_torch import Simulator, SimulatorOptions
-    sim = Simulator(SimulatorOptions(device="cuda", seed=1, use_distance_map=False),
+    sim = Simulator(SimulatorOptions(backend="grid", device="cuda", seed=1, use_distance_map=False),
                     load_scenario(SCENARIOS / "random.toml"))
     cfg = sim.cfg
     segs = sfm_grid.debug_segments(cfg, "cuda")
@@ -666,8 +666,8 @@ def test_tiles_on_several_cards(incremental):
     sc = load_scenario(SCENARIOS / "corridor.toml")
     opts = dict(device="cuda", seed=3, incremental_rebin=incremental,
                 compact_every=1000 if incremental else 8)
-    one = Simulator(SimulatorOptions(**opts), sc)
-    tiled = Simulator(SimulatorOptions(n_devices=n_t, tile=tile, **opts), sc)
+    one = Simulator(SimulatorOptions(backend="grid", **opts), sc)
+    tiled = Simulator(SimulatorOptions(backend="grid", n_devices=n_t, tile=tile, **opts), sc)
     assert [t.device for t in tiled.state.d] == [torch.device("cuda", i)
                                                  for i in range(n_t)]
     spawned = 0
@@ -757,7 +757,7 @@ def test_supports_reads_the_card_memory(monkeypatch):
     monkeypatch.setattr(sfm_grid, "card_free_bytes", lambda device="cuda": 4096)
     before = torch.cuda.memory_allocated()
     with pytest.raises(ValueError, match="bytes on cuda and 4096 are free"):
-        Simulator(SimulatorOptions(device="cuda"), sc)
+        Simulator(SimulatorOptions(backend="grid", device="cuda"), sc)
     with pytest.raises(ValueError, match="bytes on cuda and 4096 are free"):
         bench.capture(bench.build_parser().parse_args(["--agents", "20000"]))
     torch.cuda.synchronize()

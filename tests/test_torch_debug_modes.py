@@ -141,7 +141,7 @@ def test_segment_grid_step_matches_oracle():
 
 def test_all_pairs_simulator_matches_oracle():
     psc, pos, vel, speed, dest, active = _initial()
-    sim = Simulator(SimulatorOptions(device="cpu", use_neighbor_grid=False,
+    sim = Simulator(SimulatorOptions(backend="grid", device="cpu", use_neighbor_grid=False,
                                      capacity=CAP), psc)
     assert sim.options.neighbor_grid_unit == 2.0
     assert sim.options.table_capacity == 29  # ceil(16 * (2.0 / 1.5)^2)

@@ -68,7 +68,7 @@ def test_imports_and_steps_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import torch; torch.set_num_threads(1)\n"
         "import pedoni_tpu_torch as P\n"
-        f"sim = P.Simulator(P.SimulatorOptions(device='cpu'), P.load_scenario({str(GAP)!r}))\n"
+        f"sim = P.Simulator(P.SimulatorOptions(backend='grid', device='cpu'), P.load_scenario({str(GAP)!r}))\n"
         "rec = sim.tick()\n"
         "assert rec.active_ped_count == 64, rec\n"
         "assert 'pedoni_tpu' not in sys.modules and 'jax' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
@@ -82,7 +82,7 @@ def test_imports_and_steps_without_jax():
 
 def test_package_never_imports_jax_or_reference():
     for path in list(pathlib.Path(pedoni_tpu_torch.__file__).parent.rglob("*.py")) \
-            + [ROOT / "chip_smoke.py"]:
+            + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]:
         text = path.read_text()
         for bad in ("import jax", "from jax", "import pedoni_tpu\n",
                     "from pedoni_tpu ", "from pedoni_tpu.", "import pedoni_tpu."):
@@ -90,8 +90,7 @@ def test_package_never_imports_jax_or_reference():
 
 
 @pytest.mark.parametrize("option", [
-    # tiles (n_devices > 1) are ported; on a backend that is not, they raise
-    {"backend": "xla"}, {"backend": "xla", "n_devices": 2},
+    # the flat fused kernel is not ported, by decision, with or without tiles
     {"backend": "pallas"}, {"backend": "pallas", "n_devices": 4},
 ])
 def test_unported_options_raise(option):
@@ -103,7 +102,7 @@ def test_unported_options_raise(option):
 def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
-        Simulator(SimulatorOptions(device="cuda"), pscenario.load_scenario(GAP))
+        Simulator(SimulatorOptions(backend="grid", device="cuda"), pscenario.load_scenario(GAP))
 
 
 def test_kernel_build_failure_raises(monkeypatch, tmp_path):
@@ -118,7 +117,7 @@ def test_simulator_run_totals_and_growth():
     """run() keeps totals on the device and grows the table drop-free:
     gap's 64 agents start on one waypoint line, so K = 8 is short (the
     initial binning already drops the excess, as the reference's does)."""
-    sim = Simulator(SimulatorOptions(device="cpu", table_capacity=8),
+    sim = Simulator(SimulatorOptions(backend="grid", device="cpu", table_capacity=8),
                     pscenario.load_scenario(GAP))
     n0 = sim.pedestrian_count
     assert 50 < n0 < 64

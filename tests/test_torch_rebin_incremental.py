@@ -251,7 +251,7 @@ def test_resolve_incremental_matches_reference(which):
             options=RefOptions(backend="grid", neighbor_grid_unit=1.5,
                                incremental_rebin=forced), scenario=sc))
         got = Simulator._resolve_incremental(types.SimpleNamespace(
-            options=SimulatorOptions(device="cpu", neighbor_grid_unit=1.5,
+            options=SimulatorOptions(backend="grid", device="cpu", neighbor_grid_unit=1.5,
                                      incremental_rebin=forced), scenario=psc))
         assert got == ref
         if forced is None:
@@ -261,7 +261,7 @@ def test_resolve_incremental_matches_reference(which):
 def test_simulator_hybrid_grows_movers():
     """corridor.toml resolves to the hybrid; at mover_capacity=2 the first
     cell with a mover grows the table (2 -> 4), and no agent is lost."""
-    opts = SimulatorOptions(device="cpu", mover_capacity=2, seed=3)
+    opts = SimulatorOptions(backend="grid", device="cpu", mover_capacity=2, seed=3)
     sim = Simulator(opts, load_scenario(SCENARIOS["corridor"]))
     assert sim._resolve_incremental()
     lost = 0

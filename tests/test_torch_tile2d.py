@@ -280,8 +280,8 @@ def test_tiled_simulator_evacuates_gap_like_one_device():
     """Simulator(n_devices=4, tile=(2, 2), device="cpu") runs gap.toml to
     evacuation; its metrics equal the one-device simulator's each step."""
     sc = pload_scenario(GAP)
-    one = Simulator(SimulatorOptions(device="cpu", seed=1), sc)
-    four = Simulator(SimulatorOptions(device="cpu", seed=1, n_devices=4,
+    one = Simulator(SimulatorOptions(backend="grid", device="cpu", seed=1), sc)
+    four = Simulator(SimulatorOptions(backend="grid", device="cpu", seed=1, n_devices=4,
                                       tile=(2, 2)), sc)
     assert four._tcfg.n_devices == 4 and four.pedestrian_count == one.pedestrian_count
     for i in range(400):
@@ -300,7 +300,7 @@ def test_checkpoint_across_device_counts(tmp_path):
     population, and the next three ticks' metrics equal — spawns included,
     since the generator's state rides in the file."""
     sc = ploads_scenario(SCENARIO)
-    sim = Simulator(SimulatorOptions(device="cpu", seed=5, table_capacity=10,
+    sim = Simulator(SimulatorOptions(backend="grid", device="cpu", seed=5, table_capacity=10,
                                      n_devices=2), sc)
     for _ in range(4):
         sim.tick()
@@ -309,7 +309,7 @@ def test_checkpoint_across_device_counts(tmp_path):
     n0 = sim.pedestrian_count
     runs = {}
     for n_dev, tile in ((4, (2, 2)), (1, None)):
-        sim2 = Simulator(SimulatorOptions(device="cpu", seed=99, table_capacity=10,
+        sim2 = Simulator(SimulatorOptions(backend="grid", device="cpu", seed=99, table_capacity=10,
                                           n_devices=n_dev, tile=tile), sc)
         checkpoint.restore(sim2, path)
         assert sim2.step_count == sim.step_count and sim2.pedestrian_count == n0
@@ -324,7 +324,7 @@ def test_checkpoint_across_device_counts(tmp_path):
 def test_tiled_options_validated():
     sc = ploads_scenario(SCENARIO)
     with pytest.raises(ValueError, match="does not cover"):
-        Simulator(SimulatorOptions(device="cpu", n_devices=4, tile=(1, 2)), sc)
+        Simulator(SimulatorOptions(backend="grid", device="cpu", n_devices=4, tile=(1, 2)), sc)
     with pytest.raises(ValueError, match="rows >= 1"):
         tile2d.Tile2DConfig.build(_port_setup()[1], 0, 2)
 
@@ -335,7 +335,7 @@ def test_tiled_simulator_grows_like_one_device():
     same growth at the same step as one device, the same metrics, the
     same agents."""
     sc = pload_scenario(GAP)  # 64 agents on one waypoint line: K 8 is short
-    sims = [Simulator(SimulatorOptions(device="cpu", seed=2, table_capacity=8,
+    sims = [Simulator(SimulatorOptions(backend="grid", device="cpu", seed=2, table_capacity=8,
                                        mover_capacity=2, incremental_rebin=True,
                                        **kw), sc)
             for kw in ({}, {"n_devices": 4, "tile": (2, 2)})]
