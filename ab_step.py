@@ -40,6 +40,13 @@ spreads them), on random.toml's state after chip_smoke.py's ticks (its
 first n rows), on funnel.toml's state at its own agent count (its 4 rows,
 then more spread over its field), and on default.toml's and
 room-evac.toml's states with their own 3 rows.  One JSON line per state.
+
+    python ab_step.py --parent DIR --flat-paths
+
+times, in the same turns, the two paths that place flat agents into cells
+(``forcepass.build_layout``) instead: chip_smoke.py's 1M flat (xla) and
+1M pallas measurements (phases 15 and 16), host-clock and profiled device
+ms/step, launches a step and peak memory.
 """
 
 from __future__ import annotations
@@ -57,6 +64,8 @@ HERE = pathlib.Path(__file__).resolve().parent
 CROSSOVER_TICKS = 300  # ticks before a shipped scenario's state is timed
 # random.toml's state as the first turn left it, for the later turns' kernels
 COMMON_STATE = HERE / ".scratch" / "ab_random_toml_state.pt"
+FLAT_PATH_KEYS = ("ms_per_step", "device_ms_per_step", "launches_per_step",
+                  "peak_bytes")
 
 
 def worker(tree: str) -> int:
@@ -167,6 +176,30 @@ def worker(tree: str) -> int:
     return 0
 
 
+def worker_flat_paths(tree: str) -> int:
+    """One --flat-paths turn, in the tree given: chip_smoke.py's 1M flat and
+    pallas measurements (this checkout's helpers, ``tree``'s port);
+    prints their JSON line."""
+    import torch
+
+    import chip_smoke  # before the path changes: this checkout's
+    sys.path[:] = [tree] + [p for p in sys.path if p not in ("", str(HERE))]
+
+    from pedoni_tpu_torch.ops.kernels import _build
+
+    dev, card = torch.device("cuda"), chip_smoke._card()
+    _build.library()
+    res = {"tree": tree}
+    for name, measure in (("flat", chip_smoke._flat_1m),
+                          ("pallas", chip_smoke._pallas_1m)):
+        got = measure(dev, card)
+        for key in FLAT_PATH_KEYS:
+            res[f"{name}_{key}"] = got[key]
+        torch.cuda.empty_cache()
+    print(json.dumps(res), flush=True)
+    return 0
+
+
 def _spread_rows(n: int, size, seed: int) -> list[tuple]:
     """n obstacles as scenarios/generate.py draws them (centre uniform 3 m
     inside the field, length 1-6 m, any angle, width 0.3-1.5 m)."""
@@ -250,10 +283,12 @@ def main() -> int:
     ap.add_argument("--parent", help="directory of the other checkout")
     ap.add_argument("--crossover", action="store_true",
                     help="time segment mode's walk against its pass instead")
+    ap.add_argument("--flat-paths", action="store_true",
+                    help="time the 1M flat and pallas steps instead")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(args.worker)
+        return (worker_flat_paths if args.flat_paths else worker)(args.worker)
     import torch
     if not torch.cuda.is_available():
         print("ab_step: no CUDA device", file=sys.stderr)
@@ -270,7 +305,8 @@ def main() -> int:
     COMMON_STATE.unlink(missing_ok=True)
     for label, tree in (("parent", parent), ("change", str(HERE)),
                         ("change", str(HERE)), ("parent", parent)):
-        r = subprocess.run([sys.executable, __file__, "--worker", tree],
+        r = subprocess.run([sys.executable, __file__, "--worker", tree,
+                            *(["--flat-paths"] if args.flat_paths else [])],
                            cwd=tree, capture_output=True, text=True,
                            timeout=1200)
         if r.returncode != 0:
@@ -280,20 +316,29 @@ def main() -> int:
         line["turn"] = label
         turns.append(line)
         print(json.dumps(line), flush=True)
+    if args.flat_paths:
+        _summary(turns, [f"{p}_{k}" for p in ("flat", "pallas")
+                         for k in FLAT_PATH_KEYS], card)
+        return 0
     keys = ("step_kernel_ms", "step_kernel_movers_ms", "rebin_ms",
             "rebin_incremental_ms", "full_ms_per_step", "hybrid_ms_per_step")
     print("# random.toml state after the ticks, by turn: " + "; ".join(
         f"{t['turn']} {t['random_toml_state']}" for t in turns), flush=True)
-    for k in (*keys, "step_kernel_segments_ms", "random_toml_segments_ms",
-              "random_toml_common_segments_ms",
-              "funnel_toml_segments_ms", "default_toml_segments_ms",
-              "pairwise_ms", *("all_pairs_" + k for k in keys)):
+    _summary(turns, (*keys, "step_kernel_segments_ms", "random_toml_segments_ms",
+                     "random_toml_common_segments_ms",
+                     "funnel_toml_segments_ms", "default_toml_segments_ms",
+                     "pairwise_ms", *("all_pairs_" + k for k in keys)), card)
+    return 0
+
+
+def _summary(turns: list[dict], keys, card: str) -> None:
+    """One line a key: both turns of each tree and change / parent."""
+    for k in keys:
         p = [t[k] for t in turns if t["turn"] == "parent"]
         c = [t[k] for t in turns if t["turn"] == "change"]
         print(f"# {k}: parent {p[0]:.4f}, {p[1]:.4f}; change {c[0]:.4f}, "
               f"{c[1]:.4f}; change/parent {statistics.mean(c) / statistics.mean(p):.4f}"
               f" on {card}", flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -110,7 +110,31 @@ nvcc, one process per source, then:
    ``python -m pedoni_tpu_torch.entry`` as subprocesses;
    ``SocialForceModel`` on the card against its CPU run; and
    ``examples/quickstart_torch.py``.  Every earlier phase that means the
-   grid passes ``backend="grid"`` (``-b grid``).
+   grid passes ``backend="grid"`` (``-b grid``);
+16. the pallas backend (``backend="pallas"``: flat agents sorted into a
+   slot grid that the step kernel advances, models/sfm_pallas.py): gap.toml
+   through ``Simulator`` evacuates within 400 ticks, one step kernel
+   launch a tick, with the distance map and in segment mode; pallas steps
+   on the card against the CPU in base and segment mode on the spawning
+   scenario (every metric equal, positions and velocities within TOL, the
+   velocities of agents in near contact within NEAR_CONTACT_VEL_TOL); 16
+   spawning steps under ``set_sync_debug_mode("error")``; the 1M pallas bench
+   problem (square field, 422 x 422 cells of 1.5 m): ms/step on the host
+   clock over steps run under ``set_sync_debug_mode("error")`` with the
+   launch counts zeroed before and read after, peak memory within
+   ``sfm_pallas.device_bytes``, the step kernel against its twin on the
+   slot grid the step makes (base and segment mode, timed, bound), device
+   ms/step, launches a step, busy share and the dearest kernels from
+   ``torch.profiler``; ``python -m pedoni_tpu_torch.bench --backend
+   pallas``, the CLI on gap.toml with ``-b pallas`` (model
+   ``sfm-torch/pallas``) and ``-b cpu`` (the flat step on the CPU, model
+   ``sfm-torch/xla``, 100 steps), one ``-b grid`` run with ``--record-every 10
+   --frame-every 100 --profile DIR`` on the card (traj.bin read back
+   against the log, the PNG frames, a trace naming ``step_sample`` and
+   ``step_pairs``) and one ``-b pallas`` run in the non-headless mode with
+   ``--render-web 0`` (terminal frames drawn, the web view served, 60
+   steps logged) as subprocesses.  The step kernel's entries in the
+   kernels line list their paths, the pallas path's numbers among them.
 
 Each phase from 6 on prints its seconds.  Prints the card's name and power
 limit, one JSON line describing the kernels, and as its last line
@@ -164,6 +188,21 @@ WP_STEPS = 16  # hybrid steps of the bench problem at 8 and 33 waypoints
 MAX_K = 255  # the largest table capacity the pair passes take
 FLAT_WARMUP, FLAT_TIMED = 2, 10  # steps of the 1M flat (xla) problem
 FLAT_PROFILE_STEPS = 4
+PALLAS_WARMUP, PALLAS_TIMED = 4, 20  # steps of the 1M pallas problem
+# A pallas step on the card against the same step on the CPU holds
+# velocities to TOL, except an agent in near contact: another active agent
+# closer than NEAR_CONTACT (m) at the step's input.  Its velocity is held
+# to NEAR_CONTACT_VEL_TOL.  The kernel equals its twin on the card bit for
+# bit, but the twin's rsqrt and exp are CUDA's rsqrtf and expf there (up to
+# 2 ulp) and the CPU's elsewhere, and near contact the reference's pair
+# formula takes a difference of nearly equal squares: a pair 4.9 mm apart
+# moved 1.75e-5 between the two; on the CPU, rsqrt and exp a few ulp off
+# move no other velocity by 5e-6 (tests/test_torch_pallas_backend.py::
+# test_near_contact_bounds_the_card_gate).
+NEAR_CONTACT = 0.01
+NEAR_CONTACT_VEL_TOL = 1e-4
+PALLAS_PROFILE_STEPS = 8
+CPU_CLI_STEPS = 100  # steps of the `-b cpu` CLI run (the flat step on the CPU)
 # The same measurements with the kernels' first designs, from PERF.md (NVIDIA
 # H100 80GB HBM3, 700 W): the step kernel with one thread per slot (a sample
 # pass over the fields6 planes, a pair pass with a warp-wide candidate walk,
@@ -1618,6 +1657,391 @@ def _flat_phase(dev, card) -> dict:
     return res
 
 
+def _near_contact(agents, cand, speed_out: np.ndarray) -> np.ndarray:
+    """For each output row of a flat step, whether its agent was in near
+    contact at the step's input (``agents`` and the candidates ``cand``).
+    Rows are matched to input agents by their desired speed, which a step
+    carries unchanged and the seeded draws make unique."""
+    act = torch.cat([agents.active, cand.active]).cpu()
+    pos = torch.cat([agents.pos, cand.pos]).cpu()[act].double().numpy()
+    speed = torch.cat([agents.speed, cand.speed]).cpu()[act].numpy()
+    if np.unique(speed).size != speed.size:
+        raise AssertionError("near contact: two input agents share a speed")
+    d2 = ((pos[:, None] - pos[None]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    near = speed[d2.min(1) < NEAR_CONTACT ** 2]
+    return np.isin(speed_out.astype(np.float32), near)
+
+
+def _pallas_vs_cpu(dev, mode: str, sc, cfg_kw, agents, cands) -> float:
+    """Pallas steps, each on the card and on the CPU from the CPU's state
+    and the same candidates, slot by slot (the sort's cell ids come from
+    the same IEEE divide): positions and velocities within TOL, except the
+    velocities of agents in near contact, within NEAR_CONTACT_VEL_TOL (at
+    most 1% of the rows); the rest and every metric equal; each step on
+    the card launches the step kernel once, in its mode, and none on the
+    CPU.  Returns the max |err| of pos and vel."""
+    from pedoni_tpu_torch.field import Field, FieldMaps
+    from pedoni_tpu_torch.models import sfm, sfm_pallas
+    from pedoni_tpu_torch.models.sfm import SimState
+
+    maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
+    cfg = sfm.StepConfig.build(sc, **cfg_kw)
+    counter = "step_kernel_segments" if mode == "segments" else "step_kernel"
+    steps = {}
+    for d in (dev, torch.device("cpu")):
+        fwp, fobs = sfm_pallas.pallas_device_inputs(cfg, maps, d)
+        steps[d.type] = (sfm_pallas.make_step_pallas(
+            cfg, generator=torch.Generator(device=d)), fwp, fobs, d)
+    st = SimState(agents.to("cpu"), 0)
+    err = err_vel = err_near = 0.0
+    n_near = 0
+    for i, cand in enumerate(cands):
+        out = {}
+        for name, (step, fwp, fobs, d) in steps.items():
+            before = _launch_counts()[counter]
+            new, m = step(SimState(st.agents.to(d), st.step), fwp, fobs, cand.to(d))
+            out[name] = (_flat_rows(new.agents),
+                         {k: int(v) for k, v in m._asdict().items()},
+                         _launch_counts()[counter] - before, new)
+        near = _near_contact(st.agents, cand, out["cpu"][0][:, 4])
+        (got, gm, gl, _), (want, wm, wl, st) = out["cuda"], out["cpu"]
+        e_pos = float(np.abs(got[:, :2] - want[:, :2]).max())
+        e_vel = np.abs(got[:, 2:4] - want[:, 2:4]).max(1)
+        e_far = float(e_vel[~near].max())
+        e_near = float(e_vel[near].max()) if near.any() else 0.0
+        err, err_vel = max(err, e_pos), max(err_vel, e_far)
+        err_near, n_near = max(err_near, e_near), n_near + int(near.sum())
+        if (gm != wm or e_pos > TOL or e_far > TOL or e_near > NEAR_CONTACT_VEL_TOL
+                or near.sum() > 0.01 * near.size or (gl, wl) != (1, 0)
+                or not np.array_equal(got[:, 4:], want[:, 4:])):
+            raise AssertionError(f"pallas step ({mode}) {i}: card {gm} vs CPU "
+                                 f"{wm}, pos err {e_pos:.3e}, vel err {e_far:.3e}, "
+                                 f"near contact {int(near.sum())} rows, vel err "
+                                 f"{e_near:.3e}, launches {gl} / {wl}")
+    print(f"# pallas step ({mode}), {len(cands)} steps each from the CPU's "
+          f"state, card vs CPU: metrics equal (last {wm}), pos max |err| "
+          f"{err:.3e} (tol {TOL}), vel max |err| {err_vel:.3e} (tol {TOL}); "
+          f"{n_near} rows in near contact (< {NEAR_CONTACT} m), vel max |err| "
+          f"{err_near:.3e} (tol {NEAR_CONTACT_VEL_TOL}); speed/dest/active "
+          f"equal; one {counter} launch a step on the card, none on the CPU",
+          flush=True)
+    return max(err, err_vel, err_near)
+
+
+def _pallas_sim_checks(dev) -> dict:
+    """16a. gap.toml through Simulator(backend="pallas"); pallas steps on the
+    card against the CPU in base and segment mode on the spawning scenario;
+    SPAWN_SYNC_STEPS spawning steps under sync debug mode "error"."""
+    from pedoni_tpu_torch import Simulator, SimulatorOptions, load_scenario
+    from pedoni_tpu_torch.convert import agents_from_numpy
+    from pedoni_tpu_torch.models import sfm
+    from pedoni_tpu_torch.scenario import loads_scenario
+
+    none = {k: 0 for k in _launch_counts()}
+    gap_steps = {}
+    for counter, dmap in (("step_kernel", True), ("step_kernel_segments", False)):
+        t0 = time.perf_counter()
+        _zero_launch_counts()
+        sim = Simulator(SimulatorOptions(backend="pallas", device=dev.type, seed=1,
+                                         use_distance_map=dmap), load_scenario(GAP))
+        what = f"gap.toml (pallas{'' if dmap else ', segments'})"
+        n0, steps = _evacuate(sim, what)
+        counts = _launch_counts()
+        if counts != {**none, counter: steps} or sim.cfg.grid.unit != 1.5:
+            raise AssertionError(f"{what}: launches {counts} for {steps} ticks, "
+                                 f"unit {sim.cfg.grid.unit}")
+        gap_steps[counter] = steps
+        print(f"# {what} (1.5 m): {n0} agents evacuated in {steps} ticks (limit "
+              f"{GAP_MAX_STEPS}), {time.perf_counter() - t0:.1f} s; launches "
+              f"{counts}", flush=True)
+
+    sc = loads_scenario(SPAWN_SCENARIO)
+    rng = np.random.default_rng(6)
+    n = 640
+    agents = agents_from_numpy(
+        rng.uniform(0.8, 11.2, (n, 2)) * np.array([1.5, 1.0]),
+        rng.normal(0, 0.4, (n, 2)), rng.uniform(0.8, 1.7, n),
+        rng.integers(0, 2, n), np.arange(n) < 500, "cpu")
+    base_kw = dict(capacity=n, neighbor_grid_unit=1.5, table_capacity=12)
+    gen = torch.Generator().manual_seed(3)
+    cands = [sfm.spawn_candidates(sfm.StepConfig.build(sc, **base_kw), gen)
+             for _ in range(3)]
+    errs = [_pallas_vs_cpu(dev, mode, sc, dict(base_kw, **kw), agents, cands)
+            for mode, kw in (("base", {}), ("segments", {"use_distance_map": False}))]
+
+    sim = Simulator(SimulatorOptions(backend="pallas", device=dev.type, seed=2), sc)
+    for _ in range(2):
+        sim.tick()
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    spawned = []
+    with _no_sync():
+        for _ in range(SPAWN_SYNC_STEPS):
+            sim.state, m = sim._step(sim.state, sim._fwp, sim._fobs)
+            spawned.append(m.n_spawned)
+    n_sp = int(sum(spawned))
+    if n_sp == 0 or _launch_counts()["step_kernel"] != SPAWN_SYNC_STEPS:
+        raise AssertionError(f"pallas spawning steps: {n_sp} spawned, launches "
+                             f"{_launch_counts()}")
+    print(f"# pallas step, spawning: {SPAWN_SYNC_STEPS} steps under "
+          f"set_sync_debug_mode('error'), {n_sp} spawned, "
+          f"{sim.pedestrian_count} active, launches {_launch_counts()}", flush=True)
+    return {"gap_steps": gap_steps["step_kernel"],
+            "gap_segment_launches": gap_steps["step_kernel_segments"],
+            "max_abs_err_vs_cpu": max(errs)}
+
+
+def _pallas_kernel_entry(dev, card, what, dk, fwp, fobs, phys, size, **kw) -> dict:
+    """The step kernel against its twin on the slot grid the pallas step
+    makes (``kw``: the segment table), timed beside its twin and bound."""
+    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+
+    seg = kw.get("segments") is not None
+    g_k = sk.fused_step(dk, fwp, fobs, phys, size, **kw)
+    g_t = sk.fused_step_torch(dk, fwp, fobs, phys, size, **kw)
+    torch.cuda.synchronize()
+    ch = slice(4, 8) if seg else slice(4, 7)
+    if not torch.equal(g_k[:, :, ch], g_t[:, :, ch]):
+        raise AssertionError(f"{what}: step kernel channels {ch} differ")
+    err = _step_err(dk, g_k, g_t)
+    k_ms = _median_ms(lambda: sk.fused_step(dk, fwp, fobs, phys, size, **kw))
+    t_ms = _median_ms(lambda: sk.fused_step_torch(dk, fwp, fobs, phys, size, **kw),
+                      n=TWIN_RUNS)
+    if seg:
+        need = _needed_bytes("step_kernel_segments", (dk, fwp, kw["segments"], 6),
+                             (g_t,))
+    else:
+        need = _needed_bytes("step_kernel", (dk, fwp, fobs), (g_t,))
+    b_ms, by = _bound(need, _pair_candidates(dk) * PAIR_FLOPS)
+    print(f"# {what}: step kernel max |err| {err:.3e} (tol {TOL}), kernel "
+          f"{k_ms:.4f} ms, twin {t_ms:.4f} ms (medians of 20 and {TWIN_RUNS}), "
+          f"bound {b_ms:.4f} ms ({by}; {need / 1e6:.1f} MB; {b_ms / k_ms:.1%} "
+          f"of it) on {card}", flush=True)
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms,
+            "bound_by": by}
+
+
+def _pallas_1m(dev, card) -> dict:
+    """16b. The 1M pallas bench problem (square field, 1.5 m cells, K 14):
+    PALLAS_TIMED steps after PALLAS_WARMUP under sync debug mode "error",
+    host clock, launch counts zeroed before and read after, peak memory
+    within ``sfm_pallas.device_bytes``; the step kernel against its twin on
+    the slot grid the step makes, in base and segment mode, timed; then
+    PALLAS_PROFILE_STEPS under torch.profiler."""
+    import collections
+
+    from pedoni_tpu_torch.bench import build_problem
+    from pedoni_tpu_torch.models import sfm_pallas
+    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+
+    none = {k: 0 for k in _launch_counts()}
+    t0 = time.perf_counter()
+    _sc, maps, cfg, flat = build_problem(N_AGENTS, device=dev, backend="pallas")
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    need = sfm_pallas.device_bytes(cfg)
+    fwp, fobs = sfm_pallas.pallas_device_inputs(cfg, maps, dev)
+    step = sfm_pallas.make_step_pallas(cfg)
+    t_build = time.perf_counter() - t0
+    st = flat
+    del flat
+    n_steps = PALLAS_WARMUP + PALLAS_TIMED
+    _zero_launch_counts()
+    for _ in range(PALLAS_WARMUP):
+        st, m = step(st, fwp, fobs)
+    torch.cuda.synchronize()
+    with _no_sync():
+        t0 = time.perf_counter()
+        for _ in range(PALLAS_TIMED):
+            st, m = step(st, fwp, fobs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / PALLAS_TIMED * 1e3
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    if counts != {**none, "step_kernel": n_steps}:
+        raise AssertionError(f"1M pallas: launches {counts} for {n_steps} steps")
+    if peak > need:
+        raise AssertionError(f"1M pallas: peak memory {peak} > device_bytes {need}")
+    n_active = int(m.n_active)
+    a = st.agents
+    if n_active < 0.99e6 or not bool(torch.isfinite(a.pos[a.active]).all()):
+        raise AssertionError(f"1M pallas: {n_active} active, or non-finite positions")
+    print(f"# 1M pallas problem: grid {cfg.grid.nx} x {cfg.grid.ny} cells of "
+          f"{cfg.grid.unit} m, K {cfg.table_capacity}, capacity {cfg.capacity}; "
+          f"built in {t_build:.1f} s; {PALLAS_WARMUP} warm-up + {PALLAS_TIMED} timed "
+          f"steps (under set_sync_debug_mode('error')): {wall:.4f} ms/step wall, "
+          f"{n_active} active, overflow last step {int(m.n_overflow)} (frozen), "
+          f"dropped {int(m.n_dropped)}; launches {counts}; peak memory {peak} "
+          f"bytes, device_bytes {need} ({peak / need:.1%}) on {card}", flush=True)
+
+    phys, size = cfg.physics, cfg.scenario.size
+    dk = sfm_pallas.slot_grid(cfg, st.agents)
+    entries = {"step_kernel": _pallas_kernel_entry(
+        dev, card, "1M pallas slot grid", dk, fwp, fobs, phys, size)}
+    segs = sk.segment_table(_obstacles(cfg.scenario), dev)
+    entries["step_kernel_segments"] = _pallas_kernel_entry(
+        dev, card, "1M pallas slot grid, segments", dk, fwp, fobs, phys, size,
+        segments=segs)
+    del dk
+    entries["step_kernel"]["launches"] = counts["step_kernel"]
+
+    state = [st]
+
+    def run():
+        state[0] = step(state[0], fwp, fobs)[0]
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(PALLAS_PROFILE_STEPS):
+            run()
+        torch.cuda.synchronize()
+    us, per_step = collections.Counter(), collections.Counter()
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us[ev.key] += ev.self_device_time_total / PALLAS_PROFILE_STEPS
+            per_step[ev.key] += ev.count / PALLAS_PROFILE_STEPS
+    launches = sum(per_step.values())
+    dev_ms = sum(us.values()) / 1e3
+    if not dev_ms > 0:
+        raise AssertionError("1M pallas: the profiler traced no device time")
+    kern_us = {k: sum(v for key, v in us.items() if k in key)
+               for k in ("step_sample", "step_pairs")}
+    print(f"# 1M pallas profile, {PALLAS_PROFILE_STEPS} steps (torch.profiler): "
+          f"device {dev_ms:.4f} ms/step, {launches:.1f} launches a step, wall "
+          f"{wall:.4f} ms/step unprofiled, busy share {dev_ms / wall:.3f}; "
+          f"step_sample {kern_us['step_sample']:.2f} us, step_pairs "
+          f"{kern_us['step_pairs']:.2f} us, glue "
+          f"{dev_ms * 1e3 - sum(kern_us.values()):.2f} us a step; top kernels "
+          f"(us/step, launches a step): " + "; ".join(
+              f"{k[:60]} {v:.1f} ({per_step[k]:.0f})" for k, v in us.most_common(10)),
+          flush=True)
+    return {"ms_per_step": wall, "device_ms_per_step": dev_ms,
+            "launches_per_step": launches, "busy_share": dev_ms / wall,
+            "peak_bytes": peak, "device_bytes": need, "n_active": n_active,
+            "kernels": entries}
+
+
+def _pallas_subprocesses(card) -> dict:
+    """16c. ``python -m pedoni_tpu_torch.bench --backend pallas``, the CLI on
+    gap.toml with ``-b pallas`` (the card) and ``-b cpu`` (the flat step on
+    the CPU), one ``-b grid`` run with ``--record-every 10 --frame-every
+    100 --profile DIR`` on the card (traj.bin read back against the log,
+    the frames, and the trace naming the step kernel's two launches), and
+    a ``-b pallas`` run without ``-H`` and with ``--render-web 0``."""
+    import tempfile
+
+    from pedoni_tpu_torch.native import read_trajectory
+
+    rec = None
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        cli = [str(GAP), "-H", "-s", "0", "--seed", "1", "--max-steps", "300"]
+        runs = (("bench", ["pedoni_tpu_torch.bench", "--backend", "pallas",
+                           "--steps", "8", "--warmup", "2"]),
+                ("CLI -b pallas", ["pedoni_tpu_torch", *cli, "-b", "pallas",
+                                   "--log-dir", str(tmp / "pallas")]),
+                ("CLI -b cpu", ["pedoni_tpu_torch", *cli[:-2], "--max-steps",
+                                str(CPU_CLI_STEPS), "-b", "cpu", "--log-dir",
+                                str(tmp / "cpu")]),
+                ("CLI -b grid, record/frames/profile",
+                 ["pedoni_tpu_torch", *cli, "-b", "grid", "--record-every", "10",
+                  "--frame-every", "100", "--profile", str(tmp / "trace"),
+                  "--log-dir", str(tmp / "grid")]))
+        for name, argv in runs:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                               capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"{name} exited {r.returncode}:\n"
+                                     f"{r.stderr[-3000:]}")
+            dt = time.perf_counter() - t0
+            if name == "bench":
+                lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+                rec = json.loads(lines[0])
+                if len(lines) != 1 or not (rec["value"] > 0 and rec["device"]
+                                           == card.splitlines()[0]):
+                    raise AssertionError(f"bench --backend pallas printed {r.stdout}")
+                print(f"# {name} (python -m {argv[0]}): exit 0 in {dt:.1f} s; "
+                      f"{lines[0]}", flush=True)
+                continue
+            log_dir = pathlib.Path(argv[argv.index("--log-dir") + 1])
+            (out,) = log_dir.glob("*_log.json")
+            log = json.loads(out.read_text())
+            pops = log["step_metrics"]["active_ped_count"]
+            backend = argv[argv.index("-b") + 1]
+            model = {"pallas": "sfm-torch/pallas", "cpu": "sfm-torch/xla",
+                     "grid": "sfm-torch/grid"}[backend]
+            if backend == "cpu":  # the flat step on the CPU: a short run
+                if log["model"] != model or log["total_steps"] != CPU_CLI_STEPS:
+                    raise AssertionError(f"{name}: model {log['model']}, "
+                                         f"{log['total_steps']} steps")
+                print(f"# {name} (python -m {argv[0]}): exit 0 in {dt:.1f} s; "
+                      f"model {log['model']}, {CPU_CLI_STEPS} steps, population "
+                      f"{pops[0]} -> {pops[-1]}", flush=True)
+                continue
+            if log["model"] != model or pops[-1] != 0:
+                raise AssertionError(f"{name}: model {log['model']}, "
+                                     f"population {pops[-1]} at the end")
+            said = (f"model {log['model']}, population {pops[0]} -> 0 at logged "
+                    f"step {pops.index(0) + 1}")
+            if backend == "grid":
+                frames = list(read_trajectory(log_dir / "traj.bin"))
+                steps = [f[0] for f in frames]
+                if (steps != list(range(10, 301, 10))
+                        or any(len(f[2]) != pops[f[0] - 1] for f in frames)):
+                    raise AssertionError(f"{name}: traj.bin frames {steps}")
+                pngs = sorted(p.name for p in log_dir.glob("frame_*.png"))
+                if pngs != [f"frame_{s:08d}.png" for s in (100, 200, 300)]:
+                    raise AssertionError(f"{name}: frames {pngs}")
+                (trace,) = (tmp / "trace").glob("*_trace.json")
+                text = trace.read_text()
+                if "step_sample" not in text or "step_pairs" not in text:
+                    raise AssertionError(f"{name}: the trace names no step kernel")
+                kernel_s = log["step_metrics"]["time_calc_state_kernel"]
+                timed = [x for x in kernel_s if x is not None]
+                if len(timed) != 3 or not all(x > 0 for x in timed):
+                    raise AssertionError(f"{name}: kernel times {timed}")
+                said += (f"; traj.bin {len(frames)} frames (steps 10..300, each "
+                         f"the logged population), {len(pngs)} PNG frames, trace "
+                         f"{trace.stat().st_size} bytes naming step_sample and "
+                         f"step_pairs, kernel time at steps 1/101/201 "
+                         f"{[round(x * 1e3, 4) for x in timed]} ms")
+            print(f"# {name} (python -m {argv[0]}): exit 0 in {dt:.1f} s; "
+                  f"{said}", flush=True)
+        # the non-headless mode (the terminal view from the snapshot
+        # thread) with the web view, ended by --max-steps
+        argv = [str(GAP), "-b", "pallas", "-s", "5", "--seed", "1", "--max-steps",
+                "60", "--render-web", "0", "--log-dir", str(tmp / "view")]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "pedoni_tpu_torch", *argv],
+                           cwd=ROOT, capture_output=True, text=True, timeout=300)
+        logs = list((tmp / "view").glob("*_log.json"))
+        log = json.loads(logs[0].read_text()) if logs else {}
+        frames = r.stdout.count("zoom")
+        if (r.returncode != 0 or "web view: http://127.0.0.1:" not in r.stdout
+                or frames == 0 or log.get("total_steps") != 60):
+            raise AssertionError(f"CLI non-headless: exit {r.returncode}, "
+                                 f"{frames} frames, {r.stderr[-2000:]}")
+        print(f"# CLI -b pallas without -H, --render-web 0 (python -m "
+              f"pedoni_tpu_torch): exit 0 in {time.perf_counter() - t0:.1f} s; "
+              f"{frames} terminal frames drawn, the web view served, "
+              f"{log['total_steps']} steps logged", flush=True)
+    return {"bench": rec}
+
+
+def _pallas_phase(dev, card) -> dict:
+    """16. The pallas backend on the card (module docstring, item 16).
+    Returns the phase's numbers."""
+    res = _pallas_sim_checks(dev)
+    res.update(_pallas_1m(dev, card))
+    res["kernels"]["step_kernel_segments"]["launches"] = res["gap_segment_launches"]
+    torch.cuda.empty_cache()  # the 1M problem's tensors are gone
+    res.update(_pallas_subprocesses(card))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -1891,6 +2315,10 @@ def main() -> int:
     flat = _flat_phase(dev, card)
     print(f"# phase 15 (flat backend) took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    pallas = _pallas_phase(dev, card)
+    print(f"# phase 16 (pallas backend) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for entry in kernels:  # the forms of each kernel this run held to its twin
         if entry["name"] != "pairwise":
             entry["tile_offsets"] = "ported"
@@ -1898,6 +2326,15 @@ def main() -> int:
             entry["k_up_to"] = big_k["k_max"]  # the largest K compared here
         if entry["name"].startswith("step_kernel"):
             entry["waypoints"] = [1, 2, 8, 33]  # W compared here (2: step 1)
+    for entry in kernels:  # the paths each kernel ran on in this run
+        entry["paths"] = {"step_kernel": ["full", "tiles", "pallas"],
+                          "step_kernel_movers": ["hybrid", "tiles"],
+                          "step_kernel_segments": ["segments", "pallas --no-distance-map"],
+                          "rebin": ["full", "hybrid", "tiles"],
+                          "rebin_incremental": ["hybrid", "tiles"],
+                          "pairwise": ["standalone"]}[entry["name"]]
+        if entry["name"] in pallas["kernels"]:
+            entry["pallas"] = pallas["kernels"][entry["name"]]
     kernels[0]["tiles_1m"] = tiled
     kernels[0]["by_waypoints"] = by_wp
     kernels[0][f"k{BIG_K}"] = {n: big_k[n] for n in ("step_kernel_ms", "max_abs_err")}
@@ -1905,6 +2342,8 @@ def main() -> int:
                                 "max_abs_err": big_k["max_abs_err"]}
     print("# flat backend (no hand kernel; phase 15): " + json.dumps(flat),
           flush=True)
+    print("# pallas backend (phase 16): " + json.dumps(
+        {k: v for k, v in pallas.items() if k != "kernels"}), flush=True)
     print(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the "
           f"kernel build included", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,9 +5,8 @@ Run:  python examples/quickstart_torch.py        (needs a CUDA card)
 
 Shows the object-level API (the same surface the CLI drives):
 Scenario -> Simulator -> tick() -> list_pedestrians() -> a checkpoint
-round trip.  The reference's quickstart (examples/quickstart.py) also
-saves a PNG snapshot; the port's renderer is not ported yet (ROADMAP
-queue 1, item 8), so this one stops at the checkpoint.
+round trip -> a PNG snapshot (``logs/quickstart.png``), as the reference's
+examples/quickstart.py does (matplotlib's, or a plain raster without it).
 """
 
 import pathlib
@@ -18,6 +17,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from pedoni_tpu_torch import Scenario, Segment, Simulator, SimulatorOptions  # noqa: E402
 from pedoni_tpu_torch.checkpoint import restore, save  # noqa: E402
+from pedoni_tpu_torch.frames import save_frame  # noqa: E402
 from pedoni_tpu_torch.scenario import PedestrianGroup, SpawnConfig  # noqa: E402
 
 
@@ -44,7 +44,8 @@ def build_scenario() -> Scenario:
     )
 
 
-def main(device: str = "cuda", n_steps: int = 200) -> Simulator:
+def main(device: str = "cuda", n_steps: int = 200,
+         png: str | pathlib.Path = "logs/quickstart.png") -> Simulator:
     scenario = build_scenario()
     # backend="xla" is the flat step (the default); "grid" runs the hand
     # kernels, and n_devices > 1 / tile=(r, c) cut its grid into tiles
@@ -70,6 +71,10 @@ def main(device: str = "cuda", n_steps: int = 200) -> Simulator:
         restore(sim2, path)
     assert sim2.pedestrian_count == sim.pedestrian_count
     print(f"checkpoint restored at step {sim2.step_count}")
+
+    pathlib.Path(png).parent.mkdir(parents=True, exist_ok=True)
+    save_frame(scenario, pos, dest, str(png))
+    print(f"wrote {png}")
     return sim
 
 

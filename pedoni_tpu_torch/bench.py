@@ -1,7 +1,7 @@
 """The port's headline benchmark: agent-steps/s of the grid step.
 
     python -m pedoni_tpu_torch.bench [--agents N] [--waypoints W] [--suite]
-                                     [--backend grid|xla|cpu] [--verbose]
+                                     [--backend grid|xla|pallas|cpu] [--verbose]
 
 Counterpart of the reference's bench.py, without JAX.  ``build_problem``
 builds the same problem as bench.py:33-143 for the grid backend, bit for
@@ -31,11 +31,14 @@ headline, 1M at 8 waypoints and 8M agents, the headline first.
 ``--backend grid`` (the default) runs on the CUDA card and exits 2 where
 there is none; ``cpu`` runs the same path on the CPU through the kernels'
 PyTorch twins.  ``--backend xla`` times the flat step (``models/sfm.py::
-make_step``) on the card, with the same timing contract and keys.  The
-reference's ``pallas`` backend and its ``--allow-fallback``,
-``--no-wp-skip`` and ``--chunk-size`` exit non-zero with the reason.  A
-configuration whose step does not fit the card's free memory is refused
-before its grid is allocated (``sfm_grid.device_bytes``, ``check_fits``).
+make_step``) and ``--backend pallas`` the pallas step (``models/
+sfm_pallas.py::make_step_pallas``: flat agents through the fused step
+kernel, the square field at 1.5 m as the reference builds it) on the
+card, with the same timing contract and keys.  The reference's
+``--allow-fallback``, ``--no-wp-skip`` and ``--chunk-size`` exit non-zero
+with the reason.  A configuration whose step does not fit the card's free
+memory is refused before its grid or slot grid is allocated
+(``sfm_grid.device_bytes`` or ``sfm_pallas.device_bytes``, ``check_fits``).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ import torch
 
 from .convert import agents_from_numpy
 from .field import Field, FieldMaps
-from .models import sfm_grid
+from .models import sfm_grid, sfm_pallas
 from .models.sfm import SimState, StepConfig, device_inputs, make_step
 from .ops.kernels import launch_counts, zero_launch_counts
 from .scenario import Scenario, Segment
@@ -62,11 +65,13 @@ SUITE = (
     ("waypoints8_1M", {"waypoints": 8}),
     ("scale_8M", {"agents": 8_000_000}),
 )
-DEVICE_OF_BACKEND = {"grid": "cuda", "xla": "cuda", "cpu": "cpu"}
+DEVICE_OF_BACKEND = {"grid": "cuda", "xla": "cuda", "pallas": "cuda",
+                     "cpu": "cpu"}
 # The reference's flags that the port refuses, and why.
 REFUSED = {
-    "--allow-fallback": "the port has no slower backend to fall back to; a "
-                        "kernel that fails to build or launch raises",
+    "--allow-fallback": "the port never falls back: a kernel that fails to "
+                        "build or launch raises, so a regression cannot "
+                        "re-label a slower backend's numbers",
     "--no-wp-skip": "the port has no waypoint slot walk to disable: each "
                     "agent samples its own plane (not ported by decision, "
                     "ROADMAP queue 2)",
@@ -74,13 +79,6 @@ REFUSED = {
                     "a byte budget (ops/forcepass.py), the grid step's "
                     "blocks by --row-block",
 }
-BACKEND_REFUSED = {
-    "pallas": "the reference's flat fused kernel, make_step_pallas, is not "
-              "ported by decision (ROADMAP queue 1, item 9); --backend grid "
-              "runs the grid step on the card",
-}
-
-
 def lane_tiles(domain: str) -> int | None:
     """T of ``tiles:T``, None for ``auto`` and ``square``; ValueError, with
     the reference's messages (bench.py:234-247), for anything else."""
@@ -107,12 +105,13 @@ def build_problem(n_agents: int = 1_000_000, density: float = 2.5,
     """(scenario, maps, cfg, flat state on ``device``) of the bench
     workload; the domain is shaped and the agents drawn from ``seed`` with
     NumPy exactly as the reference's bench does for ``backend`` ("grid",
-    or "xla": the square field at 1.4 m whatever ``domain`` says)."""
+    "xla": the square field at 1.4 m, or "pallas": the square field at
+    1.5 m, whatever ``domain`` says)."""
     tiles = lane_tiles(domain)
     area = n_agents / density
     unit = 1.5
-    if backend == "xla":
-        unit = 1.4
+    if backend in ("xla", "pallas"):
+        unit = 1.4 if backend == "xla" else 1.5
         w = h = float(np.sqrt(area))
     elif tiles is not None:
         nx = tiles * 128 - 3
@@ -183,11 +182,11 @@ def _log(args, msg: str) -> None:
 
 def build(args: argparse.Namespace, device: torch.device):
     """(step, state, cfg) of one configuration: the hybrid grid step on the
-    binned problem, or with ``--backend xla`` the flat step on the flat
-    agents (the reference's bench.py:146-190).  ``step(state) -> (state,
-    metrics)``."""
+    binned problem, or with ``--backend xla`` the flat step and with
+    ``--backend pallas`` the pallas step on the flat agents (the reference's
+    bench.py:146-190).  ``step(state) -> (state, metrics)``."""
     rb = args.row_block
-    backend = "xla" if args.backend == "xla" else "grid"
+    backend = args.backend if args.backend in ("xla", "pallas") else "grid"
     _scenario, maps, cfg, flat = build_problem(
         args.agents, args.density, args.seed, args.table_capacity, device,
         args.waypoints, args.domain, backend)
@@ -198,6 +197,16 @@ def build(args: argparse.Namespace, device: torch.device):
                    f"{cfg.grid.ny} cells of {cfg.grid.unit} m, "
                    f"K={cfg.table_capacity}")
         return (lambda s: raw_flat(s, field.rows, obstacles)), flat, cfg
+    if backend == "pallas":
+        need = sfm_pallas.device_bytes(cfg, rb)
+        sfm_grid.check_fits(need, device, what="the pallas step")
+        fwp, fobs = sfm_pallas.pallas_device_inputs(cfg, maps, device,
+                                                    row_block=rb)
+        raw_pallas = sfm_pallas.make_step_pallas(cfg, row_block=rb)
+        _log(args, f"# capacity={cfg.capacity}, grid {cfg.grid.nx} x "
+                   f"{cfg.grid.ny} cells of {cfg.grid.unit} m, "
+                   f"K={cfg.table_capacity}, device bytes of a step {need}")
+        return (lambda s: raw_pallas(s, fwp, fobs)), flat, cfg
     need = sfm_grid.device_bytes(cfg, rb)
     sfm_grid.check_fits(need, device)  # before the grid and fields exist
     fwp, fobs = sfm_grid.field_tensors(cfg, maps, device, row_block=rb)
@@ -294,8 +303,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["grid", "cpu", "pallas", "xla"],
                     help="grid = the grid step on the CUDA card (1.5 m "
                          "cells); xla = the flat step there (1.4 m cells, "
-                         "square field); cpu = the grid step on the CPU "
-                         "(PyTorch twins); pallas is not ported")
+                         "square field); pallas = flat agents through the "
+                         "step kernel there (1.5 m cells, square field); "
+                         "cpu = the grid step on the CPU (PyTorch twins)")
     ap.add_argument("--allow-fallback", action="store_true",
                     help="refused: " + REFUSED["--allow-fallback"])
     ap.add_argument("--table-capacity", type=int, default=14,
@@ -328,12 +338,10 @@ def main(argv: list[str] | None = None) -> int:
         lane_tiles(args.domain)
     except ValueError as e:
         ap.error(str(e))
-    if args.backend in BACKEND_REFUSED:
-        ap.error(f"--backend {args.backend}: {BACKEND_REFUSED[args.backend]}")
-    if args.domain != "auto" and args.backend == "xla":
-        ap.error(f"--domain {args.domain!r} has no effect with --backend xla "
-                 "(domain shaping is a grid-backend knob; the xla problem "
-                 "is always the square field)")
+    if args.domain != "auto" and args.backend in ("xla", "pallas"):
+        ap.error(f"--domain {args.domain!r} has no effect with --backend "
+                 f"{args.backend} (domain shaping is a grid-backend knob; "
+                 f"the {args.backend} problem is always the square field)")
     for flag, on in (("--allow-fallback", args.allow_fallback),
                      ("--no-wp-skip", args.no_wp_skip),
                      ("--chunk-size", args.chunk_size is not None)):

@@ -1,5 +1,7 @@
 """The social-force model: state, step configuration, the flat step
-(``sfm``), the grid step (``sfm_grid``) and the object surface (``base``)."""
+(``sfm``), the pallas step (``sfm_pallas``: flat agents through the fused
+step kernel), the grid step (``sfm_grid``) and the object surface
+(``base``)."""
 
 from .sfm import (
     AgentState,
@@ -9,6 +11,7 @@ from .sfm import (
     make_initial_state,
     make_step,
 )
+from .sfm_pallas import make_step_pallas
 
 __all__ = [
     "AgentState",
@@ -17,4 +20,5 @@ __all__ = [
     "StepMetrics",
     "make_initial_state",
     "make_step",
+    "make_step_pallas",
 ]

@@ -141,17 +141,19 @@ def supports(cfg: StepConfig, row_block: int = 2, incremental: bool = True,
 
 
 def check_fits(need: int, device: torch.device | str,
-               free_bytes: int | None = None) -> None:
+               free_bytes: int | None = None, what: str = "the grid step"
+               ) -> None:
     """Raise ValueError, naming the bytes, where ``need`` bytes (a step's
     ``device_bytes``) do not fit the free memory of the card ``device``
     (``free_bytes``: as if that much were free).  Called before the step's
-    tensors are allocated; a CPU device has no such limit here."""
+    tensors are allocated; a CPU device has no such limit here.  ``what``
+    names the step in the message."""
     device = torch.device(device)
     if device.type != "cuda" and free_bytes is None:
         return
     free = card_free_bytes(device) if free_bytes is None else free_bytes
     if need > free:
-        raise ValueError(f"the grid step needs {need} bytes on {device} and "
+        raise ValueError(f"{what} needs {need} bytes on {device} and "
                          f"{free} are free: fewer agents, waypoints or lanes, "
                          "or tiles over more cards")
 

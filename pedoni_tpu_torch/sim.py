@@ -7,25 +7,26 @@ Counterpart of pedoni_tpu/sim.py with the same surface:
     pos, dest = sim.list_pedestrians()
     sim.pedestrian_count
 
-Two backends, as in the reference:
+Three backends, as in the reference:
 
 - ``"xla"`` (the default): the flat step (models/sfm.py::make_step) on
   fixed-capacity agent tensors at the 1.4 m unit, whose capacity doubles
   when the population passes 80% of it; one device.  Its all-pairs mode
   (``use_neighbor_grid=False``) is the true O(C^2) pass.
+- ``"pallas"``: the same flat state and growth, at the 1.5 m unit, each
+  step sorted into a slot grid that the fused step kernel advances
+  (models/sfm_pallas.py::make_step_pallas); one device.
 - ``"grid"``: the cell-resident grid step with the hybrid rebin
   (incremental, or full every ``compact_every``-th step and on fallback;
   auto-chosen by cell occupancy), at the 1.5 m unit, on one device or
   ``n_devices`` tiles (parallel/tile2d.py: row strips, or ``tile`` =
-  (rows, cols)), with drop-free table growth and mover-table growth; its
-  all-pairs mode grows the cell unit to cover the cutoff.
+  (rows, cols)), with drop-free table growth and mover-table growth.
 
-Both take distance-map or exact segment obstacles (``use_distance_map=
-False``), keep ``run``'s totals on the device behind its lagged growth
-guard, and checkpoint as flat agents (checkpoint.py), so a checkpoint
-crosses backends and device counts.  ``backend="pallas"`` (the
-reference's flat fused kernel) is not ported, by decision: it raises,
-and the CLI runs ``-b pallas`` on the grid backend.
+The two kernel backends (``pallas``, ``grid``) grow the cell unit in
+all-pairs mode to cover the cutoff.  All three take distance-map or exact
+segment obstacles (``use_distance_map=False``), keep ``run``'s totals on
+the device behind its lagged growth guard, and checkpoint as flat agents
+(checkpoint.py), so a checkpoint crosses backends and device counts.
 """
 
 from __future__ import annotations
@@ -38,9 +39,10 @@ import torch
 
 from .diagnostics import DiagnosticLog, StepRecord
 from .field import Field, FieldMaps
-from .models import sfm_grid
+from .models import sfm_grid, sfm_pallas
 from .models.sfm import (AgentState, SimState, StepConfig, StepMetrics,
-                          device_inputs, make_initial_state, make_step)
+                          device_inputs, make_initial_state, make_step,
+                          spawn_sampler)
 from .parallel import tile2d
 from .physics import Physics
 from .scenario import Scenario
@@ -72,8 +74,9 @@ class SimulatorOptions:
     """Counterpart of the reference's options (lib.rs:109-135), with the
     same defaults."""
 
-    backend: str = "xla"  # "xla": the flat step; "grid": the grid step
-    neighbor_grid_unit: float = 1.4  # the grid step runs 1.4 as 1.5
+    backend: str = "xla"  # "xla": the flat step; "pallas": flat agents
+    #                        through the step kernel; "grid": the grid step
+    neighbor_grid_unit: float = 1.4  # the kernel backends run 1.4 as 1.5
     field_grid_unit: float = 0.25
     use_neighbor_grid: bool = True
     use_distance_map: bool = True
@@ -111,27 +114,24 @@ class SimulatorOptions:
 
     def check(self) -> None:
         """Raise on what this port does not cover."""
-        if self.backend == "pallas":
-            raise ValueError("backend 'pallas' (the reference's flat fused "
-                             "kernel, make_step_pallas) is not ported, by "
-                             "decision (ROADMAP queue 1, item 9); 'grid' runs "
-                             "the grid step")
-        if self.backend not in ("xla", "grid"):
-            raise ValueError(f"unknown backend {self.backend!r}: 'xla' or 'grid'")
+        if self.backend not in ("xla", "pallas", "grid"):
+            raise ValueError(f"unknown backend {self.backend!r}: 'xla', "
+                             "'pallas' or 'grid'")
         if self.n_devices > 1 and self.backend != "grid":
             raise ValueError("--devices > 1 requires the grid backend")
         self.resolve_tile()
 
     def resolved(self) -> "SimulatorOptions":
         """The options the step runs with (the reference's sim.py:124-152).
-        The flat step takes them as they are.  For the grid step the 1.4 m
-        default unit becomes 1.5 m (the stride-6 field layout), and in
+        The flat step takes them as they are.  For the two kernel backends
+        (``pallas``, ``grid``) the 1.4 m default unit becomes 1.5 m (the
+        stride-6 field layout), and in
         all-pairs mode the unit grows to cover the interaction cutoff, in
         whole field units, and K by the cell-area ratio; the reference's
         all-pairs branch keeps the same cutoff (sfm.rs:158-184), so a 3x3
         window of such cells finds exactly its interacting pairs."""
         o = self
-        if o.backend != "grid":
+        if o.backend not in ("pallas", "grid"):
             return o
         if o.neighbor_grid_unit == 1.4:
             o = dataclasses.replace(o, neighbor_grid_unit=1.5)
@@ -143,9 +143,10 @@ class SimulatorOptions:
                                  * (unit_ap / o.neighbor_grid_unit) ** 2)
                 o = dataclasses.replace(o, neighbor_grid_unit=unit_ap,
                                         table_capacity=k_ap)
-                log.info("all-pairs mode: neighbor unit -> %.2f m (covers the "
-                         "%.1f m interaction cutoff), table capacity -> %d",
-                         unit_ap, o.physics.interaction_cutoff, k_ap)
+                log.info("all-pairs mode on the %s backend: neighbor unit -> "
+                         "%.2f m (covers the %.1f m interaction cutoff), table "
+                         "capacity -> %d", o.backend, unit_ap,
+                         o.physics.interaction_cutoff, k_ap)
         return o
 
 
@@ -215,7 +216,8 @@ class Simulator:
 
     @property
     def _flat(self) -> bool:
-        return self.options.backend == "xla"
+        """Flat agent tensors as the state: the xla and pallas backends."""
+        return self.options.backend in ("xla", "pallas")
 
     def _build(self, capacity: int) -> None:
         o = self.options
@@ -227,6 +229,10 @@ class Simulator:
             use_distance_map=o.use_distance_map)
         self._tcfg = None
         self._kernel_chain = None  # shapes depend on K
+        self._spawn_chain = None  # reads self.cfg, rebuilt with it
+        if o.backend == "pallas":
+            self._build_pallas(capacity)
+            return
         if self._flat:
             # the step's two input arguments: on this backend the packed
             # field rows and the obstacle segments
@@ -259,6 +265,26 @@ class Simulator:
                 self.cfg, row_block=o.row_block, **step_kw)
         log.info("step function built: capacity=%d K=%d device=%s tiles=%s",
                  capacity, o.table_capacity, self.device, o.resolve_tile())
+
+    def _build_pallas(self, capacity: int) -> None:
+        """The pallas backend's step and field tensors (the reference's
+        sim.py:230-276), refused before any tensor exists where its layout
+        or its memory (``sfm_pallas.device_bytes``) does not fit."""
+        o = self.options
+        if not sfm_pallas.layout_ok(self.cfg):
+            raise ValueError(
+                "pallas backend requires an integral neighbor/field unit "
+                "ratio and at least one waypoint; use backend='xla' for this "
+                "scenario")
+        self._fwp = self._fobs = None  # the old fields go first
+        sfm_grid.check_fits(sfm_pallas.device_bytes(self.cfg, o.row_block),
+                            self.device, what="the pallas step")
+        self._fwp, self._fobs = sfm_pallas.pallas_device_inputs(
+            self.cfg, self.maps, self.device, row_block=o.row_block)
+        self._step = sfm_pallas.make_step_pallas(
+            self.cfg, row_block=o.row_block, generator=self.generator)
+        log.info("step function built: capacity=%d K=%d backend=pallas "
+                 "device=%s", capacity, o.table_capacity, self.device)
 
     def _check_fits(self, incremental: bool) -> None:
         """Refuse, before any of its tensors exist, a step whose tensors
@@ -423,8 +449,8 @@ class Simulator:
         rebin, no spawn, no metrics; the incremental branch when the step
         is the hybrid), chained ``n`` times from the current state.  On a
         CUDA device timed with CUDA events; on the CPU (twins) with the
-        host clock.  One device only; None on the flat backend, which runs
-        no hand kernel."""
+        host clock.  One device only; None on the flat backends, as in the
+        reference (grid only)."""
         if self._flat:
             return None
         if self._tcfg is not None:
@@ -446,6 +472,42 @@ class Simulator:
         start.record()
         for _ in range(n):
             d = self._kernel_chain(d, self._fwp, self._fobs)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1000.0 / n
+
+    def measure_spawn_time(self, n: int = 10) -> float | None:
+        """Seconds of the grid step's spawn alone -- a draw of this step's
+        candidates and their scatter into the grid, the ``time_spawn``
+        diagnostic slot (the reference's sim.py:504-533) -- chained ``n``
+        times on a copy of the current grid (the scatter writes in place)
+        with a generator of its own (the simulator's stream does not move).
+        On a CUDA device timed with CUDA events; on the CPU with the host
+        clock.  Grid backend on one device only: None elsewhere; 0.0 when
+        the scenario has no spawn sources."""
+        if self.options.backend != "grid" or self._tcfg is not None:
+            return None
+        if self.cfg.spawn.total == 0:
+            return 0.0
+        if self._spawn_chain is None:
+            draw = spawn_sampler(self.cfg, self.device)
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(self.options.seed)
+            cfg = self.cfg
+            self._spawn_chain = lambda d: sfm_grid.spawn_scatter(
+                cfg, d, draw(generator))
+        d = self.state.d.clone()
+        self._spawn_chain(d)  # warm
+        if self.device.type != "cuda":
+            with Timer() as t:
+                for _ in range(n):
+                    self._spawn_chain(d)
+            return t.elapsed / n
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            self._spawn_chain(d)
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / 1000.0 / n

@@ -142,14 +142,16 @@ spawn = { kind = "once", count = 40 }
         _rows(convert.agents_to_numpy(grid._to_flat_state().agents)))
 
 
-def test_quickstart_runs_on_the_cpu(capsys):
+def test_quickstart_runs_on_the_cpu(capsys, tmp_path):
     spec = importlib.util.spec_from_file_location(
         "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    sim = mod.main("cpu", n_steps=60)
+    png = tmp_path / "quickstart.png"
+    sim = mod.main("cpu", n_steps=60, png=png)
     out = capsys.readouterr().out
     assert "checkpoint restored at step 60" in out
+    assert f"wrote {png}" in out and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     assert sim.options.backend == "xla" and sim.pedestrian_count > 40
 
 

@@ -9,7 +9,8 @@
   JSON line with the reference's keys (tests/test_bench_contract.py) and
   ``device``, and importing the module loads neither JAX nor the reference;
 - every flag the port refuses exits non-zero with its reason, and
-  ``--backend grid`` exits 2 where there is no CUDA device;
+  ``--backend grid``, ``xla`` and ``pallas`` exit 2 where there is no CUDA
+  device;
 - ``--suite`` runs the reference's three (tag, overrides), headline first.
 """
 
@@ -152,10 +153,11 @@ def _main(argv, capsys):
 
 
 @pytest.mark.parametrize("argv,said", [
-    (["--backend", "pallas"], "make_step_pallas"),
+    (["--backend", "pallas"], "needs a CUDA device"),
+    (["--backend", "pallas", "--domain", "square"], "no effect with --backend pallas"),
     (["--backend", "xla"], "needs a CUDA device"),
     (["--backend", "xla", "--domain", "square"], "no effect with --backend xla"),
-    (["--allow-fallback"], "--allow-fallback is refused"),
+    (["--allow-fallback"], "the port never falls back"),
     (["--no-wp-skip"], "no waypoint slot walk"),
     (["--chunk-size", "16384"], "no step reads it"),
     (["--domain", "tiles:0"], "needs a positive integer T"),

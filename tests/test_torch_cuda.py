@@ -762,3 +762,127 @@ def test_supports_reads_the_card_memory(monkeypatch):
         bench.capture(bench.build_parser().parse_args(["--agents", "20000"]))
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() - before < need
+
+
+# An agent with another active agent closer than this (m) at a step's input
+# is in near contact; its velocity after a pallas step is held to
+# NEAR_CONTACT_VEL_TOL between the card and the CPU, every other to 1e-5.
+NEAR_CONTACT = 0.01
+NEAR_CONTACT_VEL_TOL = 1e-4
+
+
+def _near_contact(agents, cand, speed_out: np.ndarray) -> np.ndarray:
+    """For each output row of a flat step, whether its agent was in near
+    contact at the step's input (``agents`` and the candidates ``cand``).
+    Rows are matched to input agents by their desired speed, which a step
+    carries unchanged and the seeded draws make unique."""
+    act = torch.cat([agents.active, cand.active]).cpu()
+    pos = torch.cat([agents.pos, cand.pos]).cpu()[act].double().numpy()
+    speed = torch.cat([agents.speed, cand.speed]).cpu()[act].numpy()
+    assert np.unique(speed).size == speed.size
+    d2 = ((pos[:, None] - pos[None]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    near = speed[d2.min(1) < NEAR_CONTACT ** 2]
+    return np.isin(speed_out.astype(np.float32), near)
+
+
+# the spawning scenario of tests/test_rebin_incremental.py
+PALLAS_SCENARIO = """
+[field]
+size = [18, 12]
+[[waypoints]]
+line = [[2, 2], [2, 10]]
+[[waypoints]]
+line = [[16, 2], [16, 10]]
+[[obstacles]]
+line = [[9, 0], [9, 5]]
+width = 1
+[[pedestrians]]
+origin = 0
+destination = 1
+spawn = { kind = "periodic", frequency = 4.0 }
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["base", "segments"])
+def test_pallas_step_on_the_card_equals_the_cpu(mode):
+    """Three pallas steps (models/sfm_pallas.py), each run on the card and on
+    the CPU from the CPU's state and the same candidates: every metric
+    equal, the rows slot by slot (the sort's cell ids come from the same
+    IEEE divide) with positions and velocities within 1e-5 and the rest
+    equal; the step kernel's launch counter rises by one a step on the
+    card, in its mode, and the CPU runs the twin.  An agent in near
+    contact (another active agent within NEAR_CONTACT at the step's input)
+    has its velocity held to NEAR_CONTACT_VEL_TOL instead: the kernel
+    equals its twin on the card bit for bit, but the twin's rsqrt and exp
+    are CUDA's on the card and the CPU's here, and the reference's pair
+    formula takes a difference of nearly equal squares there (a pair 4.9
+    mm apart moved 1.75e-5 between the two; on the CPU, rsqrt and exp a
+    few ulp off move no other velocity by 5e-6:
+    test_torch_pallas_backend.py::test_near_contact_bounds_the_card_gate)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pedoni_tpu_torch.models import sfm, sfm_pallas
+    from pedoni_tpu_torch.scenario import loads_scenario
+
+    sc = loads_scenario(PALLAS_SCENARIO)
+    maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
+    cfg = StepConfig.build(sc, capacity=640, neighbor_grid_unit=1.5,
+                           table_capacity=12,
+                           use_distance_map=(mode == "base"))
+    rng = np.random.default_rng(6)
+    n = 640
+    st = SimState(agents_from_numpy(
+        rng.uniform(0.8, 11.2, (n, 2)) * np.array([1.5, 1.0]),
+        rng.normal(0, 0.4, (n, 2)), rng.uniform(0.8, 1.7, n),
+        rng.integers(0, 2, n), np.arange(n) < 500, "cpu"), 0)
+    gen = torch.Generator().manual_seed(3)
+    counter = "segment_launches" if mode == "segments" else "launches"
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        fwp, fobs = sfm_pallas.pallas_device_inputs(cfg, maps, dev)
+        steps[dev] = (sfm_pallas.make_step_pallas(
+            cfg, generator=torch.Generator(device=dev)), fwp, fobs)
+    spawned = 0
+    for _ in range(3):
+        cand = sfm.spawn_candidates(cfg, gen)
+        out = {}
+        for dev, (step, fwp, fobs) in steps.items():
+            before = getattr(sk.fused_step, counter)
+            new, m = step(SimState(st.agents.to(dev), st.step), fwp, fobs,
+                          cand.to(dev))
+            out[dev] = ({k: int(v) for k, v in m._asdict().items()},
+                        [t.cpu().numpy() for t in new.agents],
+                        getattr(sk.fused_step, counter) - before, new)
+        st_in = st
+        (gm, ga, gl, _), (wm, wa, wl, st) = out["cuda"], out["cpu"]
+        assert gm == wm and (gl, wl) == (1, 0)
+        np.testing.assert_allclose(ga[0], wa[0], rtol=0, atol=1e-5)  # pos
+        near = _near_contact(st_in.agents, cand, wa[2])
+        assert near.sum() <= 0.01 * near.size  # a few rows, not a loose gate
+        np.testing.assert_allclose(ga[1][~near], wa[1][~near], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(ga[1][near], wa[1][near], rtol=0,
+                                   atol=NEAR_CONTACT_VEL_TOL)
+        for got, want in zip(ga[2:], wa[2:]):  # speed, dest, active
+            np.testing.assert_array_equal(got, want)
+        spawned += wm["n_spawned"]
+    assert spawned > 0
+
+
+@pytest.mark.cuda
+def test_pallas_simulator_on_the_card_evacuates_gap():
+    """``Simulator(backend="pallas")`` on the card: gap.toml evacuates within
+    400 ticks, one base-mode step kernel launch a tick."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pedoni_tpu_torch import Simulator, SimulatorOptions
+
+    sim = Simulator(SimulatorOptions(backend="pallas", device="cuda", seed=1),
+                    load_scenario(GAP))
+    before = sk.fused_step.launches
+    for i in range(400):
+        if sim.tick().active_ped_count == 0:
+            break
+    assert sim.pedestrian_count == 0
+    assert sk.fused_step.launches - before == i + 1

@@ -89,14 +89,24 @@ def test_package_never_imports_jax_or_reference():
             assert bad not in text, f"{path}: {bad!r}"
 
 
-@pytest.mark.parametrize("option", [
-    # the flat fused kernel is not ported, by decision, with or without tiles
-    {"backend": "pallas"}, {"backend": "pallas", "n_devices": 4},
+@pytest.mark.parametrize("option,message", [
+    # the pallas backend runs on one device, as the reference's; an unknown
+    # backend names the three
+    ({"backend": "pallas", "n_devices": 4}, "requires the grid backend"),
+    ({"backend": "auto"}, "'xla', 'pallas' or 'grid'"),
 ])
-def test_unported_options_raise(option):
-    with pytest.raises(ValueError, match="ROADMAP"):
+def test_unported_options_raise(option, message):
+    with pytest.raises(ValueError, match=message):
         Simulator(SimulatorOptions(device="cpu", **option),
                   pscenario.load_scenario(GAP))
+
+
+@pytest.mark.parametrize("name", ["renderer.py", "webview.py"])
+def test_display_copies_equal(name):
+    """The terminal renderer and the web view are copies of the
+    reference's, line for line (neither imports JAX)."""
+    port = pathlib.Path(pedoni_tpu_torch.__file__).parent / name
+    assert port.read_text() == (ROOT / "pedoni_tpu" / name).read_text()
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
