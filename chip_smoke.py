@@ -69,7 +69,7 @@ nvcc, one process per source, then:
    saved ones exactly, and its later checkpoints equal the first run's;
    ``--devices`` one more than the machine's cards exits non-zero naming
    the count;
-10. the 1M workload cut into 1 x 2 and 2 x 2 tiles, every tile on this
+10. the 1M workload cut into 1 x 2, 2 x 1 and 2 x 2 tiles, every tile on this
    card (parallel/tile2d.py over a device list), full path and hybrid:
    TILE_STEPS tiled steps equal to the whole grid's (every metric each
    step, the tiles' own cells bit for bit), the step kernel (base and
@@ -134,9 +134,33 @@ nvcc, one process per source, then:
    ``step_pairs``) and one ``-b pallas`` run in the non-headless mode with
    ``--render-web 0`` (terminal frames drawn, the web view served, 60
    steps logged) as subprocesses.  The step kernel's entries in the
-   kernels line list their paths, the pallas path's numbers among them.
+   kernels line list their paths, the pallas path's numbers among them;
+17. the 1M workload as 2 x 1 and 2 x 2 tiles over two processes of one
+   ``torch.distributed`` group (parallel/transport.py; rank r owns tile row
+   r), full path and hybrid: over gloo with both ranks on this card (each
+   crossing buffer staged through pinned host memory), and over NCCL with
+   rank r on cuda:r where there are two cards or more (else a line says
+   why it did not run).  The ranks are this script run again with
+   ``--rank R --store FILE --backend B --out PREFIX`` (``_rank_main``),
+   started and, when one fails or RANK_TIMEOUT passes, killed together by
+   ``transport.run_ranks``.  TILE_STEPS steps: metrics equal on both ranks
+   and to rank 0's single-process whole-grid run each step, the grid
+   gathered on rank 0 bit-equal to it, each rank launching the kernels of
+   its own tiles; wall and device ms/step (the device time of each rank's
+   kernels) and the cross-rank exchanges' ms a step, beside phase 10's
+   one-process numbers for the same tiling;
+18. the 1M xla problem (phase 15's) cut into x-strips
+   (parallel/spatial.py, no hand kernel): 2 strips on this card, and one
+   strip a card where there are more: the first step from the same state
+   equal to the flat step's (every metric; rows order-free, velocities
+   within TOL, NEAR_CONTACT_VEL_TOL in near contact, positions within TOL
+   or one float apart, whose spacing passes TOL beyond 128 m), then
+   SPATIAL_STEPS chained steps of each (n_spawned equal; the n_active
+   difference and the largest position difference printed); wall and
+   device ms/step and peak memory beside the flat step's.
 
-Each phase from 6 on prints its seconds.  Prints the card's name and power
+Each phase from 6 on prints its seconds.  With arguments the script is
+one rank of phase 17 and prints no result line.  Prints the card's name and power
 limit, one JSON line describing the kernels, and as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, on any
 failure or without a CUDA device.
@@ -144,12 +168,15 @@ failure or without a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import datetime
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -181,7 +208,7 @@ RANDOM_PROFILE_TICKS = 48  # random.toml ticks under torch.profiler
 # Printed beside this run's; nothing is gated on it.
 RANDOM_TICK_MS_SYNCING = (4.9446, 0.3487)
 SPAWN_SYNC_STEPS = 16  # spawning steps under set_sync_debug_mode("error")
-TILES = ((1, 2), (2, 2))  # the 1M workload's tilings, all on one card
+TILES = ((1, 2), (2, 1), (2, 2))  # the 1M workload's tilings, all on one card
 TILE_STEPS = 16  # steps of the tiled and the whole-grid 1M step compared
 BIG_K = 121  # the table capacity after 81 in Simulator._grow_table
 WP_STEPS = 16  # hybrid steps of the bench problem at 8 and 33 waypoints
@@ -203,6 +230,10 @@ NEAR_CONTACT = 0.01
 NEAR_CONTACT_VEL_TOL = 1e-4
 PALLAS_PROFILE_STEPS = 8
 CPU_CLI_STEPS = 100  # steps of the `-b cpu` CLI run (the flat step on the CPU)
+RANK_TILES = ((2, 1), (2, 2))  # phase 17: tilings whose rows split over 2 ranks
+RANK_TIMEOUT = 300  # s: phase 17's ranks, and their process group's timeout
+EXCHANGE_RUNS = 20  # timed exchanges a case in phase 17 (host clock)
+SPATIAL_STEPS = 10  # chained steps of phase 18's strips and flat step
 # The same measurements with the kernels' first designs, from PERF.md (NVIDIA
 # H100 80GB HBM3, 700 W): the step kernel with one thread per slot (a sample
 # pass over the fields6 planes, a pair pass with a warp-wide candidate walk,
@@ -533,7 +564,9 @@ def _device_profile(run, n: int, wall_ms: float, what: str, card: str) -> float:
     """``run()`` n times under torch.profiler: device us and launches per
     run for each kernel of PROFILED (everything else on the device is
     "glue"), and the busy share of ``wall_ms``, the unprofiled wall time of
-    one run.  Returns the device ms per run."""
+    one run.  NCCL's kernels (phase 17) spin on the card until the peer's
+    data arrives: they are printed apart and left out of the device time.
+    Returns the device ms per run."""
     import collections
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -544,9 +577,10 @@ def _device_profile(run, n: int, wall_ms: float, what: str, card: str) -> float:
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host events; device kernels, memsets and copies stay
-        label = next((k for k in PROFILED if k in ev.key), "glue")
+        label = next((k for k in (*PROFILED, "nccl") if k in ev.key), "glue")
         us[label] += ev.self_device_time_total / n
         launches[label] += ev.count / n
+    waiting = us.pop("nccl", 0.0)
     dev_ms = sum(us.values()) / 1e3
     if not dev_ms > 0:
         raise AssertionError(f"{what}: the profiler traced no device time")
@@ -557,6 +591,10 @@ def _device_profile(run, n: int, wall_ms: float, what: str, card: str) -> float:
         if label in us:
             print(f"#   {label:12s} {us[label]:9.2f} us a run {us[label] / 1e3 / dev_ms:6.1%}"
                   f"  {launches[label]:.2f} launches a run", flush=True)
+    if waiting:
+        print(f"#   nccl         {waiting:9.2f} us a run (waiting for the peer; not "
+              f"in the device time)  {launches['nccl']:.2f} launches a run",
+              flush=True)
     return dev_ms
 
 
@@ -1381,6 +1419,186 @@ def _bench_phase(card: str) -> dict:
     return rec
 
 
+def _rank_device(backend: str, rank: int) -> torch.device:
+    """Rank r's card: cuda:r under NCCL (one rank a card), cuda:0 under gloo
+    (both ranks on one card)."""
+    return torch.device("cuda", rank if backend == "nccl" else 0)
+
+
+def _rank_main(argv: list[str]) -> int:
+    """17, one rank: ``chip_smoke.py --rank R --store FILE --backend B --out
+    PREFIX``, started twice by ``_processes_phase``.  Joins a 2-process group
+    of backend B (gloo: both ranks on cuda:0, each crossing buffer staged
+    through pinned host memory; nccl: rank r on cuda:r), builds the 1M bench
+    state and runs each tiling of RANK_TILES, full path and hybrid, over
+    ``transport.ProcessGroup`` (rank r owns tile row r): TILE_STEPS steps
+    with each step's metrics and the launch counts, the grid gathered on
+    rank 0 against rank 0's own single-process whole-grid run, then wall
+    ms/step (WARMUP + TIMED steps), device ms/step of this rank's kernels
+    (profiler) and the exchanges of a step across ranks (host clock).
+    Writes its numbers as JSON to PREFIX.R."""
+    import torch.distributed as dist
+
+    from pedoni_tpu_torch.bench import build_problem
+    from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.parallel import tile2d
+    from pedoni_tpu_torch.parallel.transport import ProcessGroup
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--store", required=True)
+    ap.add_argument("--backend", choices=["gloo", "nccl"], required=True)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke --rank: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    dev = _rank_device(args.backend, args.rank)
+    torch.cuda.set_device(dev)
+    card = _card()
+    dist.init_process_group(args.backend, init_method=f"file://{args.store}",
+                            rank=args.rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+    try:
+        _sc, bmaps, bcfg, flat = build_problem(N_AGENTS, device=dev)
+        bfwp, bfobs = sfm_grid.field_tensors(bcfg, bmaps, dev)
+        stride = sfm_grid.stride_for(bcfg)
+        out = {}
+        for tile in RANK_TILES:
+            for name, incremental in (("full", False), ("hybrid", True)):
+                label = f"{tile[0]}x{tile[1]}_{name}"
+                tcfg = tile2d.Tile2DConfig.build(bcfg, *tile)
+                tr = ProcessGroup(tcfg.n_devices)
+                devices = [dev] * len(tr.tiles)
+                twp, tob = tile2d.device_inputs(tcfg, bmaps, stride, devices, tr)
+                ts = tile2d.make_sharded_grid_state(tcfg, flat, devices, tr)
+                tstep = tile2d.make_sharded_step(tcfg, devices,
+                                                 incremental=incremental, transport=tr)
+                _zero_launch_counts()
+                ms = []
+                for _ in range(TILE_STEPS):
+                    ts, m = tstep(ts, twp, tob)
+                    ms.append(torch.stack(list(m)))
+                entry = {"metrics": torch.stack(ms).cpu().tolist(),
+                         "launches": _launch_counts(), "tiles": list(tr.tiles)}
+                full = tile2d.gather(tcfg, ts, tr)
+                if tr.rank == 0:  # the single-process whole-grid run
+                    step = sfm_grid.make_step_grid(bcfg, incremental=incremental)
+                    gs, wm = sfm_grid.bin_state(bcfg, flat), []
+                    for _ in range(TILE_STEPS):
+                        gs, m = step(gs, bfwp, bfobs)
+                        wm.append(torch.stack(list(m)))
+                    entry["whole_metrics"] = torch.stack(wm).cpu().tolist()
+                    entry["grid_equal"] = bool(torch.equal(full, gs.d))
+                    del gs
+                del full
+                ts, _, wall = _run_timed(tstep, ts, twp, tob)
+                state = [ts]
+
+                def run():
+                    state[0] = tstep(state[0], twp, tob)[0]
+
+                dev_ms = _device_profile(run, PROFILE_STEPS // 3, wall,
+                                         f"rank {args.rank} {label} (a run = a step)",
+                                         card)
+                tiles = list(state[0].d)
+                tensors = [tiles, [torch.empty_like(t) for t in tiles]]
+                if incremental:
+                    tensors.append([torch.empty((t.shape[0], 8, 8, t.shape[3]),
+                                                device=dev) for t in tiles])
+                times = []
+                for _ in range(EXCHANGE_RUNS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for x in tensors:
+                        tile2d.exchange(tcfg, x, tr)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                entry.update(ms_per_step=wall, device_ms_per_step=dev_ms,
+                             exchange_ms=statistics.median(times),
+                             exchanges=len(tensors))
+                out[label] = entry
+        with open(f"{args.out}.{args.rank}", "w") as f:
+            json.dump({"card": card, "device": str(dev), "cases": out}, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _processes_phase(card, tiled: dict) -> dict:
+    """17. The 1M bench state as RANK_TILES over two processes of one
+    ``torch.distributed`` group (``_rank_main``, started by
+    ``transport.run_ranks``, which kills both when one fails or RANK_TIMEOUT
+    passes): over gloo with both ranks on this card, and over NCCL with
+    rank r on cuda:r where there are two cards or more.  Every step's
+    metrics equal on both ranks and to the single-process whole-grid run,
+    the grid gathered on rank 0 bit-equal to it, each rank launching its
+    own tiles' kernels; wall and device ms/step and the cross-rank
+    exchanges' ms a step beside phase 10's single-process numbers for the
+    same tiling (``tiled``).  Returns this phase's numbers."""
+    from pedoni_tpu_torch.parallel.transport import run_ranks
+
+    backends = ["gloo"]
+    if torch.cuda.device_count() >= 2:
+        backends.append("nccl")
+    else:
+        print("# phase 17: NCCL did not run: this machine has "
+              f"{torch.cuda.device_count()} card, and NCCL takes one rank a "
+              "card (it refuses two ranks on one GPU); gloo ran both ranks on "
+              "this card", flush=True)
+    numbers = {}
+    for backend in backends:
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = str(pathlib.Path(tmp) / "rank")
+            logs = run_ranks(
+                lambda r, store: [sys.executable, str(ROOT / "chip_smoke.py"),
+                                  "--rank", str(r), "--store", store,
+                                  "--backend", backend, "--out", prefix],
+                2, RANK_TIMEOUT, cwd=str(ROOT))
+            ranks = [json.loads(pathlib.Path(f"{prefix}.{r}").read_text())
+                     for r in range(2)]
+        for r, log in enumerate(logs):
+            for line in log.splitlines():
+                if line.startswith("#   ") or " profile, " in line:
+                    print(f"# {backend} rank {r}: {line[2:]}", flush=True)
+        for label in ranks[0]["cases"]:
+            c0, c1 = (rk["cases"][label] for rk in ranks)
+            if not c0["metrics"] == c1["metrics"] == c0["whole_metrics"]:
+                raise AssertionError(
+                    f"phase 17 {backend} {label}: metrics differ: rank 0 "
+                    f"{c0['metrics']} rank 1 {c1['metrics']} whole "
+                    f"{c0['whole_metrics']}")
+            if not c0["grid_equal"]:
+                raise AssertionError(f"phase 17 {backend} {label}: the grid "
+                                     "gathered on rank 0 != the whole grid")
+            kname = ("step_kernel_movers" if label.endswith("hybrid")
+                     else "step_kernel")
+            for c in (c0, c1):
+                if c["launches"][kname] != len(c["tiles"]) * TILE_STEPS:
+                    raise AssertionError(f"phase 17 {backend} {label}: launches "
+                                         f"{c['launches']} for tiles {c['tiles']}")
+            one = tiled[label]
+            print(f"# phase 17 {backend} {label}, 2 ranks ({ranks[0]['device']}, "
+                  f"{ranks[1]['device']}): {TILE_STEPS} steps, metrics equal on "
+                  f"both ranks and to the whole grid each step "
+                  f"({c0['metrics'][-1][0]} active), grid gathered on rank 0 bit "
+                  f"for bit; ms/step wall {c0['ms_per_step']:.4f} / "
+                  f"{c1['ms_per_step']:.4f}, device (this rank's kernels) "
+                  f"{c0['device_ms_per_step']:.4f} / {c1['device_ms_per_step']:.4f}, "
+                  f"{c0['exchanges']} exchanges across ranks "
+                  f"{c0['exchange_ms']:.4f} / {c1['exchange_ms']:.4f} ms a step "
+                  f"(rank 0 / rank 1); one process (phase 10): wall "
+                  f"{one['ms_per_step']:.4f}, device {one['device_ms_per_step']:.4f}, "
+                  f"exchanges {one['exchange_ms']:.4f} ms on {card}", flush=True)
+            numbers[f"{backend}_{label}"] = {
+                "ms_per_step": [c0["ms_per_step"], c1["ms_per_step"]],
+                "device_ms_per_step": [c0["device_ms_per_step"],
+                                       c1["device_ms_per_step"]],
+                "exchange_ms": [c0["exchange_ms"], c1["exchange_ms"]],
+                "one_process": one}
+    return numbers
+
+
 def _flat_rows(agents) -> np.ndarray:
     """Every slot's (pos, vel, speed, dest, active) of flat agent tensors."""
     a = {k: t.detach().cpu().numpy() for k, t in agents._asdict().items()}
@@ -2042,6 +2260,159 @@ def _pallas_phase(dev, card) -> dict:
     return res
 
 
+def _first_step_near_contact(flat_in, out_rows: np.ndarray) -> np.ndarray:
+    """For each row (pos, vel, ...) of a first step's output from agents at
+    rest, whether its agent had another active agent within NEAR_CONTACT
+    at the step's input: an agent at rest moves by vel * dt / 2 in that
+    step, so its input position is found from its output row (scipy's
+    cKDTree over the input positions)."""
+    from scipy.spatial import cKDTree
+
+    a = flat_in.agents
+    pos = a.pos[a.active].double().cpu().numpy()
+    tree = cKDTree(pos)
+    near = np.zeros(len(pos), bool)
+    pairs = tree.query_pairs(NEAR_CONTACT, output_type="ndarray")
+    near[pairs.ravel()] = True
+    dt = 0.1
+    _, src = tree.query(out_rows[:, 0:2] - out_rows[:, 2:4] * (dt / 2))
+    return near[src]
+
+
+def _spatial_phase(dev, card, flat_1m: dict) -> dict:
+    """18. The 1M xla bench problem (phase 15's: the 632.5 m square at 1.4
+    m) cut into x-strips (parallel/spatial.py): 2 strips on this card, and
+    one strip a card where there are two cards or more.  The first step
+    from the same state against the flat step (the problem spawns nothing,
+    so no candidates to inject): every metric equal, rows order-free, pos
+    and vel within TOL, NEAR_CONTACT_VEL_TOL for agents in near contact;
+    then SPATIAL_STEPS chained steps of each: ``n_spawned`` equal, the
+    difference in ``n_active`` and the largest position difference written
+    down; wall ms/step over them, device ms/step (profiler, 2 steps), peak
+    memory, beside the flat step's (``flat_1m``, phase 15).  No hand kernel
+    runs.  Returns this phase's numbers."""
+    from pedoni_tpu_torch.bench import build_problem
+    from pedoni_tpu_torch.convert import metrics_to_dict
+    from pedoni_tpu_torch.models import sfm
+    from pedoni_tpu_torch.parallel import spatial
+
+    def strip_agents(state):  # the strips' shards as one flat AgentState
+        return sfm.AgentState(*(torch.cat([x.to(dev) for x in xs])
+                                for xs in zip(*state.agents)))
+
+    none = {k: 0 for k in _launch_counts()}
+    _sc, maps, cfg, flat = build_problem(N_AGENTS, device=dev, backend="xla")
+    field, obstacles = sfm.device_inputs(cfg, maps, dev)
+    fstep = sfm.make_step(cfg)
+    plans = [("2 strips on one card", [dev, dev])]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        plans.append((f"{n_cards} strips, one a card",
+                      [torch.device("cuda", i) for i in range(n_cards)]))
+    else:
+        print("# phase 18: one strip a card did not run: this machine has 1 "
+              "card", flush=True)
+
+    def rows(agents):
+        a = {k: t.detach().cpu().numpy() for k, t in agents._asdict().items()}
+        r = np.concatenate([a["pos"], a["vel"], a["speed"][:, None]], 1
+                           ).astype(np.float64)[a["active"]]
+        return r[np.lexsort((r[:, 1], r[:, 0], r[:, 4]))]
+
+    def timed(step, state, args, n):
+        """n chained steps: (state, metrics of each, wall ms/step)."""
+        ms = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, m = step(state, *args)
+            ms.append(torch.stack(list(m)))
+        torch.cuda.synchronize()
+        return state, torch.stack(ms).cpu(), (time.perf_counter() - t0) / n * 1e3
+
+    def profiled(step, state, args, what, wall):
+        box = [state]
+
+        def run():
+            box[0] = step(box[0], *args)[0]
+
+        return _device_profile(run, 2, wall, what, card)
+
+    f1, fm = fstep(flat, field.rows, obstacles)
+    want = rows(f1.agents)
+    fs, fms, f_wall = timed(fstep, f1, (field.rows, obstacles), SPATIAL_STEPS)
+    f_dev = profiled(fstep, fs, (field.rows, obstacles), "1M flat (phase 18)", f_wall)
+    f_final = rows(fs.agents)
+    out = {"flat": {"ms_per_step": f_wall, "device_ms_per_step": f_dev,
+                    "peak_bytes": flat_1m["peak_bytes"]}}
+    for what, devices in plans:
+        scfg = spatial.ShardedConfig.build(cfg, len(devices))
+        srows, sobs = spatial.device_inputs(scfg, maps, devices)
+        ss = spatial.shard_state(scfg, flat, devices)
+        sstep = spatial.make_sharded_step(scfg, devices)
+        base = [torch.cuda.memory_allocated(d) for d in set(devices)]
+        for d in set(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+        _zero_launch_counts()
+        s1, sm = sstep(ss, srows, sobs)
+        if metrics_to_dict(sm) != metrics_to_dict(fm):
+            raise AssertionError(f"1M {what}: first-step metrics "
+                                 f"{metrics_to_dict(sm)} != flat {metrics_to_dict(fm)}")
+        got = rows(strip_agents(s1))
+        if got.shape != want.shape:
+            raise AssertionError(f"1M {what}: {got.shape[0]} rows, flat {want.shape[0]}")
+        if not np.array_equal(got[:, 4], want[:, 4]):
+            raise AssertionError(f"1M {what}: speeds differ from the flat step's")
+        err = np.abs(got[:, :4] - want[:, :4])
+        # a position within TOL, or one float apart: past 128 m an f32
+        # position's spacing exceeds TOL, and a velocity one float apart
+        # (the order of a cell's pair sum) can round it either way
+        pos_tol = np.maximum(TOL, np.spacing(np.abs(want[:, 0:2]).astype(np.float32)))
+        n_near = 0
+        if (err[:, 0:2] > pos_tol).any():
+            raise AssertionError(f"1M {what}: first-step positions off the flat "
+                                 f"step by {err[:, 0:2].max(0)}")
+        if err[:, 2:4].max() > TOL:
+            near = _first_step_near_contact(flat, want)
+            n_near = int(near.sum())
+            if (err[~near, 2:4].max() > TOL
+                    or err[near, 2:4].max(initial=0.0) > NEAR_CONTACT_VEL_TOL):
+                raise AssertionError(f"1M {what}: first-step velocities off the "
+                                     f"flat step by {err[:, 2:4].max(0)} ({n_near} "
+                                     "rows in near contact)")
+        ss, sms, s_wall = timed(sstep, s1, (srows, sobs), SPATIAL_STEPS)
+        peak = sum(torch.cuda.max_memory_allocated(d) for d in set(devices)) - sum(base)
+        s_dev = profiled(sstep, ss, (srows, sobs), f"1M {what} (phase 18)", s_wall)
+        if _launch_counts() != none:
+            raise AssertionError(f"1M {what}: hand-kernel launches {_launch_counts()}")
+        if not torch.equal(sms[:, 1], fms[:, 1]):
+            raise AssertionError(f"1M {what}: n_spawned {sms[:, 1]} != flat {fms[:, 1]}")
+        final = rows(strip_agents(ss))
+        d_active = int(sms[-1, 0]) - int(fms[-1, 0])
+        n = min(len(final), len(f_final))
+        pos_diff = (float(np.abs(final[:n, :2] - f_final[:n, :2]).max())
+                    if d_active == 0 else float("nan"))
+        print(f"# phase 18 {what}: first step equal to the flat step (metrics; rows "
+              f"order-free, pos/vel max |err| {err[:, 0:2].max():.3e} / "
+              f"{err[:, 2:4].max():.3e}, {int((err[:, 0:2] > TOL).sum())} "
+              f"positions one float apart past {TOL}, {n_near} rows in near "
+              f"contact); after "
+              f"{SPATIAL_STEPS} more steps n_spawned equal, n_active "
+              f"{int(sms[-1, 0])} vs flat {int(fms[-1, 0])} (difference {d_active}), "
+              f"largest position difference {pos_diff:.3e} m; ms/step wall "
+              f"{s_wall:.4f} (flat {f_wall:.4f}), device {s_dev:.4f} (flat "
+              f"{f_dev:.4f}), peak memory {peak} bytes above the strips' state "
+              f"(flat {flat_1m['peak_bytes']}, phase 15); overflow last step "
+              f"{int(sms[-1, 3])} (flat {int(fms[-1, 3])}) on {card}", flush=True)
+        out[what] = {"ms_per_step": s_wall, "device_ms_per_step": s_dev,
+                     "peak_bytes": peak, "first_step_pos_err": float(err[:, 0:2].max()),
+                     "first_step_vel_err": float(err[:, 2:4].max()),
+                     "near_contact_rows": n_near, "n_active_difference": d_active,
+                     "position_difference": pos_diff}
+        del ss, s1, srows, sobs
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -2319,6 +2690,13 @@ def main() -> int:
     pallas = _pallas_phase(dev, card)
     print(f"# phase 16 (pallas backend) took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    processes = _processes_phase(card, tiled)
+    print(f"# phase 17 (processes) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    strips = _spatial_phase(dev, card, flat)
+    print(f"# phase 18 (spatial strips) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for entry in kernels:  # the forms of each kernel this run held to its twin
         if entry["name"] != "pairwise":
             entry["tile_offsets"] = "ported"
@@ -2327,11 +2705,11 @@ def main() -> int:
         if entry["name"].startswith("step_kernel"):
             entry["waypoints"] = [1, 2, 8, 33]  # W compared here (2: step 1)
     for entry in kernels:  # the paths each kernel ran on in this run
-        entry["paths"] = {"step_kernel": ["full", "tiles", "pallas"],
-                          "step_kernel_movers": ["hybrid", "tiles"],
+        entry["paths"] = {"step_kernel": ["full", "tiles", "pallas", "processes"],
+                          "step_kernel_movers": ["hybrid", "tiles", "processes"],
                           "step_kernel_segments": ["segments", "pallas --no-distance-map"],
-                          "rebin": ["full", "hybrid", "tiles"],
-                          "rebin_incremental": ["hybrid", "tiles"],
+                          "rebin": ["full", "hybrid", "tiles", "processes"],
+                          "rebin_incremental": ["hybrid", "tiles", "processes"],
                           "pairwise": ["standalone"]}[entry["name"]]
         if entry["name"] in pallas["kernels"]:
             entry["pallas"] = pallas["kernels"][entry["name"]]
@@ -2344,6 +2722,9 @@ def main() -> int:
           flush=True)
     print("# pallas backend (phase 16): " + json.dumps(
         {k: v for k, v in pallas.items() if k != "kernels"}), flush=True)
+    print("# tiles over 2 processes (phase 17): " + json.dumps(processes), flush=True)
+    print("# spatial strips (no hand kernel; phase 18): " + json.dumps(strips),
+          flush=True)
     print(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the "
           f"kernel build included", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2354,4 +2735,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    # with arguments: one rank of phase 17 (``_rank_main``)
+    raise SystemExit(_rank_main(sys.argv[1:]) if len(sys.argv) > 1 else main())

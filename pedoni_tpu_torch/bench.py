@@ -35,8 +35,9 @@ make_step``) and ``--backend pallas`` the pallas step (``models/
 sfm_pallas.py::make_step_pallas``: flat agents through the fused step
 kernel, the square field at 1.5 m as the reference builds it) on the
 card, with the same timing contract and keys.  The reference's
-``--allow-fallback``, ``--no-wp-skip`` and ``--chunk-size`` exit non-zero
-with the reason.  A configuration whose step does not fit the card's free
+``--allow-fallback`` and ``--chunk-size`` exit non-zero with the reason;
+``--no-wp-skip`` is accepted and changes nothing (the port has no slot
+walk to disable).  A configuration whose step does not fit the card's free
 memory is refused before its grid or slot grid is allocated
 (``sfm_grid.device_bytes`` or ``sfm_pallas.device_bytes``, ``check_fits``).
 """
@@ -72,9 +73,6 @@ REFUSED = {
     "--allow-fallback": "the port never falls back: a kernel that fails to "
                         "build or launch raises, so a regression cannot "
                         "re-label a slower backend's numbers",
-    "--no-wp-skip": "the port has no waypoint slot walk to disable: each "
-                    "agent samples its own plane (not ported by decision, "
-                    "ROADMAP queue 2)",
     "--chunk-size": "no step reads it: the flat step's pair pass is sized by "
                     "a byte budget (ops/forcepass.py), the grid step's "
                     "blocks by --row-block",
@@ -319,7 +317,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="destination count: W > 1 splits the goal edge "
                          "into W band exits with nearest-exit assignment")
     ap.add_argument("--no-wp-skip", action="store_true",
-                    help="refused: " + REFUSED["--no-wp-skip"])
+                    help="accepted and ignored: the port has no waypoint "
+                         "slot walk to disable (each agent samples its own "
+                         "plane), and the reference's tests hold it "
+                         "bit-identical to the skip")
     ap.add_argument("--domain", default="auto",
                     help="auto = the reference's lane-exact rectangle; "
                          "square = the square field of the same area; "
@@ -343,7 +344,6 @@ def main(argv: list[str] | None = None) -> int:
                  f"{args.backend} (domain shaping is a grid-backend knob; "
                  f"the {args.backend} problem is always the square field)")
     for flag, on in (("--allow-fallback", args.allow_fallback),
-                     ("--no-wp-skip", args.no_wp_skip),
                      ("--chunk-size", args.chunk_size is not None)):
         if on:
             ap.error(f"{flag} is refused: {REFUSED[flag]}")

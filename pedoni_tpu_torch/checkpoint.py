@@ -96,7 +96,8 @@ def restore(sim, path: str | Path) -> None:
     """Restore a Simulator in place.  A checkpoint larger than the
     simulator's capacity rebuilds it at the checkpoint's capacity; a
     smaller one is padded with inactive slots (the reference's
-    checkpoint.py:64-87)."""
+    checkpoint.py:64-87).  One process only (``Simulator._one_process``)."""
+    sim._one_process("restoring a checkpoint")
     state, step_count, generator = _read(path)
     n = state.agents.pos.shape[0]
     if n > sim.cfg.capacity:

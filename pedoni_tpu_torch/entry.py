@@ -5,7 +5,9 @@
   fused step kernel and the hybrid rebin) on the card at a tiny setup;
   ``fn(*example_args)`` -> (GridState, StepMetrics).
 - ``dryrun_multichip(n)``: a few tiled grid steps on tiny shapes over n
-  tiles, tile i on cuda:i (row strips, and 2D tiles where n >= 4 is even).
+  tiles, tile i on cuda:i (row strips, and 2D tiles where n >= 4 is even),
+  then a few steps of the flat step cut into n x-strips
+  (``parallel.spatial``), as the reference's __graft_entry__.py:67-77.
 
     python -m pedoni_tpu_torch.entry   # both, over the machine's cards
 """
@@ -17,7 +19,7 @@ import torch
 from .field import Field, FieldMaps
 from .models import sfm_grid
 from .models.sfm import StepConfig, make_initial_state
-from .parallel import grid_shard, tile2d
+from .parallel import grid_shard, spatial, tile2d
 from .scenario import loads_scenario
 
 TINY_SCENARIO = """
@@ -62,11 +64,13 @@ def entry(device: str = "cuda"):
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     """The tiled grid step over ``n_devices`` tiles: row strips, and 2D
-    tiles (n/2 x 2) where n >= 4 is even (``device="cpu"``: every tile on
-    the CPU)."""
+    tiles (n/2 x 2) where n >= 4 is even; then the strip step over
+    ``n_devices`` strips (``device="cpu"``: every tile and strip on the
+    CPU)."""
     grid_shard.dryrun(n_devices, device=device)
     if n_devices >= 4 and n_devices % 2 == 0:
         tile2d.dryrun(n_devices // 2, 2, device=device)
+    spatial.dryrun(n_devices, device=device)
 
 
 def main() -> int:

@@ -44,7 +44,8 @@ from ..ops.fields6 import Fields6
 from ..ops.kernels.rebin import new_outputs, rebin, rebin_incremental
 from ..ops.kernels.step_kernel import SEG_COLS, fused_step, segment_table
 from ..ops.neighbor import compute_cell_ids, true_divide
-from .sfm import AgentState, SimState, StepConfig, StepMetrics, spawn_sampler
+from .sfm import (AgentState, SimState, StepConfig, StepMetrics,
+                  make_initial_state, spawn_sampler)
 
 
 class GridState(NamedTuple):
@@ -191,6 +192,14 @@ def bin_state(cfg: StepConfig, sim: SimState, row_block: int = 2) -> GridState:
         d[cy + 1, rank[ok], c, cx + 1] = rows[:, c]
     d[:, 0, 7, :] = d[:, :, 6, :].sum(dim=1)  # per-cell count at slot 0
     return GridState(d=d, step=sim.step)
+
+
+def make_initial_grid_state(cfg: StepConfig, generator: torch.Generator,
+                            device: torch.device | str = "cuda",
+                            row_block: int = 2) -> GridState:
+    """The once-spawned initial agents (``make_initial_state``), binned
+    (the reference's sfm_grid.py:133-137)."""
+    return bin_state(cfg, make_initial_state(cfg, generator, device), row_block)
 
 
 def unbin_state(cfg: StepConfig, gs: GridState, n_out: int | None = None

@@ -2,9 +2,17 @@
 one tile a device.
 
 Counterpart of pedoni_tpu/parallel/tile2d.py.  The reference runs one
-controller over a JAX mesh; here one process drives a list of devices,
-one tile an entry (the list may name one device more than once: the tiles
-then share it, and the step runs the same code as on as many cards).
+controller over a JAX mesh, global across processes once
+``jax.distributed`` is up; here a process drives a list of devices, one
+tile an entry (the list may name one device more than once: the tiles then
+share it, and the step runs the same code as on as many cards).  The
+tiles may be spread over the processes of a ``torch.distributed`` group
+(``transport.ProcessGroup``): rank r owns a contiguous block of whole tile
+rows, so that columns exchange within a rank and rows across ranks
+(docs/multihost.md, "Mapping the mesh to hardware"); each function below
+takes the transport and, where it takes devices, one device for each tile
+of this process (``transport.tiles``).  Without a transport every tile is
+in this process (``transport.Local``).
 
 Layout per tile (r, c): ``d [rl+2, K, 8, NXL_loc]``, GHOST-CARRYING — rows
 0 and rl+1 are ghost rows, lane ``l`` holds global cell column
@@ -27,7 +35,9 @@ A step (``make_sharded_step``):
 5. the rebin with the tile's offsets; in the hybrid the full-or-
    incremental choice is made per tile on its device, the compaction
    cadence on the host, the same for all tiles;
-6. the metrics, summed (or max-ed) over tiles on the first tile's device.
+6. the metrics, summed (or max-ed) over this process's tiles on its first
+   tile's device, then over the processes (``all_reduce_metrics``), so
+   that every rank returns the same metrics.
 
 Every kernel block sees exactly the window one grid would, so R x C tiles
 give the whole grid's result bit for bit.
@@ -61,6 +71,7 @@ from ..models.sfm_grid import (
 )
 from ..ops.fields6 import Fields6
 from ..scenario import loads_scenario
+from .transport import Local, Transport, all_reduce_metrics, check_replicated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,8 +129,22 @@ class Tile2DConfig:
 
 
 class TiledGridState(NamedTuple):
-    d: tuple[torch.Tensor, ...]  # per tile, row-major: [rl+2, K, 8, NXL_loc]
+    d: tuple[torch.Tensor, ...]  # per tile of this process, row-major:
+    #                              [rl+2, K, 8, NXL_loc]
     step: int
+
+
+def _transport(tcfg: Tile2DConfig, transport: Transport | None) -> Transport:
+    """``transport``, or every tile in this process; a process must own
+    whole rows of tiles."""
+    if transport is None:
+        return Local(tcfg.n_devices)
+    if transport.n_tiles != tcfg.n_devices or tcfg.rows % transport.world:
+        raise ValueError(
+            f"{tcfg.rows}x{tcfg.cols} tiles over {transport.world} processes "
+            f"({transport.n_tiles} tiles): a process owns whole rows of "
+            "tiles, so the rows must divide by the processes")
+    return transport
 
 
 def shard_device_inputs(tcfg: Tile2DConfig, maps: FieldMaps, stride: int
@@ -148,26 +173,34 @@ def shard_device_inputs(tcfg: Tile2DConfig, maps: FieldMaps, stride: int
 
 
 def device_inputs(tcfg: Tile2DConfig, maps: FieldMaps, stride: int,
-                  devices: Sequence[torch.device | str]
+                  devices: Sequence[torch.device | str],
+                  transport: Transport | None = None
                   ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
-    """``shard_device_inputs`` as tensors, each tile's on its device:
-    (fwp slabs, fobs slabs)."""
+    """``shard_device_inputs`` of this process's tiles as tensors, each
+    tile's on its device: (fwp slabs, fobs slabs)."""
+    tiles = _transport(tcfg, transport).tiles
     slabs = shard_device_inputs(tcfg, maps, stride)
-    return ([torch.from_numpy(wp).to(dev) for (wp, _), dev in zip(slabs, devices)],
-            [torch.from_numpy(ob).to(dev) for (_, ob), dev in zip(slabs, devices)])
+    return ([torch.from_numpy(slabs[i][0]).to(dev) for i, dev in zip(tiles, devices)],
+            [torch.from_numpy(slabs[i][1]).to(dev) for i, dev in zip(tiles, devices)])
 
 
 def make_sharded_grid_state(tcfg: Tile2DConfig, state: SimState,
-                            devices: Sequence[torch.device | str]
+                            devices: Sequence[torch.device | str],
+                            transport: Transport | None = None,
+                            generator: torch.Generator | None = None
                             ) -> TiledGridState:
     """Bin a flat state (``bin_state``, on the agents' device) and cut the
-    grid into ghost-carrying tiles, each on its device: own rows and lanes
-    copied, ghosts and padding zero (the step refreshes the ghosts)."""
+    grid into ghost-carrying tiles, this process's each on its device: own
+    rows and lanes copied, ghosts and padding zero (the step refreshes the
+    ghosts).  Across processes every rank must hold the same flat state and
+    the step's ``generator`` in the same state (``check_replicated``)."""
     cfg = tcfg.base
     rl, cl = tcfg.rows_local, tcfg.cols_local
+    transport = _transport(tcfg, transport)
+    check_replicated(transport, cfg, state.agents, generator)
     full = bin_state(cfg, state, row_block=tcfg.row_block).d
     tiles = []
-    for i, dev in enumerate(devices[: tcfg.n_devices]):
+    for i, dev in zip(transport.tiles, devices):
         r0, c0 = tcfg.origin(i)
         n_own = tcfg.own_cols(i)
         n_rows = max(0, min(rl, full.shape[0] - 2 - r0))
@@ -179,15 +212,22 @@ def make_sharded_grid_state(tcfg: Tile2DConfig, state: SimState,
     return TiledGridState(d=tuple(tiles), step=state.step)
 
 
-def gather(tcfg: Tile2DConfig, gs: TiledGridState) -> torch.Tensor:
+def gather(tcfg: Tile2DConfig, gs: TiledGridState,
+           transport: Transport | None = None, everywhere: bool = False
+           ) -> torch.Tensor | None:
     """The tiles' own cells as one whole grid [ny_pad+2, K, 8, NXL] on the
-    first tile's device (the layout of ``bin_state``)."""
+    first tile's device (the layout of ``bin_state``).  Across processes
+    the grid is collected onto rank 0, and the other ranks get None; with
+    ``everywhere`` every rank gets it."""
     cfg = tcfg.base
     dims = GridDims.build(cfg, tcfg.row_block)
+    tiles = _transport(tcfg, transport).collect(gs.d, everywhere)
+    if tiles is None:
+        return None
     dev = gs.d[0].device
     full = torch.zeros((dims.ny_pad + 2, dims.k, 8, dims.nxl),
                        dtype=torch.float32, device=dev)
-    for i, t in enumerate(gs.d):
+    for i, t in enumerate(tiles):
         r0, c0 = tcfg.origin(i)
         n_own = tcfg.own_cols(i)
         n_rows = max(0, min(tcfg.rows_local, dims.ny_pad - r0))
@@ -197,65 +237,78 @@ def gather(tcfg: Tile2DConfig, gs: TiledGridState) -> torch.Tensor:
 
 
 def unbin_sharded(tcfg: Tile2DConfig, gs: TiledGridState,
-                  n_out: int | None = None) -> SimState:
+                  n_out: int | None = None, transport: Transport | None = None,
+                  everywhere: bool = False) -> SimState | None:
     """The tiled grid back to flat agent tensors (``unbin_state`` of the
-    gathered grid)."""
-    return unbin_state(tcfg.base, GridState(d=gather(tcfg, gs), step=gs.step),
-                       n_out)
+    gathered grid): on rank 0 across processes, None on the others (every
+    rank with ``everywhere``)."""
+    full = gather(tcfg, gs, transport, everywhere)
+    if full is None:
+        return None
+    return unbin_state(tcfg.base, GridState(d=full, step=gs.step), n_out)
 
 
-def population(gs: TiledGridState) -> int:
-    """Active agents of the tiles (their ghosts are empty between steps)."""
-    return sum(int((t[:, :, 6, :] > 0.5).sum()) for t in gs.d)
+def population(gs: TiledGridState, transport: Transport | None = None) -> int:
+    """Active agents of the tiles (their ghosts are empty between steps),
+    over every process."""
+    n = sum(int((t[:, :, 6, :] > 0.5).sum()) for t in gs.d)
+    if transport is None:
+        return n
+    return int(transport.all_sum(torch.tensor([n], device=gs.d[0].device))[0])
 
 
-def exchange(tcfg: Tile2DConfig, tiles: Sequence[torch.Tensor]) -> None:
+def exchange(tcfg: Tile2DConfig, tiles: Sequence[torch.Tensor],
+             transport: Transport | None = None) -> None:
     """Refresh the ghosts of tensors of the D / G / M layout, in place:
     ghost lanes 0 and cl+1 from the lane neighbours' own edge lanes cl and
     1, then ghost rows 0 and rl+1 from the row neighbours' own edge rows rl
     and 1, ghost lanes included, so that corners carry.  Ghosts at the
     field's edges keep what the kernels wrote there: no agent (the step
-    kernel and the rebins leave no agent in an edge ghost).  One process
-    copies between the tiles' tensors; the reference's ppermute.  Tile i
-    of ``tiles`` is tile i of ``tcfg`` (row-major)."""
+    kernel and the rebins leave no agent in an edge ghost).  The
+    reference's ppermute, through ``transport``: ``tiles`` are this
+    process's, in tile order (row-major)."""
     rl, cl, cols = tcfg.rows_local, tcfg.cols_local, tcfg.cols
-    for i, x in enumerate(tiles):
-        if i % cols > 0:
-            x[..., 0].copy_(tiles[i - 1][..., cl])
-        if i % cols < cols - 1:
-            x[..., cl + 1].copy_(tiles[i + 1][..., 1])
-    for i, x in enumerate(tiles):
-        if i >= cols:
-            x[0].copy_(tiles[i - cols][rl])
-        if i < len(tiles) - cols:
-            x[rl + 1].copy_(tiles[i + cols][1])
+    n = tcfg.n_devices
+    t = _transport(tcfg, transport)
+    right = [(i, i + 1) for i in range(n) if i % cols < cols - 1]
+    down = [(i, i + cols) for i in range(n - cols)]
+    t.shift((right, [x[..., cl] for x in tiles], [x[..., 0] for x in tiles]),
+            ([(b, a) for a, b in right], [x[..., 1] for x in tiles],
+             [x[..., cl + 1] for x in tiles]))
+    t.shift((down, [x[rl] for x in tiles], [x[0] for x in tiles]),
+            ([(b, a) for a, b in down], [x[1] for x in tiles],
+             [x[rl + 1] for x in tiles]))
 
 
 def make_sharded_step(tcfg: Tile2DConfig, devices: Sequence[torch.device | str],
                       incremental: bool = True, mover_k: int = 8,
                       compact_every: int = 8,
-                      generator: torch.Generator | None = None):
+                      generator: torch.Generator | None = None,
+                      transport: Transport | None = None):
     """Build the tiled step: ``step(state, fwp_slabs, fobs_slabs, cand=None)
     -> (TiledGridState, StepMetrics)``, the contract of
     ``sfm_grid.make_step_grid`` on a TiledGridState, with the same kernels
     on each tile (``sfm_grid.tile_kernels``; see the module's docstring).
-    ``step.full_rebins`` ([n_tiles] int32 on the first tile's device) counts
-    each tile's steps that took the full rebin.  The input state is
-    consumed (the tiles are written in place)."""
+    ``devices`` holds one device for each of this process's tiles.
+    ``step.full_rebins`` ([tiles of this process] int32 on the first tile's
+    device) counts each tile's steps that took the full rebin.  The input
+    state is consumed (the tiles are written in place)."""
     cfg = tcfg.base
     s = cfg.spawn.total
     rl, cl = tcfg.rows_local, tcfg.cols_local
-    devices = [torch.device(dv) for dv in devices[: tcfg.n_devices]]
-    if len(devices) < tcfg.n_devices:
-        raise ValueError(f"{tcfg.rows}x{tcfg.cols} tiles need "
-                         f"{tcfg.n_devices} devices, got {len(devices)}")
+    transport = _transport(tcfg, transport)
+    own = transport.tiles
+    devices = [torch.device(dv) for dv in devices[: len(own)]]
+    if len(devices) < len(own):
+        raise ValueError(f"{len(own)} tiles of {tcfg.rows}x{tcfg.cols} in this "
+                         f"process need {len(own)} devices, got {len(devices)}")
     forces, rebins = tile_kernels(cfg, tcfg.row_block, incremental, mover_k,
                                   devices)
     if s > 0 and generator is None:
         raise ValueError("a spawning scenario needs a torch.Generator")
     draw = spawn_sampler(cfg, generator.device) if s > 0 else None
     home = devices[0]
-    origins = [tcfg.origin(i) for i in range(tcfg.n_devices)]
+    origins = [tcfg.origin(i) for i in own]
     tiles_kw = [dict(row_offset=r0, col_offset=c0, nx_local=cl)
                 for r0, c0 in origins]
 
@@ -263,7 +316,7 @@ def make_sharded_step(tcfg: Tile2DConfig, devices: Sequence[torch.device | str],
              fobs: Sequence[torch.Tensor], cand: AgentState | None = None
              ) -> tuple[TiledGridState, StepMetrics]:
         tiles = list(state.d)
-        exchange(tcfg, tiles)
+        exchange(tcfg, tiles, transport)
         zero = torch.zeros((), dtype=torch.int32, device=home)
         n_spawned = n_dropped = zero
         if s > 0:
@@ -277,10 +330,10 @@ def make_sharded_step(tcfg: Tile2DConfig, devices: Sequence[torch.device | str],
         compact = state.step % compact_every == 0
         ks = [forces(d, wp, ob, compact, **kw)
               for d, wp, ob, kw in zip(tiles, fwp, fobs, tiles_kw)]
-        exchange(tcfg, [g for g, _, _, _ in ks])
+        exchange(tcfg, [g for g, _, _, _ in ks], transport)
         gated = incremental and not compact
         if gated:
-            exchange(tcfg, [m for _, m, _, _ in ks])
+            exchange(tcfg, [m for _, m, _, _ in ks], transport)
         outs = [rebins(g, m, flag, **kw) for (g, m, _, flag), kw in zip(ks, tiles_kw)]
         if incremental:
             if step.full_rebins is None:
@@ -288,9 +341,9 @@ def make_sharded_step(tcfg: Tile2DConfig, devices: Sequence[torch.device | str],
                                                device=home)
             step.full_rebins += (torch.stack([f.to(home) for _, _, _, f in ks])
                                  if gated else 1)
-        metrics = step_metrics(outs, n_spawned, n_dropped,
-                               [x for _, _, x, _ in ks] if incremental else [],
-                               home)
+        metrics = all_reduce_metrics(transport, step_metrics(
+            outs, n_spawned, n_dropped,
+            [x for _, _, x, _ in ks] if incremental else [], home))
         return (TiledGridState(d=tuple(o[0] for o in outs), step=state.step + 1),
                 metrics)
 

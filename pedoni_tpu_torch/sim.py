@@ -21,6 +21,14 @@ Three backends, as in the reference:
   auto-chosen by cell occupancy), at the 1.5 m unit, on one device or
   ``n_devices`` tiles (parallel/tile2d.py: row strips, or ``tile`` =
   (rows, cols)), with drop-free table growth and mover-table growth.
+  Where ``torch.distributed`` is initialized with a world size above 1,
+  the tiles are spread over the group's processes (the counterpart of the
+  reference's global ``jax.devices()``): rank r owns a contiguous block of
+  whole tile rows, all on its card ``cuda:(r mod cards)``, or on the CPU
+  for ``device="cpu"``, and every rank's ``tick`` and ``run`` return the
+  same metrics.  Reading the agents (``list_pedestrians``, checkpoints)
+  is then refused, as the reference cannot read an array that spans
+  processes either.
 
 The two kernel backends (``pallas``, ``grid``) grow the cell unit in
 all-pairs mode to cover the cutoff.  All three take distance-map or exact
@@ -44,6 +52,7 @@ from .models.sfm import (AgentState, SimState, StepConfig, StepMetrics,
                           device_inputs, make_initial_state, make_step,
                           spawn_sampler)
 from .parallel import tile2d
+from .parallel.transport import transport_for
 from .physics import Physics
 from .scenario import Scenario
 from .utils.timing import Timer
@@ -95,6 +104,11 @@ class SimulatorOptions:
     incremental_rebin: bool | None = None
     mover_capacity: int = 8
     compact_every: int = 8
+    # The reference's per-block waypoint-plane skip (its sim.py:99-102).
+    # Accepted and ignored: the port has no slot walk (each agent samples
+    # its own plane), and the reference's own tests hold wp_skip=False
+    # bit-identical to True (tests/test_wp_skip.py:131-212).
+    wp_skip: bool = True
     device: str = "cuda"  # "cuda": tile i on cuda:i; "cpu": every tile there
 
     def resolve_tile(self) -> tuple[int, int]:
@@ -159,13 +173,23 @@ class Simulator:
             raise RuntimeError(f"device {options.device!r} requested but "
                                "torch.cuda.is_available() is False")
         n_dev = options.n_devices
-        if self.device.type == "cuda" and torch.cuda.device_count() < n_dev:
-            raise ValueError(f"--devices {n_dev} but only "
-                             f"{torch.cuda.device_count()} devices are visible")
-        # the tiles' devices; the generator and the metrics live on the first
-        self.devices = ([torch.device("cuda", i) for i in range(n_dev)]
-                        if self.device.type == "cuda" and n_dev > 1
-                        else [self.device] * n_dev)
+        # the tiles over this process and the others of a distributed group
+        self._transport = (transport_for(n_dev) if n_dev > 1
+                           and options.backend == "grid" else None)
+        cuda = self.device.type == "cuda"
+        if self._transport is not None and self._transport.world > 1:
+            # this process's tiles, all on one card (NCCL: one rank a card)
+            own = len(self._transport.tiles)
+            self.devices = ([torch.device(
+                "cuda", self._transport.rank % torch.cuda.device_count())] * own
+                if cuda else [self.device] * own)
+        else:
+            if cuda and torch.cuda.device_count() < n_dev:
+                raise ValueError(f"--devices {n_dev} but only "
+                                 f"{torch.cuda.device_count()} devices are visible")
+            self.devices = ([torch.device("cuda", i) for i in range(n_dev)]
+                            if cuda and n_dev > 1 else [self.device] * n_dev)
+        # the generator and the metrics live on the first tile's device
         if n_dev > 1:
             self.device = self.devices[0]
         self.options = options
@@ -255,9 +279,9 @@ class Simulator:
         if self._tcfg is not None:
             self._fwp, self._fobs = tile2d.device_inputs(
                 self._tcfg, self.maps, sfm_grid.stride_for(self.cfg),
-                self.devices)
-            self._step = tile2d.make_sharded_step(self._tcfg, self.devices,
-                                                  **step_kw)
+                self.devices, self._transport)
+            self._step = tile2d.make_sharded_step(
+                self._tcfg, self.devices, transport=self._transport, **step_kw)
         else:
             self._fwp, self._fobs = sfm_grid.field_tensors(
                 self.cfg, self.maps, self.device, row_block=o.row_block)
@@ -437,8 +461,11 @@ class Simulator:
         self._rebuild(mover_capacity=new_mk)
 
     def _rebuild(self, **changes) -> None:
-        """Apply option changes, rebuild the step and re-bin the agents."""
-        flat = self._to_flat_state()
+        """Apply option changes, rebuild the step and re-bin the agents
+        (across processes, every rank re-bins the whole gathered grid)."""
+        flat = (tile2d.unbin_sharded(self._tcfg, self.state,
+                                     transport=self._transport, everywhere=True)
+                if self._tcfg is not None else self._to_flat_state())
         self.state = None  # the old grid goes before the new step is sized
         self.options = dataclasses.replace(self.options, **changes)
         self._build(self.cfg.capacity)
@@ -512,11 +539,22 @@ class Simulator:
         end.synchronize()
         return start.elapsed_time(end) / 1000.0 / n
 
+    def _one_process(self, what: str) -> None:
+        """Raise NotImplementedError for ``what`` when the tiles span
+        processes."""
+        if self._transport is not None and self._transport.world > 1:
+            raise NotImplementedError(
+                f"{what} across {self._transport.world} processes is not "
+                "supported (nor by the reference, which cannot read an array "
+                "that spans processes); metrics and pedestrian_count are")
+
     def _to_flat_state(self) -> SimState:
         """The state as flat agent tensors, whatever the backend or device
-        count: the checkpoint, render and diagnostic exchange format."""
+        count: the checkpoint, render and diagnostic exchange format.  One
+        process only (``_one_process``)."""
         if self._flat:
             return self.state
+        self._one_process("reading the agents")
         if self._tcfg is not None:
             return tile2d.unbin_sharded(self._tcfg, self.state)
         return sfm_grid.unbin_state(self.cfg, self.state)
@@ -530,8 +568,9 @@ class Simulator:
         if self._flat:
             return state
         if self._tcfg is not None:
-            gs = tile2d.make_sharded_grid_state(self._tcfg, state, self.devices)
-            n_binned = tile2d.population(gs)
+            gs = tile2d.make_sharded_grid_state(self._tcfg, state, self.devices,
+                                                self._transport, self.generator)
+            n_binned = tile2d.population(gs, self._transport)
         else:
             gs = sfm_grid.bin_state(self.cfg, state,
                                     row_block=self.options.row_block)
@@ -556,7 +595,7 @@ class Simulator:
         if self._flat:
             return int(self.state.agents.active.sum())
         if self._tcfg is not None:
-            return tile2d.population(self.state)
+            return tile2d.population(self.state, self._transport)
         return int((self.state.d[:, :, 6, :] > 0.5).sum())
 
     def new_log(self, scenario_name: str = "") -> DiagnosticLog:

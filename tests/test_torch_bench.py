@@ -158,7 +158,8 @@ def _main(argv, capsys):
     (["--backend", "xla"], "needs a CUDA device"),
     (["--backend", "xla", "--domain", "square"], "no effect with --backend xla"),
     (["--allow-fallback"], "the port never falls back"),
-    (["--no-wp-skip"], "no waypoint slot walk"),
+    # accepted: the flag passes to the device check (no slot walk to skip)
+    (["--no-wp-skip"], "needs a CUDA device"),
     (["--chunk-size", "16384"], "no step reads it"),
     (["--domain", "tiles:0"], "needs a positive integer T"),
     (["--domain", "round"], "must be auto, square, or tiles:T"),

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from pedoni_tpu_torch import load_scenario
+from pedoni_tpu_torch import load_scenario, loads_scenario
 from pedoni_tpu_torch.convert import agents_from_numpy
 from pedoni_tpu_torch.field import Field, FieldMaps
 from pedoni_tpu_torch.models import sfm_grid
@@ -886,3 +886,73 @@ def test_pallas_simulator_on_the_card_evacuates_gap():
             break
     assert sim.pedestrian_count == 0
     assert sk.fused_step.launches - before == i + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_two_ranks_on_cards(backend, tmp_path):
+    """tests/test_torch_multihost.py's cases with the tiles on cards: gloo
+    with both ranks on cuda:0 (each crossing buffer staged through pinned
+    host memory), NCCL with rank r on cuda:r (two cards or more): every
+    tiled case equal to one process's tiled run and to the whole grid on
+    the card (metrics each step, the grid gathered on rank 0 bit for bit),
+    the 2-rank Simulator equal to one card's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("NCCL takes one rank a card: needs two CUDA devices")
+    import test_torch_multihost as mh
+
+    ranks = mh.launch(tmp_path, backend, "cuda")
+    for tile in mh.TILES:
+        for path in mh.PATHS:
+            mh.check_case(ranks, tile, path, "cuda")
+    mh.check_simulator(ranks, "cuda")
+
+
+@pytest.mark.cuda
+def test_spatial_strips_on_the_card():
+    """parallel/spatial.py on the card: its dryrun scenario (32 x 16 m, a
+    spawning stream) in 2 strips on one card, and in one strip a card where
+    there are two or more, against the flat step on the card from the same
+    state and candidates: the first step's metrics equal and its rows
+    within 1e-5 (order-free), and ten chained steps keep every metric
+    equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pedoni_tpu_torch.models import sfm
+    from pedoni_tpu_torch.parallel import spatial
+
+    scenario = loads_scenario(spatial.DRYRUN_SCENARIO)
+    maps = FieldMaps.from_field(Field.from_scenario(scenario, unit=0.25))
+    cfg = StepConfig.build(scenario, capacity=1024, table_capacity=12)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    flat = sfm.make_initial_state(cfg, gen, "cuda")
+    cands = [sfm.spawn_candidates(cfg, gen) for _ in range(11)]
+    field, obstacles = sfm.device_inputs(cfg, maps, "cuda")
+    fstep = sfm.make_step(cfg, gen)
+
+    def rows(agents):
+        a = {k: t.cpu().numpy() for k, t in agents._asdict().items()}
+        r = np.concatenate([a["pos"], a["vel"], a["speed"][:, None]], 1
+                           ).astype(np.float64)[a["active"]]
+        return r[np.lexsort((r[:, 1], r[:, 0], r[:, 4]))]
+
+    n = torch.cuda.device_count()
+    plans = [["cuda:0", "cuda:0"]] + ([[f"cuda:{i}" for i in range(n)]] if n > 1 else [])
+    for devices in plans:
+        scfg = spatial.ShardedConfig.build(cfg, len(devices))
+        srows, sobs = spatial.device_inputs(scfg, maps, devices)
+        sstep = spatial.make_sharded_step(scfg, devices, gen)
+        ss, fs = spatial.shard_state(scfg, flat, devices), flat
+        for i, cand in enumerate(cands):
+            ss, sm = sstep(ss, srows, sobs, cand)
+            fs, fm = fstep(fs, field.rows, obstacles, cand)
+            assert [int(x) for x in sm] == [int(x) for x in fm], (devices, i)
+            if i == 0:
+                got = rows(sfm.AgentState(*(torch.cat([x.to("cuda:0") for x in xs])
+                                            for xs in zip(*ss.agents))))
+                want = rows(fs.agents)
+                assert got.shape == want.shape and got.shape[0] > 30
+                assert np.abs(got[:, :4] - want[:, :4]).max() <= 1e-5
+        assert sum(int(x.active.sum()) for x in ss.agents) == int(fm.n_active) > 30

@@ -13,6 +13,8 @@ reference, end to end on the CPU (the kernels' PyTorch twins):
     over many steps lies within 4 sigma of the Poisson rate.
 """
 
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -211,3 +213,56 @@ def test_spawn_generator_statistics():
     cand = spawn_candidates(pcfg, gen)
     assert cand.pos.shape == (pcfg.spawn.total, 2)
     assert (cand.speed >= 0.1).all()
+
+
+GAP = "scenarios/gap.toml"
+
+
+def test_make_initial_grid_state_matches_reference(monkeypatch):
+    """``make_initial_grid_state`` bins the once-spawned agents: fed the
+    reference's initial agents of gap.toml (seed 3, carried across; the
+    port's own draw comes from its generator), it equals the reference's
+    ``make_initial_grid_state`` bit for bit, and it is ``bin_state`` of
+    ``make_initial_state`` from the same generator."""
+    from pedoni_tpu.models.sfm import make_initial_state as ref_initial
+    from pedoni_tpu_torch.models.sfm import make_initial_state
+
+    src = pathlib.Path(GAP).read_text()
+    cfg, pcfg = _configs(src, 128, 10)
+    want = ref_grid.make_initial_grid_state(cfg, seed=3)
+    flat = ref_initial(cfg, seed=3)
+    carried = PSimState(convert.agents_from_numpy(
+        *(np.asarray(x) for x in flat.agents), "cpu"), 0)
+    with monkeypatch.context() as m:
+        m.setattr(port_grid, "make_initial_state", lambda *_: carried)
+        got = port_grid.make_initial_grid_state(pcfg, torch.Generator(), "cpu")
+    np.testing.assert_array_equal(got.d.numpy(), np.asarray(want.d))
+    assert int((got.d[:, :, 6] > 0.5).sum()) == 64
+    own = port_grid.make_initial_grid_state(pcfg, torch.Generator().manual_seed(3),
+                                            "cpu")
+    binned = port_grid.bin_state(pcfg, make_initial_state(
+        pcfg, torch.Generator().manual_seed(3), "cpu"))
+    assert torch.equal(own.d, binned.d)
+
+
+def test_wp_skip_is_accepted_and_changes_nothing():
+    """``SimulatorOptions(wp_skip=False)``, valid against the reference
+    (its sim.py:99-102), builds, and ticks gap.toml (two waypoints) exactly
+    as ``wp_skip=True``: the port has no slot walk to skip."""
+    from pedoni_tpu import sim as ref_sim
+    from pedoni_tpu_torch import Simulator, SimulatorOptions, load_scenario
+
+    assert ref_sim.SimulatorOptions(wp_skip=False).wp_skip is False
+    assert SimulatorOptions().wp_skip is True
+    sc = load_scenario(GAP)
+    runs = []
+    for skip in (True, False):
+        sim = Simulator(SimulatorOptions(backend="grid", device="cpu", seed=1,
+                                         wp_skip=skip), sc)
+        ticks = []
+        for _ in range(6):
+            sim.tick()
+            ticks.append(sim.last_metrics)
+        runs.append((ticks, sim.state.d))
+    assert runs[0][0] == runs[1][0] and runs[0][0][-1].n_active > 0
+    assert torch.equal(runs[0][1], runs[1][1])

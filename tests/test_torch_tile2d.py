@@ -354,3 +354,19 @@ def test_tiled_simulator_grows_like_one_device():
     k1, k4 = np.lexsort(p1.T[::-1]), np.lexsort(p4.T[::-1])
     np.testing.assert_array_equal(p4[k4], p1[k1])
     np.testing.assert_array_equal(d4[k4], d1[k1])
+
+
+def test_grid_shard_reexports_the_tiled_functions():
+    """grid_shard re-exports tile2d's names as the reference's does
+    (pedoni_tpu/parallel/grid_shard.py:23-32), the mesh names aside: the
+    functions that take a transport across processes are tile2d's own."""
+    from pedoni_tpu.parallel import grid_shard as ref_grid_shard
+
+    mesh_only = {"AXIS", "make_mesh", "device_inputs_on_mesh"}
+    names = [n for n, v in vars(ref_grid_shard).items()
+             if getattr(v, "__module__", None) == "pedoni_tpu.parallel.tile2d"
+             and n not in mesh_only]
+    assert len(names) >= 5
+    for name in names + ["device_inputs", "gather", "population", "exchange"]:
+        assert getattr(grid_shard, name) is getattr(tile2d, name), name
+
