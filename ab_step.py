@@ -41,6 +41,27 @@ first n rows), on funnel.toml's state at its own agent count (its 4 rows,
 then more spread over its field), and on default.toml's and
 room-evac.toml's states with their own 3 rows.  One JSON line per state.
 
+    python ab_step.py --density
+
+times, in this checkout alone, the grid step's two rebin paths against
+the bench problem's density, the counterpart of the reference's
+scripts/ab_incremental_rebin.py --density: 1M agents of
+``bench.build_problem`` at each of DENSITIES agents/m^2 (0.78 is the
+expected occupancy lambda = 1.75 a 1.5 m cell, where
+``Simulator._resolve_incremental`` switches to the hybrid), K = max(14,
+ceil(2.5 lambda)).  The full path (``incremental=False``) and the hybrid
+run in turns, full, hybrid, hybrid, full, each for chip_smoke.py's
+warm-up and timed steps (wall ms/step, the kernels' launches a step);
+then the same turns again with PROFILE_STEPS steps under torch.profiler
+after the warm-up (device ms/step, device launches a step), after every
+wall-clock turn of every density, since a profiler once started slows
+the host's launches for the rest of the process.  Also the binned agents,
+the hybrid's share of full-rebin steps and its mover share (the agents
+that leave their cell in a step, from one mover-mode step kernel on the
+hybrid's last state).  One JSON line per density, then a summary that
+names the card and its power limit and the densities where the hybrid's
+device time is below the full path's.
+
     python ab_step.py --parent DIR --flat-paths
 
 times, in the same turns, the two paths that place flat agents into cells
@@ -66,6 +87,10 @@ CROSSOVER_TICKS = 300  # ticks before a shipped scenario's state is timed
 COMMON_STATE = HERE / ".scratch" / "ab_random_toml_state.pt"
 FLAT_PATH_KEYS = ("ms_per_step", "device_ms_per_step", "launches_per_step",
                   "peak_bytes")
+# agents/m^2 of the --density sweep: the reference's 0.5 / 1.0 / 2.5 / 5.0,
+# the switch of the auto rule (0.78: lambda = 1.75 at 1.5 m) and 1.5
+DENSITIES = (0.5, 0.78, 1.0, 1.5, 2.5, 5.0)
+TURNS = ("full", "hybrid", "hybrid", "full")
 
 
 def worker(tree: str) -> int:
@@ -278,6 +303,88 @@ def crossover() -> int:
     return 0
 
 
+def density_sweep() -> int:
+    """Full against hybrid over DENSITIES (see the module's docstring)."""
+    import math
+
+    import torch
+
+    import chip_smoke
+    from pedoni_tpu_torch.bench import build_problem
+    from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.ops.kernels import launch_counts, zero_launch_counts
+    from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+
+    dev = torch.device("cuda")
+    card = chip_smoke._card()
+    print(card, flush=True)
+    n_steps = chip_smoke.WARMUP + chip_smoke.TIMED
+    problems = []
+    for rho in DENSITIES:  # wall clock first, before any profiler starts
+        lam = rho * 1.5 ** 2
+        k = max(14, math.ceil(2.5 * lam))
+        scenario, maps, cfg, flat = build_problem(chip_smoke.N_AGENTS, density=rho,
+                                                  table_capacity=k, device=dev)
+        fwp, fobs = sfm_grid.field_tensors(cfg, maps, dev)
+        del maps
+        binned = int((sfm_grid.bin_state(cfg, flat).d[:, :, 6] > 0.5).sum())
+        if binned < 0.99 * chip_smoke.N_AGENTS:
+            raise AssertionError(f"density {rho}: {binned} agents binned at K {k}")
+        res = {"density": rho, "lambda": lam, "K": k,
+               "cells": [cfg.grid.nx, cfg.grid.ny], "binned": binned,
+               "wall_ms": {"full": [], "hybrid": []},
+               "device_ms": {"full": [], "hybrid": []},
+               "device_launches": {"full": [], "hybrid": []}}
+        for name in TURNS:
+            step = sfm_grid.make_step_grid(cfg, incremental=name == "hybrid")
+            zero_launch_counts()
+            gs, m, ms = chip_smoke._run_timed(step, sfm_grid.bin_state(cfg, flat),
+                                              fwp, fobs)
+            res["wall_ms"][name].append(ms)
+            res[f"{name}_kernel_launches"] = {
+                kname: c / n_steps for kname, c in launch_counts().items() if c}
+            res[f"{name}_active"] = int(m.n_active)
+            if name == "hybrid":
+                res["hybrid_full_rebin_share"] = int(step.full_rebins) / n_steps
+                movers = sk.fused_step(gs.d, fwp, fobs, cfg.physics, cfg.scenario.size,
+                                       stride=sfm_grid.stride_for(cfg),
+                                       emit_movers=8)[1:3]
+                res["mover_share"] = (int((movers[0][:, :, 6] > 0.5).sum())
+                                      + float(movers[1].sum())) / res["hybrid_active"]
+            del gs
+        problems.append((cfg, fwp, fobs, flat, res))
+    for cfg, fwp, fobs, flat, res in problems:
+        for name in TURNS:
+            step = sfm_grid.make_step_grid(cfg, incremental=name == "hybrid")
+            state = [sfm_grid.bin_state(cfg, flat)]
+            for _ in range(chip_smoke.WARMUP):
+                state[0] = step(state[0], fwp, fobs)[0]
+
+            def run():
+                state[0] = step(state[0], fwp, fobs)[0]
+
+            us, launches = chip_smoke._profile_counts(run, chip_smoke.PROFILE_STEPS)
+            if not sum(us.values()) > 0:
+                raise AssertionError("the profiler traced no device time")
+            res["device_ms"][name].append(sum(us.values()) / 1e3)
+            res["device_launches"][name].append(sum(launches.values()))
+            res[f"{name}_device_us"] = dict(us)
+            del state
+        dm = {name: statistics.mean(v) for name, v in res["device_ms"].items()}
+        res["hybrid_over_full_device"] = dm["hybrid"] / dm["full"]
+        print(json.dumps(res), flush=True)
+    wins = [res["density"] for *_, res in problems
+            if res["hybrid_over_full_device"] < 1.0]
+    print(f"# device ms/step, hybrid over full, by density: " + ", ".join(
+        f"{res['density']}: {res['hybrid_over_full_device']:.4f}"
+        for *_, res in problems) + f" on {card}", flush=True)
+    print("# the hybrid's device time is below the full path's at "
+          + (f"densities {wins}" if wins else "no density: full wins at every one")
+          + f" (mean of two turns each, {chip_smoke.PROFILE_STEPS} profiled steps a turn)",
+          flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="directory of the other checkout")
@@ -285,6 +392,8 @@ def main() -> int:
                     help="time segment mode's walk against its pass instead")
     ap.add_argument("--flat-paths", action="store_true",
                     help="time the 1M flat and pallas steps instead")
+    ap.add_argument("--density", action="store_true",
+                    help="time the full path against the hybrid over DENSITIES")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -295,6 +404,8 @@ def main() -> int:
         return 2
     if args.crossover:
         return crossover()
+    if args.density:
+        return density_sweep()
     if not args.parent:
         ap.error("--parent is required")
     import chip_smoke

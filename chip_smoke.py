@@ -157,7 +157,18 @@ nvcc, one process per source, then:
    or one float apart, whose spacing passes TOL beyond 128 m), then
    SPATIAL_STEPS chained steps of each (n_spawned equal; the n_active
    difference and the largest position difference printed); wall and
-   device ms/step and peak memory beside the flat step's.
+   device ms/step and peak memory beside the flat step's;
+19. the fidelity harness (pedoni_tpu_torch/fidelity.py), launch counts
+   zeroed before and read after (each runtime kernel launched): gap.toml
+   through the ``Simulator`` of ``xla``, ``grid`` and ``pallas`` at seeds
+   1-8, every count in the reference's band [160, 340] and each backend's
+   mean within three standard errors of the reference's record, 246 +- 22
+   steps over 8 seeds; every geometry and seed of the identical-state
+   harness (gap, multiwp, funnel: the reference's narrow_gap reads a
+   file this repository does not hold) on the three backends within
+   max(3, 5%) of the f64 oracle (tests/oracle_sfm.py, on the host), the grid losing no agent;
+   the four runtime kernels against their twins on the funnel's grid
+   after 150 steps; the counts, their means and the phase's seconds.
 
 Each phase from 6 on prints its seconds.  With arguments the script is
 one rank of phase 17 and prints no result line.  Prints the card's name and power
@@ -171,6 +182,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import datetime
+import importlib.util
 import json
 import pathlib
 import statistics
@@ -234,6 +246,13 @@ RANK_TILES = ((2, 1), (2, 2))  # phase 17: tilings whose rows split over 2 ranks
 RANK_TIMEOUT = 300  # s: phase 17's ranks, and their process group's timeout
 EXCHANGE_RUNS = 20  # timed exchanges a case in phase 17 (host clock)
 SPATIAL_STEPS = 10  # chained steps of phase 18's strips and flat step
+# phase 19: gap.toml's seeds on each backend's Simulator, held to the
+# reference's record, 246 +- 22 steps over 8 seeds (FIDELITY.md:18), and
+# to the reference's frozen band (tests/test_regression_bands.py:24)
+GAP_SEEDS = 8
+GAP_RECORD = (246.0, 22.0, 8)  # mean, standard deviation (kind unstated), seeds
+GAP_BAND = (160, 340)
+FIDELITY_STATE_STEPS = 150  # funnel steps before its state meets the twins
 # The same measurements with the kernels' first designs, from PERF.md (NVIDIA
 # H100 80GB HBM3, 700 W): the step kernel with one thread per slot (a sample
 # pass over the fields6 planes, a pair pass with a warp-wide candidate walk,
@@ -560,13 +579,10 @@ def _needed_bytes(name: str, ins: tuple, outs: tuple) -> int:
             + _nbytes(m[:, :, 6]) + row6 * int((m[:, :, 6] > 0.5).sum()) + out_b)
 
 
-def _device_profile(run, n: int, wall_ms: float, what: str, card: str) -> float:
-    """``run()`` n times under torch.profiler: device us and launches per
-    run for each kernel of PROFILED (everything else on the device is
-    "glue"), and the busy share of ``wall_ms``, the unprofiled wall time of
-    one run.  NCCL's kernels (phase 17) spin on the card until the peer's
-    data arrives: they are printed apart and left out of the device time.
-    Returns the device ms per run."""
+def _profile_counts(run, n: int):
+    """``run()`` n times under torch.profiler: (device us, launches) per
+    run, two Counters by label: each kernel of PROFILED, "nccl" and "glue"
+    (everything else on the device)."""
     import collections
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -580,6 +596,17 @@ def _device_profile(run, n: int, wall_ms: float, what: str, card: str) -> float:
         label = next((k for k in (*PROFILED, "nccl") if k in ev.key), "glue")
         us[label] += ev.self_device_time_total / n
         launches[label] += ev.count / n
+    return us, launches
+
+
+def _device_profile(run, n: int, wall_ms: float, what: str, card: str) -> float:
+    """``run()`` n times under torch.profiler (``_profile_counts``): device
+    us and launches per run for each kernel of PROFILED and the glue, and
+    the busy share of ``wall_ms``, the unprofiled wall time of one run.
+    NCCL's kernels (phase 17) spin on the card until the peer's data
+    arrives: they are printed apart and left out of the device time.
+    Returns the device ms per run."""
+    us, launches = _profile_counts(run, n)
     waiting = us.pop("nccl", 0.0)
     dev_ms = sum(us.values()) / 1e3
     if not dev_ms > 0:
@@ -2413,6 +2440,82 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
     return out
 
 
+def _fidelity_phase(dev, card) -> dict:
+    """19. The evacuation fidelity harness (pedoni_tpu_torch/fidelity.py)
+    on the card, its launch counts zeroed before and read after: gap.toml
+    through each backend's ``Simulator`` at seeds 1..GAP_SEEDS, every count
+    in GAP_BAND and each backend's mean within three standard errors of the
+    reference's GAP_RECORD; then every geometry and seed of the
+    identical-state harness on ``xla``, ``grid`` and ``pallas``, each within max(3, round(0.05 o)) steps of the f64 oracle's
+    o (tests/oracle_sfm.py, run here on the host), the grid losing no agent;
+    then the four runtime kernels against their twins on the funnel's grid
+    state after FIDELITY_STATE_STEPS steps.  Returns the phase's numbers."""
+    from pedoni_tpu_torch import convert
+    from pedoni_tpu_torch import fidelity as F
+    from pedoni_tpu_torch.field import Field, FieldMaps
+    from pedoni_tpu_torch.models import sfm_grid
+    from pedoni_tpu_torch.models.sfm import SimState, StepConfig
+
+    spec = importlib.util.spec_from_file_location(
+        "oracle_sfm", ROOT / "tests" / "oracle_sfm.py")
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+
+    out = {"gap": {}, "oracle": {}}
+    _zero_launch_counts()
+    ref_mean, ref_sd, ref_n = GAP_RECORD
+    for backend in F.BACKENDS:
+        steps, mean, sd = F.gap_distribution(backend, GAP_SEEDS, device=str(dev))
+        se = (sd ** 2 / GAP_SEEDS + ref_sd ** 2 / ref_n) ** 0.5
+        print(f"# gap.toml on {backend}, seeds 1-{GAP_SEEDS}: {steps}, mean "
+              f"{mean:.1f} +- {sd:.1f} (sample sd; reference record {ref_mean:.0f} +- "
+              f"{ref_sd:.0f} over {ref_n}; 3 standard errors {3 * se:.1f}) on "
+              f"{card}", flush=True)
+        if not all(GAP_BAND[0] <= s <= GAP_BAND[1] for s in steps):
+            raise AssertionError(f"gap.toml on {backend}: {steps} outside {GAP_BAND}")
+        if abs(mean - ref_mean) > 3 * se:
+            raise AssertionError(f"gap.toml on {backend}: mean {mean:.1f} more "
+                                 f"than 3 standard errors from {ref_mean}")
+        out["gap"][backend] = {"steps": steps, "mean": mean, "sd": sd}
+    for geometry, g in F.GEOMETRIES.items():
+        for seed in g.seeds:
+            o = F.evac_steps_oracle(geometry, seed, oracle.oracle_step)
+            row = {"oracle": o}
+            for backend in F.BACKENDS:
+                b, lost = F.evac_steps_from(geometry, seed, backend, device=str(dev))
+                row[backend] = b
+                if abs(b - o) > max(3, round(0.05 * o)) or o > F.EVAC_MAX:
+                    raise AssertionError(f"{geometry} seed {seed} on {backend}: "
+                                         f"{b} steps, oracle {o}")
+                if lost:
+                    raise AssertionError(f"{geometry} seed {seed} on grid: "
+                                         f"{lost} agents lost")
+            print(f"# {geometry} seed {seed}: evacuated in {row} steps (within "
+                  f"max(3, 5%) of the oracle; grid lost 0)", flush=True)
+            out["oracle"][f"{geometry}/{seed}"] = row
+    counts = _launch_counts()
+    print(f"# phase 19 launches {counts}", flush=True)
+    runtime = ("step_kernel", "step_kernel_movers", "rebin", "rebin_incremental")
+    if any(counts[name] == 0 for name in runtime):
+        raise AssertionError(f"phase 19 launched a runtime kernel no time: {counts}")
+    out["launches"] = {name: counts[name] for name in runtime}
+
+    sc = F.scenario("funnel")
+    maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
+    cfg = StepConfig.build(sc, capacity=F.CAP, neighbor_grid_unit=F.UNIT,
+                           table_capacity=F.GEOMETRIES["funnel"].table_capacity)
+    fwp, fobs = sfm_grid.field_tensors(cfg, maps, dev)
+    gs = sfm_grid.bin_state(cfg, SimState(convert.agents_from_numpy(
+        *F.initial("funnel", 1), dev), 0))
+    step = sfm_grid.make_step_grid(cfg)
+    for _ in range(FIDELITY_STATE_STEPS):
+        gs = step(gs, fwp, fobs)[0]
+    out["funnel_state_err"] = _compare(
+        gs.d, fwp, fobs, cfg.physics, sc.size, cfg.grid.unit, cfg.grid.nx,
+        cfg.grid.ny, 8, f"funnel's grid after {FIDELITY_STATE_STEPS} steps")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -2697,6 +2800,10 @@ def main() -> int:
     strips = _spatial_phase(dev, card, flat)
     print(f"# phase 18 (spatial strips) took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    fidelity = _fidelity_phase(dev, card)
+    fidelity["seconds"] = time.perf_counter() - t0
+    print(f"# phase 19 (fidelity) took {fidelity['seconds']:.1f} s", flush=True)
     for entry in kernels:  # the forms of each kernel this run held to its twin
         if entry["name"] != "pairwise":
             entry["tile_offsets"] = "ported"
@@ -2705,14 +2812,19 @@ def main() -> int:
         if entry["name"].startswith("step_kernel"):
             entry["waypoints"] = [1, 2, 8, 33]  # W compared here (2: step 1)
     for entry in kernels:  # the paths each kernel ran on in this run
-        entry["paths"] = {"step_kernel": ["full", "tiles", "pallas", "processes"],
-                          "step_kernel_movers": ["hybrid", "tiles", "processes"],
+        entry["paths"] = {"step_kernel": ["full", "tiles", "pallas", "processes",
+                                          "fidelity"],
+                          "step_kernel_movers": ["hybrid", "tiles", "processes",
+                                                 "fidelity"],
                           "step_kernel_segments": ["segments", "pallas --no-distance-map"],
-                          "rebin": ["full", "hybrid", "tiles", "processes"],
-                          "rebin_incremental": ["hybrid", "tiles", "processes"],
+                          "rebin": ["full", "hybrid", "tiles", "processes", "fidelity"],
+                          "rebin_incremental": ["hybrid", "tiles", "processes",
+                                                "fidelity"],
                           "pairwise": ["standalone"]}[entry["name"]]
         if entry["name"] in pallas["kernels"]:
             entry["pallas"] = pallas["kernels"][entry["name"]]
+        if entry["name"] in fidelity["launches"]:
+            entry["fidelity_launches"] = fidelity["launches"][entry["name"]]
     kernels[0]["tiles_1m"] = tiled
     kernels[0]["by_waypoints"] = by_wp
     kernels[0][f"k{BIG_K}"] = {n: big_k[n] for n in ("step_kernel_ms", "max_abs_err")}
@@ -2725,6 +2837,7 @@ def main() -> int:
     print("# tiles over 2 processes (phase 17): " + json.dumps(processes), flush=True)
     print("# spatial strips (no hand kernel; phase 18): " + json.dumps(strips),
           flush=True)
+    print("# fidelity (phase 19): " + json.dumps(fidelity), flush=True)
     print(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the "
           f"kernel build included", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

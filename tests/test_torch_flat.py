@@ -15,7 +15,11 @@ the reference's, on the CPU:
 - gap.toml's evacuation from the reference's initial state;
 - ``Simulator.run``'s lagged growth guard under a periodic burst that
   crosses 80% of the capacity within ``guard_every`` steps: the same
-  ``n_dropped`` total from both packages, candidates carried across.
+  ``n_dropped`` total from both packages, candidates carried across;
+- the same guard on the grid backend, whose burst fills cells past K
+  within the lag: the lost agents counted and logged (the port's own
+  stream, counts pinned), and ``-m slow`` the same totals as the
+  reference's grid fed its candidates.
 """
 
 import pathlib
@@ -438,3 +442,70 @@ def test_run_guard_lags_a_burst_as_the_reference(monkeypatch, caplog):
     assert want["n_dropped"] > 0 and want["n_spawned"] > 60
     assert ref.cfg.capacity == port.cfg.capacity > 64
     assert "agents dropped at capacity over the run" in caplog.text
+
+
+# The grid's worst case under BURST: a table of K = 8 holds every one of
+# the 40 initial agents, but the periodic burst fills the spawn cells past
+# K within the guard's lag, so some candidates find their cells full.
+BURST_GRID_K = 8
+
+
+def _burst_grid_sim(seed: int) -> port_sim.Simulator:
+    return port_sim.Simulator(port_sim.SimulatorOptions(
+        backend="grid", capacity=64, table_capacity=BURST_GRID_K, seed=seed,
+        device="cpu"), pscenario.loads_scenario(BURST))
+
+
+def test_run_guard_lags_a_burst_on_the_grid(caplog):
+    """The burst on the grid backend, ``run(12, guard_every=4)``: the
+    lagged guard grows K twice (8 -> 12), too late for the first cells to
+    fill, and what is lost is counted and logged, never silent: 9 spawn
+    candidates dropped into full cells (``n_dropped``) and one agent lost
+    to a rebin overflow (``n_overflow``), from the port's stream at seed
+    4."""
+    sim = _burst_grid_sim(4)
+    assert sim.pedestrian_count == 40  # every initial agent binned
+    with caplog.at_level("WARNING"):
+        sim.run(12, guard_every=4)
+    assert sim.last_run_metrics._asdict() == {
+        "n_active": 135, "n_spawned": 105, "n_dropped": 9, "n_overflow": 1,
+        "max_demand": 11, "n_exited": 0, "max_mover_demand": 3}
+    assert sim.options.table_capacity == 12
+    assert "9 spawn candidates dropped into full cells over the run" in caplog.text
+    assert "1 agents lost to cell overflow over the run" in caplog.text
+
+
+@pytest.mark.slow
+def test_run_guard_on_the_grid_as_the_reference(monkeypatch):
+    """The same burst through the reference's grid ``Simulator`` (its
+    kernels in interpret mode) and the port's, fed the reference's initial
+    agents and spawn candidates: equal ``last_run_metrics`` and table
+    capacity after ``run(12, guard_every=4)``."""
+    sc = loads_scenario(BURST)
+    ref = ref_sim.Simulator(ref_sim.SimulatorOptions(
+        backend="grid", capacity=64, table_capacity=BURST_GRID_K, seed=4), sc)
+    cfg = ref.cfg
+    key = ref.state.key
+    draw = jax.jit(lambda k: R._spawn_candidates(cfg, k))  # fused as in the step
+    cands = []
+    for _ in range(12):  # the reference's stream: the key chain of its step
+        key, k_spawn = jax.random.split(key)
+        cands.append(convert.agents_from_numpy(
+            *(np.asarray(x) for x in draw(k_spawn)), "cpu"))
+    make_step_grid = port_sim.sfm_grid.make_step_grid
+
+    def injected(pcfg, **kw):
+        step = make_step_grid(pcfg, **kw)
+        return lambda st, f, o: step(st, f, o, cands[st.step])
+
+    monkeypatch.setattr(port_sim.sfm_grid, "make_step_grid", injected)
+    port = _burst_grid_sim(4)
+    flat = ref._to_flat_state()
+    port.state = port._from_flat_state(_to_port(flat))
+    assert port.pedestrian_count == ref.pedestrian_count
+    ref.run(12, guard_every=4)
+    port.run(12, guard_every=4)
+    want = {k: int(v) for k, v in ref.last_run_metrics._asdict().items()}
+    assert port.last_run_metrics._asdict() == want
+    assert want["n_dropped"] > 0
+    assert port.options.table_capacity == ref.options.table_capacity > BURST_GRID_K
