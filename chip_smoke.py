@@ -94,17 +94,24 @@ nvcc, one process per source, then:
 14. ``python -m pedoni_tpu_torch.bench --steps 8 --warmup 2`` as a
    subprocess: exit 0, exactly one JSON line, value > 0, its ``device`` this
    card, and the hybrid's kernels launched in its timed rounds;
-15. the flat backend (``backend="xla"``, the default since it was ported;
-   no hand kernel, so every launch count stays 0 through each of its
-   runs): gap.toml through ``Simulator`` evacuates within 400 ticks at the
-   1.4 m unit; one flat step on the card against the same step on the CPU
-   from the same state and candidates (pos/vel within 1e-5, every metric
-   and the rest equal) on the spawning scenario in all three modes and on
-   the xla bench problem at 20 000 agents; 16 spawning flat steps under
+15. the flat backend (``backend="xla"``, the default since it was ported),
+   whose pair pass is one launch of the flat pair kernel
+   (csrc/flat_pairwise.cu) a step, and no other kernel's: every run below
+   is held to exactly that (none in all-pairs mode).  gap.toml through
+   ``Simulator`` evacuates within 400 ticks at the 1.4 m unit; one flat
+   step on the card against the same step on the CPU from the same state
+   and candidates (pos/vel within 1e-5, every metric and the rest equal)
+   on the spawning scenario in all three modes and on the xla bench
+   problem at 20 000 agents; 16 spawning flat steps under
    ``set_sync_debug_mode("error")``; the 1M xla bench problem (square
    field, 452 x 452 cells of 1.4 m): ms/step on the host clock over steps
-   run under ``set_sync_debug_mode("error")``, device ms/step, launches a
-   step and busy share from ``torch.profiler``, peak memory; ``python -m
+   run under ``set_sync_debug_mode("error")``, the launch counts zeroed
+   before and read after, device ms/step, launches a step, busy share, the
+   ten dearest kernels and the [N, 12] row gather's us/step from
+   ``torch.profiler``, peak memory; the flat pair kernel against its twin
+   bit for bit on seeded grids (K 14, 16 and 64, a ragged nx, an x-strip's
+   window) and on the 1M problem's padded grid, and there kernel, twin
+   and bound timed; ``python -m
    pedoni_tpu_torch.bench --backend xla``, the CLI on gap.toml with ``-b
    auto`` and ``-b xla`` (population 0, model ``sfm-torch/xla``) and
    ``python -m pedoni_tpu_torch.entry`` as subprocesses;
@@ -150,7 +157,8 @@ nvcc, one process per source, then:
    kernels) and the cross-rank exchanges' ms a step, beside phase 10's
    one-process numbers for the same tiling;
 18. the 1M xla problem (phase 15's) cut into x-strips
-   (parallel/spatial.py, no hand kernel): 2 strips on this card, and one
+   (parallel/spatial.py; one flat pair kernel launch a strip-step, and no
+   other kernel's): 2 strips on this card, and one
    strip a card where there are more: the first step from the same state
    equal to the flat step's (every metric; rows order-free, velocities
    within TOL, NEAR_CONTACT_VEL_TOL in near contact, positions within TOL
@@ -159,7 +167,8 @@ nvcc, one process per source, then:
    difference and the largest position difference printed); wall and
    device ms/step and peak memory beside the flat step's;
 19. the fidelity harness (pedoni_tpu_torch/fidelity.py), launch counts
-   zeroed before and read after (each runtime kernel launched): gap.toml
+   zeroed before and read after (each runtime kernel launched, the flat
+   pair kernel among them): gap.toml
    through the ``Simulator`` of ``xla``, ``grid`` and ``pallas`` at seeds
    1-8, every count in the reference's band [160, 340] and each backend's
    mean within three standard errors of the reference's record, 246 +- 22
@@ -203,6 +212,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PAIR_FLOPS = 45  # float operations of one pair_accum within the cutoff
 PAIR_TEST_FLOPS = 6  # its distance test alone (a candidate past the cutoff)
+# float operations of one forces.pair_terms pair within the cutoff, as
+# csrc/flat_pairwise.cu evaluates it (four divides, four sqrt, one exp, the
+# FOV test, the damping and the two adds of the sum each counted once)
+FLAT_PAIR_FLOPS = 63
 SPIN_CYCLES = 2_000_000  # ~1 ms of device clock ahead of each timed run
 TWIN_RUNS = 5  # runs of a plain PyTorch twin timed (tens of ms to seconds each)
 PROFILE_STEPS = 24  # a multiple of the compaction period of 8
@@ -227,6 +240,8 @@ WP_STEPS = 16  # hybrid steps of the bench problem at 8 and 33 waypoints
 MAX_K = 255  # the largest table capacity the pair passes take
 FLAT_WARMUP, FLAT_TIMED = 2, 10  # steps of the 1M flat (xla) problem
 FLAT_PROFILE_STEPS = 4
+FLAT_TWIN_PASS_BYTES = 1 << 28  # the twin's pass budget on the card (6 at 1M)
+FLAT_TOP_KERNELS = 10  # the 1M flat profile's dearest kernels printed
 PALLAS_WARMUP, PALLAS_TIMED = 4, 20  # steps of the 1M pallas problem
 # A pallas step on the card against the same step on the CPU holds
 # velocities to TOL, except an agent in near contact: another active agent
@@ -246,6 +261,7 @@ RANK_TILES = ((2, 1), (2, 2))  # phase 17: tilings whose rows split over 2 ranks
 RANK_TIMEOUT = 300  # s: phase 17's ranks, and their process group's timeout
 EXCHANGE_RUNS = 20  # timed exchanges a case in phase 17 (host clock)
 SPATIAL_STEPS = 10  # chained steps of phase 18's strips and flat step
+SPATIAL_PROFILE_STEPS = 2  # of each, profiled after them
 # phase 19: gap.toml's seeds on each backend's Simulator, held to the
 # reference's record, 246 +- 22 steps over 8 seeds (FIDELITY.md:18), and
 # to the reference's frozen band (tests/test_regression_bands.py:24)
@@ -546,6 +562,10 @@ def _needed_bytes(name: str, ins: tuple, outs: tuple) -> int:
     - step kernel (all modes): all of D (an empty slot's output is its
       sanitized input) and the field texels that active agents sample (in
       segment mode no obstacle plane, and the edge table once);
+    - flat_pairwise: the ch 6 plane, ch 0, 1, 4, 5 of every slot of each
+      interior cell whose 3x3 window holds an active slot (the others
+      write +0 unread), ch 2-3 of the active slots and ch 0-1 of the
+      active ring slots (only active candidates are evaluated);
     - pairwise: D's ch 6 plane, ch 0, 1, 4, 5 of the centre rows (every
       centre slot gets an acceleration), ch 2-3 of the active slots and
       ch 0-1 of the active ghost-row slots (only active candidates are
@@ -563,6 +583,16 @@ def _needed_bytes(name: str, ins: tuple, outs: tuple) -> int:
     if name.startswith("step_kernel"):
         d, fwp, fobs = ins
         return _nbytes(d) + _field_bytes(d, fwp, fobs) + out_b
+    if name == "flat_pairwise":
+        d = ins[0]
+        word = d.element_size()
+        act = d[..., 6] > 0.5  # [ny2, nx2, K]
+        occ = act.any(-1).float()[None, None]
+        live = int(torch.nn.functional.max_pool2d(occ, 3, stride=1).sum())
+        ring = act.clone()
+        ring[1:-1, 1:-1] = False
+        return (act.numel() * word + 4 * word * live * d.shape[2]
+                + 2 * word * (int(act.sum()) + int(ring.sum())) + out_b)
     if name == "pairwise":
         d = ins[0]
         word = d.element_size()
@@ -668,6 +698,27 @@ def _pairwise_flops(d: torch.Tensor, cutoff_sq: float) -> tuple[float, int, int]
             visited += int(act.sum()) * (1 if dy == dx == 0 else k)
     beyond = visited - within
     return within * PAIR_FLOPS + beyond * PAIR_TEST_FLOPS, within, beyond
+
+def _flat_pairs(d: torch.Tensor, cutoff_sq: float) -> tuple[int, int]:
+    """(pairs within the cutoff, pairs past it) that the flat pair pass
+    evaluates on its padded grid ``d`` [ny2, nx2, K, 8]: every interior
+    slot, active or not, with each active candidate of its 3x3 cells other
+    than itself, the distance as the kernel computes it."""
+    ny, nx, k = d.shape[0] - 2, d.shape[1] - 2, d.shape[2]
+    px, py = d[1:-1, 1:-1, :, None, 0], d[1:-1, 1:-1, :, None, 1]  # [ny, nx, K, 1]
+    not_self = ~torch.eye(k, dtype=torch.bool, device=d.device)
+    within = tested = 0
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            cand = d[1 + dy:1 + dy + ny, 1 + dx:1 + dx + nx, None]  # [ny, nx, 1, K, 8]
+            act = (cand[..., 6] > 0.5).expand(-1, -1, k, -1)
+            if dy == dx == 0:
+                act = act & not_self
+            ex, ey = px - cand[..., 0], py - cand[..., 1]
+            within += int((act & (ex * ex + ey * ey <= cutoff_sq)).sum())
+            tested += int(act.sum())
+    return within, tested - within
+
 
 def _segment_pairs(d: torch.Tensor, g: torch.Tensor, segs: torch.Tensor,
                    phys, grid_size) -> tuple[int, int, int]:
@@ -1356,9 +1407,8 @@ def _waypoints_phase(dev, card, n_wp: int, w1_ms: dict) -> dict:
     peak = torch.cuda.max_memory_allocated() - base
     need = sfm_grid.device_bytes(cfg)
     n_compact = -(-WP_STEPS // 8)
-    want = {"step_kernel": 0, "step_kernel_movers": WP_STEPS,
-            "step_kernel_segments": 0, "rebin": WP_STEPS,
-            "rebin_incremental": WP_STEPS - n_compact, "pairwise": 0}
+    want = dict(dict.fromkeys(counts, 0), step_kernel_movers=WP_STEPS,
+                rebin=WP_STEPS, rebin_incremental=WP_STEPS - n_compact)
     if counts != want:
         raise AssertionError(f"{what}: launches {counts} != {want}")
     if peak > need:
@@ -1638,7 +1688,8 @@ def _flat_vs_cpu(dev, what, sc, cfg_kw, agents, cand=None) -> float:
     """One flat step on the card against the same step on the CPU from the
     same state and candidates: slot by slot (the sort's cell ids come
     from the same IEEE divide on both), pos/vel within TOL, the rest and
-    every metric equal.  Returns the max |err|."""
+    every metric equal; the card's step launches the flat pair kernel once
+    (none in all-pairs mode) and no other.  Returns the max |err|."""
     from pedoni_tpu_torch.field import Field, FieldMaps
     from pedoni_tpu_torch.models import sfm
     from pedoni_tpu_torch.models.sfm import SimState
@@ -1646,6 +1697,7 @@ def _flat_vs_cpu(dev, what, sc, cfg_kw, agents, cand=None) -> float:
     maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
     cfg = sfm.StepConfig.build(sc, **cfg_kw)
     out = []
+    _zero_launch_counts()
     for d in (dev, torch.device("cpu")):
         field, obstacles = sfm.device_inputs(cfg, maps, d)
         step = sfm.make_step(cfg, torch.Generator(device=d))
@@ -1654,6 +1706,10 @@ def _flat_vs_cpu(dev, what, sc, cfg_kw, agents, cand=None) -> float:
         out.append((_flat_rows(st.agents),
                     {k: int(v) for k, v in m._asdict().items()}))
     (got, gm), (want, wm) = out
+    counts = _launch_counts()
+    if counts != dict(dict.fromkeys(counts, 0),
+                      flat_pairwise=int(cfg.use_neighbor_grid)):
+        raise AssertionError(f"flat step {what}: launches {counts}")
     err = float(np.abs(got[:, :4] - want[:, :4]).max())
     if gm != wm or err > TOL or not np.array_equal(got[:, 4:], want[:, 4:]):
         raise AssertionError(f"flat step {what}: card {gm} vs CPU {wm}, "
@@ -1673,17 +1729,20 @@ def _flat_sim_checks(dev) -> dict:
     from pedoni_tpu_torch.models import sfm
     from pedoni_tpu_torch.scenario import loads_scenario
 
-    none = {k: 0 for k in _launch_counts()}
+    def one_a_step(n: int) -> dict:  # the flat pair kernel, once a step
+        counts = _launch_counts()
+        return dict(dict.fromkeys(counts, 0), flat_pairwise=n)
+
     t0 = time.perf_counter()
     _zero_launch_counts()
     sim = Simulator(SimulatorOptions(device=dev.type, seed=1), load_scenario(GAP))
     n0, steps = _evacuate(sim, "gap.toml (flat)")
-    if _launch_counts() != none or sim.cfg.grid.unit != 1.4:
-        raise AssertionError(f"gap.toml (flat): launches {_launch_counts()}, "
-                             f"unit {sim.cfg.grid.unit}")
+    if _launch_counts() != one_a_step(steps) or sim.cfg.grid.unit != 1.4:
+        raise AssertionError(f"gap.toml (flat): launches {_launch_counts()} in "
+                             f"{steps} ticks, unit {sim.cfg.grid.unit}")
     print(f"# gap.toml (backend xla, 1.4 m): {n0} agents evacuated in {steps} "
           f"ticks (limit {GAP_MAX_STEPS}), {time.perf_counter() - t0:.1f} s; "
-          f"hand-kernel launches {_launch_counts()}", flush=True)
+          f"kernel launches {_launch_counts()}", flush=True)
 
     sc = loads_scenario(SPAWN_SCENARIO)
     rng = np.random.default_rng(6)
@@ -1711,13 +1770,15 @@ def _flat_sim_checks(dev) -> dict:
         sim.tick()
     torch.cuda.synchronize()
     spawned = []
+    _zero_launch_counts()
     with _no_sync():
         for _ in range(SPAWN_SYNC_STEPS):
             sim.state, m = sim._step(sim.state, sim._fwp, sim._fobs)
             spawned.append(m.n_spawned)
     n_sp = int(sum(spawned))
-    if n_sp == 0:
-        raise AssertionError("flat spawning steps spawned nobody")
+    if n_sp == 0 or _launch_counts() != one_a_step(SPAWN_SYNC_STEPS):
+        raise AssertionError(f"flat spawning steps: {n_sp} spawned, launches "
+                             f"{_launch_counts()}")
     print(f"# flat step, spawning: {SPAWN_SYNC_STEPS} steps under "
           f"set_sync_debug_mode('error'), {n_sp} spawned, "
           f"{sim.pedestrian_count} active", flush=True)
@@ -1734,17 +1795,21 @@ def _no_sync():
         torch.cuda.set_sync_debug_mode("default")
 
 
-def _flat_1m(dev, card) -> dict:
+def _flat_1m(dev, card, capture: list | None = None) -> dict:
     """15b. The 1M xla bench problem: FLAT_TIMED steps after FLAT_WARMUP
-    under sync debug mode "error", host clock; peak memory; then
+    under sync debug mode "error", host clock, the launch counts zeroed
+    before and read after ("launches"); peak memory; then
     FLAT_PROFILE_STEPS under torch.profiler: device ms, launches a step,
-    busy share and the dearest kernels."""
+    busy share, the FLAT_TOP_KERNELS dearest kernels and the device us of
+    the step's [N, 12] row gather (``index_select`` after the argsort).
+    With ``capture``, one more step appends (its padded cell grid, the
+    physics) from inside ``forcepass.dense_pairwise``."""
     import collections
 
     from pedoni_tpu_torch.bench import build_problem
     from pedoni_tpu_torch.models import sfm
+    from pedoni_tpu_torch.ops import forcepass
 
-    none = {k: 0 for k in _launch_counts()}
     t0 = time.perf_counter()
     _sc, maps, cfg, flat = build_problem(N_AGENTS, device=dev, backend="xla")
     field, obstacles = sfm.device_inputs(cfg, maps, dev)
@@ -1754,7 +1819,7 @@ def _flat_1m(dev, card) -> dict:
     base_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     st = flat
-    _zero_launch_counts()
+    _zero_launch_counts()  # the main path's run: its launches are read after it
     for _ in range(FLAT_WARMUP):
         st, m = step(st, field.rows, obstacles)
     torch.cuda.synchronize()
@@ -1765,8 +1830,7 @@ def _flat_1m(dev, card) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / FLAT_TIMED * 1e3
     peak = torch.cuda.max_memory_allocated() - base_bytes
-    if _launch_counts() != none:
-        raise AssertionError(f"1M flat: hand-kernel launches {_launch_counts()}")
+    launched = _launch_counts()
     n_active = int(m.n_active)
     a = st.agents
     if n_active < 0.99e6 or not bool(torch.isfinite(a.pos[a.active]).all()):
@@ -1777,10 +1841,10 @@ def _flat_1m(dev, card) -> dict:
           f"steps (under set_sync_debug_mode('error')): {wall:.4f} ms/step wall, "
           f"{n_active} active, overflow last step {int(m.n_overflow)}, dropped "
           f"{int(m.n_dropped)}; peak memory {peak} bytes above the "
-          f"{base_bytes} held before; hand-kernel launches {_launch_counts()} on "
+          f"{base_bytes} held before; kernel launches {launched} on "
           f"{card}", flush=True)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         for _ in range(FLAT_PROFILE_STEPS):
             st, m = step(st, field.rows, obstacles)
         torch.cuda.synchronize()
@@ -1789,17 +1853,37 @@ def _flat_1m(dev, card) -> dict:
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             us[ev.key] += ev.self_device_time_total / FLAT_PROFILE_STEPS
             launches += ev.count / FLAT_PROFILE_STEPS
+    gather_us = sum(ev.device_time_total for ev in prof.key_averages(
+        group_by_input_shape=True) if ev.key == "aten::index_select"
+        and ev.input_shapes and len(ev.input_shapes[0]) == 2
+        and ev.input_shapes[0][1] == 12) / FLAT_PROFILE_STEPS
     dev_ms = sum(us.values()) / 1e3
     if not dev_ms > 0:
         raise AssertionError("1M flat: the profiler traced no device time")
     print(f"# 1M flat profile, {FLAT_PROFILE_STEPS} steps (torch.profiler): "
           f"device {dev_ms:.4f} ms/step, {launches:.1f} launches a step, wall "
-          f"{wall:.4f} ms/step unprofiled, busy share {dev_ms / wall:.3f}; top "
-          f"kernels (us/step): " + "; ".join(
-              f"{k[:60]} {v:.1f}" for k, v in us.most_common(6)), flush=True)
+          f"{wall:.4f} ms/step unprofiled, busy share {dev_ms / wall:.3f}; the "
+          f"[N, 12] row gather (index_select after the argsort) "
+          f"{gather_us:.1f} us/step; top {FLAT_TOP_KERNELS} kernels (us/step, "
+          f"share): " + "; ".join(
+              f"{k[:70]} {v:.1f} ({v / 1e3 / dev_ms:.1%})"
+              for k, v in us.most_common(FLAT_TOP_KERNELS)), flush=True)
+    if capture is not None:
+        real = forcepass.dense_pairwise
+
+        def spy(data, *args, **kw):
+            capture.append((data.clone(), cfg.physics))
+            return real(data, *args, **kw)
+
+        forcepass.dense_pairwise = spy
+        try:
+            step(st, field.rows, obstacles)
+        finally:
+            forcepass.dense_pairwise = real
     return {"ms_per_step": wall, "device_ms_per_step": dev_ms,
             "launches_per_step": launches, "busy_share": dev_ms / wall,
-            "peak_bytes": peak, "n_active": n_active}
+            "peak_bytes": peak, "n_active": n_active, "launches": launched,
+            "row_gather_us_per_step": gather_us}
 
 
 def _flat_subprocesses(card) -> dict:
@@ -1891,11 +1975,93 @@ def _flat_model_and_quickstart(dev) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _flat_grids(dev) -> list[tuple[str, torch.Tensor]]:
+    """Seeded padded grids [ny+2, nx+2, K, 8] for the flat pair kernel:
+    test_torch_cuda.py's cases (K 14, 16 and 64, a ragged nx, one x-strip's
+    window of the 1M problem), slots filled from rank 0 as the flat step
+    fills them, some cells past half full, a few inactive slots among the
+    active, and a ring with agents in it."""
+    rng = np.random.default_rng(12)
+    grids = []
+    for name, ny, nx, k in (("K 14", 30, 40, 14), ("K 16", 24, 37, 16),
+                            ("K 64", 10, 12, 64), ("ragged nx", 17, 131, 14),
+                            ("1M strip window", 452, 229, 14)):
+        d = np.zeros((ny + 2, nx + 2, k, 8), np.float32)
+        count = rng.integers(0, k + 1, (ny + 2, nx + 2)) * (
+            rng.uniform(size=(ny + 2, nx + 2)) < 0.8)
+        r, c, j = np.nonzero(np.arange(k)[None, None] < count[..., None])
+        d[r, c, j, 0] = (c - 1 + rng.uniform(size=r.size)) * 1.4
+        d[r, c, j, 1] = (r - 1 + rng.uniform(size=r.size)) * 1.4
+        d[r, c, j, 2:4] = rng.normal(0, 0.8, (r.size, 2))
+        e = rng.normal(0, 1, (r.size, 2))
+        d[r, c, j, 4:6] = e / np.linalg.norm(e, axis=1, keepdims=True)
+        d[r, c, j, 6] = rng.uniform(size=r.size) < 0.95
+        grids.append((f"{name} {tuple(d.shape)}", torch.from_numpy(d).to(dev)))
+    return grids
+
+
+def _flat_kernel_entry(dev, card, d: torch.Tensor, phys, launches: int) -> dict:
+    """15c. The flat pair kernel against its twin (forcepass.
+    dense_pairwise_torch, on the card) bit for bit on ``_flat_grids`` and on
+    the 1M problem's padded grid ``d``; kernel, twin and bound timed on
+    ``d``.  Returns the JSON entry, with ``launches`` from the 1M run."""
+    from pedoni_tpu_torch.ops import forcepass
+    from pedoni_tpu_torch.ops.kernels import flat_pairwise as fpk
+    from pedoni_tpu_torch.ops.neighbor import CellGrid
+
+    def twin(g):
+        grid = CellGrid(1.4, g.shape[1] - 2, g.shape[0] - 2)
+        return forcepass.dense_pairwise_torch(g, grid, g.shape[2], phys,
+                                              pass_bytes=FLAT_TWIN_PASS_BYTES)
+
+    errs = {}
+    for what, g in (*_flat_grids(dev), (f"1M grid {tuple(d.shape)}", d)):
+        got, want = fpk.flat_pairwise(g, phys), twin(g)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)) or \
+                not float(want.abs().max()) > 0.1:
+            raise AssertionError(f"flat_pairwise {what}: max |err| "
+                                 f"{float((got - want).abs().max()):.3e}, not bit-equal")
+        errs[what] = float((got - want).abs().max())
+    acc = fpk.flat_pairwise(d, phys)
+    k_ms = _median_ms(lambda: fpk.flat_pairwise(d, phys))
+    t_ms = _median_ms(lambda: twin(d), n=TWIN_RUNS)
+    need = _needed_bytes("flat_pairwise", (d,), (acc,))
+    within, beyond = _flat_pairs(d, phys.cutoff_sq)
+    flops = within * FLAT_PAIR_FLOPS + beyond * PAIR_TEST_FLOPS
+    b_ms, by = _bound(need, flops)
+    print(f"# flat_pairwise: bit-equal to its twin on the card (max |err| 0) on "
+          f"{', '.join(errs)}; on the 1M grid kernel {k_ms:.4f} ms, twin "
+          f"{t_ms:.4f} ms (median of 20 and {TWIN_RUNS}, CUDA events), bound "
+          f"{b_ms:.4f} ms ({by}; {need / 1e6:.1f} MB needed of "
+          f"{_nbytes(d, acc) / 1e6:.1f} MB in the tensors at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {within} pairs within the cutoff x "
+          f"{FLAT_PAIR_FLOPS} + {beyond} past it x {PAIR_TEST_FLOPS} = "
+          f"{flops / 1e9:.3f} GFLOP at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
+          f"{b_ms / k_ms:.1%} of it) on {card}", flush=True)
+    return {"name": "flat_pairwise", "route": "cuda",
+            "source": CSRC + "flat_pairwise.cu",
+            "replaces": "pedoni_tpu/ops/forcepass.py:141 (XLA, no pallas_call)",
+            "path": "flat", "launches": launches,
+            "max_abs_err": max(errs.values()), "ms": k_ms, "plain_ms": t_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
 def _flat_phase(dev, card) -> dict:
     """15. The flat backend on the card (module docstring, item 15).
-    Returns the phase's numbers."""
+    Returns the phase's numbers, with the kernel's JSON entry under
+    "kernel"."""
     res = _flat_sim_checks(dev)
-    res.update(_flat_1m(dev, card))
+    grid_1m = []
+    res.update(_flat_1m(dev, card, capture=grid_1m))
+    want = dict(dict.fromkeys(res["launches"], 0),
+                flat_pairwise=FLAT_WARMUP + FLAT_TIMED)
+    if res["launches"] != want:
+        raise AssertionError(f"1M flat: launches {res['launches']}, want {want}")
+    d, phys = grid_1m[0]
+    res["kernel"] = _flat_kernel_entry(dev, card, d, phys,
+                                       res["launches"]["flat_pairwise"])
+    del d, grid_1m
     torch.cuda.empty_cache()  # the 1M problem's tensors are gone
     res.update(_flat_subprocesses(card))
     _flat_model_and_quickstart(dev)
@@ -2315,9 +2481,10 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
     and vel within TOL, NEAR_CONTACT_VEL_TOL for agents in near contact;
     then SPATIAL_STEPS chained steps of each: ``n_spawned`` equal, the
     difference in ``n_active`` and the largest position difference written
-    down; wall ms/step over them, device ms/step (profiler, 2 steps), peak
-    memory, beside the flat step's (``flat_1m``, phase 15).  No hand kernel
-    runs.  Returns this phase's numbers."""
+    down; wall ms/step over them, device ms/step (profiler,
+    SPATIAL_PROFILE_STEPS steps), peak memory, beside the flat step's
+    (``flat_1m``, phase 15).  Each strip-step launches the flat pair kernel
+    once, and no other kernel runs.  Returns this phase's numbers."""
     from pedoni_tpu_torch.bench import build_problem
     from pedoni_tpu_torch.convert import metrics_to_dict
     from pedoni_tpu_torch.models import sfm
@@ -2327,7 +2494,6 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
         return sfm.AgentState(*(torch.cat([x.to(dev) for x in xs])
                                 for xs in zip(*state.agents)))
 
-    none = {k: 0 for k in _launch_counts()}
     _sc, maps, cfg, flat = build_problem(N_AGENTS, device=dev, backend="xla")
     field, obstacles = sfm.device_inputs(cfg, maps, dev)
     fstep = sfm.make_step(cfg)
@@ -2363,7 +2529,7 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
         def run():
             box[0] = step(box[0], *args)[0]
 
-        return _device_profile(run, 2, wall, what, card)
+        return _device_profile(run, SPATIAL_PROFILE_STEPS, wall, what, card)
 
     f1, fm = fstep(flat, field.rows, obstacles)
     want = rows(f1.agents)
@@ -2410,8 +2576,11 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
         ss, sms, s_wall = timed(sstep, s1, (srows, sobs), SPATIAL_STEPS)
         peak = sum(torch.cuda.max_memory_allocated(d) for d in set(devices)) - sum(base)
         s_dev = profiled(sstep, ss, (srows, sobs), f"1M {what} (phase 18)", s_wall)
-        if _launch_counts() != none:
-            raise AssertionError(f"1M {what}: hand-kernel launches {_launch_counts()}")
+        counts = _launch_counts()
+        strip_steps = (1 + SPATIAL_STEPS + SPATIAL_PROFILE_STEPS) * len(devices)
+        if counts != dict(dict.fromkeys(counts, 0), flat_pairwise=strip_steps):
+            raise AssertionError(f"1M {what}: launches {counts}, want "
+                                 f"flat_pairwise {strip_steps} alone")
         if not torch.equal(sms[:, 1], fms[:, 1]):
             raise AssertionError(f"1M {what}: n_spawned {sms[:, 1]} != flat {fms[:, 1]}")
         final = rows(strip_agents(ss))
@@ -2423,7 +2592,8 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
               f"order-free, pos/vel max |err| {err[:, 0:2].max():.3e} / "
               f"{err[:, 2:4].max():.3e}, {int((err[:, 0:2] > TOL).sum())} "
               f"positions one float apart past {TOL}, {n_near} rows in near "
-              f"contact); after "
+              f"contact); {counts['flat_pairwise']} flat_pairwise launches in "
+              f"{strip_steps} strip-steps; after "
               f"{SPATIAL_STEPS} more steps n_spawned equal, n_active "
               f"{int(sms[-1, 0])} vs flat {int(fms[-1, 0])} (difference {d_active}), "
               f"largest position difference {pos_diff:.3e} m; ms/step wall "
@@ -2432,7 +2602,7 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
               f"(flat {flat_1m['peak_bytes']}, phase 15); overflow last step "
               f"{int(sms[-1, 3])} (flat {int(fms[-1, 3])}) on {card}", flush=True)
         out[what] = {"ms_per_step": s_wall, "device_ms_per_step": s_dev,
-                     "peak_bytes": peak, "first_step_pos_err": float(err[:, 0:2].max()),
+                     "peak_bytes": peak, "flat_pairwise_launches": counts["flat_pairwise"], "first_step_pos_err": float(err[:, 0:2].max()),
                      "first_step_vel_err": float(err[:, 2:4].max()),
                      "near_contact_rows": n_near, "n_active_difference": d_active,
                      "position_difference": pos_diff}
@@ -2495,7 +2665,8 @@ def _fidelity_phase(dev, card) -> dict:
             out["oracle"][f"{geometry}/{seed}"] = row
     counts = _launch_counts()
     print(f"# phase 19 launches {counts}", flush=True)
-    runtime = ("step_kernel", "step_kernel_movers", "rebin", "rebin_incremental")
+    runtime = ("step_kernel", "step_kernel_movers", "rebin", "rebin_incremental",
+               "flat_pairwise")
     if any(counts[name] == 0 for name in runtime):
         raise AssertionError(f"phase 19 launched a runtime kernel no time: {counts}")
     out["launches"] = {name: counts[name] for name in runtime}
@@ -2627,9 +2798,8 @@ def main() -> int:
         n_full = int(step.full_rebins) if incremental else n_steps
         if incremental:
             n_compact = -(-n_steps // 8)
-            want = {"step_kernel": 0, "step_kernel_movers": n_steps,
-                    "step_kernel_segments": 0, "rebin": n_steps,
-                    "rebin_incremental": n_steps - n_compact, "pairwise": 0}
+            want = dict(dict.fromkeys(counts, 0), step_kernel_movers=n_steps,
+                        rebin=n_steps, rebin_incremental=n_steps - n_compact)
             if counts != want:
                 raise AssertionError(f"1M hybrid: launches {counts} != {want}")
             if not 0 < n_full < n_steps:
@@ -2640,9 +2810,8 @@ def main() -> int:
                         f"peak mover demand last step {int(m.max_mover_demand)}; "
                         f"timed steps under set_sync_debug_mode('error')")
         else:
-            want = {"step_kernel": n_steps, "step_kernel_movers": 0,
-                    "step_kernel_segments": 0, "rebin": n_steps,
-                    "rebin_incremental": 0, "pairwise": 0}
+            want = dict(dict.fromkeys(counts, 0), step_kernel=n_steps,
+                        rebin=n_steps)
             if counts != want:
                 raise AssertionError(f"1M full: launches {counts} != {want}")
             branches = ""
@@ -2787,6 +2956,7 @@ def main() -> int:
     print(f"# phase 14 (bench) took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     flat = _flat_phase(dev, card)
+    kernels.append(flat.pop("kernel"))
     print(f"# phase 15 (flat backend) took {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
@@ -2805,9 +2975,9 @@ def main() -> int:
     fidelity["seconds"] = time.perf_counter() - t0
     print(f"# phase 19 (fidelity) took {fidelity['seconds']:.1f} s", flush=True)
     for entry in kernels:  # the forms of each kernel this run held to its twin
-        if entry["name"] != "pairwise":
+        if entry["name"] not in ("pairwise", "flat_pairwise"):
             entry["tile_offsets"] = "ported"
-        if entry["name"] != "rebin" and entry["name"] != "rebin_incremental":
+        if entry["name"] not in ("rebin", "rebin_incremental", "flat_pairwise"):
             entry["k_up_to"] = big_k["k_max"]  # the largest K compared here
         if entry["name"].startswith("step_kernel"):
             entry["waypoints"] = [1, 2, 8, 33]  # W compared here (2: step 1)
@@ -2820,7 +2990,8 @@ def main() -> int:
                           "rebin": ["full", "hybrid", "tiles", "processes", "fidelity"],
                           "rebin_incremental": ["hybrid", "tiles", "processes",
                                                 "fidelity"],
-                          "pairwise": ["standalone"]}[entry["name"]]
+                          "pairwise": ["standalone"],
+                          "flat_pairwise": ["flat", "strips"]}[entry["name"]]
         if entry["name"] in pallas["kernels"]:
             entry["pallas"] = pallas["kernels"][entry["name"]]
         if entry["name"] in fidelity["launches"]:
@@ -2828,15 +2999,16 @@ def main() -> int:
     kernels[0]["tiles_1m"] = tiled
     kernels[0]["by_waypoints"] = by_wp
     kernels[0][f"k{BIG_K}"] = {n: big_k[n] for n in ("step_kernel_ms", "max_abs_err")}
-    kernels[-1][f"k{BIG_K}"] = {"ms": big_k["pairwise_ms"],
-                                "max_abs_err": big_k["max_abs_err"]}
-    print("# flat backend (no hand kernel; phase 15): " + json.dumps(flat),
-          flush=True)
+    by_name = {entry["name"]: entry for entry in kernels}
+    by_name["pairwise"][f"k{BIG_K}"] = {"ms": big_k["pairwise_ms"],
+                                        "max_abs_err": big_k["max_abs_err"]}
+    by_name["flat_pairwise"]["strip_launches"] = {
+        what: r["flat_pairwise_launches"] for what, r in strips.items() if what != "flat"}
+    print("# flat backend (phase 15): " + json.dumps(flat), flush=True)
     print("# pallas backend (phase 16): " + json.dumps(
         {k: v for k, v in pallas.items() if k != "kernels"}), flush=True)
     print("# tiles over 2 processes (phase 17): " + json.dumps(processes), flush=True)
-    print("# spatial strips (no hand kernel; phase 18): " + json.dumps(strips),
-          flush=True)
+    print("# spatial strips (phase 18): " + json.dumps(strips), flush=True)
     print("# fidelity (phase 19): " + json.dumps(fidelity), flush=True)
     print(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the "
           f"kernel build included", flush=True)

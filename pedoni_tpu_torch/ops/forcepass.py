@@ -3,20 +3,27 @@
 
 Agents are scattered once into a dense cell grid ``D[ny+2, nx+2, K, 8]``
 (cell-major, K slots a cell, a one-cell zero ring), and the 3x3
-neighbourhood of every cell is nine shifted slices of it, concatenated in
-``_OFFSETS`` order into [K, 9K] candidate blocks: the same candidate order,
-and so the same summation order of each slot, as the reference's.
+neighbourhood of every cell is nine shifted slices of it, in ``_OFFSETS``
+order: 9K candidates a centre slot, in the reference's candidate order.
 
 Channels: pos.x, pos.y, vel.x, vel.y, e.x, e.y (the goal direction, for
 the field-of-view anisotropy, sfm.rs:149-151), active flag, padding.
 
-The pair math runs over whole cell rows at a time.  The reference maps one
-block of ``row_block`` rows after the other (``lax.map``), a memory bound,
-not a semantic one: a slot's force depends only on its own row.  Here a
-pass takes as many row blocks as keep one [rows, nx, K, 9K] f32
-intermediate within ``PAIR_PASS_BYTES``; at 1M agents on the bench's
-square 1.4 m field (452 x 452 cells, K = 14) that is 84 rows a pass, 6
-passes a step, where one block a pass would be 113 (``row_block`` 4).
+``dense_pairwise`` dispatches by the grid's device.  On the card it is one
+launch of ``csrc/flat_pairwise.cu`` (``ops/kernels/flat_pairwise.py``),
+which stands where XLA fuses the reference's ``lax.map`` over row blocks
+(forcepass.py:141-184): no intermediate leaves the kernel.  On the CPU it
+is ``dense_pairwise_torch``, the kernel's twin: each slot's candidates
+summed one add at a time in the kernel's order (``_OFFSETS`` block, then
+slot j), so that kernel and twin agree bit for bit on the card.
+
+The twin computes only the interior cells whose 3x3 window holds an
+active slot (any other slot has no candidate and keeps +0, as the kernel
+writes it), gathering each such cell's 9K candidates, as many cells a
+pass as keep one [9K, cells, K] f32 intermediate within
+``PAIR_PASS_BYTES``, a budget sized for the CPU's caches.  A slot's force
+depends on its own window alone, so neither the skip nor the pass size
+changes a bit of the result.
 
 Trade-offs of the dense layout, as in the reference: cells hold at most K
 agents, and the overflow (counted) neither exerts nor receives pair forces
@@ -27,16 +34,18 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..physics import Physics
 from .forces import pair_terms
+from .kernels import flat_pairwise as fpk
 from .neighbor import CellGrid
 
 N_CH = 8
-# Bytes of one [rows, nx, K, 9K] f32 intermediate of a pass, which holds
-# several such tensors at once.
-PAIR_PASS_BYTES = 1 << 28
+# Bytes of one [9K, rows, nx, K] f32 intermediate of a CPU pass, which
+# holds several such tensors at once (cpu_ticks.py chose it; PERF.md).
+PAIR_PASS_BYTES = 4 << 20
 
 _OFFSETS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 _SELF_BLOCK = _OFFSETS.index((0, 0))  # candidate block holding the centre cell
@@ -102,53 +111,84 @@ def scatter_cell_data(layout: CellLayout, grid: CellGrid, k: int,
     return flat[:-1].reshape(grid.ny + 2, grid.nx + 2, k, N_CH)
 
 
-def _pair_block(center: torch.Tensor, cand: torch.Tensor, not_self: torch.Tensor,
-                phys: Physics) -> torch.Tensor:
-    """Pairwise forces of a run of cell rows: center [rb, nx, K, 8], cand
-    [rb, nx, 9K, 8] -> acc [rb, nx, K, 2] (sfm.rs:129-153).  ``not_self``
-    [K, 9K] is false where candidate j is the centre slot itself."""
-    center = center.movedim(-1, 0).contiguous()  # channel-major
-    cand = cand.movedim(-1, 0).contiguous()
+def _pair_cells(cells: torch.Tensor, idx: torch.Tensor, offsets: torch.Tensor,
+                k: int, not_self: torch.Tensor, phys: Physics) -> torch.Tensor:
+    """Pairwise forces of the slots of the cells ``idx`` of the padded grid
+    ``cells`` [(ny+2)*(nx+2), K*8]: acc [n, K, 2] (sfm.rs:129-153), each
+    slot's 9K candidates (cell ``idx + offsets[b]``, slot j) summed one add
+    at a time in candidate order from +0.  ``not_self`` [9K, 1, K] is false
+    where candidate j is the centre slot itself."""
+    n = idx.shape[0]
+    center = cells.index_select(0, idx).view(n, k, N_CH).permute(2, 0, 1)
+    cand = cells.index_select(0, (offsets[:, None] + idx).reshape(-1))
+    cand = cand.view(9, n, k, N_CH).permute(3, 0, 2, 1).reshape(N_CH, 9 * k, n)
 
-    def own(c):  # [rb, nx, K, 1]
-        return center[c, ..., None]
+    def own(c):  # [n, K]
+        return center[c]
 
-    def other(c):  # [rb, nx, 1, 9K]
-        return cand[c, ..., None, :]
+    def other(c):  # [9K, n, 1]
+        return cand[c, ..., None]
 
-    dx = own(0) - other(0)  # [rb, nx, K, 9K]
+    dx = own(0) - other(0)  # [9K, n, K]
     dy = own(1) - other(1)
     d2 = dx * dx + dy * dy
     valid = (other(6) > 0.5) & (d2 <= phys.cutoff_sq) & not_self
     fx, fy = pair_terms(dx, dy, d2, other(2), other(3), own(4), own(5), valid,
                         phys)
-    return torch.stack([fx.sum(-1), fy.sum(-1)], dim=-1)
+    f = torch.stack([fx, fy], dim=1)  # [9K, 2, n, K]
+    acc = torch.zeros_like(f[0])
+    for j in range(9 * k):  # the kernel's order
+        acc += f[j]
+    return acc.permute(1, 2, 0)
 
 
 def dense_pairwise(data: torch.Tensor, grid: CellGrid, k: int, phys: Physics,
-                   row_block: int = 8, pass_bytes: int = PAIR_PASS_BYTES
+                   row_block: int = 8, pass_bytes: int | None = None
                    ) -> torch.Tensor:
     """Pairwise accelerations of every cell slot.  ``data`` is the padded
     [ny+2, nx+2, K, 8] grid; returns the flat [(ny+2)*(nx+2)*K, 2]
-    accelerations in the same padded layout, so that callers gather each
-    agent's by its ``slot``.  A pass takes whole blocks of ``row_block``
-    rows, as many as keep one [rows, nx, K, 9K] f32 intermediate within
-    ``pass_bytes`` (at least one block)."""
+    accelerations in the same padded layout (a zero ring), so that callers
+    gather each agent's by its ``slot``.  A CUDA grid goes to the kernel
+    (one launch, or an error), a CPU grid to ``dense_pairwise_torch`` in
+    passes of ``pass_bytes``.  ``row_block``, the reference's block
+    height, shapes nothing: a slot's force depends on its window alone."""
+    if data.device.type == "cpu":
+        return dense_pairwise_torch(data, grid, k, phys, pass_bytes)
+    return fpk.flat_pairwise(data, phys)
+
+
+def dense_pairwise_torch(data: torch.Tensor, grid: CellGrid, k: int,
+                         phys: Physics, pass_bytes: int | None = None
+                         ) -> torch.Tensor:
+    """The kernel's twin.  Only the interior cells whose 3x3 window holds
+    an active slot are computed, as many a pass as keep one [9K, cells, K]
+    f32 intermediate within ``pass_bytes`` (default ``PAIR_PASS_BYTES``; at
+    least one cell); every other slot has no candidate and keeps +0.
+    Finding them reads the [ny+2, nx+2] cell occupancy to the host once."""
     ny, nx = grid.ny, grid.nx
+    if tuple(data.shape) != (ny + 2, nx + 2, k, N_CH):
+        raise ValueError(f"data {tuple(data.shape)} is not the padded grid "
+                         f"{(ny + 2, nx + 2, k, N_CH)}")
     dev = data.device
-    rb = min(row_block, ny)
-    row_bytes = nx * k * 9 * k * 4
-    rows = rb * max(1, pass_bytes // (rb * row_bytes))
+    budget = PAIR_PASS_BYTES if pass_bytes is None else pass_bytes
+    per_pass = max(1, budget // (9 * k * k * 4))
+    occ = (data[..., 6] > 0.5).any(-1).cpu().numpy()  # [ny+2, nx+2]
+    near = np.zeros((ny, nx), bool)
+    for dy, dx in _OFFSETS:
+        near |= occ[1 + dy:1 + dy + ny, 1 + dx:1 + dx + nx]
+    r, c = np.nonzero(near)
+    live = torch.from_numpy((r + 1) * (nx + 2) + c + 1).to(dev)
+    offsets = torch.tensor([dy * (nx + 2) + dx for dy, dx in _OFFSETS],
+                           device=dev)
     j = torch.arange(9 * k, device=dev)
-    not_self = j[None, :] != _SELF_BLOCK * k + torch.arange(k, device=dev)[:, None]
-    acc = torch.zeros((ny + 2, nx + 2, k, 2), dtype=torch.float32, device=dev)
-    for r0 in range(0, ny, rows):
-        n = min(rows, ny - r0)
-        win = data[r0:r0 + n + 2]  # cell rows r0 - 1 .. r0 + n
-        cand = torch.cat([win[1 + dy:1 + dy + n, 1 + dx:1 + dx + nx]
-                          for dy, dx in _OFFSETS], dim=2)
-        acc[r0 + 1:r0 + 1 + n, 1:nx + 1] = _pair_block(
-            win[1:n + 1, 1:nx + 1], cand, not_self, phys)
+    not_self = (j[:, None] != _SELF_BLOCK * k + torch.arange(k, device=dev)
+                ).view(9 * k, 1, k)
+    cells = data.reshape(-1, k * N_CH)
+    acc = torch.zeros((cells.shape[0], k, 2), dtype=torch.float32, device=dev)
+    for s in range(0, live.shape[0], per_pass):
+        idx = live[s:s + per_pass]
+        acc.index_copy_(0, idx, _pair_cells(cells, idx, offsets, k, not_self,
+                                            phys))
     return acc.reshape(-1, 2)
 
 

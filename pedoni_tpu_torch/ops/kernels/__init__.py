@@ -4,6 +4,7 @@
 def launch_counts() -> dict[str, int]:
     """Each wrapper's count of its kernel's launches, by kernel and mode:
     a wrapper adds one where it launches on the card, never on the CPU."""
+    from . import flat_pairwise as fp
     from . import pairwise as pw
     from . import rebin as rb
     from . import step_kernel as sk
@@ -12,15 +13,17 @@ def launch_counts() -> dict[str, int]:
             "step_kernel_segments": sk.fused_step.segment_launches,
             "rebin": rb.rebin.launches,
             "rebin_incremental": rb.rebin_incremental.launches,
-            "pairwise": pw.pairwise.launches}
+            "pairwise": pw.pairwise.launches,
+            "flat_pairwise": fp.flat_pairwise.launches}
 
 
 def zero_launch_counts() -> None:
     """Set every count of ``launch_counts`` to 0."""
+    from . import flat_pairwise as fp
     from . import pairwise as pw
     from . import rebin as rb
     from . import step_kernel as sk
     sk.fused_step.launches = sk.fused_step.mover_launches = 0
     sk.fused_step.segment_launches = 0
     rb.rebin.launches = rb.rebin_incremental.launches = 0
-    pw.pairwise.launches = 0
+    pw.pairwise.launches = fp.flat_pairwise.launches = 0

@@ -106,6 +106,8 @@ def library() -> ctypes.CDLL:
         lib.pedoni_rebin_incremental.restype = i
         lib.pedoni_pairwise.argtypes = [p, p] + [i] * 7 + [p, p]
         lib.pedoni_pairwise.restype = i
+        lib.pedoni_flat_pairwise.argtypes = [p, p] + [i] * 3 + [p, p]
+        lib.pedoni_flat_pairwise.restype = i
         _lib = lib
         return lib
 

@@ -2,8 +2,9 @@
 between neighbour strips.
 
 Counterpart of pedoni_tpu/parallel/spatial.py, the reference's round-1
-multi-device path for its XLA backend (no hand kernel: the reference's
-spatial step runs no ``pallas_call``, and this one runs none either).  The
+multi-device path for its XLA backend (the reference's spatial step runs
+no ``pallas_call``; here each strip's pair pass is the flat step's, one
+launch of the flat pair kernel, csrc/flat_pairwise.cu, on a card).  The
 field is split into D vertical strips along x; strip d owns the agents
 inside [d * w / D, (d + 1) * w / D) (the last also everything to its
 right) as a fixed-capacity flat shard on its device.  A step, for every

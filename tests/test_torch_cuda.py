@@ -3,7 +3,8 @@ the step kernel (base, mover and segment modes, field strides 6 and 8, and
 grids built to break its cell tiles), the full and the incremental rebin
 (and the grids of tests/test_torch_rebin_cases.py, built to break their
 tiles and bit masks), the device gate that makes the hybrid step's choice,
-and the standalone pairwise kernel.
+the standalone pairwise kernel, and the flat pair kernel (with a flat step
+on the card against the CPU).
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports neither JAX nor the
 reference package, so it runs on a machine with only PyTorch:
@@ -24,6 +25,7 @@ from pedoni_tpu_torch.convert import agents_from_numpy
 from pedoni_tpu_torch.field import Field, FieldMaps
 from pedoni_tpu_torch.models import sfm_grid
 from pedoni_tpu_torch.models.sfm import SimState, StepConfig
+from pedoni_tpu_torch.ops.kernels import flat_pairwise as fpk
 from pedoni_tpu_torch.ops.kernels import pairwise as pw
 from pedoni_tpu_torch.ops.kernels import rebin as rb
 from pedoni_tpu_torch.ops.kernels import step_kernel as sk
@@ -956,3 +958,107 @@ def test_spatial_strips_on_the_card():
                 assert got.shape == want.shape and got.shape[0] > 30
                 assert np.abs(got[:, :4] - want[:, :4]).max() <= 1e-5
         assert sum(int(x.active.sum()) for x in ss.agents) == int(fm.n_active) > 30
+
+
+def _flat_grid(ny: int, nx: int, k: int, seed: int) -> torch.Tensor:
+    """A seeded padded grid [ny+2, nx+2, K, 8] on the card, as
+    forcepass.scatter_cell_data lays one out: each cell filled from slot 0
+    (a fifth of them empty), cells up to full, 5% of the filled slots
+    inactive, agents in the ring too."""
+    rng = np.random.default_rng(seed)
+    d = np.zeros((ny + 2, nx + 2, k, 8), np.float32)
+    count = rng.integers(0, k + 1, (ny + 2, nx + 2)) * (
+        rng.uniform(size=(ny + 2, nx + 2)) < 0.8)
+    r, c, j = np.nonzero(np.arange(k)[None, None] < count[..., None])
+    d[r, c, j, 0] = (c - 1 + rng.uniform(size=r.size)) * 1.4
+    d[r, c, j, 1] = (r - 1 + rng.uniform(size=r.size)) * 1.4
+    d[r, c, j, 2:4] = rng.normal(0, 0.8, (r.size, 2))
+    e = rng.normal(0, 1, (r.size, 2))
+    d[r, c, j, 4:6] = e / np.linalg.norm(e, axis=1, keepdims=True)
+    d[r, c, j, 6] = rng.uniform(size=r.size) < 0.95
+    return torch.from_numpy(d).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny, nx, k", [(30, 40, 14), (24, 37, 16), (10, 12, 64),
+                                       (17, 131, 14), (452, 229, 14)],
+                         ids=["K14", "K16", "K64", "ragged_nx", "strip"])
+def test_flat_pairwise_matches_twin(ny, nx, k):
+    """The flat pair kernel (csrc/flat_pairwise.cu) against its twin
+    (forcepass.dense_pairwise_torch) on the card, bit for bit on the whole
+    padded tensor, ring included; the last case is one of two x-strips'
+    windows of the 1M xla problem.  One launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pedoni_tpu_torch.ops import forcepass
+    from pedoni_tpu_torch.ops.neighbor import CellGrid
+
+    d = _flat_grid(ny, nx, k, seed=k + nx)
+    phys = Physics()
+    before = fpk.flat_pairwise.launches
+    got = fpk.flat_pairwise(d, phys)
+    want = forcepass.dense_pairwise_torch(d, CellGrid(1.4, nx, ny), k, phys,
+                                          pass_bytes=1 << 28)
+    torch.cuda.synchronize()
+    assert fpk.flat_pairwise.launches == before + 1
+    assert float(want.abs().max()) > 0.1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["distance_map", "segments"])
+def test_flat_step_on_the_card_equals_the_cpu(mode):
+    """Three flat steps (models/sfm.py::make_step), each on the card and on
+    the CPU from the CPU's state and the same candidates: every metric
+    equal, the rows slot by slot with positions within 1e-5 and velocities
+    within 1e-5, or NEAR_CONTACT_VEL_TOL for an agent in near contact (the
+    kernel equals its twin bit for bit on the card, but expf and sqrtf
+    there and the CPU's exp elsewhere differ by ulps, which near contact
+    the pair formula magnifies); the flat pair kernel launched once a step
+    on the card, never on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pedoni_tpu_torch.models import sfm
+    from pedoni_tpu_torch.scenario import loads_scenario
+
+    sc = loads_scenario(PALLAS_SCENARIO)
+    maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
+    cfg = StepConfig.build(sc, capacity=640, table_capacity=12,
+                           use_distance_map=(mode == "distance_map"))
+    rng = np.random.default_rng(6)
+    n = 640
+    st = SimState(agents_from_numpy(
+        rng.uniform(0.8, 11.2, (n, 2)) * np.array([1.5, 1.0]),
+        rng.normal(0, 0.4, (n, 2)), rng.uniform(0.8, 1.7, n),
+        rng.integers(0, 2, n), np.arange(n) < 500, "cpu"), 0)
+    gen = torch.Generator().manual_seed(3)
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        field, obstacles = sfm.device_inputs(cfg, maps, dev)
+        steps[dev] = (sfm.make_step(cfg, torch.Generator(device=dev)),
+                      field.rows, obstacles)
+    spawned = 0
+    for _ in range(3):
+        cand = sfm.spawn_candidates(cfg, gen)
+        out = {}
+        for dev, (step, rows, obstacles) in steps.items():
+            before = fpk.flat_pairwise.launches
+            new, m = step(SimState(st.agents.to(dev), st.step), rows, obstacles,
+                          cand.to(dev))
+            out[dev] = ({k: int(v) for k, v in m._asdict().items()},
+                        [t.cpu().numpy() for t in new.agents],
+                        fpk.flat_pairwise.launches - before, new)
+        st_in = st
+        (gm, ga, gl, _), (wm, wa, wl, st) = out["cuda"], out["cpu"]
+        assert gm == wm and (gl, wl) == (1, 0)
+        np.testing.assert_allclose(ga[0], wa[0], rtol=0, atol=1e-5)  # pos
+        near = _near_contact(st_in.agents, cand, wa[2])
+        assert near.sum() <= 0.01 * near.size
+        np.testing.assert_allclose(ga[1][~near], wa[1][~near], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(ga[1][near], wa[1][near], rtol=0,
+                                   atol=NEAR_CONTACT_VEL_TOL)
+        for got, want in zip(ga[2:], wa[2:]):  # speed, dest, active
+            np.testing.assert_array_equal(got, want)
+        spawned += wm["n_spawned"]
+    assert spawned > 0
