@@ -95,9 +95,10 @@ nvcc, one process per source, then:
    subprocess: exit 0, exactly one JSON line, value > 0, its ``device`` this
    card, and the hybrid's kernels launched in its timed rounds;
 15. the flat backend (``backend="xla"``, the default since it was ported),
-   whose pair pass is one launch of the flat pair kernel
-   (csrc/flat_pairwise.cu) a step, and no other kernel's: every run below
-   is held to exactly that (none in all-pairs mode).  gap.toml through
+   which launches the flat sample kernel (csrc/flat_sample.cu: field taps,
+   despawn, cell id, packed rows) once a step and the flat pair kernel
+   (csrc/flat_pairwise.cu) once a step, and no other kernel: every run
+   below is held to exactly that (no pair kernel in all-pairs mode).  gap.toml through
    ``Simulator`` evacuates within 400 ticks at the 1.4 m unit; one flat
    step on the card against the same step on the CPU from the same state
    and candidates (pos/vel within 1e-5, every metric and the rest equal)
@@ -108,10 +109,19 @@ nvcc, one process per source, then:
    run under ``set_sync_debug_mode("error")``, the launch counts zeroed
    before and read after, device ms/step, launches a step, busy share, the
    ten dearest kernels and the [N, 12] row gather's us/step from
-   ``torch.profiler``, peak memory; the flat pair kernel against its twin
-   bit for bit on seeded grids (K 14, 16 and 64, a ragged nx, an x-strip's
-   window) and on the 1M problem's padded grid, and there kernel, twin
-   and bound timed; ``python -m
+   ``torch.profiler`` (no field-tap gather of [R, 8] rows left in it),
+   beside the step's before its two kernels, peak memory; the [N, 12]
+   row gather alone
+   (``index_select``, ``packed[order]``, ``torch.gather``, a sorted order,
+   narrower rows, fewer rows, and a contiguous copy of the same bytes),
+   with the cause of its cost; the flat pair kernel against its twin
+   bit for bit on seeded grids (K 14, 16, 64 and 255, a ragged nx, an
+   x-strip's window) and on the 1M problem's padded grid, and there
+   kernel, twin and bound timed beside its first design; the flat sample
+   kernel against its twin bit for bit (12 channels, NaN where the twin's
+   is, and the cell ids) on tests/test_torch_flat_sample_cases.py's edge
+   cases, with and without sanitizing, and on the 1M problem's agents,
+   and there kernel, twin and bound timed; ``python -m
    pedoni_tpu_torch.bench --backend xla``, the CLI on gap.toml with ``-b
    auto`` and ``-b xla`` (population 0, model ``sfm-torch/xla``) and
    ``python -m pedoni_tpu_torch.entry`` as subprocesses;
@@ -157,8 +167,8 @@ nvcc, one process per source, then:
    kernels) and the cross-rank exchanges' ms a step, beside phase 10's
    one-process numbers for the same tiling;
 18. the 1M xla problem (phase 15's) cut into x-strips
-   (parallel/spatial.py; one flat pair kernel launch a strip-step, and no
-   other kernel's): 2 strips on this card, and one
+   (parallel/spatial.py; one flat sample and one flat pair kernel launch
+   a strip-step, and no other kernel's): 2 strips on this card, and one
    strip a card where there are more: the first step from the same state
    equal to the flat step's (every metric; rows order-free, velocities
    within TOL, NEAR_CONTACT_VEL_TOL in near contact, positions within TOL
@@ -168,7 +178,7 @@ nvcc, one process per source, then:
    device ms/step and peak memory beside the flat step's;
 19. the fidelity harness (pedoni_tpu_torch/fidelity.py), launch counts
    zeroed before and read after (each runtime kernel launched, the flat
-   pair kernel among them): gap.toml
+   sample and pair kernels among them): gap.toml
    through the ``Simulator`` of ``xla``, ``grid`` and ``pallas`` at seeds
    1-8, every count in the reference's band [160, 340] and each backend's
    mean within three standard errors of the reference's record, 246 +- 22
@@ -216,6 +226,10 @@ PAIR_TEST_FLOPS = 6  # its distance test alone (a candidate past the cutoff)
 # csrc/flat_pairwise.cu evaluates it (four divides, four sqrt, one exp, the
 # FOV test, the damping and the two adds of the sum each counted once)
 FLAT_PAIR_FLOPS = 63
+# float operations of one agent of csrc/flat_sample.cu (the coordinates,
+# three lerps of six channels, the normalisation, the cell id and the tests,
+# each counted once)
+FLAT_SAMPLE_FLOPS = 60
 SPIN_CYCLES = 2_000_000  # ~1 ms of device clock ahead of each timed run
 TWIN_RUNS = 5  # runs of a plain PyTorch twin timed (tens of ms to seconds each)
 PROFILE_STEPS = 24  # a multiple of the compaction period of 8
@@ -240,7 +254,7 @@ WP_STEPS = 16  # hybrid steps of the bench problem at 8 and 33 waypoints
 MAX_K = 255  # the largest table capacity the pair passes take
 FLAT_WARMUP, FLAT_TIMED = 2, 10  # steps of the 1M flat (xla) problem
 FLAT_PROFILE_STEPS = 4
-FLAT_TWIN_PASS_BYTES = 1 << 28  # the twin's pass budget on the card (6 at 1M)
+FLAT_TWIN_PASS_BYTES = 1 << 28  # the twin's pass budget on the card (2 at 1M)
 FLAT_TOP_KERNELS = 10  # the 1M flat profile's dearest kernels printed
 PALLAS_WARMUP, PALLAS_TIMED = 4, 20  # steps of the 1M pallas problem
 # A pallas step on the card against the same step on the CPU holds
@@ -283,7 +297,14 @@ FIRST_DESIGN_MS = {"hybrid": 1.0674, "full": 0.9188, "step_kernel": 0.7499,
                    "segments_full": 0.8441, "all_pairs": 1.4354,
                    "rebin": 0.1286, "rebin_incremental": 0.1248,
                    "step_kernel_segments_random_toml": 0.7328,
-                   "pairwise": 0.5632}
+                   "pairwise": 0.5632, "flat_pairwise": 1.1263}
+# Each path's device ms/step (and the flat step's launches a step) before
+# the flat step's sample kernel and its pair kernel's second design, from
+# this script's run then (PERF.md section 5; NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's; nothing is gated on them
+EARLIER_DEVICE_MS = {"full": 0.4357, "hybrid": 0.4823, "pallas": 1.1465,
+                  "flat": 6.0600, "flat_launches": 181.0, "strips": 10.0853}
+GATHER_RUNS = 20  # timed runs of each form of the [N, 12] row gather
 # tests/test_rebin_incremental.py's spawning scenario
 SPAWN_SCENARIO = """
 [field]
@@ -301,6 +322,8 @@ destination = 1
 spawn = { kind = "periodic", frequency = 4.0 }
 """
 CSRC = "pedoni_tpu_torch/ops/kernels/csrc/"
+SM_COUNT = 132  # H100 SXM streaming multiprocessors
+BLOCKS_PER_SM = 32  # the most resident thread blocks an SM holds (Hopper)
 
 
 def _card() -> str:
@@ -566,6 +589,8 @@ def _needed_bytes(name: str, ins: tuple, outs: tuple) -> int:
       interior cell whose 3x3 window holds an active slot (the others
       write +0 unread), ch 2-3 of the active slots and ch 0-1 of the
       active ring slots (only active candidates are evaluated);
+    - flat_sample: each agent's pos, vel, speed, dest and active flag, and
+      channels 0-5 of each distinct texel row its four taps read;
     - pairwise: D's ch 6 plane, ch 0, 1, 4, 5 of the centre rows (every
       centre slot gets an acceleration), ch 2-3 of the active slots and
       ch 0-1 of the active ghost-row slots (only active candidates are
@@ -593,6 +618,10 @@ def _needed_bytes(name: str, ins: tuple, outs: tuple) -> int:
         ring[1:-1, 1:-1] = False
         return (act.numel() * word + 4 * word * live * d.shape[2]
                 + 2 * word * (int(act.sum()) + int(ring.sum())) + out_b)
+    if name == "flat_sample":
+        rows, hp, wp, pos, vel, speed, dest, active, unit = ins
+        return (_nbytes(pos, vel, speed, dest, active) + out_b
+                + 6 * rows.element_size() * _tap_rows(rows, hp, wp, pos, dest, unit))
     if name == "pairwise":
         d = ins[0]
         word = d.element_size()
@@ -607,6 +636,19 @@ def _needed_bytes(name: str, ins: tuple, outs: tuple) -> int:
     m = ins[1]
     return (2 * plane + row6 * int((g[:, :, 7] > 0.5).sum())
             + _nbytes(m[:, :, 6]) + row6 * int((m[:, :, 6] > 0.5).sum()) + out_b)
+
+
+def _tap_rows(rows, hp: int, wp: int, pos, dest, unit: float) -> int:
+    """Distinct texel rows of ``rows`` the four bilinear taps of the agents
+    at ``pos`` bound for ``dest`` read (sampling.sample_field's index
+    arithmetic, each tap clamped into the rows)."""
+    from pedoni_tpu_torch.field import PAD
+    from pedoni_tpu_torch.ops.neighbor import true_divide
+    px = torch.clamp(true_divide(pos[:, 0], unit) - 0.5 + PAD, 0.0, wp - 1.001)
+    py = torch.clamp(true_divide(pos[:, 1], unit) - 0.5 + PAD, 0.0, hp - 1.001)
+    base = (dest.long() * hp + torch.floor(py).long()) * wp + torch.floor(px).long()
+    taps = torch.stack([base, base + 1, base + wp, base + wp + 1])
+    return int(torch.unique(torch.clamp(taps, 0, rows.shape[0] - 1)).numel())
 
 
 def _profile_counts(run, n: int):
@@ -657,14 +699,15 @@ def _device_profile(run, n: int, wall_ms: float, what: str, card: str) -> float:
 
 def _profile(step, gs, fwp, fobs, wall_ms: float, name: str, card: str):
     """PROFILE_STEPS more steps of a 1M path under torch.profiler (see
-    ``_device_profile``); returns the state after them."""
+    ``_device_profile``); returns (the state after them, device ms/step)."""
     state = [gs]
 
     def run():
         state[0] = step(state[0], fwp, fobs)[0]
 
-    _device_profile(run, PROFILE_STEPS, wall_ms, f"1M {name} (a run = a step)", card)
-    return state[0]
+    dev_ms = _device_profile(run, PROFILE_STEPS, wall_ms,
+                             f"1M {name} (a run = a step)", card)
+    return state[0], dev_ms
 
 
 def _pair_candidates(d: torch.Tensor) -> float:
@@ -1688,8 +1731,9 @@ def _flat_vs_cpu(dev, what, sc, cfg_kw, agents, cand=None) -> float:
     """One flat step on the card against the same step on the CPU from the
     same state and candidates: slot by slot (the sort's cell ids come
     from the same IEEE divide on both), pos/vel within TOL, the rest and
-    every metric equal; the card's step launches the flat pair kernel once
-    (none in all-pairs mode) and no other.  Returns the max |err|."""
+    every metric equal; the card's step launches the flat sample kernel
+    once, the flat pair kernel once (none in all-pairs mode) and no other.
+    Returns the max |err|."""
     from pedoni_tpu_torch.field import Field, FieldMaps
     from pedoni_tpu_torch.models import sfm
     from pedoni_tpu_torch.models.sfm import SimState
@@ -1707,7 +1751,7 @@ def _flat_vs_cpu(dev, what, sc, cfg_kw, agents, cand=None) -> float:
                     {k: int(v) for k, v in m._asdict().items()}))
     (got, gm), (want, wm) = out
     counts = _launch_counts()
-    if counts != dict(dict.fromkeys(counts, 0),
+    if counts != dict(dict.fromkeys(counts, 0), flat_sample=1,
                       flat_pairwise=int(cfg.use_neighbor_grid)):
         raise AssertionError(f"flat step {what}: launches {counts}")
     err = float(np.abs(got[:, :4] - want[:, :4]).max())
@@ -1729,9 +1773,9 @@ def _flat_sim_checks(dev) -> dict:
     from pedoni_tpu_torch.models import sfm
     from pedoni_tpu_torch.scenario import loads_scenario
 
-    def one_a_step(n: int) -> dict:  # the flat pair kernel, once a step
+    def one_a_step(n: int) -> dict:  # the two flat kernels, once a step each
         counts = _launch_counts()
-        return dict(dict.fromkeys(counts, 0), flat_pairwise=n)
+        return dict(dict.fromkeys(counts, 0), flat_pairwise=n, flat_sample=n)
 
     t0 = time.perf_counter()
     _zero_launch_counts()
@@ -1795,15 +1839,19 @@ def _no_sync():
         torch.cuda.set_sync_debug_mode("default")
 
 
-def _flat_1m(dev, card, capture: list | None = None) -> dict:
+def _flat_1m(dev, card, capture: dict | None = None) -> dict:
     """15b. The 1M xla bench problem: FLAT_TIMED steps after FLAT_WARMUP
     under sync debug mode "error", host clock, the launch counts zeroed
     before and read after ("launches"); peak memory; then
     FLAT_PROFILE_STEPS under torch.profiler: device ms, launches a step,
     busy share, the FLAT_TOP_KERNELS dearest kernels and the device us of
-    the step's [N, 12] row gather (``index_select`` after the argsort).
-    With ``capture``, one more step appends (its padded cell grid, the
-    physics) from inside ``forcepass.dense_pairwise``."""
+    the step's [N, 12] row gather (``index_select`` after the argsort),
+    beside EARLIER_DEVICE_MS, and the gathers of the field's [R, 8] rows
+    it holds ("tap_gathers", which phase 15 holds to none: the four taps
+    are the flat sample kernel's).  With ``capture`` (a dict), one more
+    step stores its padded cell grid and the physics ("grid"), the flat
+    sample kernel's arguments ("sample") and outputs ("packed", "cid"),
+    and the sort's permutation ("order")."""
     import collections
 
     from pedoni_tpu_torch.bench import build_problem
@@ -1853,10 +1901,15 @@ def _flat_1m(dev, card, capture: list | None = None) -> dict:
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             us[ev.key] += ev.self_device_time_total / FLAT_PROFILE_STEPS
             launches += ev.count / FLAT_PROFILE_STEPS
-    gather_us = sum(ev.device_time_total for ev in prof.key_averages(
-        group_by_input_shape=True) if ev.key == "aten::index_select"
-        and ev.input_shapes and len(ev.input_shapes[0]) == 2
-        and ev.input_shapes[0][1] == 12) / FLAT_PROFILE_STEPS
+    by_shape = prof.key_averages(group_by_input_shape=True)
+    gather_us = sum(ev.device_time_total for ev in by_shape
+                    if ev.key == "aten::index_select" and ev.input_shapes
+                    and len(ev.input_shapes[0]) == 2
+                    and ev.input_shapes[0][1] == 12) / FLAT_PROFILE_STEPS
+    taps = sum(ev.count for ev in by_shape
+               if ev.key in ("aten::index_select", "aten::index", "aten::take")
+               and ev.input_shapes and ev.input_shapes[0] == list(field.rows.shape)
+               ) / FLAT_PROFILE_STEPS
     dev_ms = sum(us.values()) / 1e3
     if not dev_ms > 0:
         raise AssertionError("1M flat: the profiler traced no device time")
@@ -1864,26 +1917,39 @@ def _flat_1m(dev, card, capture: list | None = None) -> dict:
           f"device {dev_ms:.4f} ms/step, {launches:.1f} launches a step, wall "
           f"{wall:.4f} ms/step unprofiled, busy share {dev_ms / wall:.3f}; the "
           f"[N, 12] row gather (index_select after the argsort) "
-          f"{gather_us:.1f} us/step; top {FLAT_TOP_KERNELS} kernels (us/step, "
-          f"share): " + "; ".join(
+          f"{gather_us:.1f} us/step; {taps:.1f} gathers of the field's "
+          f"{list(field.rows.shape)} rows a step; top {FLAT_TOP_KERNELS} kernels "
+          f"(us/step, share): " + "; ".join(
               f"{k[:70]} {v:.1f} ({v / 1e3 / dev_ms:.1%})"
               for k, v in us.most_common(FLAT_TOP_KERNELS)), flush=True)
+    print(f"# 1M flat beside EARLIER_DEVICE_MS (PERF.md; NVIDIA H100 80GB HBM3, "
+          f"700 W): device {dev_ms:.4f} ms/step (earlier "
+          f"{EARLIER_DEVICE_MS['flat']}), {launches:.1f} launches a step (earlier "
+          f"{EARLIER_DEVICE_MS['flat_launches']}) on {card}",
+          flush=True)
     if capture is not None:
-        real = forcepass.dense_pairwise
+        real_pairs, real_sample = forcepass.dense_pairwise, sfm.flat_sample
 
-        def spy(data, *args, **kw):
-            capture.append((data.clone(), cfg.physics))
-            return real(data, *args, **kw)
+        def spy_pairs(data, *args, **kw):
+            capture["grid"] = (data.clone(), cfg.physics)
+            return real_pairs(data, *args, **kw)
 
-        forcepass.dense_pairwise = spy
+        def spy_sample(*args, **kw):
+            packed, cid = real_sample(*args, **kw)
+            capture["sample"] = (args, kw)
+            capture["packed"], capture["cid"] = packed.clone(), cid.clone()
+            capture["order"] = torch.argsort(cid, stable=True)[:cfg.capacity]
+            return packed, cid
+
+        forcepass.dense_pairwise, sfm.flat_sample = spy_pairs, spy_sample
         try:
             step(st, field.rows, obstacles)
         finally:
-            forcepass.dense_pairwise = real
+            forcepass.dense_pairwise, sfm.flat_sample = real_pairs, real_sample
     return {"ms_per_step": wall, "device_ms_per_step": dev_ms,
             "launches_per_step": launches, "busy_share": dev_ms / wall,
             "peak_bytes": peak, "n_active": n_active, "launches": launched,
-            "row_gather_us_per_step": gather_us}
+            "row_gather_us_per_step": gather_us, "tap_gathers": taps}
 
 
 def _flat_subprocesses(card) -> dict:
@@ -1977,21 +2043,31 @@ def _flat_model_and_quickstart(dev) -> None:
 
 def _flat_grids(dev) -> list[tuple[str, torch.Tensor]]:
     """Seeded padded grids [ny+2, nx+2, K, 8] for the flat pair kernel:
-    test_torch_cuda.py's cases (K 14, 16 and 64, a ragged nx, one x-strip's
-    window of the 1M problem), slots filled from rank 0 as the flat step
-    fills them, some cells past half full, a few inactive slots among the
-    active, and a ring with agents in it."""
+    test_torch_cuda.py's cases (K 14, 16, 64 and 255, a ragged nx, one
+    x-strip's window of the 1M problem, and agents scattered off their
+    cells, a few at non-finite positions, for the kernel's box cull), slots
+    filled from rank 0 as the flat step fills them, some cells past half
+    full, a few inactive slots among the active, and a ring with agents in
+    it."""
     rng = np.random.default_rng(12)
     grids = []
     for name, ny, nx, k in (("K 14", 30, 40, 14), ("K 16", 24, 37, 16),
-                            ("K 64", 10, 12, 64), ("ragged nx", 17, 131, 14),
-                            ("1M strip window", 452, 229, 14)):
+                            ("K 64", 10, 12, 64), ("K 255", 6, 7, 255),
+                            ("ragged nx", 17, 131, 14),
+                            ("1M strip window", 452, 229, 14),
+                            ("scattered", 30, 40, 14)):
         d = np.zeros((ny + 2, nx + 2, k, 8), np.float32)
         count = rng.integers(0, k + 1, (ny + 2, nx + 2)) * (
             rng.uniform(size=(ny + 2, nx + 2)) < 0.8)
         r, c, j = np.nonzero(np.arange(k)[None, None] < count[..., None])
-        d[r, c, j, 0] = (c - 1 + rng.uniform(size=r.size)) * 1.4
-        d[r, c, j, 1] = (r - 1 + rng.uniform(size=r.size)) * 1.4
+        scattered = name == "scattered"
+        spread = rng.uniform(-3.0, 4.0, (2, r.size)) if scattered else rng.uniform(
+            size=(2, r.size))
+        d[r, c, j, 0] = (c - 1 + spread[0]) * 1.4
+        d[r, c, j, 1] = (r - 1 + spread[1]) * 1.4
+        if scattered:
+            odd = rng.choice(r.size, 8, replace=False)
+            d[r[odd], c[odd], j[odd], odd % 2] = [np.nan, np.inf, -np.inf, 1e30] * 2
         d[r, c, j, 2:4] = rng.normal(0, 0.8, (r.size, 2))
         e = rng.normal(0, 1, (r.size, 2))
         d[r, c, j, 4:6] = e / np.linalg.norm(e, axis=1, keepdims=True)
@@ -2004,7 +2080,8 @@ def _flat_kernel_entry(dev, card, d: torch.Tensor, phys, launches: int) -> dict:
     """15c. The flat pair kernel against its twin (forcepass.
     dense_pairwise_torch, on the card) bit for bit on ``_flat_grids`` and on
     the 1M problem's padded grid ``d``; kernel, twin and bound timed on
-    ``d``.  Returns the JSON entry, with ``launches`` from the 1M run."""
+    ``d``, beside its first design's time.  Returns the JSON entry, with
+    ``launches`` from the 1M run."""
     from pedoni_tpu_torch.ops import forcepass
     from pedoni_tpu_torch.ops.kernels import flat_pairwise as fpk
     from pedoni_tpu_torch.ops.neighbor import CellGrid
@@ -2014,7 +2091,7 @@ def _flat_kernel_entry(dev, card, d: torch.Tensor, phys, launches: int) -> dict:
         return forcepass.dense_pairwise_torch(g, grid, g.shape[2], phys,
                                               pass_bytes=FLAT_TWIN_PASS_BYTES)
 
-    errs = {}
+    errs, k_up_to = {}, 0
     for what, g in (*_flat_grids(dev), (f"1M grid {tuple(d.shape)}", d)):
         got, want = fpk.flat_pairwise(g, phys), twin(g)
         torch.cuda.synchronize()
@@ -2023,6 +2100,7 @@ def _flat_kernel_entry(dev, card, d: torch.Tensor, phys, launches: int) -> dict:
             raise AssertionError(f"flat_pairwise {what}: max |err| "
                                  f"{float((got - want).abs().max()):.3e}, not bit-equal")
         errs[what] = float((got - want).abs().max())
+        k_up_to = max(k_up_to, g.shape[2])
     acc = fpk.flat_pairwise(d, phys)
     k_ms = _median_ms(lambda: fpk.flat_pairwise(d, phys))
     t_ms = _median_ms(lambda: twin(d), n=TWIN_RUNS)
@@ -2030,6 +2108,10 @@ def _flat_kernel_entry(dev, card, d: torch.Tensor, phys, launches: int) -> dict:
     within, beyond = _flat_pairs(d, phys.cutoff_sq)
     flops = within * FLAT_PAIR_FLOPS + beyond * PAIR_TEST_FLOPS
     b_ms, by = _bound(need, flops)
+    tr, tc, threads, smem = fpk.tile_shape(d.shape[2])
+    print(f"# flat_pairwise: tiles of {tr} x {tc} cells, {threads} threads, "
+          f"{smem} bytes of shared memory a block at K {d.shape[2]}; "
+          + _vs_first("flat_pairwise", k_ms), flush=True)
     print(f"# flat_pairwise: bit-equal to its twin on the card (max |err| 0) on "
           f"{', '.join(errs)}; on the 1M grid kernel {k_ms:.4f} ms, twin "
           f"{t_ms:.4f} ms (median of 20 and {TWIN_RUNS}, CUDA events), bound "
@@ -2044,24 +2126,152 @@ def _flat_kernel_entry(dev, card, d: torch.Tensor, phys, launches: int) -> dict:
             "replaces": "pedoni_tpu/ops/forcepass.py:141 (XLA, no pallas_call)",
             "path": "flat", "launches": launches,
             "max_abs_err": max(errs.values()), "ms": k_ms, "plain_ms": t_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "k_up_to": k_up_to}
+
+
+def _cases_module():
+    """tests/test_torch_flat_sample_cases.py (seeded edge-case agents)."""
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_flat_sample_cases", ROOT / "tests" / "test_torch_flat_sample_cases.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Raise unless NaN stands in the same places and every other value is
+    bit for bit the same; else the max |err|, 0.0."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan) or not torch.equal(
+            got[~nan].view(torch.int32), want[~nan].view(torch.int32)):
+        raise AssertionError("not bit-equal: max |err| "
+                             f"{float((got - want).abs().nan_to_num().max()):.3e}")
+    return 0.0
+
+
+def _flat_sample_entry(dev, card, sample: tuple, launches: int) -> dict:
+    """15c. The flat sample kernel against its twin (sampling.
+    flat_sample_torch, on the card) bit for bit (``_same_bits``, and the
+    cell ids equal) on tests/test_torch_flat_sample_cases.py's edge cases
+    on gap.toml's fields, sanitized and not, and on the 1M problem's
+    agents (``sample``: the step's arguments); kernel, twin and bound timed
+    there.  Returns the JSON entry, with ``launches`` from the 1M run."""
+    from pedoni_tpu_torch.field import Field, FieldMaps
+    from pedoni_tpu_torch.ops.kernels import flat_sample as fsk
+    from pedoni_tpu_torch.ops.neighbor import CellGrid
+    from pedoni_tpu_torch.ops.sampling import DeviceField, flat_sample_torch
+    from pedoni_tpu_torch.scenario import load_scenario
+
+    sc = load_scenario(GAP)
+    field = DeviceField.from_maps(FieldMaps.from_field(Field.from_scenario(sc, unit=0.25)),
+                                  dev)
+    grid = CellGrid.for_size(sc.size, 1.4)
+    cases = _cases_module()
+    checks = []
+    for n, sanitize in ((3000, True), (3000, False), (200_003, True)):
+        agents = [torch.from_numpy(x).to(dev) for x in cases.edge_case_agents(n, n % 97)]
+        checks.append((f"edge cases, {n} agents{'' if sanitize else ', unsanitized'}",
+                       (field.rows, field.hp, field.wp_cols, *agents, 0.25, 0.25, grid),
+                       {"sanitize": sanitize}))
+    args, kw = sample
+    checks.append((f"1M problem, {args[3].shape[0]} agents", args, kw))
+    errs = {}
+    for what, a, k in checks:
+        got, cid = fsk.flat_sample(*a, **k)
+        want, wcid = flat_sample_torch(*a, **k)
+        torch.cuda.synchronize()
+        try:
+            errs[what] = _same_bits(got, want)
+        except AssertionError as e:
+            raise AssertionError(f"flat_sample {what}: {e}") from None
+        if not torch.equal(cid, wcid):
+            raise AssertionError(f"flat_sample {what}: cell ids differ at "
+                                 f"{int((cid != wcid).sum())} agents")
+    packed, cid = fsk.flat_sample(*args, **kw)
+    k_ms = _median_ms(lambda: fsk.flat_sample(*args, **kw))
+    t_ms = _median_ms(lambda: flat_sample_torch(*args, **kw), n=TWIN_RUNS)
+    rows, hp, wp, pos, vel, speed, dest, active, unit = args[:9]
+    need = _needed_bytes("flat_sample", (rows, hp, wp, pos, vel, speed, dest,
+                                         active, unit), (packed, cid))
+    n = pos.shape[0]
+    b_ms, by = _bound(need, n * FLAT_SAMPLE_FLOPS)
+    print(f"# flat_sample: bit-equal to its twin on the card (max |err| 0, NaN in "
+          f"the same places, cell ids equal) on {', '.join(errs)}; on the 1M "
+          f"problem kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms (median of 20 and "
+          f"{TWIN_RUNS}, CUDA events), bound {b_ms:.4f} ms ({by}; {need / 1e6:.1f} "
+          f"MB needed, {need / n:.1f} B an agent, at {HBM_BYTES_PER_S / 1e12:.2f} "
+          f"TB/s; {b_ms / k_ms:.1%} of it) on {card}", flush=True)
+    return {"name": "flat_sample", "route": "cuda", "source": CSRC + "flat_sample.cu",
+            "replaces": "pedoni_tpu/ops/sampling.py:70 + pedoni_tpu/models/sfm.py:335 "
+                        "(XLA, no pallas_call)",
+            "path": "flat", "launches": launches, "max_abs_err": max(errs.values()),
+            "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None}
+
+
+def _row_gather_finding(card, packed: torch.Tensor, cid: torch.Tensor,
+                        order: torch.Tensor) -> dict:
+    """15e. The flat step's [N, 12] row gather after its sort, alone, on the
+    1M problem's rows and permutation: ``index_select`` (the step's),
+    ``packed[order]``, ``torch.gather`` with the index broadcast over the
+    12 channels, the same gather with a sorted order, of [N, 4] rows, of
+    the [N] cell ids, of a quarter of the rows, and a contiguous copy of
+    the same bytes (median of GATHER_RUNS, CUDA events).  PyTorch's
+    ``vectorized_gather_kernel``, which ``index_select`` reaches, launches
+    one block a row; the printed waves are rows over the blocks the card
+    holds at once (SM_COUNT x BLOCKS_PER_SM)."""
+    n = order.shape[0]
+    quarter = order[: n // 4]
+    ident = torch.arange(n, device=order.device)
+    narrow = packed[:, :4].contiguous()
+    out = {}
+    forms = (("index_select", lambda: packed.index_select(0, order)),
+             ("packed[order]", lambda: packed[order]),
+             ("torch.gather", lambda: torch.gather(packed, 0, order[:, None].expand(-1, 12))),
+             ("index_select, sorted order", lambda: packed.index_select(0, ident)),
+             ("index_select, [N, 4] rows", lambda: narrow.index_select(0, order)),
+             ("index_select, the [N] cell ids", lambda: cid.index_select(0, order)),
+             ("index_select, N / 4 rows", lambda: packed.index_select(0, quarter)),
+             ("contiguous copy of the same bytes", lambda: packed[:n].clone()))
+    for what, fn in forms:
+        out[what] = _median_ms(fn, n=GATHER_RUNS)
+    if not torch.equal(packed[order], packed.index_select(0, order)):
+        raise AssertionError("row gather: packed[order] != index_select")
+    waves = n / (SM_COUNT * BLOCKS_PER_SM)
+    print(f"# the [N, 12] row gather alone, N = {n}, 48-byte rows (median of "
+          f"{GATHER_RUNS}, CUDA events) on {card}: " + "; ".join(
+              f"{k} {v:.4f} ms" for k, v in out.items())
+          + f"; bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+          f"{2 * n * 48 / HBM_BYTES_PER_S * 1e3:.4f} ms; one block a row is "
+          f"{n} blocks, {waves:.0f} waves of {SM_COUNT} SMs x {BLOCKS_PER_SM} "
+          f"resident blocks, {out['index_select'] / waves * 1e3:.2f} us a wave",
+          flush=True)
+    return {k: v for k, v in out.items()}
 
 
 def _flat_phase(dev, card) -> dict:
     """15. The flat backend on the card (module docstring, item 15).
-    Returns the phase's numbers, with the kernel's JSON entry under
-    "kernel"."""
+    Returns the phase's numbers, with the two kernels' JSON entries under
+    "kernels"."""
     res = _flat_sim_checks(dev)
-    grid_1m = []
-    res.update(_flat_1m(dev, card, capture=grid_1m))
+    cap = {}
+    res.update(_flat_1m(dev, card, capture=cap))
     want = dict(dict.fromkeys(res["launches"], 0),
-                flat_pairwise=FLAT_WARMUP + FLAT_TIMED)
+                flat_pairwise=FLAT_WARMUP + FLAT_TIMED,
+                flat_sample=FLAT_WARMUP + FLAT_TIMED)
     if res["launches"] != want:
         raise AssertionError(f"1M flat: launches {res['launches']}, want {want}")
-    d, phys = grid_1m[0]
-    res["kernel"] = _flat_kernel_entry(dev, card, d, phys,
-                                       res["launches"]["flat_pairwise"])
-    del d, grid_1m
+    if res["tap_gathers"]:
+        raise AssertionError(f"1M flat: {res['tap_gathers']} field-tap gathers a "
+                             "step left in the profile")
+    d, phys = cap["grid"]
+    res["kernels"] = [
+        _flat_kernel_entry(dev, card, d, phys, res["launches"]["flat_pairwise"]),
+        _flat_sample_entry(dev, card, cap["sample"], res["launches"]["flat_sample"])]
+    res["row_gather_ms"] = _row_gather_finding(card, cap["packed"], cap["cid"],
+                                               cap["order"])
+    del d, cap
     torch.cuda.empty_cache()  # the 1M problem's tensors are gone
     res.update(_flat_subprocesses(card))
     _flat_model_and_quickstart(dev)
@@ -2483,8 +2693,9 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
     difference in ``n_active`` and the largest position difference written
     down; wall ms/step over them, device ms/step (profiler,
     SPATIAL_PROFILE_STEPS steps), peak memory, beside the flat step's
-    (``flat_1m``, phase 15).  Each strip-step launches the flat pair kernel
-    once, and no other kernel runs.  Returns this phase's numbers."""
+    (``flat_1m``, phase 15).  Each strip-step launches the flat sample and
+    the flat pair kernel once each, and no other kernel runs.  Returns this
+    phase's numbers."""
     from pedoni_tpu_torch.bench import build_problem
     from pedoni_tpu_torch.convert import metrics_to_dict
     from pedoni_tpu_torch.models import sfm
@@ -2578,9 +2789,10 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
         s_dev = profiled(sstep, ss, (srows, sobs), f"1M {what} (phase 18)", s_wall)
         counts = _launch_counts()
         strip_steps = (1 + SPATIAL_STEPS + SPATIAL_PROFILE_STEPS) * len(devices)
-        if counts != dict(dict.fromkeys(counts, 0), flat_pairwise=strip_steps):
+        if counts != dict(dict.fromkeys(counts, 0), flat_pairwise=strip_steps,
+                          flat_sample=strip_steps):
             raise AssertionError(f"1M {what}: launches {counts}, want "
-                                 f"flat_pairwise {strip_steps} alone")
+                                 f"flat_pairwise and flat_sample {strip_steps} alone")
         if not torch.equal(sms[:, 1], fms[:, 1]):
             raise AssertionError(f"1M {what}: n_spawned {sms[:, 1]} != flat {fms[:, 1]}")
         final = rows(strip_agents(ss))
@@ -2592,17 +2804,22 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
               f"order-free, pos/vel max |err| {err[:, 0:2].max():.3e} / "
               f"{err[:, 2:4].max():.3e}, {int((err[:, 0:2] > TOL).sum())} "
               f"positions one float apart past {TOL}, {n_near} rows in near "
-              f"contact); {counts['flat_pairwise']} flat_pairwise launches in "
+              f"contact); {counts['flat_pairwise']} flat_pairwise and "
+              f"{counts['flat_sample']} flat_sample launches in "
               f"{strip_steps} strip-steps; after "
               f"{SPATIAL_STEPS} more steps n_spawned equal, n_active "
               f"{int(sms[-1, 0])} vs flat {int(fms[-1, 0])} (difference {d_active}), "
               f"largest position difference {pos_diff:.3e} m; ms/step wall "
               f"{s_wall:.4f} (flat {f_wall:.4f}), device {s_dev:.4f} (flat "
-              f"{f_dev:.4f}), peak memory {peak} bytes above the strips' state "
+              f"{f_dev:.4f}; earlier {EARLIER_DEVICE_MS['strips']}, PERF.md), peak "
+              f"memory {peak} bytes above the strips' state "
               f"(flat {flat_1m['peak_bytes']}, phase 15); overflow last step "
               f"{int(sms[-1, 3])} (flat {int(fms[-1, 3])}) on {card}", flush=True)
         out[what] = {"ms_per_step": s_wall, "device_ms_per_step": s_dev,
-                     "peak_bytes": peak, "flat_pairwise_launches": counts["flat_pairwise"], "first_step_pos_err": float(err[:, 0:2].max()),
+                     "peak_bytes": peak,
+                     "flat_pairwise_launches": counts["flat_pairwise"],
+                     "flat_sample_launches": counts["flat_sample"],
+                     "first_step_pos_err": float(err[:, 0:2].max()),
                      "first_step_vel_err": float(err[:, 2:4].max()),
                      "near_contact_rows": n_near, "n_active_difference": d_active,
                      "position_difference": pos_diff}
@@ -2666,7 +2883,7 @@ def _fidelity_phase(dev, card) -> dict:
     counts = _launch_counts()
     print(f"# phase 19 launches {counts}", flush=True)
     runtime = ("step_kernel", "step_kernel_movers", "rebin", "rebin_incremental",
-               "flat_pairwise")
+               "flat_pairwise", "flat_sample")
     if any(counts[name] == 0 for name in runtime):
         raise AssertionError(f"phase 19 launched a runtime kernel no time: {counts}")
     out["launches"] = {name: counts[name] for name in runtime}
@@ -2772,7 +2989,7 @@ def main() -> int:
           f"{int((gs0.d[:, :, 6] > 0.5).sum())} agents binned, set-up "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     n_steps = WARMUP + TIMED
-    paths = {}
+    paths, grid_device_ms = {}, {}
     for name, incremental in (("full", False), ("hybrid", True)):
         step = sfm_grid.make_step_grid(bcfg, incremental=incremental)
         gs = gs0
@@ -2824,8 +3041,9 @@ def main() -> int:
     # the profiles come after both timed runs: a profiler once started
     # slows the host's launches for the rest of the process
     for name, (dt, counts, step, gs, n_full) in paths.items():
-        gs = _profile(step, gs, bfwp, bfobs, dt * 1e3, name, card)
+        gs, dev_ms = _profile(step, gs, bfwp, bfobs, dt * 1e3, name, card)
         paths[name] = (dt, counts, gs.d, n_full)
+        grid_device_ms[name] = dev_ms
     print(f"# 1M ms/step on {card}: hybrid {paths['hybrid'][0] * 1e3:.4f}, "
           f"full {paths['full'][0] * 1e3:.4f}", flush=True)
     packed = sk.packed_fields(bfwp, bfobs)
@@ -2956,7 +3174,7 @@ def main() -> int:
     print(f"# phase 14 (bench) took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     flat = _flat_phase(dev, card)
-    kernels.append(flat.pop("kernel"))
+    kernels.extend(flat.pop("kernels"))
     print(f"# phase 15 (flat backend) took {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
@@ -2975,9 +3193,10 @@ def main() -> int:
     fidelity["seconds"] = time.perf_counter() - t0
     print(f"# phase 19 (fidelity) took {fidelity['seconds']:.1f} s", flush=True)
     for entry in kernels:  # the forms of each kernel this run held to its twin
-        if entry["name"] not in ("pairwise", "flat_pairwise"):
+        if entry["name"] not in ("pairwise", "flat_pairwise", "flat_sample"):
             entry["tile_offsets"] = "ported"
-        if entry["name"] not in ("rebin", "rebin_incremental", "flat_pairwise"):
+        if entry["name"] not in ("rebin", "rebin_incremental", "flat_pairwise",
+                                 "flat_sample"):
             entry["k_up_to"] = big_k["k_max"]  # the largest K compared here
         if entry["name"].startswith("step_kernel"):
             entry["waypoints"] = [1, 2, 8, 33]  # W compared here (2: step 1)
@@ -2991,7 +3210,8 @@ def main() -> int:
                           "rebin_incremental": ["hybrid", "tiles", "processes",
                                                 "fidelity"],
                           "pairwise": ["standalone"],
-                          "flat_pairwise": ["flat", "strips"]}[entry["name"]]
+                          "flat_pairwise": ["flat", "strips"],
+                          "flat_sample": ["flat", "strips"]}[entry["name"]]
         if entry["name"] in pallas["kernels"]:
             entry["pallas"] = pallas["kernels"][entry["name"]]
         if entry["name"] in fidelity["launches"]:
@@ -3002,8 +3222,18 @@ def main() -> int:
     by_name = {entry["name"]: entry for entry in kernels}
     by_name["pairwise"][f"k{BIG_K}"] = {"ms": big_k["pairwise_ms"],
                                         "max_abs_err": big_k["max_abs_err"]}
-    by_name["flat_pairwise"]["strip_launches"] = {
-        what: r["flat_pairwise_launches"] for what, r in strips.items() if what != "flat"}
+    for name in ("flat_pairwise", "flat_sample"):
+        by_name[name]["strip_launches"] = {
+            what: r[f"{name}_launches"] for what, r in strips.items() if what != "flat"}
+    print("# device ms/step beside EARLIER_DEVICE_MS (PERF.md; NVIDIA H100 80GB HBM3, 700 "
+          "W): " + ", ".join(
+              f"{what} {ms:.4f} (earlier {EARLIER_DEVICE_MS[what]}, "
+              f"{ms / EARLIER_DEVICE_MS[what] - 1:+.1%})" for what, ms in (
+                  ("full", grid_device_ms["full"]), ("hybrid", grid_device_ms["hybrid"]),
+                  ("pallas", pallas["device_ms_per_step"]),
+                  ("flat", flat["device_ms_per_step"]),
+                  ("strips", strips["2 strips on one card"]["device_ms_per_step"])))
+          + f" on {card}", flush=True)
     print("# flat backend (phase 15): " + json.dumps(flat), flush=True)
     print("# pallas backend (phase 16): " + json.dumps(
         {k: v for k, v in pallas.items() if k != "kernels"}), flush=True)

@@ -33,8 +33,9 @@ import torch
 
 from ..field import PAD, FieldMaps
 from ..ops import forcepass, forces as F
-from ..ops.neighbor import CellGrid, compute_cell_ids
-from ..ops.sampling import DeviceField, sample_field
+from ..ops.kernels.flat_sample import flat_sample
+from ..ops.neighbor import CellGrid
+from ..ops.sampling import DeviceField
 from ..physics import Physics
 from ..scenario import Scenario
 
@@ -321,34 +322,20 @@ def make_step(cfg: StepConfig, generator: torch.Generator | None = None):
             ext = _concat(ext, candidates)
             n_spawned = candidates.active.sum().to(torch.int32).to(dev)
 
-        # one field-sampling pass: destination potential (despawn + goal
-        # direction) and obstacle distance, four row gathers in all
-        fs = sample_field(field_rows, map_h, map_w, ext.dest, ext.pos,
-                          cfg.field_unit)
-        e = F.safe_normalize(fs.pot_grad)
-        # despawn: arrived (sfm.rs:69) or out of the grid, where the cell
-        # id's sentinel doubles as the in-grid test
-        alive = ext.active & (fs.potential > phys.despawn_potential)
-        cid = compute_cell_ids(ext.pos, alive, grid)
+        # one pass before the sort (sampling.flat_sample_torch; on the card
+        # one launch of csrc/flat_sample.cu): the field sample, the goal
+        # direction, despawn (arrived, sfm.rs:69, or out of the grid, where
+        # the cell id's sentinel doubles as the in-grid test) and every
+        # channel packed into one [*, 12] tensor, so that the cell sort's
+        # permutation is one row gather; velocity and speed sanitized (a
+        # non-finite one would poison its 3x3 neighbourhood's pair sums)
+        packed, cid = flat_sample(field_rows, map_h, map_w, ext.pos, ext.vel,
+                                  ext.speed, ext.dest, ext.active,
+                                  cfg.field_unit, phys.despawn_potential, grid)
         alive = cid < grid.n_cells
 
-        # cell-sort and cut back to the capacity; every channel rides in
-        # one packed [*, 12] tensor, so the permutation is one row gather.
-        # Fault containment: a non-finite velocity would poison its whole
-        # 3x3 neighbourhood through 0 * NaN in the masked pair sum, and a
-        # non-finite speed the goal force; a huge finite sentinel keeps the
-        # math finite and flings the agent out of the grid, where it is
-        # despawned and counted next step (non-finite positions are dead
-        # already: NaN fails the despawn test, inf the cell-id bound).
+        # cell-sort and cut back to the capacity
         order = torch.argsort(cid, stable=True)[:c]
-        vel_f = torch.where(ext.vel.abs() < 2.0 ** 30, ext.vel, 2.0 ** 30)
-        speed_f = torch.where(ext.speed.abs() < 2.0 ** 30, ext.speed, 2.0 ** 30)
-        packed = torch.cat([
-            ext.pos, vel_f, speed_f[:, None],
-            ext.dest.to(torch.float32)[:, None],
-            alive.to(torch.float32)[:, None],
-            e, fs.obs_dist[:, None], fs.obs_grad,
-        ], dim=1)
         sp = packed.index_select(0, order)
         cid_sorted = cid.index_select(0, order)
         agents = AgentState(pos=sp[:, 0:2], vel=sp[:, 2:4], speed=sp[:, 4],

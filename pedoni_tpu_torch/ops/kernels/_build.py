@@ -108,6 +108,11 @@ def library() -> ctypes.CDLL:
         lib.pedoni_pairwise.restype = i
         lib.pedoni_flat_pairwise.argtypes = [p, p] + [i] * 3 + [p, p]
         lib.pedoni_flat_pairwise.restype = i
+        lib.pedoni_flat_pairwise_tile.argtypes = [i, p]
+        lib.pedoni_flat_pairwise_tile.restype = i
+        q = ctypes.c_int64
+        lib.pedoni_flat_sample.argtypes = [p] * 8 + [q, q] + [i] * 5 + [p] * 3
+        lib.pedoni_flat_sample.restype = i
         _lib = lib
         return lib
 

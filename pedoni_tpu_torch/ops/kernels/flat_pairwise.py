@@ -10,6 +10,10 @@ it runs ``forcepass.dense_pairwise_torch``, the twin, which sums each
 slot's candidates in the kernel's order, so that the two agree bit for
 bit on the card.
 
+The kernel's block is a tile of cells with its one-cell halo in shared
+memory; the kernel's launcher picks the tile from K (``tile_shape`` asks
+it which), so that several blocks share an SM.
+
 The reference has no pallas_call here: XLA fuses its ``lax.map`` over row
 blocks (pedoni_tpu/ops/forcepass.py:141).  The flat step and the x-strips
 call it through ``forcepass.dense_pairwise``, once a step (a strip-step).
@@ -17,12 +21,24 @@ call it through ``forcepass.dense_pairwise``, once a step (a strip-step).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ...physics import Physics
 from ..forces import EPS
 from ..neighbor import CellGrid
 from . import _build
+
+
+def tile_shape(k: int) -> tuple[int, int, int, int]:
+    """(tile rows, tile columns, threads, shared memory bytes) of the
+    kernel's launch at K, as csrc/flat_pairwise.cu picks it; builds the
+    kernels' library, so it needs nvcc."""
+    shape = (ctypes.c_int * 4)()
+    if _build.library().pedoni_flat_pairwise_tile(k, shape) != 0:
+        raise ValueError(f"flat_pairwise: unsupported K {k} (1 <= K <= 255)")
+    return tuple(shape)
 
 
 def flat_constants(phys: Physics) -> list[float]:

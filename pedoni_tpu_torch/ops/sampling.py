@@ -12,6 +12,12 @@ Coordinates: world position ``pos`` (m) maps to unpadded grid coords
 ``pos / unit - 0.5`` (field.rs:236 half-cell offset), plus PAD for the
 padded maps.  Positions out of range clamp into the 1e12 ring, the
 reference's out-of-bounds semantics.
+
+``flat_sample_torch`` is the flat step's whole pre-sort phase around the
+sample (the reference's models/sfm.py:335-373 up to its sort): goal
+direction, despawn test, cell id and the packed [N, 12] rows.  It is the
+twin of ``csrc/flat_sample.cu`` (``ops/kernels/flat_sample.py``), which
+computes it in one launch on the card, bit for bit.
 """
 
 from __future__ import annotations
@@ -22,7 +28,12 @@ import numpy as np
 import torch
 
 from ..field import PAD, FieldMaps
-from .neighbor import true_divide
+from .forces import safe_normalize
+from .neighbor import CellGrid, compute_cell_ids, true_divide
+
+# |vel| and |speed| at or past this (or non-finite) become it in the packed
+# rows (the flat step's fault containment, see ``flat_sample_torch``)
+SANITIZE_LIMIT = 2.0 ** 30
 
 
 class FieldSample(NamedTuple):
@@ -85,3 +96,37 @@ def sample_field(flat: torch.Tensor, hp: int, wp: int, dest: torch.Tensor,
     v = top + ty * (bot - top)  # [N, 8]
     return FieldSample(potential=v[:, 0], pot_grad=v[:, 1:3], obs_dist=v[:, 3],
                        obs_grad=v[:, 4:6])
+
+
+def flat_sample_torch(rows: torch.Tensor, hp: int, wp: int, pos: torch.Tensor,
+                      vel: torch.Tensor, speed: torch.Tensor, dest: torch.Tensor,
+                      active: torch.Tensor, unit: float, despawn_potential: float,
+                      grid: CellGrid, sanitize: bool = True
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flat step before its sort: (packed [N, 12] f32 rows, cell id
+    [N] i32).  One field sample an agent (``sample_field``), its goal
+    direction e (``safe_normalize`` of the potential's gradient), the
+    despawn test (arrived: potential <= ``despawn_potential``, sfm.rs:69;
+    or out of ``grid``, where the cell id's sentinel doubles as the in-grid
+    test), and the rows 0:2 pos, 2:4 vel, 4 speed, 5 dest, 6 alive, 7:9 e,
+    9 obstacle distance, 10:12 its Sobel.  With ``sanitize`` (the flat
+    step) a non-finite velocity or speed, or one of magnitude 2^30 or
+    more, becomes 2^30: it would poison its whole 3x3 neighbourhood
+    through 0 * NaN in the masked pair sum, or the goal force; the finite
+    sentinel flings the agent out of the grid instead, where it is
+    despawned and counted next step (non-finite positions are dead
+    already: NaN fails the despawn test, inf the cell-id bound).  The
+    x-strips pack unsanitized rows (``sanitize=False``)."""
+    fs = sample_field(rows, hp, wp, dest, pos, unit)
+    e = safe_normalize(fs.pot_grad)
+    alive = active & (fs.potential > despawn_potential)
+    cid = compute_cell_ids(pos, alive, grid)
+    alive = cid < grid.n_cells
+    if sanitize:
+        vel = torch.where(vel.abs() < SANITIZE_LIMIT, vel, SANITIZE_LIMIT)
+        speed = torch.where(speed.abs() < SANITIZE_LIMIT, speed, SANITIZE_LIMIT)
+    packed = torch.cat([
+        pos, vel, speed[:, None], dest.to(torch.float32)[:, None],
+        alive.to(torch.float32)[:, None], e, fs.obs_dist[:, None], fs.obs_grad,
+    ], dim=1)
+    return packed, cid

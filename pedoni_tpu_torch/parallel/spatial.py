@@ -3,8 +3,9 @@ between neighbour strips.
 
 Counterpart of pedoni_tpu/parallel/spatial.py, the reference's round-1
 multi-device path for its XLA backend (the reference's spatial step runs
-no ``pallas_call``; here each strip's pair pass is the flat step's, one
-launch of the flat pair kernel, csrc/flat_pairwise.cu, on a card).  The
+no ``pallas_call``; here each strip runs the flat step's two kernels on
+a card, one launch each a strip-step: csrc/flat_sample.cu before the
+packages, csrc/flat_pairwise.cu for the pair pass).  The
 field is split into D vertical strips along x; strip d owns the agents
 inside [d * w / D, (d + 1) * w / D) (the last also everything to its
 right) as a fixed-capacity flat shard on its device.  A step, for every
@@ -15,7 +16,8 @@ strip of this process (``step``):
               seed, the reference's replicated key) or injected, and claims
               those in its strip;
 2. despawn -- one field sample (potential, goal direction, obstacle
-              distance), which rides in the packed rows;
+              distance) and the packed rows, the flat step's pass before
+              its sort (one launch of csrc/flat_sample.cu on a card);
 3. package -- emigrants first, then agents within the halo (the 2 m
               interaction cutoff) of a strip edge, compacted into a
               fixed-size package for each neighbour and sent through the
@@ -57,8 +59,8 @@ from ..models.sfm import (AgentState, SimState, StepConfig, StepMetrics,
                           device_inputs as flat_device_inputs,
                           make_initial_state, spawn_sampler)
 from ..ops import forcepass, forces as F
+from ..ops.kernels.flat_sample import flat_sample
 from ..ops.neighbor import CellGrid, true_divide
-from ..ops.sampling import sample_field
 from ..scenario import loads_scenario
 from .transport import Local, Transport, all_reduce_metrics, check_replicated
 
@@ -152,12 +154,6 @@ def device_inputs(scfg: ShardedConfig, maps: FieldMaps,
     return [p[0] for p in pairs], [p[1] for p in pairs]
 
 
-def _pack(pos, vel, speed, dest, alive, e, dist, dgrad) -> torch.Tensor:
-    return torch.cat([pos, vel, speed[:, None], dest.to(torch.float32)[:, None],
-                      alive.to(torch.float32)[:, None], e, dist[:, None], dgrad],
-                     dim=1)
-
-
 def _unpack(rows: torch.Tensor) -> AgentState:
     return AgentState(pos=rows[:, 0:2], vel=rows[:, 2:4], speed=rows[:, 4],
                       dest=rows[:, 5].to(torch.int32), active=rows[:, 6] > 0.5)
@@ -243,17 +239,14 @@ def make_sharded_step(scfg: ShardedConfig, devices: Sequence[torch.device | str]
             cand = cand._replace(active=cand.active & (cx >= x_lo) & (cx < claim_hi))
             n_spawned = cand.active.sum().to(torch.int32)
             agents = AgentState(*(torch.cat([a, c]) for a, c in zip(agents, cand)))
-        pos = agents.pos
-        fs = sample_field(field_rows, map_h, map_w, agents.dest, pos,
-                          cfg.field_unit)
-        e = F.safe_normalize(fs.pot_grad)
-        gx = torch.floor(true_divide(pos[:, 0], unit))
-        gy = torch.floor(true_divide(pos[:, 1], unit))
-        in_global = (gx >= 0) & (gx < cfg.grid.nx) & (gy >= 0) & (gy < cfg.grid.ny)
-        alive = agents.active & (fs.potential > phys.despawn_potential) & in_global
-        rows = _pack(pos, agents.vel, agents.speed, agents.dest, alive, e,
-                     fs.obs_dist, fs.obs_grad)
-        x = pos[:, 0]
+        # the flat step's pass before its sort (csrc/flat_sample.cu on a
+        # card), unsanitized: alive = not arrived and inside the global grid
+        rows, cid = flat_sample(field_rows, map_h, map_w, agents.pos, agents.vel,
+                                agents.speed, agents.dest, agents.active,
+                                cfg.field_unit, phys.despawn_potential, cfg.grid,
+                                sanitize=False)
+        alive = cid < cfg.grid.n_cells
+        x = agents.pos[:, 0]
         stays = (x >= x_lo) & (x < claim_hi)
         emig_l = alive & ~stays & (x < x_lo)
         emig_r = alive & ~stays & (x >= x_lo)

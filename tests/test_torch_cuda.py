@@ -3,8 +3,8 @@ the step kernel (base, mover and segment modes, field strides 6 and 8, and
 grids built to break its cell tiles), the full and the incremental rebin
 (and the grids of tests/test_torch_rebin_cases.py, built to break their
 tiles and bit masks), the device gate that makes the hybrid step's choice,
-the standalone pairwise kernel, and the flat pair kernel (with a flat step
-on the card against the CPU).
+the standalone pairwise kernel, the flat pair kernel up to K 255 and the
+flat sample kernel (with a flat step on the card against the CPU).
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports neither JAX nor the
 reference package, so it runs on a machine with only PyTorch:
@@ -26,11 +26,13 @@ from pedoni_tpu_torch.field import Field, FieldMaps
 from pedoni_tpu_torch.models import sfm_grid
 from pedoni_tpu_torch.models.sfm import SimState, StepConfig
 from pedoni_tpu_torch.ops.kernels import flat_pairwise as fpk
+from pedoni_tpu_torch.ops.kernels import flat_sample as fsk
 from pedoni_tpu_torch.ops.kernels import pairwise as pw
 from pedoni_tpu_torch.ops.kernels import rebin as rb
 from pedoni_tpu_torch.ops.kernels import step_kernel as sk
 from pedoni_tpu_torch.ops.kernels import tiles
 from pedoni_tpu_torch.physics import Physics
+from test_torch_flat_sample_cases import edge_case_agents
 from test_torch_rebin_cases import CASES, rebin_case
 
 SCENARIOS = pathlib.Path(__file__).resolve().parents[1] / "scenarios"
@@ -960,18 +962,27 @@ def test_spatial_strips_on_the_card():
         assert sum(int(x.active.sum()) for x in ss.agents) == int(fm.n_active) > 30
 
 
-def _flat_grid(ny: int, nx: int, k: int, seed: int) -> torch.Tensor:
+def _flat_grid(ny: int, nx: int, k: int, seed: int,
+               scattered: bool = False) -> torch.Tensor:
     """A seeded padded grid [ny+2, nx+2, K, 8] on the card, as
     forcepass.scatter_cell_data lays one out: each cell filled from slot 0
     (a fifth of them empty), cells up to full, 5% of the filled slots
-    inactive, agents in the ring too."""
+    inactive, agents in the ring too.  ``scattered``: positions anywhere
+    within 3 cells of their own (no cell holds only its own), a few NaN
+    and infinite, so that the kernel's per-cell box cull meets boxes that
+    overlap and boxes with non-finite corners."""
     rng = np.random.default_rng(seed)
     d = np.zeros((ny + 2, nx + 2, k, 8), np.float32)
     count = rng.integers(0, k + 1, (ny + 2, nx + 2)) * (
         rng.uniform(size=(ny + 2, nx + 2)) < 0.8)
     r, c, j = np.nonzero(np.arange(k)[None, None] < count[..., None])
-    d[r, c, j, 0] = (c - 1 + rng.uniform(size=r.size)) * 1.4
-    d[r, c, j, 1] = (r - 1 + rng.uniform(size=r.size)) * 1.4
+    spread = rng.uniform(-3.0, 4.0, (2, r.size)) if scattered else rng.uniform(
+        size=(2, r.size))
+    d[r, c, j, 0] = (c - 1 + spread[0]) * 1.4
+    d[r, c, j, 1] = (r - 1 + spread[1]) * 1.4
+    if scattered:
+        odd = rng.choice(r.size, 8, replace=False)
+        d[r[odd], c[odd], j[odd], odd % 2] = [np.nan, np.inf, -np.inf, 1e30] * 2
     d[r, c, j, 2:4] = rng.normal(0, 0.8, (r.size, 2))
     e = rng.normal(0, 1, (r.size, 2))
     d[r, c, j, 4:6] = e / np.linalg.norm(e, axis=1, keepdims=True)
@@ -980,20 +991,25 @@ def _flat_grid(ny: int, nx: int, k: int, seed: int) -> torch.Tensor:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ny, nx, k", [(30, 40, 14), (24, 37, 16), (10, 12, 64),
-                                       (17, 131, 14), (452, 229, 14)],
-                         ids=["K14", "K16", "K64", "ragged_nx", "strip"])
-def test_flat_pairwise_matches_twin(ny, nx, k):
+@pytest.mark.parametrize("ny, nx, k, scattered",
+                         [(30, 40, 14, False), (24, 37, 16, False), (10, 12, 64, False),
+                          (6, 7, 255, False), (17, 131, 14, False),
+                          (452, 229, 14, False), (30, 40, 14, True), (8, 9, 64, True)],
+                         ids=["K14", "K16", "K64", "K255", "ragged_nx", "strip",
+                              "scattered_K14", "scattered_K64"])
+def test_flat_pairwise_matches_twin(ny, nx, k, scattered):
     """The flat pair kernel (csrc/flat_pairwise.cu) against its twin
     (forcepass.dense_pairwise_torch) on the card, bit for bit on the whole
-    padded tensor, ring included; the last case is one of two x-strips'
-    windows of the 1M xla problem.  One launch counted."""
+    padded tensor, ring and inactive slots included; each K takes its own
+    tile shape (1 x 1 at K 255); the last case is one of two x-strips'
+    windows of the 1M xla problem; the scattered cases hold agents off
+    their cells, some at non-finite positions.  One launch counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from pedoni_tpu_torch.ops import forcepass
     from pedoni_tpu_torch.ops.neighbor import CellGrid
 
-    d = _flat_grid(ny, nx, k, seed=k + nx)
+    d = _flat_grid(ny, nx, k, seed=k + nx, scattered=scattered)
     phys = Physics()
     before = fpk.flat_pairwise.launches
     got = fpk.flat_pairwise(d, phys)
@@ -1007,6 +1023,80 @@ def test_flat_pairwise_matches_twin(ny, nx, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 14, 16, 64, 255])
+def test_flat_pairwise_tile_fits_the_block(k):
+    """The flat pair kernel's launch at K as its launcher picks it
+    (csrc/flat_pairwise.cu flat_tile, asked through tile_shape): at every K
+    up to 255 its shared memory within 64 KB, its halo slots indexable by
+    the kernel's 16-bit list, threads a multiple of 32 up to 256 and no
+    more than its slots need; the preferred 4 x 8 tile at the 1M problem's
+    K 14, and the shared memory laid out as the kernel's comment says."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    for kk in range(1, 256):
+        tr, tc, threads, smem = fpk.tile_shape(kk)
+        assert smem <= 64 * 1024
+        assert (tr + 2) * (tc + 2) * kk < 1 << 16
+        assert threads % 32 == 0 and 32 <= threads <= 256
+        assert threads <= max(32, -(-tr * tc * kk // 32) * 32)
+    for bad in (0, 256):
+        with pytest.raises(ValueError, match="unsupported K"):
+            fpk.tile_shape(bad)
+    tr, tc, threads, smem = fpk.tile_shape(k)
+    assert (tr, tc) == {1: (4, 8), 14: (4, 8), 16: (4, 8), 64: (2, 4),
+                        255: (1, 1)}[k]
+    halo = (tr + 2) * (tc + 2)
+    assert smem == (10 * tr * tc * k + 20 * halo * k + 20 * halo + 128
+                    + 2 * 32 * threads)
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN in the same places, every other value bit for bit."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, sanitize, strided", [(3000, True, False),
+                                                  (3000, False, False),
+                                                  (200_003, True, True)],
+                         ids=["edges", "strips", "ragged_strided"])
+def test_flat_sample_matches_twin(n, sanitize, strided):
+    """The flat sample kernel (csrc/flat_sample.cu) against its twin
+    (sampling.flat_sample_torch) on the card, on gap.toml's two waypoint
+    planes and tests/test_torch_flat_sample_cases.py's agents (off the map,
+    non-finite, on cell boundaries, huge velocities and speeds, dest past
+    the planes): the 12 packed channels bit for bit (NaN where the twin's
+    is), the cell ids equal; with and without sanitizing, and from strided
+    views of the agents.  One launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pedoni_tpu_torch.ops.neighbor import CellGrid
+    from pedoni_tpu_torch.ops.sampling import DeviceField, flat_sample_torch
+
+    sc = load_scenario(GAP)
+    field = DeviceField.from_maps(FieldMaps.from_field(Field.from_scenario(sc, unit=0.25)),
+                                  "cuda")
+    grid = CellGrid.for_size(sc.size, 1.4)
+    pos, vel, speed, dest, act = (torch.from_numpy(x).cuda()
+                                  for x in edge_case_agents(n, n % 97))
+    if strided:
+        rows = torch.cat([pos, vel, speed[:, None]], 1)
+        pos, vel, speed = rows[:, 0:2], rows[:, 2:4], rows[:, 4]
+    args = (field.rows, field.hp, field.wp_cols, pos, vel, speed, dest, act, 0.25,
+            Physics().despawn_potential, grid, sanitize)
+    before = fsk.flat_sample.launches
+    got, cid = fsk.flat_sample(*args)
+    want, wcid = flat_sample_torch(*args)
+    torch.cuda.synchronize()
+    assert fsk.flat_sample.launches == before + 1
+    assert _same_bits(got, want), float((got - want).abs().nan_to_num().max())
+    assert torch.equal(cid, wcid)
+    assert 0 < int((cid < grid.n_cells).sum()) < n
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["distance_map", "segments"])
 def test_flat_step_on_the_card_equals_the_cpu(mode):
     """Three flat steps (models/sfm.py::make_step), each on the card and on
@@ -1016,7 +1106,7 @@ def test_flat_step_on_the_card_equals_the_cpu(mode):
     kernel equals its twin bit for bit on the card, but expf and sqrtf
     there and the CPU's exp elsewhere differ by ulps, which near contact
     the pair formula magnifies); the flat pair kernel launched once a step
-    on the card, never on the CPU."""
+    on the card, never on the CPU, and so the flat sample kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from pedoni_tpu_torch.models import sfm
@@ -1043,15 +1133,16 @@ def test_flat_step_on_the_card_equals_the_cpu(mode):
         cand = sfm.spawn_candidates(cfg, gen)
         out = {}
         for dev, (step, rows, obstacles) in steps.items():
-            before = fpk.flat_pairwise.launches
+            before = (fpk.flat_pairwise.launches, fsk.flat_sample.launches)
             new, m = step(SimState(st.agents.to(dev), st.step), rows, obstacles,
                           cand.to(dev))
             out[dev] = ({k: int(v) for k, v in m._asdict().items()},
                         [t.cpu().numpy() for t in new.agents],
-                        fpk.flat_pairwise.launches - before, new)
+                        (fpk.flat_pairwise.launches - before[0],
+                         fsk.flat_sample.launches - before[1]), new)
         st_in = st
         (gm, ga, gl, _), (wm, wa, wl, st) = out["cuda"], out["cpu"]
-        assert gm == wm and (gl, wl) == (1, 0)
+        assert gm == wm and (gl, wl) == ((1, 1), (0, 0))
         np.testing.assert_allclose(ga[0], wa[0], rtol=0, atol=1e-5)  # pos
         near = _near_contact(st_in.agents, cand, wa[2])
         assert near.sum() <= 0.01 * near.size
