@@ -64,10 +64,12 @@ device time is below the full path's.
 
     python ab_step.py --parent DIR --flat-paths
 
-times, in the same turns, the two paths that place flat agents into cells
-(``forcepass.build_layout``) instead: chip_smoke.py's 1M flat (xla) and
-1M pallas measurements (phases 15 and 16), host-clock and profiled device
-ms/step, launches a step and peak memory.
+times, in the same turns, the paths that place flat agents into cells
+instead: chip_smoke.py's 1M flat (xla) and 1M pallas measurements
+(phases 15 and 16), the 1M xla problem in 2 x-strips on one card
+(phase 18's cut), host-clock and profiled device ms/step, launches a step
+and peak memory; and, as a control, the grid step's full path and hybrid
+on the 1M bench problem (chip_smoke.py step 4), profiled device ms/step.
 """
 
 from __future__ import annotations
@@ -87,6 +89,7 @@ CROSSOVER_TICKS = 300  # ticks before a shipped scenario's state is timed
 COMMON_STATE = HERE / ".scratch" / "ab_random_toml_state.pt"
 FLAT_PATH_KEYS = ("ms_per_step", "device_ms_per_step", "launches_per_step",
                   "peak_bytes")
+GRID_PATHS = ("full", "hybrid")  # the --flat-paths control, device ms/step
 # agents/m^2 of the --density sweep: the reference's 0.5 / 1.0 / 2.5 / 5.0,
 # the switch of the auto rule (0.78: lambda = 1.75 at 1.5 m) and 1.5
 DENSITIES = (0.5, 0.78, 1.0, 1.5, 2.5, 5.0)
@@ -216,13 +219,95 @@ def worker_flat_paths(tree: str) -> int:
     _build.library()
     res = {"tree": tree}
     for name, measure in (("flat", chip_smoke._flat_1m),
-                          ("pallas", chip_smoke._pallas_1m)):
+                          ("pallas", chip_smoke._pallas_1m),
+                          ("strips", _strips_1m)):
         got = measure(dev, card)
         for key in FLAT_PATH_KEYS:
             res[f"{name}_{key}"] = got[key]
         torch.cuda.empty_cache()
+    res.update(_grid_1m(dev, card))
     print(json.dumps(res), flush=True)
     return 0
+
+
+def _strips_1m(dev, card) -> dict:
+    """The 1M xla problem in 2 x-strips on one card (chip_smoke.py phase
+    18's cut): chip_smoke.py's flat warm-up and timed steps on the host
+    clock, peak memory above the strips' state, then its flat profile
+    steps under torch.profiler: device ms/step and launches a step."""
+    import time
+
+    import torch
+
+    import chip_smoke
+    from pedoni_tpu_torch.bench import build_problem
+    from pedoni_tpu_torch.models import sfm
+    from pedoni_tpu_torch.parallel import spatial
+
+    _sc, maps, cfg, flat = build_problem(chip_smoke.N_AGENTS, device=dev,
+                                         backend="xla")
+    devices = [dev, dev]
+    scfg = spatial.ShardedConfig.build(cfg, len(devices))
+    srows, sobs = spatial.device_inputs(scfg, maps, devices)
+    ss = spatial.shard_state(scfg, flat, devices)
+    del flat
+    step = spatial.make_sharded_step(scfg, devices)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(chip_smoke.FLAT_WARMUP):
+        ss = step(ss, srows, sobs)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(chip_smoke.FLAT_TIMED):
+        ss = step(ss, srows, sobs)[0]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / chip_smoke.FLAT_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    box = [ss]
+
+    def run():
+        box[0] = step(box[0], srows, sobs)[0]
+
+    us, launches = chip_smoke._profile_counts(run, chip_smoke.FLAT_PROFILE_STEPS)
+    dev_ms = sum(us.values()) / 1e3
+    n_active = sum(int(a.active.sum()) for a in box[0].agents)
+    print(f"# 1M xla problem in 2 strips on one card: {wall:.4f} ms/step wall, "
+          f"{dev_ms:.4f} device, {sum(launches.values()):.1f} launches a step, "
+          f"{n_active} active, peak {peak} bytes above the state on {card}",
+          file=sys.stderr, flush=True)
+    return {"ms_per_step": wall, "device_ms_per_step": dev_ms,
+            "launches_per_step": sum(launches.values()), "peak_bytes": peak}
+
+
+def _grid_1m(dev, card) -> dict:
+    """The grid step on the 1M bench problem, full path and hybrid
+    (chip_smoke.py step 4): its warm-up steps, then PROFILE_STEPS under
+    torch.profiler; device ms/step of each."""
+    import torch
+
+    import chip_smoke
+    from pedoni_tpu_torch.bench import build_problem
+    from pedoni_tpu_torch.models import sfm_grid
+
+    _sc, maps, cfg, flat = build_problem(chip_smoke.N_AGENTS, device=dev)
+    fwp, fobs = sfm_grid.field_tensors(cfg, maps, dev)
+    gs0 = sfm_grid.bin_state(cfg, flat)
+    del flat
+    out = {}
+    for name in GRID_PATHS:
+        step = sfm_grid.make_step_grid(cfg, incremental=name == "hybrid")
+        gs = gs0
+        for _ in range(chip_smoke.WARMUP):
+            gs = step(gs, fwp, fobs)[0]
+        box = [gs]
+
+        def run():
+            box[0] = step(box[0], fwp, fobs)[0]
+
+        us, _ = chip_smoke._profile_counts(run, chip_smoke.PROFILE_STEPS)
+        out[f"grid_{name}_device_ms_per_step"] = sum(us.values()) / 1e3
+    return out
 
 
 def _spread_rows(n: int, size, seed: int) -> list[tuple]:
@@ -428,8 +513,9 @@ def main() -> int:
         turns.append(line)
         print(json.dumps(line), flush=True)
     if args.flat_paths:
-        _summary(turns, [f"{p}_{k}" for p in ("flat", "pallas")
-                         for k in FLAT_PATH_KEYS], card)
+        _summary(turns, [*(f"{p}_{k}" for p in ("flat", "pallas", "strips")
+                           for k in FLAT_PATH_KEYS),
+                         *(f"grid_{p}_device_ms_per_step" for p in GRID_PATHS)], card)
         return 0
     keys = ("step_kernel_ms", "step_kernel_movers_ms", "rebin_ms",
             "rebin_incremental_ms", "full_ms_per_step", "hybrid_ms_per_step")

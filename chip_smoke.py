@@ -95,10 +95,13 @@ nvcc, one process per source, then:
    subprocess: exit 0, exactly one JSON line, value > 0, its ``device`` this
    card, and the hybrid's kernels launched in its timed rounds;
 15. the flat backend (``backend="xla"``, the default since it was ported),
-   which launches the flat sample kernel (csrc/flat_sample.cu: field taps,
-   despawn, cell id, packed rows) once a step and the flat pair kernel
-   (csrc/flat_pairwise.cu) once a step, and no other kernel: every run
-   below is held to exactly that (no pair kernel in all-pairs mode).  gap.toml through
+   which launches four kernels once each a step and no other: the flat
+   sample kernel (csrc/flat_sample.cu: field taps, despawn, cell id, packed
+   rows), after the sort the flat scatter kernel (csrc/flat_scatter.cu:
+   sorted rows, cell layout, padded cell grid), the flat pair kernel
+   (csrc/flat_pairwise.cu) and the flat integrate kernel
+   (csrc/flat_integrate.cu: force sum, integration); every run below is
+   held to exactly that (no pair kernel in all-pairs mode).  gap.toml through
    ``Simulator`` evacuates within 400 ticks at the 1.4 m unit; one flat
    step on the card against the same step on the CPU from the same state
    and candidates (pos/vel within 1e-5, every metric and the rest equal)
@@ -107,11 +110,11 @@ nvcc, one process per source, then:
    ``set_sync_debug_mode("error")``; the 1M xla bench problem (square
    field, 452 x 452 cells of 1.4 m): ms/step on the host clock over steps
    run under ``set_sync_debug_mode("error")``, the launch counts zeroed
-   before and read after, device ms/step, launches a step, busy share, the
-   ten dearest kernels and the [N, 12] row gather's us/step from
-   ``torch.profiler`` (no field-tap gather of [R, 8] rows left in it),
-   beside the step's before its two kernels, peak memory; the [N, 12]
-   row gather alone
+   before and read after, device ms/step, launches a step, busy share and
+   the ten dearest kernels from ``torch.profiler`` (no gather of the
+   field's [R, 8] rows nor of [N, 12] agent rows left in it), beside the
+   step's before its scatter and integrate kernels, peak memory; the
+   [N, 12] row gather alone
    (``index_select``, ``packed[order]``, ``torch.gather``, a sorted order,
    narrower rows, fewer rows, and a contiguous copy of the same bytes),
    with the cause of its cost; the flat pair kernel against its twin
@@ -121,7 +124,16 @@ nvcc, one process per source, then:
    kernel against its twin bit for bit (12 channels, NaN where the twin's
    is, and the cell ids) on tests/test_torch_flat_sample_cases.py's edge
    cases, with and without sanitizing, and on the 1M problem's agents,
-   and there kernel, twin and bound timed; ``python -m
+   and there kernel, twin and bound timed; the flat scatter kernel
+   against its twin bit for bit (every output, the padded grid whole) on
+   tests/test_torch_flat_scatter_cases.py's cases (cells past K, the
+   sentinel run, holes, N > C, NaN and inf rows, K 255, a ragged nx, an
+   x-strip's window; also without cells and with the pallas slot grid's
+   strides) and on the 1M problem's sorted agents, and the flat
+   integrate kernel against its twin bit for bit on those cases' rows in
+   each obstacle and pair mode and on the 1M problem's, each timed there
+   with its twin and bound (the row gather alone as the scatter's library
+   call); ``python -m
    pedoni_tpu_torch.bench --backend xla``, the CLI on gap.toml with ``-b
    auto`` and ``-b xla`` (population 0, model ``sfm-torch/xla``) and
    ``python -m pedoni_tpu_torch.entry`` as subprocesses;
@@ -167,8 +179,8 @@ nvcc, one process per source, then:
    kernels) and the cross-rank exchanges' ms a step, beside phase 10's
    one-process numbers for the same tiling;
 18. the 1M xla problem (phase 15's) cut into x-strips
-   (parallel/spatial.py; one flat sample and one flat pair kernel launch
-   a strip-step, and no other kernel's): 2 strips on this card, and one
+   (parallel/spatial.py; one launch of each of the four flat kernels a
+   strip-step, and no other kernel's): 2 strips on this card, and one
    strip a card where there are more: the first step from the same state
    equal to the flat step's (every metric; rows order-free, velocities
    within TOL, NEAR_CONTACT_VEL_TOL in near contact, positions within TOL
@@ -177,8 +189,8 @@ nvcc, one process per source, then:
    difference and the largest position difference printed); wall and
    device ms/step and peak memory beside the flat step's;
 19. the fidelity harness (pedoni_tpu_torch/fidelity.py), launch counts
-   zeroed before and read after (each runtime kernel launched, the flat
-   sample and pair kernels among them): gap.toml
+   zeroed before and read after (each runtime kernel launched, the four
+   flat kernels among them): gap.toml
    through the ``Simulator`` of ``xla``, ``grid`` and ``pallas`` at seeds
    1-8, every count in the reference's band [160, 340] and each backend's
    mean within three standard errors of the reference's record, 246 +- 22
@@ -230,6 +242,11 @@ FLAT_PAIR_FLOPS = 63
 # three lerps of six channels, the normalisation, the cell id and the tests,
 # each counted once)
 FLAT_SAMPLE_FLOPS = 60
+# float operations of one agent of csrc/flat_integrate.cu (the goal term, the
+# obstacle term, the two adds of the sum and the integration with its clamp,
+# each counted once); csrc/flat_scatter.cu does none (copies and integers)
+FLAT_INTEGRATE_FLOPS = 42
+FLAT_KERNELS = ("flat_sample", "flat_scatter", "flat_pairwise", "flat_integrate")
 SPIN_CYCLES = 2_000_000  # ~1 ms of device clock ahead of each timed run
 TWIN_RUNS = 5  # runs of a plain PyTorch twin timed (tens of ms to seconds each)
 PROFILE_STEPS = 24  # a multiple of the compaction period of 8
@@ -299,11 +316,11 @@ FIRST_DESIGN_MS = {"hybrid": 1.0674, "full": 0.9188, "step_kernel": 0.7499,
                    "step_kernel_segments_random_toml": 0.7328,
                    "pairwise": 0.5632, "flat_pairwise": 1.1263}
 # Each path's device ms/step (and the flat step's launches a step) before
-# the flat step's sample kernel and its pair kernel's second design, from
-# this script's run then (PERF.md section 5; NVIDIA H100 80GB HBM3, 700 W),
-# printed beside this run's; nothing is gated on them
-EARLIER_DEVICE_MS = {"full": 0.4357, "hybrid": 0.4823, "pallas": 1.1465,
-                  "flat": 6.0600, "flat_launches": 181.0, "strips": 10.0853}
+# the flat step's scatter and integrate kernels, from this script's run then
+# (PERF.md section 5; NVIDIA H100 80GB HBM3, 700 W), printed beside this
+# run's; nothing is gated on them
+EARLIER_DEVICE_MS = {"full": 0.4329, "hybrid": 0.4805, "pallas": 1.1478,
+                  "flat": 2.2282, "flat_launches": 99.5, "strips": 6.4066}
 GATHER_RUNS = 20  # timed runs of each form of the [N, 12] row gather
 # tests/test_rebin_incremental.py's spawning scenario
 SPAWN_SCENARIO = """
@@ -1731,8 +1748,9 @@ def _flat_vs_cpu(dev, what, sc, cfg_kw, agents, cand=None) -> float:
     """One flat step on the card against the same step on the CPU from the
     same state and candidates: slot by slot (the sort's cell ids come
     from the same IEEE divide on both), pos/vel within TOL, the rest and
-    every metric equal; the card's step launches the flat sample kernel
-    once, the flat pair kernel once (none in all-pairs mode) and no other.
+    every metric equal; the card's step launches the flat sample, scatter
+    and integrate kernels once each, the flat pair kernel once (none in
+    all-pairs mode) and no other.
     Returns the max |err|."""
     from pedoni_tpu_torch.field import Field, FieldMaps
     from pedoni_tpu_torch.models import sfm
@@ -1751,8 +1769,8 @@ def _flat_vs_cpu(dev, what, sc, cfg_kw, agents, cand=None) -> float:
                     {k: int(v) for k, v in m._asdict().items()}))
     (got, gm), (want, wm) = out
     counts = _launch_counts()
-    if counts != dict(dict.fromkeys(counts, 0), flat_sample=1,
-                      flat_pairwise=int(cfg.use_neighbor_grid)):
+    if counts != dict(dict.fromkeys(counts, 0), flat_sample=1, flat_scatter=1,
+                      flat_integrate=1, flat_pairwise=int(cfg.use_neighbor_grid)):
         raise AssertionError(f"flat step {what}: launches {counts}")
     err = float(np.abs(got[:, :4] - want[:, :4]).max())
     if gm != wm or err > TOL or not np.array_equal(got[:, 4:], want[:, 4:]):
@@ -1773,9 +1791,9 @@ def _flat_sim_checks(dev) -> dict:
     from pedoni_tpu_torch.models import sfm
     from pedoni_tpu_torch.scenario import loads_scenario
 
-    def one_a_step(n: int) -> dict:  # the two flat kernels, once a step each
+    def one_a_step(n: int) -> dict:  # the four flat kernels, once a step each
         counts = _launch_counts()
-        return dict(dict.fromkeys(counts, 0), flat_pairwise=n, flat_sample=n)
+        return dict(dict.fromkeys(counts, 0), **dict.fromkeys(FLAT_KERNELS, n))
 
     t0 = time.perf_counter()
     _zero_launch_counts()
@@ -1844,14 +1862,15 @@ def _flat_1m(dev, card, capture: dict | None = None) -> dict:
     under sync debug mode "error", host clock, the launch counts zeroed
     before and read after ("launches"); peak memory; then
     FLAT_PROFILE_STEPS under torch.profiler: device ms, launches a step,
-    busy share, the FLAT_TOP_KERNELS dearest kernels and the device us of
-    the step's [N, 12] row gather (``index_select`` after the argsort),
-    beside EARLIER_DEVICE_MS, and the gathers of the field's [R, 8] rows
-    it holds ("tap_gathers", which phase 15 holds to none: the four taps
-    are the flat sample kernel's).  With ``capture`` (a dict), one more
-    step stores its padded cell grid and the physics ("grid"), the flat
-    sample kernel's arguments ("sample") and outputs ("packed", "cid"),
-    and the sort's permutation ("order")."""
+    busy share, the FLAT_TOP_KERNELS dearest kernels, beside
+    EARLIER_DEVICE_MS, and the gathers it holds of the field's [R, 8] rows
+    ("tap_gathers") and of [N, 12] agent rows ("row_gathers"), which phase
+    15 holds to none: the four taps are the flat sample kernel's, the row
+    gather after the argsort the flat scatter kernel's.  With ``capture``
+    (a dict), one more step stores its padded cell grid and the physics
+    ("grid"), the flat sample kernel's arguments ("sample") and outputs
+    ("packed", "cid"), the sort's permutation ("order"), and the flat
+    scatter and integrate kernels' arguments ("scatter", "integrate")."""
     import collections
 
     from pedoni_tpu_torch.bench import build_problem
@@ -1902,12 +1921,13 @@ def _flat_1m(dev, card, capture: dict | None = None) -> dict:
             us[ev.key] += ev.self_device_time_total / FLAT_PROFILE_STEPS
             launches += ev.count / FLAT_PROFILE_STEPS
     by_shape = prof.key_averages(group_by_input_shape=True)
-    gather_us = sum(ev.device_time_total for ev in by_shape
-                    if ev.key == "aten::index_select" and ev.input_shapes
-                    and len(ev.input_shapes[0]) == 2
-                    and ev.input_shapes[0][1] == 12) / FLAT_PROFILE_STEPS
+    gathers = ("aten::index_select", "aten::index", "aten::take", "aten::gather")
+    row_gathers = sum(ev.count for ev in by_shape
+                      if ev.key in gathers and ev.input_shapes
+                      and len(ev.input_shapes[0]) == 2
+                      and ev.input_shapes[0][1] == 12) / FLAT_PROFILE_STEPS
     taps = sum(ev.count for ev in by_shape
-               if ev.key in ("aten::index_select", "aten::index", "aten::take")
+               if ev.key in gathers
                and ev.input_shapes and ev.input_shapes[0] == list(field.rows.shape)
                ) / FLAT_PROFILE_STEPS
     dev_ms = sum(us.values()) / 1e3
@@ -1915,10 +1935,9 @@ def _flat_1m(dev, card, capture: dict | None = None) -> dict:
         raise AssertionError("1M flat: the profiler traced no device time")
     print(f"# 1M flat profile, {FLAT_PROFILE_STEPS} steps (torch.profiler): "
           f"device {dev_ms:.4f} ms/step, {launches:.1f} launches a step, wall "
-          f"{wall:.4f} ms/step unprofiled, busy share {dev_ms / wall:.3f}; the "
-          f"[N, 12] row gather (index_select after the argsort) "
-          f"{gather_us:.1f} us/step; {taps:.1f} gathers of the field's "
-          f"{list(field.rows.shape)} rows a step; top {FLAT_TOP_KERNELS} kernels "
+          f"{wall:.4f} ms/step unprofiled, busy share {dev_ms / wall:.3f}; "
+          f"{row_gathers:.1f} gathers of [N, 12] agent rows and {taps:.1f} of the "
+          f"field's {list(field.rows.shape)} rows a step; top {FLAT_TOP_KERNELS} kernels "
           f"(us/step, share): " + "; ".join(
               f"{k[:70]} {v:.1f} ({v / 1e3 / dev_ms:.1%})"
               for k, v in us.most_common(FLAT_TOP_KERNELS)), flush=True)
@@ -1928,28 +1947,39 @@ def _flat_1m(dev, card, capture: dict | None = None) -> dict:
           f"{EARLIER_DEVICE_MS['flat_launches']}) on {card}",
           flush=True)
     if capture is not None:
-        real_pairs, real_sample = forcepass.dense_pairwise, sfm.flat_sample
+        real = (forcepass.dense_pairwise, sfm.flat_sample, sfm.flat_scatter,
+                sfm.flat_integrate)
 
         def spy_pairs(data, *args, **kw):
             capture["grid"] = (data.clone(), cfg.physics)
-            return real_pairs(data, *args, **kw)
+            return real[0](data, *args, **kw)
 
         def spy_sample(*args, **kw):
-            packed, cid = real_sample(*args, **kw)
+            packed, cid = real[1](*args, **kw)
             capture["sample"] = (args, kw)
             capture["packed"], capture["cid"] = packed.clone(), cid.clone()
             capture["order"] = torch.argsort(cid, stable=True)[:cfg.capacity]
             return packed, cid
 
-        forcepass.dense_pairwise, sfm.flat_sample = spy_pairs, spy_sample
+        def spy_scatter(*args, **kw):
+            capture["scatter"] = (args, kw)
+            return real[2](*args, **kw)
+
+        def spy_integrate(*args, **kw):
+            capture["integrate"] = (args, kw)
+            return real[3](*args, **kw)
+
+        (forcepass.dense_pairwise, sfm.flat_sample, sfm.flat_scatter,
+         sfm.flat_integrate) = spy_pairs, spy_sample, spy_scatter, spy_integrate
         try:
             step(st, field.rows, obstacles)
         finally:
-            forcepass.dense_pairwise, sfm.flat_sample = real_pairs, real_sample
+            (forcepass.dense_pairwise, sfm.flat_sample, sfm.flat_scatter,
+             sfm.flat_integrate) = real
     return {"ms_per_step": wall, "device_ms_per_step": dev_ms,
             "launches_per_step": launches, "busy_share": dev_ms / wall,
             "peak_bytes": peak, "n_active": n_active, "launches": launched,
-            "row_gather_us_per_step": gather_us, "tap_gathers": taps}
+            "row_gathers": row_gathers, "tap_gathers": taps}
 
 
 def _flat_subprocesses(card) -> dict:
@@ -2130,10 +2160,11 @@ def _flat_kernel_entry(dev, card, d: torch.Tensor, phys, launches: int) -> dict:
             "k_up_to": k_up_to}
 
 
-def _cases_module():
-    """tests/test_torch_flat_sample_cases.py (seeded edge-case agents)."""
+def _cases_module(name: str = "test_torch_flat_sample_cases"):
+    """tests/test_torch_flat_sample_cases.py (seeded edge-case agents), or
+    the module of tests/ named."""
     spec = importlib.util.spec_from_file_location(
-        "test_torch_flat_sample_cases", ROOT / "tests" / "test_torch_flat_sample_cases.py")
+        name, ROOT / "tests" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2250,27 +2281,191 @@ def _row_gather_finding(card, packed: torch.Tensor, cid: torch.Tensor,
     return {k: v for k, v in out.items()}
 
 
+def _scatter_outputs(sc) -> list[torch.Tensor]:
+    """Every tensor of a flat_scatter result, in order (None left out)."""
+    out = [sc.rows, sc.cid, sc.dest, sc.active, sc.n_active]
+    if sc.layout is not None:
+        out += list(sc.layout)
+    return out + ([sc.data] if sc.data is not None else [])
+
+
+def _scatter_bits(got, want) -> float:
+    """Raise unless every output of two flat_scatter results is the same,
+    floats bit for bit; else 0.0."""
+    a, b = _scatter_outputs(got), _scatter_outputs(want)
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} outputs against {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"output {i} differs")
+    return 0.0
+
+
+def _flat_scatter_entry(dev, card, scatter: tuple, launches: int,
+                        index_select_ms: float) -> dict:
+    """15c. The flat scatter kernel against its twin (flat_scatter.
+    flat_scatter_torch, on the card) bit for bit on every output
+    (``_scatter_bits``) on tests/test_torch_flat_scatter_cases.py's cases
+    (cells past K, the sentinel run, holes, N > C, NaN and inf rows, K 255,
+    a ragged nx, an x-strip's window; also without cells and with the
+    pallas slot grid's strides) and on the 1M problem's sorted agents
+    (``scatter``: the step's arguments); kernel, twin and bound timed
+    there.  ``index_select_ms``, the [N, 12] row gather alone
+    (``_row_gather_finding``), is the library call's time: the rows are
+    the one part of its work that one PyTorch call computes.  Returns the
+    JSON entry, with ``launches`` from the 1M run."""
+    from pedoni_tpu_torch.ops.kernels import flat_scatter as fck
+    from pedoni_tpu_torch.ops.neighbor import CellGrid
+
+    cases = _cases_module("test_torch_flat_scatter_cases")
+    checks = []
+    for name in cases.CASES:
+        packed, cid, order, (ny, nx), k = cases.scatter_case(name)
+        grid = CellGrid(cases.UNIT, nx, ny)
+        a = tuple(torch.from_numpy(x).to(dev) for x in (packed, cid, order)) + (grid, k)
+        nxl = nx + 3
+        for what, kw in (("", {}), (" (no cells)", {"cells": False}),
+                         (" (slot-grid strides)", {"strides": (k * 8 * nxl, 1, 8 * nxl),
+                                                   "size": (ny + 2) * k * 8 * nxl})):
+            checks.append((f"{name}{what}", a, kw))
+    args, kw = scatter
+    checks.append((f"1M problem, {args[2].shape[0]} sorted agents", args, kw))
+    errs, k_up_to = {}, 0
+    for what, a, k_ in checks:
+        got, want = fck.flat_scatter(*a, **k_), fck.flat_scatter_torch(*a, **k_)
+        torch.cuda.synchronize()
+        try:
+            errs[what] = _scatter_bits(got, want)
+        except AssertionError as e:
+            raise AssertionError(f"flat_scatter {what}: {e}") from None
+        k_up_to = max(k_up_to, a[4])
+    sc = fck.flat_scatter(*args, **kw)
+    k_ms = _median_ms(lambda: fck.flat_scatter(*args, **kw))
+    t_ms = _median_ms(lambda: fck.flat_scatter_torch(*args, **kw), n=TWIN_RUNS)
+    packed, cid, order = args[:3]
+    c = order.shape[0]
+    # each sorted row's order entry, cell id and packed row read once;
+    # every output written once
+    need = c * (order.element_size() + cid.element_size()
+                + packed.shape[1] * packed.element_size()) + _nbytes(
+                    *_scatter_outputs(sc))
+    b_ms, by = _bound(need)
+    print(f"# flat_scatter: bit-equal to its twin on the card (every output, the "
+          f"padded grid whole) on {', '.join(errs)}; on the 1M problem kernel "
+          f"{k_ms:.4f} ms, twin {t_ms:.4f} ms (median of 20 and {TWIN_RUNS}, CUDA "
+          f"events), [N, 12] index_select alone {index_select_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({by}; {need / 1e6:.1f} MB needed, {need / c:.1f} B an "
+          f"agent with the grid's {_nbytes(sc.data) / 1e6:.1f} MB, at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {b_ms / k_ms:.1%} of it) on {card}",
+          flush=True)
+    return {"name": "flat_scatter", "route": "cuda", "source": CSRC + "flat_scatter.cu",
+            "replaces": "pedoni_tpu/models/sfm.py:373 + pedoni_tpu/ops/forcepass.py:50, "
+                        "77 (XLA, no pallas_call)",
+            "path": "flat", "launches": launches, "max_abs_err": max(errs.values()),
+            "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": index_select_ms, "k_up_to": k_up_to}
+
+
+def _flat_integrate_entry(dev, card, integrate: tuple, launches: int) -> dict:
+    """15c. The flat integrate kernel against its twin (flat_integrate.
+    flat_integrate_torch, on the card) bit for bit (``_same_bits``) on the
+    flat scatter cases' sorted rows and layout with a seeded pair grid, in
+    each mode (the obstacle term from the rows, from segments computed
+    apart, or none; the pair term through the layout, or computed apart),
+    and on the 1M problem's (``integrate``: the step's arguments); kernel,
+    twin and bound timed there.  Returns the JSON entry, with ``launches``
+    from the 1M run."""
+    from pedoni_tpu_torch.ops import forces
+    from pedoni_tpu_torch.ops.kernels import flat_integrate as fik
+    from pedoni_tpu_torch.ops.kernels import flat_scatter as fck
+    from pedoni_tpu_torch.ops.neighbor import CellGrid
+
+    cases = _cases_module("test_torch_flat_scatter_cases")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    seg = tuple(torch.tensor(x, device=dev) for x in (
+        [[3.0, 1.0], [9.0, 4.0]], [[3.0, 8.0], [15.0, 4.5]], [0.6, 1.0]))
+    args, kw = integrate
+    phys = args[2]
+    checks = []
+    for name, mode in zip(cases.CASES, ("distance_map", "all_pairs", "distance_map",
+                                        "segments", "no_obstacles", "segments")):
+        packed, cid, order, (ny, nx), k = cases.scatter_case(name)
+        sc = fck.flat_scatter_torch(*(torch.from_numpy(x).to(dev)
+                                      for x in (packed, cid, order)),
+                                    CellGrid(cases.UNIT, nx, ny), k)
+        k_ = {"acc_flat": torch.randn((sc.data.numel() // 8, 2), generator=gen,
+                                      device=dev),
+              "layout": sc.layout, "distance_map": mode == "distance_map"}
+        if mode == "segments":
+            k_["obstacle"] = forces.segment_obstacle_force(sc.rows[:, 0:2], *seg, phys)
+        if mode == "all_pairs":
+            k_["pair"] = torch.randn((sc.rows.shape[0], 2), generator=gen, device=dev)
+        checks.append((f"{name} ({mode})", (sc.rows, sc.active, phys), k_))
+    checks.append((f"1M problem, {args[0].shape[0]} sorted agents", args, kw))
+    errs = {}
+    for what, a, k_ in checks:
+        got, want = fik.flat_integrate(*a, **k_), fik.flat_integrate_torch(*a, **k_)
+        torch.cuda.synchronize()
+        try:
+            errs[what] = max(_same_bits(g, w) for g, w in zip(got, want))
+        except AssertionError as e:
+            raise AssertionError(f"flat_integrate {what}: {e}") from None
+    pos, vel = fik.flat_integrate(*args, **kw)
+    k_ms = _median_ms(lambda: fik.flat_integrate(*args, **kw))
+    t_ms = _median_ms(lambda: fik.flat_integrate_torch(*args, **kw), n=TWIN_RUNS)
+    rows, active = args[:2]
+    layout = kw["layout"]
+    c = rows.shape[0]
+    n_valid = int(layout.valid.sum())
+    # of each row pos, vel, speed, e, the distance and its Sobel (10 of 12
+    # words), its flag, slot and valid flag; the pair term of each valid
+    # row; both outputs
+    need = (c * (10 * rows.element_size() + active.element_size()
+                 + layout.slot.element_size() + layout.valid.element_size())
+            + n_valid * 2 * kw["acc_flat"].element_size() + _nbytes(pos, vel))
+    b_ms, by = _bound(need, c * FLAT_INTEGRATE_FLOPS)
+    print(f"# flat_integrate: bit-equal to its twin on the card (NaN in the same "
+          f"places) on {', '.join(errs)}; on the 1M problem kernel {k_ms:.4f} ms, "
+          f"twin {t_ms:.4f} ms (median of 20 and {TWIN_RUNS}, CUDA events), bound "
+          f"{b_ms:.4f} ms ({by}; {need / 1e6:.1f} MB needed, {need / c:.1f} B an "
+          f"agent, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {b_ms / k_ms:.1%} of it) on "
+          f"{card}", flush=True)
+    return {"name": "flat_integrate", "route": "cuda",
+            "source": CSRC + "flat_integrate.cu",
+            "replaces": "pedoni_tpu/ops/forces.py:41, 92, 158 + "
+                        "pedoni_tpu/ops/forcepass.py:187 (XLA, no pallas_call)",
+            "path": "flat", "launches": launches, "max_abs_err": max(errs.values()),
+            "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None}
+
+
 def _flat_phase(dev, card) -> dict:
     """15. The flat backend on the card (module docstring, item 15).
-    Returns the phase's numbers, with the two kernels' JSON entries under
+    Returns the phase's numbers, with the four kernels' JSON entries under
     "kernels"."""
     res = _flat_sim_checks(dev)
     cap = {}
     res.update(_flat_1m(dev, card, capture=cap))
     want = dict(dict.fromkeys(res["launches"], 0),
-                flat_pairwise=FLAT_WARMUP + FLAT_TIMED,
-                flat_sample=FLAT_WARMUP + FLAT_TIMED)
+                **dict.fromkeys(FLAT_KERNELS, FLAT_WARMUP + FLAT_TIMED))
     if res["launches"] != want:
         raise AssertionError(f"1M flat: launches {res['launches']}, want {want}")
-    if res["tap_gathers"]:
-        raise AssertionError(f"1M flat: {res['tap_gathers']} field-tap gathers a "
-                             "step left in the profile")
+    if res["tap_gathers"] or res["row_gathers"]:
+        raise AssertionError(f"1M flat: {res['tap_gathers']} field-tap gathers and "
+                             f"{res['row_gathers']} [N, 12] row gathers a step "
+                             "left in the profile")
     d, phys = cap["grid"]
-    res["kernels"] = [
-        _flat_kernel_entry(dev, card, d, phys, res["launches"]["flat_pairwise"]),
-        _flat_sample_entry(dev, card, cap["sample"], res["launches"]["flat_sample"])]
     res["row_gather_ms"] = _row_gather_finding(card, cap["packed"], cap["cid"],
                                                cap["order"])
+    res["kernels"] = [
+        _flat_kernel_entry(dev, card, d, phys, res["launches"]["flat_pairwise"]),
+        _flat_sample_entry(dev, card, cap["sample"], res["launches"]["flat_sample"]),
+        _flat_scatter_entry(dev, card, cap["scatter"], res["launches"]["flat_scatter"],
+                            res["row_gather_ms"]["index_select"]),
+        _flat_integrate_entry(dev, card, cap["integrate"],
+                              res["launches"]["flat_integrate"])]
     del d, cap
     torch.cuda.empty_cache()  # the 1M problem's tensors are gone
     res.update(_flat_subprocesses(card))
@@ -2693,9 +2888,9 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
     difference in ``n_active`` and the largest position difference written
     down; wall ms/step over them, device ms/step (profiler,
     SPATIAL_PROFILE_STEPS steps), peak memory, beside the flat step's
-    (``flat_1m``, phase 15).  Each strip-step launches the flat sample and
-    the flat pair kernel once each, and no other kernel runs.  Returns this
-    phase's numbers."""
+    (``flat_1m``, phase 15).  Each strip-step launches the flat sample,
+    scatter, pair and integrate kernels once each, and no other kernel
+    runs.  Returns this phase's numbers."""
     from pedoni_tpu_torch.bench import build_problem
     from pedoni_tpu_torch.convert import metrics_to_dict
     from pedoni_tpu_torch.models import sfm
@@ -2789,10 +2984,10 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
         s_dev = profiled(sstep, ss, (srows, sobs), f"1M {what} (phase 18)", s_wall)
         counts = _launch_counts()
         strip_steps = (1 + SPATIAL_STEPS + SPATIAL_PROFILE_STEPS) * len(devices)
-        if counts != dict(dict.fromkeys(counts, 0), flat_pairwise=strip_steps,
-                          flat_sample=strip_steps):
+        if counts != dict(dict.fromkeys(counts, 0),
+                          **dict.fromkeys(FLAT_KERNELS, strip_steps)):
             raise AssertionError(f"1M {what}: launches {counts}, want "
-                                 f"flat_pairwise and flat_sample {strip_steps} alone")
+                                 f"{', '.join(FLAT_KERNELS)} {strip_steps} alone")
         if not torch.equal(sms[:, 1], fms[:, 1]):
             raise AssertionError(f"1M {what}: n_spawned {sms[:, 1]} != flat {fms[:, 1]}")
         final = rows(strip_agents(ss))
@@ -2804,9 +2999,8 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
               f"order-free, pos/vel max |err| {err[:, 0:2].max():.3e} / "
               f"{err[:, 2:4].max():.3e}, {int((err[:, 0:2] > TOL).sum())} "
               f"positions one float apart past {TOL}, {n_near} rows in near "
-              f"contact); {counts['flat_pairwise']} flat_pairwise and "
-              f"{counts['flat_sample']} flat_sample launches in "
-              f"{strip_steps} strip-steps; after "
+              f"contact); " + ", ".join(f"{counts[n]} {n}" for n in FLAT_KERNELS)
+              + f" launches in {strip_steps} strip-steps; after "
               f"{SPATIAL_STEPS} more steps n_spawned equal, n_active "
               f"{int(sms[-1, 0])} vs flat {int(fms[-1, 0])} (difference {d_active}), "
               f"largest position difference {pos_diff:.3e} m; ms/step wall "
@@ -2817,8 +3011,7 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
               f"{int(sms[-1, 3])} (flat {int(fms[-1, 3])}) on {card}", flush=True)
         out[what] = {"ms_per_step": s_wall, "device_ms_per_step": s_dev,
                      "peak_bytes": peak,
-                     "flat_pairwise_launches": counts["flat_pairwise"],
-                     "flat_sample_launches": counts["flat_sample"],
+                     **{f"{n}_launches": counts[n] for n in FLAT_KERNELS},
                      "first_step_pos_err": float(err[:, 0:2].max()),
                      "first_step_vel_err": float(err[:, 2:4].max()),
                      "near_contact_rows": n_near, "n_active_difference": d_active,
@@ -2883,7 +3076,7 @@ def _fidelity_phase(dev, card) -> dict:
     counts = _launch_counts()
     print(f"# phase 19 launches {counts}", flush=True)
     runtime = ("step_kernel", "step_kernel_movers", "rebin", "rebin_incremental",
-               "flat_pairwise", "flat_sample")
+               *FLAT_KERNELS)
     if any(counts[name] == 0 for name in runtime):
         raise AssertionError(f"phase 19 launched a runtime kernel no time: {counts}")
     out["launches"] = {name: counts[name] for name in runtime}
@@ -3193,10 +3386,9 @@ def main() -> int:
     fidelity["seconds"] = time.perf_counter() - t0
     print(f"# phase 19 (fidelity) took {fidelity['seconds']:.1f} s", flush=True)
     for entry in kernels:  # the forms of each kernel this run held to its twin
-        if entry["name"] not in ("pairwise", "flat_pairwise", "flat_sample"):
+        if entry["name"] not in ("pairwise", *FLAT_KERNELS):
             entry["tile_offsets"] = "ported"
-        if entry["name"] not in ("rebin", "rebin_incremental", "flat_pairwise",
-                                 "flat_sample"):
+        if entry["name"] not in ("rebin", "rebin_incremental", *FLAT_KERNELS):
             entry["k_up_to"] = big_k["k_max"]  # the largest K compared here
         if entry["name"].startswith("step_kernel"):
             entry["waypoints"] = [1, 2, 8, 33]  # W compared here (2: step 1)
@@ -3210,8 +3402,8 @@ def main() -> int:
                           "rebin_incremental": ["hybrid", "tiles", "processes",
                                                 "fidelity"],
                           "pairwise": ["standalone"],
-                          "flat_pairwise": ["flat", "strips"],
-                          "flat_sample": ["flat", "strips"]}[entry["name"]]
+                          **dict.fromkeys(FLAT_KERNELS, ["flat", "strips"])
+                          }[entry["name"]]
         if entry["name"] in pallas["kernels"]:
             entry["pallas"] = pallas["kernels"][entry["name"]]
         if entry["name"] in fidelity["launches"]:
@@ -3222,7 +3414,7 @@ def main() -> int:
     by_name = {entry["name"]: entry for entry in kernels}
     by_name["pairwise"][f"k{BIG_K}"] = {"ms": big_k["pairwise_ms"],
                                         "max_abs_err": big_k["max_abs_err"]}
-    for name in ("flat_pairwise", "flat_sample"):
+    for name in FLAT_KERNELS:
         by_name[name]["strip_launches"] = {
             what: r[f"{name}_launches"] for what, r in strips.items() if what != "flat"}
     print("# device ms/step beside EARLIER_DEVICE_MS (PERF.md; NVIDIA H100 80GB HBM3, 700 "

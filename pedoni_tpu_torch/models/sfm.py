@@ -33,7 +33,9 @@ import torch
 
 from ..field import PAD, FieldMaps
 from ..ops import forcepass, forces as F
+from ..ops.kernels.flat_integrate import flat_integrate
 from ..ops.kernels.flat_sample import flat_sample
+from ..ops.kernels.flat_scatter import flat_scatter
 from ..ops.neighbor import CellGrid
 from ..ops.sampling import DeviceField
 from ..physics import Physics
@@ -326,45 +328,47 @@ def make_step(cfg: StepConfig, generator: torch.Generator | None = None):
         # one launch of csrc/flat_sample.cu): the field sample, the goal
         # direction, despawn (arrived, sfm.rs:69, or out of the grid, where
         # the cell id's sentinel doubles as the in-grid test) and every
-        # channel packed into one [*, 12] tensor, so that the cell sort's
-        # permutation is one row gather; velocity and speed sanitized (a
+        # channel packed into one [*, 12] tensor, so that the cell sort
+        # moves one row an agent; velocity and speed sanitized (a
         # non-finite one would poison its 3x3 neighbourhood's pair sums)
         packed, cid = flat_sample(field_rows, map_h, map_w, ext.pos, ext.vel,
                                   ext.speed, ext.dest, ext.active,
                                   cfg.field_unit, phys.despawn_potential, grid)
         alive = cid < grid.n_cells
 
-        # cell-sort and cut back to the capacity
+        # cell-sort and cut back to the capacity; then one pass (flat_scatter,
+        # on the card one launch of csrc/flat_scatter.cu): the sorted rows,
+        # the cell layout and the padded cell grid of the pair pass
         order = torch.argsort(cid, stable=True)[:c]
-        sp = packed.index_select(0, order)
-        cid_sorted = cid.index_select(0, order)
+        sc = flat_scatter(packed, cid, order, grid, k, cells=cfg.use_neighbor_grid)
+        sp = sc.rows
         agents = AgentState(pos=sp[:, 0:2], vel=sp[:, 2:4], speed=sp[:, 4],
-                            dest=sp[:, 5].to(torch.int32), active=sp[:, 6] > 0.5)
-        e_s = sp[:, 7:9]
-        n_active = agents.active.sum().to(torch.int32)
+                            dest=sc.dest, active=sc.active)
+        n_active = sc.n_active
         n_dropped = alive.sum().to(torch.int32) - n_active
 
         # forces: goal (sfm.rs:107-109) + obstacle (sfm.rs:188-237) +
-        # pairwise over the dense cell layout, or over all pairs
-        acc = F.goal_force(e_s, agents.vel, agents.speed, phys)
-        if cfg.use_distance_map:
-            acc = acc + F.obstacle_force(sp[:, 9], sp[:, 10:12], phys)
-        elif obstacles[0].shape[0] > 0:
-            acc = acc + F.segment_obstacle_force(agents.pos, *obstacles, phys)
+        # pairwise over the dense cell layout, or over all pairs, then the
+        # integration (flat_integrate, on the card one launch of
+        # csrc/flat_integrate.cu); segment-mode obstacles and all pairs are
+        # computed apart and added in their place in the sum
+        obstacle = None
+        if not cfg.use_distance_map and obstacles[0].shape[0] > 0:
+            obstacle = F.segment_obstacle_force(agents.pos, *obstacles, phys)
         if cfg.use_neighbor_grid:
-            layout = forcepass.build_layout(cid_sorted, agents.active, grid, k)
-            data = forcepass.scatter_cell_data(layout, grid, k, agents.pos,
-                                               agents.vel, e_s)
-            acc_flat = forcepass.dense_pairwise(data, grid, k, phys,
+            acc_flat = forcepass.dense_pairwise(sc.data, grid, k, phys,
                                                 row_block=cfg.row_block)
-            acc = acc + forcepass.gather_pair_acc(acc_flat, layout)
-            n_overflow = layout.n_overflow
+            pos, vel = flat_integrate(sp, sc.active, phys, acc_flat=acc_flat,
+                                      layout=sc.layout, obstacle=obstacle,
+                                      distance_map=cfg.use_distance_map)
+            n_overflow = sc.layout.n_overflow
         else:
-            acc = acc + _all_pairs_acc(cfg, agents, e_s)
+            pos, vel = flat_integrate(sp, sc.active, phys,
+                                      pair=_all_pairs_acc(cfg, agents, sp[:, 7:9]),
+                                      obstacle=obstacle,
+                                      distance_map=cfg.use_distance_map)
             n_overflow = zero
 
-        pos, vel = F.integrate(agents.pos, agents.vel, acc, agents.speed,
-                               agents.active, phys)
         metrics = StepMetrics(n_active=n_active, n_spawned=n_spawned,
                               n_dropped=n_dropped, n_overflow=n_overflow,
                               max_demand=zero, n_exited=zero,

@@ -4,8 +4,10 @@
 def launch_counts() -> dict[str, int]:
     """Each wrapper's count of its kernel's launches, by kernel and mode:
     a wrapper adds one where it launches on the card, never on the CPU."""
+    from . import flat_integrate as fi
     from . import flat_pairwise as fp
     from . import flat_sample as fs
+    from . import flat_scatter as fc
     from . import pairwise as pw
     from . import rebin as rb
     from . import step_kernel as sk
@@ -16,13 +18,17 @@ def launch_counts() -> dict[str, int]:
             "rebin_incremental": rb.rebin_incremental.launches,
             "pairwise": pw.pairwise.launches,
             "flat_pairwise": fp.flat_pairwise.launches,
-            "flat_sample": fs.flat_sample.launches}
+            "flat_sample": fs.flat_sample.launches,
+            "flat_scatter": fc.flat_scatter.launches,
+            "flat_integrate": fi.flat_integrate.launches}
 
 
 def zero_launch_counts() -> None:
     """Set every count of ``launch_counts`` to 0."""
+    from . import flat_integrate as fi
     from . import flat_pairwise as fp
     from . import flat_sample as fs
+    from . import flat_scatter as fc
     from . import pairwise as pw
     from . import rebin as rb
     from . import step_kernel as sk
@@ -30,4 +36,5 @@ def zero_launch_counts() -> None:
     sk.fused_step.segment_launches = 0
     rb.rebin.launches = rb.rebin_incremental.launches = 0
     pw.pairwise.launches = fp.flat_pairwise.launches = 0
-    fs.flat_sample.launches = 0
+    fs.flat_sample.launches = fc.flat_scatter.launches = 0
+    fi.flat_integrate.launches = 0

@@ -113,6 +113,10 @@ def library() -> ctypes.CDLL:
         q = ctypes.c_int64
         lib.pedoni_flat_sample.argtypes = [p] * 8 + [q, q] + [i] * 5 + [p] * 3
         lib.pedoni_flat_sample.restype = i
+        lib.pedoni_flat_scatter.argtypes = [p] * 11 + [q] + [i] * 4 + [p, p]
+        lib.pedoni_flat_scatter.restype = i
+        lib.pedoni_flat_integrate.argtypes = [p] * 9 + [q, i, i, p, p]
+        lib.pedoni_flat_integrate.restype = i
         _lib = lib
         return lib
 

@@ -3,9 +3,10 @@ between neighbour strips.
 
 Counterpart of pedoni_tpu/parallel/spatial.py, the reference's round-1
 multi-device path for its XLA backend (the reference's spatial step runs
-no ``pallas_call``; here each strip runs the flat step's two kernels on
+no ``pallas_call``; here each strip runs the flat step's four kernels on
 a card, one launch each a strip-step: csrc/flat_sample.cu before the
-packages, csrc/flat_pairwise.cu for the pair pass).  The
+packages, then csrc/flat_scatter.cu after the sort, csrc/flat_pairwise.cu
+for the pair pass and csrc/flat_integrate.cu).  The
 field is split into D vertical strips along x; strip d owns the agents
 inside [d * w / D, (d + 1) * w / D) (the last also everything to its
 right) as a fixed-capacity flat shard on its device.  A step, for every
@@ -27,7 +28,7 @@ strip of this process (``step``):
               ``n_overflow``, with the ghosts the package truncated;
 4. forces  -- one stable cell sort of owned, adopted and ghost rows over the
               strip's local window (strip + halo margin), the flat step's
-              dense pair pass (ops/forcepass.py), integration;
+              scatter, dense pair pass and integration over that window;
 5. compact -- surviving owned agents back into the shard, cell-sorted.
 
 The rows are the reference's packed [*, 12] f32 layout: 0:2 pos, 2:4 vel,
@@ -59,7 +60,9 @@ from ..models.sfm import (AgentState, SimState, StepConfig, StepMetrics,
                           device_inputs as flat_device_inputs,
                           make_initial_state, spawn_sampler)
 from ..ops import forcepass, forces as F
+from ..ops.kernels.flat_integrate import flat_integrate
 from ..ops.kernels.flat_sample import flat_sample
+from ..ops.kernels.flat_scatter import flat_scatter
 from ..ops.neighbor import CellGrid, true_divide
 from ..scenario import loads_scenario
 from .transport import Local, Transport, all_reduce_metrics, check_replicated
@@ -278,29 +281,25 @@ def make_sharded_step(scfg: ShardedConfig, devices: Sequence[torch.device | str]
         cid = torch.where(ok, cy.clamp(0, lgrid.ny - 1).to(torch.int32) * lgrid.nx
                           + cx.clamp(0, lgrid.nx - 1).to(torch.int32), lgrid.n_cells)
         order = torch.sort(cid, stable=True).indices
-        work = work.index_select(0, order)
+        # the flat step's pass after its sort (csrc/flat_scatter.cu on a
+        # card) over the strip's window, its pair pass and its integration
+        # (csrc/flat_integrate.cu)
+        k = cfg.table_capacity
+        sc = flat_scatter(work, cid, order, lgrid, k)
         owned = owned.index_select(0, order)
-        cid = cid.index_select(0, order)
-
-        w = _unpack(work)
-        e_s = work[:, 7:9]
-        acc = F.goal_force(e_s, w.vel, w.speed, phys)
-        if cfg.use_distance_map:
-            acc = acc + F.obstacle_force(work[:, 9], work[:, 10:12], phys)
-        elif obstacles[0].shape[0] > 0:
-            acc = acc + F.segment_obstacle_force(w.pos, *obstacles, phys)
-        layout = forcepass.build_layout(cid, w.active, lgrid, cfg.table_capacity)
-        data = forcepass.scatter_cell_data(layout, lgrid, cfg.table_capacity,
-                                           w.pos, w.vel, e_s)
-        acc_flat = forcepass.dense_pairwise(data, lgrid, cfg.table_capacity, phys,
+        obstacle = None
+        if not cfg.use_distance_map and obstacles[0].shape[0] > 0:
+            obstacle = F.segment_obstacle_force(sc.rows[:, 0:2], *obstacles, phys)
+        acc_flat = forcepass.dense_pairwise(sc.data, lgrid, k, phys,
                                             row_block=cfg.row_block)
-        acc = acc + forcepass.gather_pair_acc(acc_flat, layout)
-        pos, vel = F.integrate(w.pos, w.vel, acc, w.speed, w.active, phys)
-        work = torch.cat([pos, vel, work[:, 4:]], dim=1)
-        out, n_lost = _compact_rows(owned & w.active, cl, work)
+        pos, vel = flat_integrate(sc.rows, sc.active, phys, acc_flat=acc_flat,
+                                  layout=sc.layout, obstacle=obstacle,
+                                  distance_map=cfg.use_distance_map)
+        work = torch.cat([pos, vel, sc.rows[:, 4:]], dim=1)
+        out, n_lost = _compact_rows(owned & sc.active, cl, work)
         shard = _unpack(out)
         return shard, (shard.active.sum().to(torch.int32), n_lost,
-                       layout.n_overflow)
+                       sc.layout.n_overflow)
 
     def step(state: ShardedState, field_rows: Sequence[torch.Tensor],
              obstacles: Sequence[tuple[torch.Tensor, ...]],

@@ -3,8 +3,9 @@ the step kernel (base, mover and segment modes, field strides 6 and 8, and
 grids built to break its cell tiles), the full and the incremental rebin
 (and the grids of tests/test_torch_rebin_cases.py, built to break their
 tiles and bit masks), the device gate that makes the hybrid step's choice,
-the standalone pairwise kernel, the flat pair kernel up to K 255 and the
-flat sample kernel (with a flat step on the card against the CPU).
+the standalone pairwise kernel, the flat pair kernel up to K 255, the
+flat sample, scatter and integrate kernels (with a flat step on the card
+against the CPU).
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports neither JAX nor the
 reference package, so it runs on a machine with only PyTorch:
@@ -26,6 +27,7 @@ from pedoni_tpu_torch.field import Field, FieldMaps
 from pedoni_tpu_torch.models import sfm_grid
 from pedoni_tpu_torch.models.sfm import SimState, StepConfig
 from pedoni_tpu_torch.ops.kernels import flat_pairwise as fpk
+from pedoni_tpu_torch.ops.kernels import launch_counts, zero_launch_counts
 from pedoni_tpu_torch.ops.kernels import flat_sample as fsk
 from pedoni_tpu_torch.ops.kernels import pairwise as pw
 from pedoni_tpu_torch.ops.kernels import rebin as rb
@@ -1105,8 +1107,9 @@ def test_flat_step_on_the_card_equals_the_cpu(mode):
     within 1e-5, or NEAR_CONTACT_VEL_TOL for an agent in near contact (the
     kernel equals its twin bit for bit on the card, but expf and sqrtf
     there and the CPU's exp elsewhere differ by ulps, which near contact
-    the pair formula magnifies); the flat pair kernel launched once a step
-    on the card, never on the CPU, and so the flat sample kernel."""
+    the pair formula magnifies); the four flat kernels (sample, scatter,
+    pair pass, integrate) launched once each a step on the card and no
+    other, none on the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from pedoni_tpu_torch.models import sfm
@@ -1133,16 +1136,16 @@ def test_flat_step_on_the_card_equals_the_cpu(mode):
         cand = sfm.spawn_candidates(cfg, gen)
         out = {}
         for dev, (step, rows, obstacles) in steps.items():
-            before = (fpk.flat_pairwise.launches, fsk.flat_sample.launches)
+            zero_launch_counts()
             new, m = step(SimState(st.agents.to(dev), st.step), rows, obstacles,
                           cand.to(dev))
             out[dev] = ({k: int(v) for k, v in m._asdict().items()},
-                        [t.cpu().numpy() for t in new.agents],
-                        (fpk.flat_pairwise.launches - before[0],
-                         fsk.flat_sample.launches - before[1]), new)
+                        [t.cpu().numpy() for t in new.agents], launch_counts(), new)
         st_in = st
         (gm, ga, gl, _), (wm, wa, wl, st) = out["cuda"], out["cpu"]
-        assert gm == wm and (gl, wl) == ((1, 1), (0, 0))
+        flat = ("flat_sample", "flat_scatter", "flat_pairwise", "flat_integrate")
+        assert gm == wm and gl == dict(dict.fromkeys(gl, 0), **dict.fromkeys(flat, 1))
+        assert wl == dict.fromkeys(wl, 0)
         np.testing.assert_allclose(ga[0], wa[0], rtol=0, atol=1e-5)  # pos
         near = _near_contact(st_in.agents, cand, wa[2])
         assert near.sum() <= 0.01 * near.size
@@ -1153,3 +1156,106 @@ def test_flat_step_on_the_card_equals_the_cpu(mode):
             np.testing.assert_array_equal(got, want)
         spawned += wm["n_spawned"]
     assert spawned > 0
+
+
+def _scatter_inputs(name: str):
+    from pedoni_tpu_torch.ops.neighbor import CellGrid
+    from test_torch_flat_scatter_cases import UNIT, scatter_case
+
+    packed, cid, order, (ny, nx), k = scatter_case(name)
+    return (torch.from_numpy(packed).cuda(), torch.from_numpy(cid).cuda(),
+            torch.from_numpy(order).cuda(), CellGrid(UNIT, nx, ny), k)
+
+
+def _bits_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit (floats through their int32 view, NaN payloads
+    included)."""
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return got.shape == want.shape and torch.equal(got, want)
+
+
+SCATTER_CASES = ["overflow", "capacity_cut", "nonfinite", "k255", "ragged_nx",
+                 "strip_window", "1M"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SCATTER_CASES)
+def test_flat_scatter_matches_twin(name):
+    """The flat scatter kernel (csrc/flat_scatter.cu) against its twin
+    (flat_scatter.flat_scatter_torch) on the card, on tests/
+    test_torch_flat_scatter_cases.py's cases (cells past K, the sentinel
+    run, holes in a cell's ranks, N > C, NaN and inf rows, K 255, a ragged
+    nx, an x-strip's window) and on a 1M-agent layout of the 1M xla
+    problem's grid: every output bit for bit, the padded grid whole; also
+    without cells (the rows alone) and with the pallas slot grid's strides
+    (the layout, no grid).  One launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pedoni_tpu_torch.ops.kernels import flat_scatter as fck
+
+    packed, cid, order, grid, k = _scatter_inputs(name)
+    nxl = grid.nx + 3
+    slot_grid = {"strides": (k * 8 * nxl, 1, 8 * nxl),
+                 "size": (grid.ny + 2) * k * 8 * nxl}
+    for kw in ({}, {"cells": False}, slot_grid):
+        before = fck.flat_scatter.launches
+        got = fck.flat_scatter(packed, cid, order, grid, k, **kw)
+        want = fck.flat_scatter_torch(packed, cid, order, grid, k, **kw)
+        torch.cuda.synchronize()
+        assert fck.flat_scatter.launches == before + 1
+        for field in ("rows", "cid", "dest", "active", "n_active"):
+            assert _bits_equal(getattr(got, field), getattr(want, field)), (kw, field)
+        assert (got.layout is None) == (want.layout is None)
+        if got.layout is not None:
+            for a, b in zip(got.layout, want.layout):
+                assert _bits_equal(a, b), kw
+            assert int(got.layout.n_overflow) > 0
+        assert (got.data is None) == (want.data is None)
+        if got.data is not None:
+            assert _bits_equal(got.data, want.data)
+            assert int((got.data[..., 6] > 0.5).sum()) == int(got.layout.valid.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, mode", [("overflow", "distance_map"),
+                                        ("nonfinite", "distance_map"),
+                                        ("strip_window", "segments"),
+                                        ("ragged_nx", "no_obstacles"),
+                                        ("capacity_cut", "all_pairs"),
+                                        ("k255", "distance_map"),
+                                        ("1M", "distance_map")])
+def test_flat_integrate_matches_twin(name, mode):
+    """The flat integrate kernel (csrc/flat_integrate.cu) against its twin
+    (flat_integrate.flat_integrate_torch) on the card, bit for bit (NaN
+    where the twin's is), on the sorted rows and layout of the flat scatter
+    cases with a seeded pair grid: the obstacle term from the rows, from
+    segments computed apart, or none; the pair term through the layout or
+    computed apart.  One launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pedoni_tpu_torch.ops import forces
+    from pedoni_tpu_torch.ops.kernels import flat_integrate as fik
+    from pedoni_tpu_torch.ops.kernels import flat_scatter as fck
+
+    packed, cid, order, grid, k = _scatter_inputs(name)
+    sc = fck.flat_scatter_torch(packed, cid, order, grid, k)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    acc_flat = torch.randn((sc.data.numel() // 8, 2), generator=gen, device="cuda")
+    kw = {"acc_flat": acc_flat, "layout": sc.layout,
+          "distance_map": mode == "distance_map"}
+    if mode == "segments":
+        seg = (torch.tensor([[3.0, 1.0], [9.0, 4.0]]), torch.tensor([[3.0, 8.0], [15.0, 4.5]]),
+               torch.tensor([0.6, 1.0]))
+        kw["obstacle"] = forces.segment_obstacle_force(
+            sc.rows[:, 0:2], *(t.cuda() for t in seg), Physics())
+    if mode == "all_pairs":
+        kw["pair"] = torch.randn((sc.rows.shape[0], 2), generator=gen, device="cuda")
+    before = fik.flat_integrate.launches
+    got = fik.flat_integrate(sc.rows, sc.active, Physics(), **kw)
+    want = fik.flat_integrate_torch(sc.rows, sc.active, Physics(), **kw)
+    torch.cuda.synchronize()
+    assert fik.flat_integrate.launches == before + 1
+    for g, w in zip(got, want):
+        assert _same_bits(g, w), float((g - w).abs().nan_to_num().max())
+    assert float((got[0] - sc.rows[:, 0:2]).abs().nan_to_num().max()) > 0.01
