@@ -123,8 +123,11 @@ nvcc, one process per source, then:
    kernel, twin and bound timed beside its first design; the flat sample
    kernel against its twin bit for bit (12 channels, NaN where the twin's
    is, and the cell ids) on tests/test_torch_flat_sample_cases.py's edge
-   cases, with and without sanitizing, and on the 1M problem's agents,
-   and there kernel, twin and bound timed; the flat scatter kernel
+   cases, with and without sanitizing, at one agent and a ragged count,
+   and on the 1M problem's agents, and there kernel, twin and bound
+   timed beside its us/step in the step's profile, the taps' footprint in
+   32-byte sectors and ``grid_sample`` of the taps alone (the library
+   call); the flat scatter kernel
    against its twin bit for bit (every output, the padded grid whole) on
    tests/test_torch_flat_scatter_cases.py's cases (cells past K, the
    sentinel run, holes, N > C, NaN and inf rows, K 255, a ragged nx, an
@@ -187,7 +190,12 @@ nvcc, one process per source, then:
    or one float apart, whose spacing passes TOL beyond 128 m), then
    SPATIAL_STEPS chained steps of each (n_spawned equal; the n_active
    difference and the largest position difference printed); wall and
-   device ms/step and peak memory beside the flat step's;
+   device ms/step and peak memory beside the flat step's; then (18b) the
+   drift's cause: 2 strips against the flat step over 1 + SPATIAL_STEPS
+   chained steps at the problem's K and at DRIFT_K, where no cell
+   overflows (the overflow of each step printed), and the flat step
+   against itself from a state one float apart, each with where its
+   largest difference sits against the strips' edge;
 19. the fidelity harness (pedoni_tpu_torch/fidelity.py), launch counts
    zeroed before and read after (each runtime kernel launched, the four
    flat kernels among them): gap.toml
@@ -247,6 +255,9 @@ FLAT_SAMPLE_FLOPS = 60
 # each counted once); csrc/flat_scatter.cu does none (copies and integers)
 FLAT_INTEGRATE_FLOPS = 42
 FLAT_KERNELS = ("flat_sample", "flat_scatter", "flat_pairwise", "flat_integrate")
+# agents of a ragged flat sample check: one above a multiple of the 512
+# agents a block of csrc/flat_sample.cu takes, so its last warp holds one
+SAMPLE_RAGGED = 37 * 512 + 1
 SPIN_CYCLES = 2_000_000  # ~1 ms of device clock ahead of each timed run
 TWIN_RUNS = 5  # runs of a plain PyTorch twin timed (tens of ms to seconds each)
 PROFILE_STEPS = 24  # a multiple of the compaction period of 8
@@ -293,6 +304,7 @@ RANK_TIMEOUT = 300  # s: phase 17's ranks, and their process group's timeout
 EXCHANGE_RUNS = 20  # timed exchanges a case in phase 17 (host clock)
 SPATIAL_STEPS = 10  # chained steps of phase 18's strips and flat step
 SPATIAL_PROFILE_STEPS = 2  # of each, profiled after them
+DRIFT_K = 32  # phase 18b: a table capacity no cell of the 1M problem fills
 # phase 19: gap.toml's seeds on each backend's Simulator, held to the
 # reference's record, 246 +- 22 steps over 8 seeds (FIDELITY.md:18), and
 # to the reference's frozen band (tests/test_regression_bands.py:24)
@@ -316,11 +328,11 @@ FIRST_DESIGN_MS = {"hybrid": 1.0674, "full": 0.9188, "step_kernel": 0.7499,
                    "step_kernel_segments_random_toml": 0.7328,
                    "pairwise": 0.5632, "flat_pairwise": 1.1263}
 # Each path's device ms/step (and the flat step's launches a step) before
-# the flat step's scatter and integrate kernels, from this script's run then
-# (PERF.md section 5; NVIDIA H100 80GB HBM3, 700 W), printed beside this
-# run's; nothing is gated on them
-EARLIER_DEVICE_MS = {"full": 0.4329, "hybrid": 0.4805, "pallas": 1.1478,
-                  "flat": 2.2282, "flat_launches": 99.5, "strips": 6.4066}
+# the flat sample kernel's redesign, from this script's run then (PERF.md
+# section 5; NVIDIA H100 80GB HBM3, 700 W), printed beside this run's;
+# nothing is gated on them
+EARLIER_DEVICE_MS = {"full": 0.4335, "hybrid": 0.4815, "pallas": 1.1425,
+                     "flat": 0.8982, "flat_launches": 23.5, "strips": 3.4569}
 GATHER_RUNS = 20  # timed runs of each form of the [N, 12] row gather
 # tests/test_rebin_incremental.py's spawning scenario
 SPAWN_SCENARIO = """
@@ -655,9 +667,9 @@ def _needed_bytes(name: str, ins: tuple, outs: tuple) -> int:
             + _nbytes(m[:, :, 6]) + row6 * int((m[:, :, 6] > 0.5).sum()) + out_b)
 
 
-def _tap_rows(rows, hp: int, wp: int, pos, dest, unit: float) -> int:
-    """Distinct texel rows of ``rows`` the four bilinear taps of the agents
-    at ``pos`` bound for ``dest`` read (sampling.sample_field's index
+def _tap_index(rows, hp: int, wp: int, pos, dest, unit: float) -> torch.Tensor:
+    """The rows of ``rows`` that the four bilinear taps of the agents at
+    ``pos`` bound for ``dest`` read, [4, N] (sampling.sample_field's index
     arithmetic, each tap clamped into the rows)."""
     from pedoni_tpu_torch.field import PAD
     from pedoni_tpu_torch.ops.neighbor import true_divide
@@ -665,7 +677,63 @@ def _tap_rows(rows, hp: int, wp: int, pos, dest, unit: float) -> int:
     py = torch.clamp(true_divide(pos[:, 1], unit) - 0.5 + PAD, 0.0, hp - 1.001)
     base = (dest.long() * hp + torch.floor(py).long()) * wp + torch.floor(px).long()
     taps = torch.stack([base, base + 1, base + wp, base + wp + 1])
-    return int(torch.unique(torch.clamp(taps, 0, rows.shape[0] - 1)).numel())
+    return torch.clamp(taps, 0, rows.shape[0] - 1)
+
+
+def _tap_rows(rows, hp: int, wp: int, pos, dest, unit: float) -> int:
+    """Distinct texel rows of ``rows`` the agents' taps read (``_tap_index``)."""
+    return int(torch.unique(_tap_index(rows, hp, wp, pos, dest, unit)).numel())
+
+
+def _tap_footprint(rows, hp: int, wp: int, pos, dest, unit: float) -> dict:
+    """What the agents' taps (``_tap_index``) touch of ``rows`` as the card
+    fetches it: distinct texel rows, 32-byte sectors, 64-byte pieces and
+    128-byte lines (from the tensor's address), and the bytes of each."""
+    byte = (rows.data_ptr() + torch.unique(_tap_index(rows, hp, wp, pos, dest, unit))
+            * rows.shape[1] * rows.element_size())
+    out = {"texels": int(byte.numel())}
+    for name, size in (("sectors_32", 32), ("pieces_64", 64), ("lines_128", 128)):
+        out[name] = int(torch.unique(torch.cat([byte, byte + rows.shape[1]
+                                                * rows.element_size() - 1])
+                                     // size).numel())
+        out[name + "_mb"] = out[name] * size / 1e6
+    return out
+
+
+def _grid_sample_call(args: tuple):
+    """The library yardstick of the flat sample's taps: (a function that
+    runs ``torch.nn.functional.grid_sample`` once, bilinear, of the field's
+    six channels as [1, 6, R / wp, wp] planes at the agents' points, in
+    plane ``dest``, normalised with align_corners; the max error of its
+    obstacle channels against the kernel's packed ch 9-11 on the alive
+    agents, relative to max(1, |value|): the Sobel of the distance map
+    reaches 4e11 beside an obstacle).  The planes and points are made outside the timed call.  It
+    computes the taps alone: no goal direction, despawn, cell id or
+    packing."""
+    from pedoni_tpu_torch.field import PAD
+    from pedoni_tpu_torch.ops.kernels.flat_sample import flat_sample
+    from pedoni_tpu_torch.ops.neighbor import true_divide
+    rows, hp, wp, pos, vel, speed, dest, active, unit = args[:9]
+    h = rows.shape[0] // wp
+    planes = rows[:h * wp, :6].t().reshape(1, 6, h, wp).contiguous()
+    px = torch.clamp(true_divide(pos[:, 0], unit) - 0.5 + PAD, 0.0, wp - 1.001)
+    py = torch.clamp(true_divide(pos[:, 1], unit) - 0.5 + PAD, 0.0, hp - 1.001)
+    yg = dest.clamp(0, h // hp - 1).float() * hp + py
+    pts = torch.stack([px * (2.0 / (wp - 1)) - 1.0, yg * (2.0 / (h - 1)) - 1.0],
+                      1).view(1, 1, -1, 2).contiguous()
+
+    def run():
+        return torch.nn.functional.grid_sample(planes, pts, mode="bilinear",
+                                               padding_mode="border",
+                                               align_corners=True)
+
+    packed, _ = flat_sample(*args)
+    got = run()[0, 3:6, 0].t()
+    ok = (packed[:, 6] > 0.5) & (dest >= 0) & (dest < h // hp)
+    want = packed[ok, 9:12]
+    err = (float(((got[ok] - want).abs() / want.abs().clamp(min=1.0)).max())
+           if bool(ok.any()) else 0.0)
+    return run, err
 
 
 def _profile_counts(run, n: int):
@@ -1869,8 +1937,13 @@ def _flat_1m(dev, card, capture: dict | None = None) -> dict:
     gather after the argsort the flat scatter kernel's.  With ``capture``
     (a dict), one more step stores its padded cell grid and the physics
     ("grid"), the flat sample kernel's arguments ("sample") and outputs
-    ("packed", "cid"), the sort's permutation ("order"), and the flat
-    scatter and integrate kernels' arguments ("scatter", "integrate")."""
+    ("packed", "cid"), the sort's permutation ("order"), the flat
+    scatter and integrate kernels' arguments ("scatter", "integrate"), and
+    the problem's agents before their first step ("initial", unsorted).
+    Returns the run's numbers, with each flat kernel's device us/step and
+    launches a step in the profile under "kernel_us" and
+    "kernel_profile_launches" (the step makes one of each; a profile that
+    lost a launch's record counts fewer)."""
     import collections
 
     from pedoni_tpu_torch.bench import build_problem
@@ -1915,10 +1988,11 @@ def _flat_1m(dev, card, capture: dict | None = None) -> dict:
         for _ in range(FLAT_PROFILE_STEPS):
             st, m = step(st, field.rows, obstacles)
         torch.cuda.synchronize()
-    us, launches = collections.Counter(), 0.0
+    us, counts, launches = collections.Counter(), collections.Counter(), 0.0
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             us[ev.key] += ev.self_device_time_total / FLAT_PROFILE_STEPS
+            counts[ev.key] += ev.count / FLAT_PROFILE_STEPS
             launches += ev.count / FLAT_PROFILE_STEPS
     by_shape = prof.key_averages(group_by_input_shape=True)
     gathers = ("aten::index_select", "aten::index", "aten::take", "aten::gather")
@@ -1947,6 +2021,7 @@ def _flat_1m(dev, card, capture: dict | None = None) -> dict:
           f"{EARLIER_DEVICE_MS['flat_launches']}) on {card}",
           flush=True)
     if capture is not None:
+        capture["initial"] = flat.agents
         real = (forcepass.dense_pairwise, sfm.flat_sample, sfm.flat_scatter,
                 sfm.flat_integrate)
 
@@ -1979,7 +2054,12 @@ def _flat_1m(dev, card, capture: dict | None = None) -> dict:
     return {"ms_per_step": wall, "device_ms_per_step": dev_ms,
             "launches_per_step": launches, "busy_share": dev_ms / wall,
             "peak_bytes": peak, "n_active": n_active, "launches": launched,
-            "row_gathers": row_gathers, "tap_gathers": taps}
+            "row_gathers": row_gathers, "tap_gathers": taps,
+            "kernel_us": {k: sum(v for key, v in us.items() if f"{k}_" in key)
+                          for k in FLAT_KERNELS},
+            "kernel_profile_launches": {
+                k: sum(v for key, v in counts.items() if f"{k}_" in key)
+                for k in FLAT_KERNELS}}
 
 
 def _flat_subprocesses(card) -> dict:
@@ -2181,13 +2261,19 @@ def _same_bits(got: torch.Tensor, want: torch.Tensor) -> float:
     return 0.0
 
 
-def _flat_sample_entry(dev, card, sample: tuple, launches: int) -> dict:
+def _flat_sample_entry(dev, card, sample: tuple, launches: int,
+                       in_step_us: float, in_step_launches: float) -> dict:
     """15c. The flat sample kernel against its twin (sampling.
     flat_sample_torch, on the card) bit for bit (``_same_bits``, and the
     cell ids equal) on tests/test_torch_flat_sample_cases.py's edge cases
-    on gap.toml's fields, sanitized and not, and on the 1M problem's
-    agents (``sample``: the step's arguments); kernel, twin and bound timed
-    there.  Returns the JSON entry, with ``launches`` from the 1M run."""
+    on gap.toml's fields, sanitized and not, at ragged sizes, and on the 1M
+    problem's agents (``sample``: the step's arguments); kernel, twin and
+    bound timed there, beside the kernel's us/step in the step's profile
+    (``in_step_us`` over ``in_step_launches`` launches a step), the taps'
+    footprint in 32-byte sectors and the
+    library yardstick of the taps alone, ``grid_sample``
+    (``_grid_sample_call``).  Returns the JSON entry, with ``launches``
+    from the 1M run."""
     from pedoni_tpu_torch.field import Field, FieldMaps
     from pedoni_tpu_torch.ops.kernels import flat_sample as fsk
     from pedoni_tpu_torch.ops.neighbor import CellGrid
@@ -2200,8 +2286,10 @@ def _flat_sample_entry(dev, card, sample: tuple, launches: int) -> dict:
     grid = CellGrid.for_size(sc.size, 1.4)
     cases = _cases_module()
     checks = []
-    for n, sanitize in ((3000, True), (3000, False), (200_003, True)):
-        agents = [torch.from_numpy(x).to(dev) for x in cases.edge_case_agents(n, n % 97)]
+    for n, sanitize in ((3000, True), (3000, False), (200_003, True), (1, True),
+                        (SAMPLE_RAGGED, False)):
+        agents = [torch.from_numpy(x[:n]).to(dev)
+                  for x in cases.edge_case_agents(max(n, 3000), n % 97)]
         checks.append((f"edge cases, {n} agents{'' if sanitize else ', unsanitized'}",
                        (field.rows, field.hp, field.wp_cols, *agents, 0.25, 0.25, grid),
                        {"sanitize": sanitize}))
@@ -2227,18 +2315,33 @@ def _flat_sample_entry(dev, card, sample: tuple, launches: int) -> dict:
                                          active, unit), (packed, cid))
     n = pos.shape[0]
     b_ms, by = _bound(need, n * FLAT_SAMPLE_FLOPS)
+    foot = _tap_footprint(rows, hp, wp, pos, dest, unit)
+    grid_sample, gs_err = _grid_sample_call(args)
+    gs_ms = _median_ms(grid_sample)
     print(f"# flat_sample: bit-equal to its twin on the card (max |err| 0, NaN in "
           f"the same places, cell ids equal) on {', '.join(errs)}; on the 1M "
-          f"problem kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms (median of 20 and "
+          f"problem kernel {k_ms:.4f} ms, in the step {in_step_us:.1f} us/step "
+          f"over {in_step_launches:.2f} launches a step recorded, "
+          f"{in_step_us / max(in_step_launches, 1e-9):.1f} us a launch (phase "
+          f"15's profile), twin {t_ms:.4f} ms (median of 20 and "
           f"{TWIN_RUNS}, CUDA events), bound {b_ms:.4f} ms ({by}; {need / 1e6:.1f} "
           f"MB needed, {need / n:.1f} B an agent, at {HBM_BYTES_PER_S / 1e12:.2f} "
-          f"TB/s; {b_ms / k_ms:.1%} of it) on {card}", flush=True)
+          f"TB/s; {b_ms / k_ms:.1%} of it); the taps touch {foot['texels']} "
+          f"texel rows in {foot['sectors_32']} 32-byte sectors "
+          f"({foot['sectors_32_mb']:.1f} MB; {foot['pieces_64_mb']:.1f} MB in "
+          f"64-byte pieces); library: grid_sample of the taps alone (six "
+          f"channels, no despawn, cell id or packing) {gs_ms:.4f} ms, max "
+          f"relative err {gs_err:.2e} against the kernel's obstacle channels on "
+          f"{card}",
+          flush=True)
     return {"name": "flat_sample", "route": "cuda", "source": CSRC + "flat_sample.cu",
             "replaces": "pedoni_tpu/ops/sampling.py:70 + pedoni_tpu/models/sfm.py:335 "
                         "(XLA, no pallas_call)",
             "path": "flat", "launches": launches, "max_abs_err": max(errs.values()),
             "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None}
+            "library_ms": gs_ms, "library": "grid_sample of the taps alone",
+            "in_step_us": in_step_us, "in_step_launches": in_step_launches,
+            "tap_sectors_32": foot["sectors_32"]}
 
 
 def _row_gather_finding(card, packed: torch.Tensor, cid: torch.Tensor,
@@ -2283,7 +2386,7 @@ def _row_gather_finding(card, packed: torch.Tensor, cid: torch.Tensor,
 
 def _scatter_outputs(sc) -> list[torch.Tensor]:
     """Every tensor of a flat_scatter result, in order (None left out)."""
-    out = [sc.rows, sc.cid, sc.dest, sc.active, sc.n_active]
+    out = [sc.rows, sc.cid, sc.dest, sc.active, sc.n_active, sc.speed]
     if sc.layout is not None:
         out += list(sc.layout)
     return out + ([sc.data] if sc.data is not None else [])
@@ -2461,7 +2564,9 @@ def _flat_phase(dev, card) -> dict:
                                                cap["order"])
     res["kernels"] = [
         _flat_kernel_entry(dev, card, d, phys, res["launches"]["flat_pairwise"]),
-        _flat_sample_entry(dev, card, cap["sample"], res["launches"]["flat_sample"]),
+        _flat_sample_entry(dev, card, cap["sample"], res["launches"]["flat_sample"],
+                           res["kernel_us"]["flat_sample"],
+                           res["kernel_profile_launches"]["flat_sample"]),
         _flat_scatter_entry(dev, card, cap["scatter"], res["launches"]["flat_scatter"],
                             res["row_gather_ms"]["index_select"]),
         _flat_integrate_entry(dev, card, cap["integrate"],
@@ -3017,6 +3122,68 @@ def _spatial_phase(dev, card, flat_1m: dict) -> dict:
                      "near_contact_rows": n_near, "n_active_difference": d_active,
                      "position_difference": pos_diff}
         del ss, s1, srows, sobs
+    out["drift"] = _strip_drift(dev, card, cfg, maps, flat, field, obstacles, rows,
+                                strip_agents)
+    return out
+
+
+def _strip_drift(dev, card, cfg, maps, flat, field, obstacles, rows_of,
+                 strip_agents) -> dict:
+    """18b. Where the strips' drift from the flat step comes from: 1 +
+    SPATIAL_STEPS chained steps of 2 strips on this card and of the flat
+    step from the 1M problem's state, at its K and at DRIFT_K, where no
+    cell overflows (every step's overflow counted); and the flat step
+    against itself from its first step's state and from the same state
+    with every velocity one float up.  Prints, for each, the largest
+    position difference after them, where it sits against the strips'
+    edge, and how many agents moved apart by more than 1 mm and 1 cm.
+    Returns those numbers."""
+    import dataclasses
+
+    from pedoni_tpu_torch.models import sfm
+    from pedoni_tpu_torch.parallel import spatial
+
+    def apart(a, b, edge):
+        if a.shape != b.shape:
+            return {"rows": [a.shape[0], b.shape[0]]}
+        d = np.abs(a[:, :2] - b[:, :2]).max(1)
+        i = int(d.argmax())
+        return {"largest": float(d[i]), "x_from_edge": float(b[i, 0] - edge),
+                "over_1mm": int((d > 1e-3).sum()), "over_1cm": int((d > 1e-2).sum())}
+
+    out = {}
+    for k in (cfg.table_capacity, DRIFT_K):
+        kcfg = dataclasses.replace(cfg, table_capacity=k)
+        fstep = sfm.make_step(kcfg)
+        scfg = spatial.ShardedConfig.build(kcfg, 2)
+        srows, sobs = spatial.device_inputs(scfg, maps, [dev, dev])
+        sstep = spatial.make_sharded_step(scfg, [dev, dev])
+        fs, ss = flat, spatial.shard_state(scfg, flat, [dev, dev])
+        f_over, s_over = [], []
+        for _ in range(1 + SPATIAL_STEPS):
+            fs, fm = fstep(fs, field.rows, obstacles)
+            ss, sm = sstep(ss, srows, sobs)
+            f_over.append(int(fm.n_overflow))
+            s_over.append(int(sm.n_overflow))
+        r = apart(rows_of(strip_agents(ss)), rows_of(fs.agents), scfg.bounds(0)[1])
+        out[f"strips_k{k}"] = dict(r, flat_overflow=f_over, strips_overflow=s_over)
+        print(f"# phase 18b, K {k}: 2 strips against the flat step after "
+              f"{1 + SPATIAL_STEPS} steps: {r}; cells' overflow each step flat "
+              f"{f_over}, strips {s_over} on {card}", flush=True)
+        if k == cfg.table_capacity:
+            f1 = fstep(flat, field.rows, obstacles)[0]
+            a = f1.agents
+            up = f1._replace(agents=a._replace(vel=torch.nextafter(
+                a.vel, torch.full_like(a.vel, float("inf")))))
+            for _ in range(SPATIAL_STEPS):
+                f1 = fstep(f1, field.rows, obstacles)[0]
+                up = fstep(up, field.rows, obstacles)[0]
+            r = apart(rows_of(up.agents), rows_of(f1.agents), scfg.bounds(0)[1])
+            out["flat_one_float_up"] = r
+            print(f"# phase 18b, K {k}: the flat step against itself, every "
+                  f"velocity one float up after its first step, after "
+                  f"{SPATIAL_STEPS} more steps: {r} on {card}", flush=True)
+        del ss, srows, sobs
     return out
 
 
@@ -3416,7 +3583,8 @@ def main() -> int:
                                         "max_abs_err": big_k["max_abs_err"]}
     for name in FLAT_KERNELS:
         by_name[name]["strip_launches"] = {
-            what: r[f"{name}_launches"] for what, r in strips.items() if what != "flat"}
+            what: r[f"{name}_launches"] for what, r in strips.items()
+            if what not in ("flat", "drift")}
     print("# device ms/step beside EARLIER_DEVICE_MS (PERF.md; NVIDIA H100 80GB HBM3, 700 "
           "W): " + ", ".join(
               f"{what} {ms:.4f} (earlier {EARLIER_DEVICE_MS[what]}, "

@@ -338,11 +338,12 @@ def make_step(cfg: StepConfig, generator: torch.Generator | None = None):
 
         # cell-sort and cut back to the capacity; then one pass (flat_scatter,
         # on the card one launch of csrc/flat_scatter.cu): the sorted rows,
-        # the cell layout and the padded cell grid of the pair pass
+        # the cell layout and the padded cell grid of the pair pass; the
+        # state keeps its contiguous speed, not the rows' strided column
         order = torch.argsort(cid, stable=True)[:c]
         sc = flat_scatter(packed, cid, order, grid, k, cells=cfg.use_neighbor_grid)
         sp = sc.rows
-        agents = AgentState(pos=sp[:, 0:2], vel=sp[:, 2:4], speed=sp[:, 4],
+        agents = AgentState(pos=sp[:, 0:2], vel=sp[:, 2:4], speed=sc.speed,
                             dest=sc.dest, active=sc.active)
         n_active = sc.n_active
         n_dropped = alive.sum().to(torch.int32) - n_active

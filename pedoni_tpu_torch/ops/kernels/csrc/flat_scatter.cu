@@ -20,6 +20,8 @@
 //   rows [C, 12] f32       packed[order]
 //   cid_s [C] i32          cid[order]
 //   dest [C] i32, active [C] u8   rows[:, 5] as int, rows[:, 6] > 0.5
+//   speed [C] f32          rows[:, 4], contiguous: the next step's flat
+//                          sample reads it without the rows' 48-byte stride
 //   slot [C] i64, valid [C] u8    forcepass.build_layout with the strides
 //                          (row, lane, rank) and size given
 //   counts [2] i32         n_overflow, n_active (zeroed here first)
@@ -116,8 +118,8 @@ __device__ __forceinline__ int first_cid_from(int64_t p, int nx, int ny) {
 __device__ void row_block(const float* __restrict__ packed,
                           const int* __restrict__ cid,
                           const int64_t* __restrict__ order, float* rows,
-                          int* cid_s, int* dest, unsigned char* active,
-                          int64_t* slot, unsigned char* valid, int* counts,
+                          int* cid_s, int* dest, float* speed,
+                          unsigned char* active, int64_t* slot, unsigned char* valid, int* counts,
                           int c, int nx, int n_cells, int k, int mode,
                           Layout L, int blk, int* sh) {
   const int t = threadIdx.x;
@@ -145,6 +147,7 @@ __device__ void row_block(const float* __restrict__ packed,
     dst[2] = p2;
     cid_s[i] = ci;
     dest[i] = (int)p1.y;
+    speed[i] = p1.x;
     act = p1.z > 0.5f;
     active[i] = act;
     if (mode > 0) {
@@ -234,7 +237,7 @@ __device__ void cell_block(const float* __restrict__ packed,
 __global__ void __launch_bounds__(kThreads)
 flat_scatter_kernel(const float* __restrict__ packed, const int* __restrict__ cid,
                     const int64_t* __restrict__ order, float* rows, int* cid_s,
-                    int* dest, unsigned char* active, int64_t* slot,
+                    int* dest, float* speed, unsigned char* active, int64_t* slot,
                     unsigned char* valid, int* counts, float* data, int c,
                     int nx, int ny, int k, int mode, Layout L, int ch,
                     int cell_blocks) {
@@ -247,8 +250,9 @@ flat_scatter_kernel(const float* __restrict__ packed, const int* __restrict__ ci
     cell_block(packed, cid, order, data, c, nx, ny, k, ch, b, sh_first, sh_last,
                sh_stage, sh_bounds);
   else
-    row_block(packed, cid, order, rows, cid_s, dest, active, slot, valid,
-              counts, c, nx, nx * ny, k, mode, L, b - cell_blocks, sh_rows);
+    row_block(packed, cid, order, rows, cid_s, dest, speed, active, slot,
+              valid, counts, c, nx, nx * ny, k, mode, L, b - cell_blocks,
+              sh_rows);
 }
 
 // Padded cells a cell block writes at K: about kSlotsPerCellBlock slots.
@@ -266,8 +270,8 @@ int cells_per_block(int k) {
 // take, or PEDONI_WRONG_DEVICE (device.cuh) for rows off the current device.
 extern "C" int pedoni_flat_scatter(const float* packed, const int* cid,
                                    const int64_t* order, float* rows, int* cid_s,
-                                   int* dest, unsigned char* active,
-                                   int64_t* slot, unsigned char* valid,
+                                   int* dest, float* speed,
+                                   unsigned char* active, int64_t* slot, unsigned char* valid,
                                    int* counts, float* data, int64_t c, int nx,
                                    int ny, int k, int mode,
                                    const int64_t* layout, void* stream) {
@@ -294,7 +298,7 @@ extern "C" int pedoni_flat_scatter(const float* packed, const int* cid,
   if (blocks == 0) return 0;
   if (blocks >= INT_MAX) return -1;
   flat_scatter_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      packed, cid, order, rows, cid_s, dest, active, slot, valid, counts, data,
-      (int)c, nx, ny, k, mode, L, ch, (int)cell_blocks);
+      packed, cid, order, rows, cid_s, dest, speed, active, slot, valid, counts,
+      data, (int)c, nx, ny, k, mode, L, ch, (int)cell_blocks);
   return (int)cudaGetLastError();
 }

@@ -52,6 +52,28 @@ def _check(rows: torch.Tensor, pos: torch.Tensor, vel: torch.Tensor,
         raise ValueError(f"flat_sample: {n} agents, at most 2^31 - 1")
 
 
+def launch(lib, rows: torch.Tensor, hp: int, wp: int, pos: torch.Tensor,
+           vel: torch.Tensor, speed: torch.Tensor, dest: torch.Tensor,
+           active: torch.Tensor, unit: float, despawn_potential: float,
+           grid: CellGrid, sanitize: bool, packed: torch.Tensor,
+           cid: torch.Tensor) -> int:
+    """One launch of ``lib``'s ``pedoni_flat_sample`` into ``packed`` and
+    ``cid`` on the current stream of ``rows``' card, unchecked: its return
+    code (``_build.check_launch``).  ``flat_sample`` calls it with the
+    kernel library; sample_phases.py with cut-down builds."""
+    consts = torch.from_numpy(np.array(
+        sample_constants(hp, wp, unit, despawn_potential, grid), np.float32))
+    strides = torch.tensor([*pos.stride(), *vel.stride(), speed.stride(0),
+                            dest.stride(0), active.stride(0)], dtype=torch.int64)
+    with torch.cuda.device(rows.device):  # a launch goes to the current card
+        return lib.pedoni_flat_sample(
+            pos.data_ptr(), vel.data_ptr(), speed.data_ptr(), dest.data_ptr(),
+            active.data_ptr(), rows.data_ptr(), packed.data_ptr(), cid.data_ptr(),
+            pos.shape[0], rows.shape[0], hp, wp, grid.nx, grid.ny, int(sanitize),
+            strides.data_ptr(), consts.data_ptr(),
+            torch.cuda.current_stream(rows.device).cuda_stream)
+
+
 def flat_sample(rows: torch.Tensor, hp: int, wp: int, pos: torch.Tensor,
                 vel: torch.Tensor, speed: torch.Tensor, dest: torch.Tensor,
                 active: torch.Tensor, unit: float, despawn_potential: float,
@@ -74,18 +96,8 @@ def flat_sample(rows: torch.Tensor, hp: int, wp: int, pos: torch.Tensor,
     cid = torch.empty((n,), dtype=torch.int32, device=rows.device)
     if n == 0:
         return packed, cid
-    lib = _build.library()
-    consts = torch.from_numpy(np.array(
-        sample_constants(hp, wp, unit, despawn_potential, grid), np.float32))
-    strides = torch.tensor([*pos.stride(), *vel.stride(), speed.stride(0),
-                            dest.stride(0), active.stride(0)], dtype=torch.int64)
-    with torch.cuda.device(rows.device):  # a launch goes to the current card
-        rc = lib.pedoni_flat_sample(
-            pos.data_ptr(), vel.data_ptr(), speed.data_ptr(), dest.data_ptr(),
-            active.data_ptr(), rows.data_ptr(), packed.data_ptr(), cid.data_ptr(),
-            n, rows.shape[0], hp, wp, grid.nx, grid.ny, int(sanitize),
-            strides.data_ptr(), consts.data_ptr(),
-            torch.cuda.current_stream(rows.device).cuda_stream)
+    rc = launch(_build.library(), rows, hp, wp, pos, vel, speed, dest, active,
+                unit, despawn_potential, grid, sanitize, packed, cid)
     _build.check_launch(rc, "pedoni_flat_sample")
     flat_sample.launches += 1
     return packed, cid

@@ -3,10 +3,12 @@
 
 ``flat_scatter`` computes ``flat_scatter_torch``: from the packed [N, 12]
 rows and cell ids of ``flat_sample`` and the first C entries of their
-stable argsort, the sorted rows, their cell ids, dest and active flag, the
-active count, the cell layout (``forcepass.build_layout``: each row's slot,
-valid flag and the overflow count) and the padded cell grid
-[ny+2, nx+2, K, 8] (``forcepass.scatter_cell_data``).  On a CUDA tensor it
+stable argsort, the sorted rows, their cell ids, dest, active flag and
+speed (a contiguous copy, which the next step's sample reads without the
+rows' 48-byte stride), the active count, the cell layout
+(``forcepass.build_layout``: each row's slot, valid flag and the overflow
+count) and the padded cell grid [ny+2, nx+2, K, 8]
+(``forcepass.scatter_cell_data``).  On a CUDA tensor it
 launches the kernel or raises; on a CPU tensor it runs the twin.  Every
 output is a copy or an integer, so the two agree bit for bit.
 
@@ -40,6 +42,7 @@ class Scattered(NamedTuple):
     n_active: torch.Tensor  # 0-d i32
     layout: CellLayout | None  # with ``cells``
     data: torch.Tensor | None  # [ny+2, nx+2, K, 8], with ``cells`` and no strides
+    speed: torch.Tensor  # [C] f32, rows[:, 4] contiguous
 
 
 def flat_scatter_torch(packed: torch.Tensor, cid: torch.Tensor,
@@ -61,7 +64,8 @@ def flat_scatter_torch(packed: torch.Tensor, cid: torch.Tensor,
         if strides is None:
             data = forcepass.scatter_cell_data(layout, grid, k, sp[:, 0:2],
                                                sp[:, 2:4], sp[:, 7:9])
-    return Scattered(sp, cid_sorted, dest, active, n_active, layout, data)
+    return Scattered(sp, cid_sorted, dest, active, n_active, layout, data,
+                     sp[:, 4].contiguous())
 
 
 def _check(packed: torch.Tensor, cid: torch.Tensor, order: torch.Tensor,
@@ -106,6 +110,7 @@ def flat_scatter(packed: torch.Tensor, cid: torch.Tensor, order: torch.Tensor,
     rows = torch.empty((c, 12), dtype=torch.float32, device=dev)
     cid_s = torch.empty((c,), dtype=torch.int32, device=dev)
     dest = torch.empty((c,), dtype=torch.int32, device=dev)
+    speed = torch.empty((c,), dtype=torch.float32, device=dev)
     counts = torch.empty((2,), dtype=torch.int32, device=dev)  # zeroed by the launcher
     active = torch.empty((c,), dtype=torch.bool, device=dev)
     layout = data = slot = valid = None
@@ -130,13 +135,12 @@ def flat_scatter(packed: torch.Tensor, cid: torch.Tensor, order: torch.Tensor,
     with torch.cuda.device(dev):  # a launch goes to the current card
         rc = lib.pedoni_flat_scatter(
             packed.data_ptr(), cid.data_ptr(), order.data_ptr(), rows.data_ptr(),
-            cid_s.data_ptr(), dest.data_ptr(), active.data_ptr(),
-            ptr(slot), ptr(valid),
-            counts.data_ptr(), ptr(data), c, grid.nx, grid.ny, k, mode,
+            cid_s.data_ptr(), dest.data_ptr(), speed.data_ptr(),
+            active.data_ptr(), ptr(slot), ptr(valid), counts.data_ptr(), ptr(data), c, grid.nx, grid.ny, k, mode,
             lay.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "pedoni_flat_scatter")
     flat_scatter.launches += 1
-    return Scattered(rows, cid_s, dest, active, counts[1], layout, data)
+    return Scattered(rows, cid_s, dest, active, counts[1], layout, data, speed)
 
 
 flat_scatter.launches = 0

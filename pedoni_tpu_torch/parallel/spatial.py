@@ -38,8 +38,15 @@ its capacity (the reference's ``mode="drop"``): the real slots get unique
 indices, the rest go to the dump row, which is cut off.
 
 Owned agents near a strip edge see the same neighbours (own + ghosts) as
-one flat step would, so D strips equal the flat step up to the order of
-float sums.  ``StepMetrics`` holds the reference's four fields
+one flat step would, but for one: an agent that crosses an edge is
+shipped to its new strip and leaves its old one for that step (only
+agents that stay are sent as ghosts, as in the reference's
+spatial.py:214-215, 248-249), so the agents it leaves behind within the
+cutoff miss its pair force for that step.  So one step of D strips equals
+the flat step up to the order of float sums and those missed pushes, and
+chained steps drift from it near the edges (tests/test_torch_spatial.py::
+test_an_edge_crosser_leaves_its_old_strip_as_in_the_reference).
+``StepMetrics`` holds the reference's four fields
 (``n_active``, ``n_spawned``, ``n_dropped``: agents past a shard's
 capacity, ``n_overflow``: cell-table overflow plus package saturation) and
 zeros, as the port's flat step does.

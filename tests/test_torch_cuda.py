@@ -1059,30 +1059,49 @@ def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
             and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
 
 
+def _sample_block_agents() -> int:
+    """Agents a block of csrc/flat_sample.cu takes a turn: its threads
+    times the agents each thread takes (read from the source)."""
+    import re
+    src = (pathlib.Path(fsk.__file__).parent / "csrc" / "flat_sample.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
+    return threads * int(re.search(r"constexpr int kAgents = (\d+);", src).group(1))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n, sanitize, strided", [(3000, True, False),
-                                                  (3000, False, False),
-                                                  (200_003, True, True)],
-                         ids=["edges", "strips", "ragged_strided"])
+@pytest.mark.parametrize("n, sanitize, strided", [
+    (3000, True, False), (3000, False, False), (200_003, True, True),
+    *((n, sanitize, strided) for n in ("1", "block-1", "block+1")
+      for sanitize in (True, False) for strided in (False, True))],
+    ids=["edges", "strips", "ragged_strided",
+         *(f"{n}-{'sanitized' if sanitize else 'unsanitized'}-"
+           f"{'strided' if strided else 'contiguous'}"
+           for n in ("1", "block-1", "block+1") for sanitize in (True, False)
+           for strided in (False, True))])
 def test_flat_sample_matches_twin(n, sanitize, strided):
     """The flat sample kernel (csrc/flat_sample.cu) against its twin
     (sampling.flat_sample_torch) on the card, on gap.toml's two waypoint
     planes and tests/test_torch_flat_sample_cases.py's agents (off the map,
     non-finite, on cell boundaries, huge velocities and speeds, dest past
     the planes): the 12 packed channels bit for bit (NaN where the twin's
-    is), the cell ids equal; with and without sanitizing, and from strided
-    views of the agents.  One launch counted."""
+    is), the cell ids equal; with and without sanitizing, from contiguous
+    and strided agents, at one agent and one below and one above a multiple
+    of the agents a block takes (its threads times a thread's agents), so
+    that the last warp and thread are partly filled.  One launch counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from pedoni_tpu_torch.ops.neighbor import CellGrid
     from pedoni_tpu_torch.ops.sampling import DeviceField, flat_sample_torch
 
+    if isinstance(n, str):
+        n = {"1": 1, "block-1": 37 * _sample_block_agents() - 1,
+             "block+1": 37 * _sample_block_agents() + 1}[n]
     sc = load_scenario(GAP)
     field = DeviceField.from_maps(FieldMaps.from_field(Field.from_scenario(sc, unit=0.25)),
                                   "cuda")
     grid = CellGrid.for_size(sc.size, 1.4)
-    pos, vel, speed, dest, act = (torch.from_numpy(x).cuda()
-                                  for x in edge_case_agents(n, n % 97))
+    pos, vel, speed, dest, act = (torch.from_numpy(x[:n]).cuda()
+                                  for x in edge_case_agents(max(n, 3000), n % 97))
     if strided:
         rows = torch.cat([pos, vel, speed[:, None]], 1)
         pos, vel, speed = rows[:, 0:2], rows[:, 2:4], rows[:, 4]
@@ -1095,7 +1114,7 @@ def test_flat_sample_matches_twin(n, sanitize, strided):
     assert fsk.flat_sample.launches == before + 1
     assert _same_bits(got, want), float((got - want).abs().nan_to_num().max())
     assert torch.equal(cid, wcid)
-    assert 0 < int((cid < grid.n_cells).sum()) < n
+    assert n == 1 or 0 < int((cid < grid.n_cells).sum()) < n
 
 
 @pytest.mark.cuda
@@ -1204,7 +1223,7 @@ def test_flat_scatter_matches_twin(name):
         want = fck.flat_scatter_torch(packed, cid, order, grid, k, **kw)
         torch.cuda.synchronize()
         assert fck.flat_scatter.launches == before + 1
-        for field in ("rows", "cid", "dest", "active", "n_active"):
+        for field in ("rows", "cid", "dest", "active", "n_active", "speed"):
             assert _bits_equal(getattr(got, field), getattr(want, field)), (kw, field)
         assert (got.layout is None) == (want.layout is None)
         if got.layout is not None:

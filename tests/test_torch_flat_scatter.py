@@ -17,6 +17,7 @@ flat_integrate.py::flat_integrate_torch), on the CPU:
   1e-5 / rtol 1e-6, in the three modes;
 - the flat step bit for bit against its composition before the two
   kernels (a frozen copy), in the three modes, spawning, with faulty agents;
+- ``flat_scatter_torch``'s contiguous speed is ``packed[order, 4]``;
 - the wrappers on CPU tensors run the twins and count no launch, and refuse
   what the kernels do not take.
 """
@@ -107,6 +108,19 @@ def test_scatter_twin_takes_the_slot_grid_strides():
     for a, b in zip(got.layout, want):
         assert torch.equal(a, b)
     assert int((got.layout.slot < size).sum()) == int(got.layout.valid.sum()) > 100
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("cells", [True, False], ids=["cells", "rows_only"])
+def test_scatter_twin_speed_is_the_sorted_speed(name, cells):
+    """The twin's contiguous speed, which the next step's sample reads, is
+    ``packed[order, 4]`` bit for bit (NaN payloads included), with and
+    without cells."""
+    packed, cid, order, grid, k = _inputs(name)
+    got = fck.flat_scatter_torch(packed, cid, order, grid, k, cells=cells)
+    assert got.speed.dtype == torch.float32 and got.speed.is_contiguous()
+    np.testing.assert_array_equal(_bits(got.speed), _bits(packed[order, 4]))
+    np.testing.assert_array_equal(_bits(got.speed), _bits(got.rows[:, 4]))
 
 
 def _integrate_inputs(mode):

@@ -82,7 +82,8 @@ def test_imports_and_steps_without_jax():
 
 def test_package_never_imports_jax_or_reference():
     for path in list(pathlib.Path(pedoni_tpu_torch.__file__).parent.rglob("*.py")) \
-            + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]:
+            + [ROOT / "chip_smoke.py", ROOT / "sample_phases.py",
+               ROOT / "examples" / "quickstart_torch.py"]:
         text = path.read_text()
         for bad in ("import jax", "from jax", "import pedoni_tpu\n",
                     "from pedoni_tpu ", "from pedoni_tpu.", "import pedoni_tpu."):

@@ -17,6 +17,9 @@ file's):
   the rows where the port's flat step from the same input is itself
   farther than 1e-5 from the reference, to that flat step's own error
   plus 1e-5; and every row within 1e-5 of the port's flat step;
+- the same for ten steps of 2 strips, at 2 m cells and K 3, where cells
+  overflow in every step and the reference's windows lie on the global
+  cell grid, and at 1.4 m and K 12, where no cell overflows;
 - fifteen chained steps of the strips against the port's own flat step:
   ``n_active`` equal, positions within 2e-2 (the reference's
   ``test_sharded_matches_single``);
@@ -61,7 +64,7 @@ def _configs(src=SCENARIO, capacity=CAP, **kw):
     sc, psc = loads_scenario(src), pscenario.loads_scenario(src)
     maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
     pmaps = pfield.FieldMaps.from_field(pfield.Field.from_scenario(psc, unit=0.25))
-    kw = dict(capacity=capacity, table_capacity=12, **kw)
+    kw = {"capacity": capacity, "table_capacity": 12, **kw}
     return (maps, R.StepConfig.build(sc, **kw), pmaps,
             P.StepConfig.build(psc, **kw))
 
@@ -88,9 +91,13 @@ def _cat(shards) -> P.AgentState:
     return P.AgentState(*(torch.cat(x) for x in zip(*shards)))
 
 
-@pytest.mark.parametrize("n_strips", [1, 2, 8])
-def test_strips_match_reference(n_strips):
-    maps, cfg, pmaps, pcfg = _configs(chunk_size=256)
+def _match_reference(n_strips, n_steps, **kw):
+    """``n_steps`` steps of the port's strips against the reference's, each
+    from the reference's sharded state carried across (module docstring);
+    the StepConfig keywords ``kw`` beside chunk 256.  Returns (the last
+    step's metrics, the cells' overflow count of each step, the agents
+    spawned, the largest speed along an axis)."""
+    maps, cfg, pmaps, pcfg = _configs(chunk_size=256, **kw)
     mesh = Mesh(np.array(jax.devices()[:n_strips]), ("x",))
     scfg = RS.ShardedConfig.build(cfg, n_strips, package_capacity=PACKAGE)
     step = jax.jit(RS.make_sharded_step(scfg, maps, mesh))
@@ -104,8 +111,8 @@ def test_strips_match_reference(n_strips):
     ffield, fobs = P.device_inputs(pcfg, pmaps, "cpu")
     # jitted as in the step, whose fused multiply-add draws the speeds
     draw = jax.jit(lambda key: R._spawn_candidates(cfg, jax.random.split(key)[1]))
-    spawned = moved = 0
-    for i in range(5):
+    overflow, spawned, moved = [], 0, 0.0
+    for i in range(n_steps):
         cand = convert.agents_from_numpy(*(np.asarray(x) for x in draw(state.key)),
                                          "cpu")
         ps = _shards(state.agents, n_strips)
@@ -131,9 +138,33 @@ def test_strips_match_reference(n_strips):
             at = np.searchsorted(ref_all[:, 4], want_rows[:, 4])  # speeds unique
             bound = np.where(flat_err[at] > TOL, flat_err[at] + TOL, TOL)
             assert (err <= bound).all(), (i, d, err.max(), bound[err.argmax()])
+        overflow.append(want["n_overflow"])
         spawned += want["n_spawned"]
         moved = max(moved, float(np.abs(got_all[:, 2:4]).max()))
+    return pm, overflow, spawned, moved
+
+
+@pytest.mark.parametrize("n_strips", [1, 2, 8])
+def test_strips_match_reference(n_strips):
+    pm, _, spawned, moved = _match_reference(n_strips, 5)
     assert spawned > 0 and moved > 1.0 and int(pm.n_active) > 40
+
+
+@pytest.mark.parametrize("kw, overflows", [
+    ({"neighbor_grid_unit": 2.0, "table_capacity": 3}, True),
+    ({}, False)], ids=["cells_overflow", "no_cell_overflows"])
+def test_strips_match_reference_for_ten_steps(kw, overflows):
+    """Ten steps of 2 strips against the reference's, each held as in
+    ``test_strips_match_reference``: at 2 m cells and K 3, where cells
+    overflow in every step (a 16 m strip is 8 cells, so the reference's
+    windows, which start at the strip edge less the margin, lie on the
+    global cell grid as the port's do, and both fill a cell past K from
+    the same agents), and at the fixture's 1.4 m and K 12, where no cell
+    overflows.  The port's strips equal the reference's and the port's
+    flat step in every step, overflow or not."""
+    pm, overflow, spawned, _ = _match_reference(2, 10, **kw)
+    assert spawned > 0 and int(pm.n_active) > 40
+    assert all(overflow) if overflows else not any(overflow), overflow
 
 
 @pytest.mark.parametrize("n_strips", [2, 8])
@@ -189,6 +220,47 @@ def test_package_saturation_defers_not_destroys():
     assert not bool(ps.agents[0].active.any())
     a = _cat(ps.agents)
     assert int(a.active.sum()) == n and bool((a.pos[a.active, 0] >= 4.0).all())
+
+
+def test_an_edge_crosser_leaves_its_old_strip_as_in_the_reference():
+    """Why strips drift from the flat step: an agent that crosses a strip's
+    edge is shipped to its new strip and leaves its old one for that step
+    (it is not sent back as a ghost), so agents it leaves behind within the
+    cutoff miss its pair force for that step.  A walks 0.8 m behind B in
+    strip 0; B has crossed the 16 m edge.  After one step of 2 strips, B's
+    velocity is the flat step's (its new strip gets A as a ghost), A's
+    misses B's push, and both equal the reference's strips'."""
+    src = SCENARIO.split("[[obstacles]]")[0]
+    maps, cfg, pmaps, pcfg = _configs(src, capacity=256)
+    pos = np.zeros((256, 2), np.float32)
+    vel = np.zeros((256, 2), np.float32)
+    pos[:2] = [(15.5, 8.0), (16.3, 8.0)]
+    vel[:2] = (1.0, 0.0)
+    arrays = (pos, vel, np.full(256, 1.34, np.float32), np.ones(256, np.int32),
+              np.arange(256) < 2)
+    mesh = Mesh(np.array(jax.devices()[:2]), ("x",))
+    scfg = RS.ShardedConfig.build(cfg, 2, package_capacity=PACKAGE)
+    sharding = jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec("x"))
+    ref0 = RS.make_sharded_initial_state(scfg, mesh, seed=0)
+    ref0 = ref0._replace(agents=R.AgentState(*(jax.device_put(x, sharding)
+                                               for x in arrays)))
+    dfield, obstacles = R.device_inputs(cfg, maps)
+    ref1, _ = jax.jit(RS.make_sharded_step(scfg, maps, mesh))(ref0, dfield.rows,
+                                                               obstacles)
+    devices = ["cpu"] * 2
+    pscfg = PS.ShardedConfig.build(pcfg, 2, package_capacity=PACKAGE)
+    ps, _ = PS.make_sharded_step(pscfg, devices)(
+        _shards(R.AgentState(*arrays), 2), *PS.device_inputs(pscfg, pmaps, devices))
+    flat_in = P.SimState(convert.agents_from_numpy(*arrays, "cpu"), 0)
+    ffield, fobs = P.device_inputs(pcfg, pmaps, "cpu")
+    fs, _ = P.make_step(pcfg)(flat_in, ffield.rows, fobs)
+    got, ref, flat = _rows(_cat(ps.agents)), _rows(_cat(_shards(ref1.agents, 2).agents)), \
+        _rows(fs.agents)
+    assert got.shape == ref.shape == flat.shape == (2, 6)
+    a, b = np.argsort(got[:, 0])  # A behind B
+    np.testing.assert_allclose(got[:, :4], ref[:, :4], atol=TOL)
+    np.testing.assert_allclose(got[b, :4], flat[b, :4], atol=TOL)
+    assert np.abs(got[a, 2:4] - flat[a, 2:4]).max() > 100 * TOL
 
 
 @pytest.mark.parametrize("capacity", [CAP, 64], ids=["fits", "strip_full"])
