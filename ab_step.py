@@ -399,6 +399,7 @@ def density_sweep() -> int:
     from pedoni_tpu_torch.models import sfm_grid
     from pedoni_tpu_torch.ops.kernels import launch_counts, zero_launch_counts
     from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+    from pedoni_tpu_torch.utils import trace
 
     dev = torch.device("cuda")
     card = chip_smoke._card()
@@ -420,6 +421,7 @@ def density_sweep() -> int:
                "wall_ms": {"full": [], "hybrid": []},
                "device_ms": {"full": [], "hybrid": []},
                "device_launches": {"full": [], "hybrid": []}}
+        trace.enable(True)  # step.full_rebins counts while tracing is on
         for name in TURNS:
             step = sfm_grid.make_step_grid(cfg, incremental=name == "hybrid")
             zero_launch_counts()
@@ -437,6 +439,7 @@ def density_sweep() -> int:
                 res["mover_share"] = (int((movers[0][:, :, 6] > 0.5).sum())
                                       + float(movers[1].sum())) / res["hybrid_active"]
             del gs
+        trace.enable(False)
         problems.append((cfg, fwp, fobs, flat, res))
     for cfg, fwp, fobs, flat, res in problems:
         for name in TURNS:

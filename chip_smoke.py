@@ -517,6 +517,7 @@ def _spawn_parity(dev) -> None:
     from pedoni_tpu_torch.field import Field, FieldMaps
     from pedoni_tpu_torch.models import sfm_grid
     from pedoni_tpu_torch.models.sfm import SimState, StepConfig, spawn_candidates
+    from pedoni_tpu_torch.utils import trace
 
     sc = loads_scenario(SPAWN_SCENARIO)
     maps = FieldMaps.from_field(Field.from_scenario(sc, unit=0.25))
@@ -541,9 +542,13 @@ def _spawn_parity(dev) -> None:
                                            generator=gen)
             gs = sfm_grid.GridState(d=d0.clone(), step=0)
             ms = []
-            for cand in cands:
-                gs, m = step(gs, fwp, fobs, cand)
-                ms.append(metrics_to_dict(m))
+            trace.enable(True)  # step.full_rebins counts while tracing is on
+            try:
+                for cand in cands:
+                    gs, m = step(gs, fwp, fobs, cand)
+                    ms.append(metrics_to_dict(m))
+            finally:
+                trace.enable(False)
             runs.append((ms, _active_rows(gs.d), step.full_rebins))
         (m_full, a_full, _), (m_inc, a_inc, n_full) = runs
         for i, (mf, mi) in enumerate(zip(m_full, m_inc)):
@@ -3278,6 +3283,7 @@ def main() -> int:
     from pedoni_tpu_torch.ops.kernels import _build
     from pedoni_tpu_torch.ops.kernels import rebin as rb
     from pedoni_tpu_torch.ops.kernels import step_kernel as sk
+    from pedoni_tpu_torch.utils import trace
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3350,6 +3356,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     n_steps = WARMUP + TIMED
     paths, grid_device_ms = {}, {}
+    # step.full_rebins counts while tracing is on; both paths pay the spans
+    trace.enable(True)
     for name, incremental in (("full", False), ("hybrid", True)):
         step = sfm_grid.make_step_grid(bcfg, incremental=incremental)
         gs = gs0
@@ -3398,6 +3406,7 @@ def main() -> int:
               f"{n_active / dt:.4e} agent-steps/s; launches {counts}{branches} "
               f"on {card}", flush=True)
         paths[name] = (dt, counts, step, gs, n_full)
+    trace.enable(False)
     # the profiles come after both timed runs: a profiler once started
     # slows the host's launches for the rest of the process
     for name, (dt, counts, step, gs, n_full) in paths.items():

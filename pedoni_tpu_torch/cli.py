@@ -9,7 +9,8 @@ every ``--record-every`` and PNG frames every ``--frame-every`` steps,
 draw the terminal view (``--render``) and serve the browser view
 (``--render-web``, whose pause the loop honours) from a snapshot thread,
 record a ``torch.profiler`` trace into ``--profile DIR`` (with the
-kernels' and the spawn's own times every 100th step), and on SIGINT or
+program's spans, ``utils/trace.py``, and the kernels' and the spawn's own
+times every 100th step), and on SIGINT or
 ``--max-steps`` write the JSON diagnostic log to
 ``<log-dir>/<timestamp>_log.json``.  Without ``-H`` the terminal view is
 on and the run stops after 100000 steps unless ``--max-steps`` says
@@ -46,6 +47,7 @@ from .native import TrajectoryWriter
 from .physics import Physics
 from .scenario import load_scenario
 from .sim import Simulator, SimulatorOptions
+from .utils import trace
 
 log = logging.getLogger("pedoni_tpu_torch")
 
@@ -127,7 +129,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(matplotlib's, or a plain raster without it)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="record a torch.profiler trace of the run into DIR "
-                        "(<timestamp>_trace.json, CPU and CUDA activities), "
+                        "(<timestamp>_trace.json, CPU and CUDA activities, "
+                        "the tick's and the step's phases as named ranges), "
                         "and the kernels' and the spawn's own times every "
                         "100th step")
     p.add_argument("-v", "--verbose", action="store_true")
@@ -247,13 +250,14 @@ def run_headless(args: argparse.Namespace) -> Path:
             writer.close()  # drain the async writer queue
         if profiler is not None:
             profiler.stop()
+            trace.enable(False)
 
     ts = datetime.datetime.now().strftime("%Y-%m-%d_%H%M%S")
     if profiler is not None:
-        trace = Path(args.profile) / f"{ts}_trace.json"
-        trace.parent.mkdir(parents=True, exist_ok=True)
-        profiler.export_chrome_trace(str(trace))
-        log.info("profiler trace written to %s", trace)
+        trace_path = Path(args.profile) / f"{ts}_trace.json"
+        trace_path.parent.mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(trace_path))
+        log.info("profiler trace written to %s", trace_path)
     out = Path(args.log_dir) / f"{ts}_log.json"
     diag.write(out)
     log.info("Exported log file: %s", out)
@@ -262,13 +266,15 @@ def run_headless(args: argparse.Namespace) -> Path:
 
 def _start_profiler(device: torch.device) -> torch.profiler.profile:
     """A started ``torch.profiler`` over the host and, on a CUDA device,
-    the card (where the reference starts ``jax.profiler``): it keeps every
-    event in memory until the run ends."""
+    the card (where the reference starts ``jax.profiler``), with the
+    program's spans on (``utils/trace.py``: the tick's and the step's
+    phases): it keeps every event in memory until the run ends."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     profiler = torch.profiler.profile(activities=activities)
     profiler.start()
+    trace.enable(True)
     return profiler
 
 

@@ -40,6 +40,7 @@ from ..ops.neighbor import CellGrid
 from ..ops.sampling import DeviceField
 from ..physics import Physics
 from ..scenario import Scenario
+from ..utils import trace
 
 
 class AgentState(NamedTuple):
@@ -315,66 +316,76 @@ def make_step(cfg: StepConfig, generator: torch.Generator | None = None):
              obstacles: tuple[torch.Tensor, ...],
              candidates: AgentState | None = None
              ) -> tuple[SimState, StepMetrics]:
-        dev = field_rows.device
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
-        ext, n_spawned = state.agents, zero
-        if candidates is None and s > 0:
-            candidates = draw(generator)
-        if candidates is not None:  # appended past the capacity window
-            ext = _concat(ext, candidates)
-            n_spawned = candidates.active.sum().to(torch.int32).to(dev)
+        with trace.span("flat.step"):
+            dev = field_rows.device
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            ext, n_spawned = state.agents, zero
+            with trace.span("flat.spawn"):
+                if candidates is None and s > 0:
+                    candidates = draw(generator)
+                if candidates is not None:  # appended past the capacity window
+                    ext = _concat(ext, candidates)
+                    n_spawned = candidates.active.sum().to(torch.int32).to(dev)
 
-        # one pass before the sort (sampling.flat_sample_torch; on the card
-        # one launch of csrc/flat_sample.cu): the field sample, the goal
-        # direction, despawn (arrived, sfm.rs:69, or out of the grid, where
-        # the cell id's sentinel doubles as the in-grid test) and every
-        # channel packed into one [*, 12] tensor, so that the cell sort
-        # moves one row an agent; velocity and speed sanitized (a
-        # non-finite one would poison its 3x3 neighbourhood's pair sums)
-        packed, cid = flat_sample(field_rows, map_h, map_w, ext.pos, ext.vel,
-                                  ext.speed, ext.dest, ext.active,
-                                  cfg.field_unit, phys.despawn_potential, grid)
-        alive = cid < grid.n_cells
+            # one pass before the sort (sampling.flat_sample_torch; on the
+            # card one launch of csrc/flat_sample.cu): the field sample, the
+            # goal direction, despawn (arrived, sfm.rs:69, or out of the grid,
+            # where the cell id's sentinel doubles as the in-grid test) and
+            # every channel packed into one [*, 12] tensor, so that the cell
+            # sort moves one row an agent; velocity and speed sanitized (a
+            # non-finite one would poison its 3x3 neighbourhood's pair sums)
+            with trace.span("flat.sample"):
+                packed, cid = flat_sample(field_rows, map_h, map_w, ext.pos,
+                                          ext.vel, ext.speed, ext.dest,
+                                          ext.active, cfg.field_unit,
+                                          phys.despawn_potential, grid)
 
-        # cell-sort and cut back to the capacity; then one pass (flat_scatter,
-        # on the card one launch of csrc/flat_scatter.cu): the sorted rows,
-        # the cell layout and the padded cell grid of the pair pass; the
-        # state keeps its contiguous speed, not the rows' strided column
-        order = torch.argsort(cid, stable=True)[:c]
-        sc = flat_scatter(packed, cid, order, grid, k, cells=cfg.use_neighbor_grid)
-        sp = sc.rows
-        agents = AgentState(pos=sp[:, 0:2], vel=sp[:, 2:4], speed=sc.speed,
-                            dest=sc.dest, active=sc.active)
-        n_active = sc.n_active
-        n_dropped = alive.sum().to(torch.int32) - n_active
+            # cell-sort and cut back to the capacity; then one pass
+            # (flat_scatter, on the card one launch of csrc/flat_scatter.cu):
+            # the sorted rows, the cell layout and the padded cell grid of the
+            # pair pass; the state keeps its contiguous speed, not the rows'
+            # strided column
+            with trace.span("flat.sort"):
+                order = torch.argsort(cid, stable=True)[:c]
+            with trace.span("flat.scatter"):
+                sc = flat_scatter(packed, cid, order, grid, k,
+                                  cells=cfg.use_neighbor_grid)
+                sp = sc.rows
+                agents = AgentState(pos=sp[:, 0:2], vel=sp[:, 2:4],
+                                    speed=sc.speed, dest=sc.dest,
+                                    active=sc.active)
 
-        # forces: goal (sfm.rs:107-109) + obstacle (sfm.rs:188-237) +
-        # pairwise over the dense cell layout, or over all pairs, then the
-        # integration (flat_integrate, on the card one launch of
-        # csrc/flat_integrate.cu); segment-mode obstacles and all pairs are
-        # computed apart and added in their place in the sum
-        obstacle = None
-        if not cfg.use_distance_map and obstacles[0].shape[0] > 0:
-            obstacle = F.segment_obstacle_force(agents.pos, *obstacles, phys)
-        if cfg.use_neighbor_grid:
-            acc_flat = forcepass.dense_pairwise(sc.data, grid, k, phys,
-                                                row_block=cfg.row_block)
-            pos, vel = flat_integrate(sp, sc.active, phys, acc_flat=acc_flat,
-                                      layout=sc.layout, obstacle=obstacle,
-                                      distance_map=cfg.use_distance_map)
-            n_overflow = sc.layout.n_overflow
-        else:
-            pos, vel = flat_integrate(sp, sc.active, phys,
-                                      pair=_all_pairs_acc(cfg, agents, sp[:, 7:9]),
-                                      obstacle=obstacle,
-                                      distance_map=cfg.use_distance_map)
-            n_overflow = zero
+            # forces: goal (sfm.rs:107-109) + obstacle (sfm.rs:188-237) +
+            # pairwise over the dense cell layout, or over all pairs, then
+            # the integration (flat_integrate, on the card one launch of
+            # csrc/flat_integrate.cu); segment-mode obstacles and all pairs
+            # are computed apart and added in their place in the sum
+            with trace.span("flat.pairs"):
+                if cfg.use_neighbor_grid:
+                    pair_kw = dict(acc_flat=forcepass.dense_pairwise(
+                        sc.data, grid, k, phys, row_block=cfg.row_block),
+                        layout=sc.layout)
+                    n_overflow = sc.layout.n_overflow
+                else:
+                    pair_kw = dict(pair=_all_pairs_acc(cfg, agents, sp[:, 7:9]))
+                    n_overflow = zero
+            with trace.span("flat.integrate"):
+                obstacle = None
+                if not cfg.use_distance_map and obstacles[0].shape[0] > 0:
+                    obstacle = F.segment_obstacle_force(agents.pos, *obstacles,
+                                                        phys)
+                pos, vel = flat_integrate(sp, sc.active, phys, obstacle=obstacle,
+                                          distance_map=cfg.use_distance_map,
+                                          **pair_kw)
 
-        metrics = StepMetrics(n_active=n_active, n_spawned=n_spawned,
-                              n_dropped=n_dropped, n_overflow=n_overflow,
-                              max_demand=zero, n_exited=zero,
-                              max_mover_demand=zero)
-        return SimState(agents=agents._replace(pos=pos, vel=vel),
-                        step=state.step + 1), metrics
+            with trace.span("flat.metrics"):
+                n_dropped = ((cid < grid.n_cells).sum().to(torch.int32)
+                             - sc.n_active)
+                metrics = StepMetrics(n_active=sc.n_active, n_spawned=n_spawned,
+                                      n_dropped=n_dropped, n_overflow=n_overflow,
+                                      max_demand=zero, n_exited=zero,
+                                      max_mover_demand=zero)
+            return SimState(agents=agents._replace(pos=pos, vel=vel),
+                            step=state.step + 1), metrics
 
     return step

@@ -44,6 +44,7 @@ from ..ops.fields6 import Fields6
 from ..ops.kernels.rebin import new_outputs, rebin, rebin_incremental
 from ..ops.kernels.step_kernel import SEG_COLS, fused_step, segment_table
 from ..ops.neighbor import compute_cell_ids, true_divide
+from ..utils import trace
 from .sfm import (AgentState, SimState, StepConfig, StepMetrics,
                   make_initial_state, spawn_sampler)
 
@@ -479,8 +480,9 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
     the scenario spawns and its fullest cell's slot bound is >= K - 1
     (``tile_kernels``).  (b) is a host int, so those steps launch the
     full rebin alone; (a) and (c) are read on the device.
-    ``step.full_rebins`` (0-d int32, on the device) counts the steps that
-    took the full rebin.
+    While tracing is on (``utils/trace.enabled()``), ``step.full_rebins``
+    (0-d int32, on the device) counts the steps that took the full rebin;
+    it stays None until then, so an untraced step launches no add for it.
 
     ``cand`` injects this step's spawn candidates (an AgentState of the
     scenario's S = spawn.total rows); when None they are drawn from
@@ -496,24 +498,29 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
     def step(state: GridState, fwp: torch.Tensor, fobs: torch.Tensor,
              cand: AgentState | None = None
              ) -> tuple[GridState, StepMetrics]:
-        d = state.d
-        zero = torch.zeros((), dtype=torch.int32, device=d.device)
-        n_spawned = n_spawn_drop = zero
-        if s > 0:
-            if cand is None:
-                cand = draw(generator)
-            d, n_spawned, n_spawn_drop = spawn_scatter(cfg, d, cand)
-        compact = state.step % compact_every == 0
-        g, m, mdmx, flag = forces(d, fwp, fobs, compact)
-        out = rebins(g, m, flag)
-        if incremental:
-            if step.full_rebins is None:
-                step.full_rebins = torch.zeros((), dtype=torch.int32,
-                                               device=d.device)
-            step.full_rebins += 1 if flag is None else flag
-        metrics = step_metrics([out], n_spawned, n_spawn_drop,
-                               [mdmx] if incremental else [], d.device)
-        return GridState(d=out[0], step=state.step + 1), metrics
+        with trace.span("grid.step"):
+            d = state.d
+            zero = torch.zeros((), dtype=torch.int32, device=d.device)
+            n_spawned = n_spawn_drop = zero
+            with trace.span("grid.spawn"):
+                if s > 0:
+                    if cand is None:
+                        cand = draw(generator)
+                    d, n_spawned, n_spawn_drop = spawn_scatter(cfg, d, cand)
+            compact = state.step % compact_every == 0
+            with trace.span("grid.forces"):
+                g, m, mdmx, flag = forces(d, fwp, fobs, compact)
+            with trace.span("grid.rebin"):
+                out = rebins(g, m, flag)
+            with trace.span("grid.metrics"):
+                if incremental and trace.enabled():
+                    if step.full_rebins is None:
+                        step.full_rebins = torch.zeros((), dtype=torch.int32,
+                                                       device=d.device)
+                    step.full_rebins += 1 if flag is None else flag
+                metrics = step_metrics([out], n_spawned, n_spawn_drop,
+                                       [mdmx] if incremental else [], d.device)
+            return GridState(d=out[0], step=state.step + 1), metrics
 
     step.full_rebins = None
     return step

@@ -40,6 +40,7 @@ import torch
 from ..ops import forcepass
 from ..ops.kernels.step_kernel import SEG_COLS, fused_step
 from ..ops.neighbor import compute_cell_ids
+from ..utils import trace
 from . import sfm_grid
 from .sfm import (AgentState, SimState, StepConfig, StepMetrics, _concat,
                   spawn_sampler)
@@ -192,48 +193,49 @@ def make_step_pallas(cfg: StepConfig, row_block: int = 2,
     def step(state: SimState, fwp: torch.Tensor, fobs: torch.Tensor,
              candidates: AgentState | None = None
              ) -> tuple[SimState, StepMetrics]:
-        dev = fwp.device
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
-        ext, n_spawned = state.agents, zero
-        if candidates is None and s > 0:
-            candidates = draw(generator)
-        if candidates is not None:  # 1. spawns, appended past the capacity
-            ext = _concat(ext, candidates)
-            n_spawned = candidates.active.sum().to(torch.int32).to(dev)
+        with trace.span("pallas.step"):
+            dev = fwp.device
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            ext, n_spawned = state.agents, zero
+            if candidates is None and s > 0:
+                candidates = draw(generator)
+            if candidates is not None:  # 1. spawns, appended past the capacity
+                ext = _concat(ext, candidates)
+                n_spawned = candidates.active.sum().to(torch.int32).to(dev)
 
-        # 2. the cell sort (despawn happens in the kernel on this backend)
-        cols, cid_s, act_s, n_alive = _sort(cfg, ext)
-        n_dropped = (n_alive - act_s.sum()).to(torch.int32)
+            # 2. the cell sort (despawn happens in the kernel on this backend)
+            cols, cid_s, act_s, n_alive = _sort(cfg, ext)
+            n_dropped = (n_alive - act_s.sum()).to(torch.int32)
 
-        # 3. the slot grid
-        lay = slots_of(cid_s, act_s, grid, dims)
-        dk = _scatter(dims, cols, lay.slot)
+            # 3. the slot grid
+            lay = slots_of(cid_s, act_s, grid, dims)
+            dk = _scatter(dims, cols, lay.slot)
 
-        # 4. the fused step kernel, base or segment mode
-        out = fused_step(dk, fwp, fobs, cfg.physics, cfg.scenario.size,
-                         stride=stride, field_unit=cfg.field_unit,
-                         row_block=row_block, segments=segs_on(dev))
-        del dk
+            # 4. the fused step kernel, base or segment mode
+            out = fused_step(dk, fwp, fobs, cfg.physics, cfg.scenario.size,
+                             stride=stride, field_unit=cfg.field_unit,
+                             row_block=row_block, segments=segs_on(dev))
+            del dk
 
-        # 5. each agent's output channels by its slot; an agent without one
-        # keeps its sorted row (the reference's freeze)
-        if dev not in offsets:  # a copy from the host waits for it: once
-            offsets[dev] = torch.tensor(_OUT_CHANNELS, device=dev) * nxl
-        at = torch.where(lay.valid, lay.slot, 0)  # any slot in the grid
-        res = out.view(-1).index_select(0, (at[:, None] + offsets[dev]).view(-1)
-                                        ).view(-1, len(_OUT_CHANNELS))
-        del out
-        kept = [torch.where(lay.valid, res[:, i], cols[c])
-                for i, c in enumerate(_OUT_CHANNELS[:4])]
-        agents = AgentState(
-            pos=torch.stack(kept[:2], dim=1), vel=torch.stack(kept[2:], dim=1),
-            speed=cols[4], dest=cols[5].to(torch.int32),
-            active=torch.where(lay.valid, res[:, 4] > 0.5, act_s),
-        )
-        metrics = StepMetrics(
-            n_active=agents.active.sum().to(torch.int32), n_spawned=n_spawned,
-            n_dropped=n_dropped, n_overflow=lay.n_overflow,
-            max_demand=zero, n_exited=zero, max_mover_demand=zero)
-        return SimState(agents=agents, step=state.step + 1), metrics
+            # 5. each agent's output channels by its slot; an agent without one
+            # keeps its sorted row (the reference's freeze)
+            if dev not in offsets:  # a copy from the host waits for it: once
+                offsets[dev] = torch.tensor(_OUT_CHANNELS, device=dev) * nxl
+            at = torch.where(lay.valid, lay.slot, 0)  # any slot in the grid
+            res = out.view(-1).index_select(0, (at[:, None] + offsets[dev]).view(-1)
+                                            ).view(-1, len(_OUT_CHANNELS))
+            del out
+            kept = [torch.where(lay.valid, res[:, i], cols[c])
+                    for i, c in enumerate(_OUT_CHANNELS[:4])]
+            agents = AgentState(
+                pos=torch.stack(kept[:2], dim=1), vel=torch.stack(kept[2:], dim=1),
+                speed=cols[4], dest=cols[5].to(torch.int32),
+                active=torch.where(lay.valid, res[:, 4] > 0.5, act_s),
+            )
+            metrics = StepMetrics(
+                n_active=agents.active.sum().to(torch.int32), n_spawned=n_spawned,
+                n_dropped=n_dropped, n_overflow=lay.n_overflow,
+                max_demand=zero, n_exited=zero, max_mover_demand=zero)
+            return SimState(agents=agents, step=state.step + 1), metrics
 
     return step

@@ -71,6 +71,7 @@ from ..models.sfm_grid import (
 )
 from ..ops.fields6 import Fields6
 from ..scenario import loads_scenario
+from ..utils import trace
 from .transport import Local, Transport, all_reduce_metrics, check_replicated
 
 
@@ -290,8 +291,9 @@ def make_sharded_step(tcfg: Tile2DConfig, devices: Sequence[torch.device | str],
     ``sfm_grid.make_step_grid`` on a TiledGridState, with the same kernels
     on each tile (``sfm_grid.tile_kernels``; see the module's docstring).
     ``devices`` holds one device for each of this process's tiles.
-    ``step.full_rebins`` ([tiles of this process] int32 on the first tile's
-    device) counts each tile's steps that took the full rebin.  The input
+    While tracing is on (``utils/trace.enabled()``), ``step.full_rebins``
+    ([tiles of this process] int32 on the first tile's device) counts each
+    tile's steps that took the full rebin; it stays None until then.  The input
     state is consumed (the tiles are written in place)."""
     cfg = tcfg.base
     s = cfg.spawn.total
@@ -315,37 +317,38 @@ def make_sharded_step(tcfg: Tile2DConfig, devices: Sequence[torch.device | str],
     def step(state: TiledGridState, fwp: Sequence[torch.Tensor],
              fobs: Sequence[torch.Tensor], cand: AgentState | None = None
              ) -> tuple[TiledGridState, StepMetrics]:
-        tiles = list(state.d)
-        exchange(tcfg, tiles, transport)
-        zero = torch.zeros((), dtype=torch.int32, device=home)
-        n_spawned = n_dropped = zero
-        if s > 0:
-            if cand is None:
-                cand = draw(generator)
-            for d, dev, (r0, c0) in zip(tiles, devices, origins):
-                _, n_sp, n_dr = spawn_scatter(cfg, d, cand.to(dev), row_lo=r0,
-                                              n_rows=rl, col_lo=c0, n_cols=cl)
-                n_spawned = n_spawned + n_sp.to(home)
-                n_dropped = n_dropped + n_dr.to(home)
-        compact = state.step % compact_every == 0
-        ks = [forces(d, wp, ob, compact, **kw)
-              for d, wp, ob, kw in zip(tiles, fwp, fobs, tiles_kw)]
-        exchange(tcfg, [g for g, _, _, _ in ks], transport)
-        gated = incremental and not compact
-        if gated:
-            exchange(tcfg, [m for _, m, _, _ in ks], transport)
-        outs = [rebins(g, m, flag, **kw) for (g, m, _, flag), kw in zip(ks, tiles_kw)]
-        if incremental:
-            if step.full_rebins is None:
-                step.full_rebins = torch.zeros((len(tiles),), dtype=torch.int32,
-                                               device=home)
-            step.full_rebins += (torch.stack([f.to(home) for _, _, _, f in ks])
-                                 if gated else 1)
-        metrics = all_reduce_metrics(transport, step_metrics(
-            outs, n_spawned, n_dropped,
-            [x for _, _, x, _ in ks] if incremental else [], home))
-        return (TiledGridState(d=tuple(o[0] for o in outs), step=state.step + 1),
-                metrics)
+        with trace.span("tiles.step"):
+            tiles = list(state.d)
+            exchange(tcfg, tiles, transport)
+            zero = torch.zeros((), dtype=torch.int32, device=home)
+            n_spawned = n_dropped = zero
+            if s > 0:
+                if cand is None:
+                    cand = draw(generator)
+                for d, dev, (r0, c0) in zip(tiles, devices, origins):
+                    _, n_sp, n_dr = spawn_scatter(cfg, d, cand.to(dev), row_lo=r0,
+                                                  n_rows=rl, col_lo=c0, n_cols=cl)
+                    n_spawned = n_spawned + n_sp.to(home)
+                    n_dropped = n_dropped + n_dr.to(home)
+            compact = state.step % compact_every == 0
+            ks = [forces(d, wp, ob, compact, **kw)
+                  for d, wp, ob, kw in zip(tiles, fwp, fobs, tiles_kw)]
+            exchange(tcfg, [g for g, _, _, _ in ks], transport)
+            gated = incremental and not compact
+            if gated:
+                exchange(tcfg, [m for _, m, _, _ in ks], transport)
+            outs = [rebins(g, m, flag, **kw) for (g, m, _, flag), kw in zip(ks, tiles_kw)]
+            if incremental and trace.enabled():
+                if step.full_rebins is None:
+                    step.full_rebins = torch.zeros((len(tiles),), dtype=torch.int32,
+                                                   device=home)
+                step.full_rebins += (torch.stack([f.to(home) for _, _, _, f in ks])
+                                     if gated else 1)
+            metrics = all_reduce_metrics(transport, step_metrics(
+                outs, n_spawned, n_dropped,
+                [x for _, _, x, _ in ks] if incremental else [], home))
+            return (TiledGridState(d=tuple(o[0] for o in outs), step=state.step + 1),
+                    metrics)
 
     step.full_rebins = None
     return step

@@ -55,6 +55,7 @@ from .parallel import tile2d
 from .parallel.transport import transport_for
 from .physics import Physics
 from .scenario import Scenario
+from .utils import trace
 from .utils.timing import Timer
 
 log = logging.getLogger(__name__)
@@ -75,7 +76,8 @@ def _accumulate_metrics(tot: StepMetrics, m: StepMetrics) -> StepMetrics:
 
 def _to_host(m: StepMetrics) -> StepMetrics:
     """One device->host transfer for all metric scalars."""
-    return StepMetrics(*torch.stack(list(m)).tolist())
+    with trace.span("sim.fetch"):
+        return StepMetrics(*torch.stack(list(m)).tolist())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,33 +325,34 @@ class Simulator:
 
     def tick(self) -> StepRecord:
         """Advance one step (lib.rs:64-100) and return host-side metrics."""
-        with Timer() as t:
-            self.state, dmetrics = self._step(self.state, self._fwp, self._fobs)
-            metrics = _to_host(dmetrics)
-        self.step_count += 1
-        self.last_metrics = metrics
-        if metrics.n_dropped > 0:
-            log.warning("step %d: %d %s", self.step_count, metrics.n_dropped,
-                        self._dropped_what)
-        if metrics.n_exited > 0:
-            log.debug("step %d: %d agents left the field", self.step_count,
-                      metrics.n_exited)
-        if self._flat:
-            if metrics.n_active > 0.8 * self.cfg.capacity:
-                self._grow()
-        elif metrics.n_overflow > 0:
-            # Reactive: a cell jumped past K within one step.  Counted.
-            self._grow_table(metrics.n_overflow)
-        elif metrics.max_demand >= self.options.table_capacity - 1:
-            # Drop-free growth: some cell is one agent short of K.
-            self._grow_table(0)
-        elif (metrics.max_mover_demand >= self.options.mover_capacity - 1
-              and self.options.mover_capacity < self.options.table_capacity):
-            # A performance trigger, not a safety one: a mover-table
-            # overflow only costs a full-rebin step, never an agent.
-            self._grow_movers()
-        return StepRecord(active_ped_count=metrics.n_active, time_spawn=0.0,
-                          time_calc_state=t.elapsed)
+        with trace.span("sim.tick"):
+            with Timer() as t:
+                self.state, dmetrics = self._step(self.state, self._fwp, self._fobs)
+                metrics = _to_host(dmetrics)
+            self.step_count += 1
+            self.last_metrics = metrics
+            if metrics.n_dropped > 0:
+                log.warning("step %d: %d %s", self.step_count, metrics.n_dropped,
+                            self._dropped_what)
+            if metrics.n_exited > 0:
+                log.debug("step %d: %d agents left the field", self.step_count,
+                          metrics.n_exited)
+            if self._flat:
+                if metrics.n_active > 0.8 * self.cfg.capacity:
+                    self._grow()
+            elif metrics.n_overflow > 0:
+                # Reactive: a cell jumped past K within one step.  Counted.
+                self._grow_table(metrics.n_overflow)
+            elif metrics.max_demand >= self.options.table_capacity - 1:
+                # Drop-free growth: some cell is one agent short of K.
+                self._grow_table(0)
+            elif (metrics.max_mover_demand >= self.options.mover_capacity - 1
+                  and self.options.mover_capacity < self.options.table_capacity):
+                # A performance trigger, not a safety one: a mover-table
+                # overflow only costs a full-rebin step, never an agent.
+                self._grow_movers()
+            return StepRecord(active_ped_count=metrics.n_active, time_spawn=0.0,
+                              time_calc_state=t.elapsed)
 
     @property
     def _dropped_what(self) -> str:
@@ -382,83 +385,87 @@ class Simulator:
         occupancy instead, and a population that outruns it within the lag
         is cut at the capacity and counted in ``n_dropped``.  ``sync_every``
         > 0 adds full syncs."""
-        totals = None
-        pending: list[StepMetrics] = []
-        with Timer() as t:
-            for i in range(n_steps):
-                self.state, metrics = self._step(self.state, self._fwp,
-                                                 self._fobs)
-                totals = metrics if totals is None \
-                    else _accumulate_metrics(totals, metrics)
-                if guard_every:
-                    pending.append(metrics)
-                    if len(pending) > guard_every:
-                        pending.pop(0)
-                    if ((i + 1) % guard_every == 0
-                            and self._needs_growth(pending[0])):
-                        self._grow_now()
-                        pending.clear()
-                if sync_every and (i + 1) % sync_every == 0:
-                    if self._needs_growth(metrics):
-                        self._grow_now()
-            host = _to_host(totals) if totals is not None else None
-        self.step_count += n_steps
-        self.last_run_metrics = host
-        if host is not None:
-            if host.n_dropped > 0:
-                log.warning("run(%d): %d %s over the run", n_steps,
-                            host.n_dropped, self._dropped_what)
-            if host.n_overflow > 0:
-                log.warning("run(%d): %d agents lost to cell overflow over "
-                            "the run", n_steps, host.n_overflow)
-        return StepRecord(
-            active_ped_count=host.n_active if host is not None else 0,
-            time_spawn=0.0, time_calc_state=t.elapsed / max(n_steps, 1))
+        with trace.span("sim.run"):
+            totals = None
+            pending: list[StepMetrics] = []
+            with Timer() as t:
+                for i in range(n_steps):
+                    self.state, metrics = self._step(self.state, self._fwp,
+                                                     self._fobs)
+                    totals = metrics if totals is None \
+                        else _accumulate_metrics(totals, metrics)
+                    if guard_every:
+                        pending.append(metrics)
+                        if len(pending) > guard_every:
+                            pending.pop(0)
+                        if ((i + 1) % guard_every == 0
+                                and self._needs_growth(pending[0])):
+                            self._grow_now()
+                            pending.clear()
+                    if sync_every and (i + 1) % sync_every == 0:
+                        if self._needs_growth(metrics):
+                            self._grow_now()
+                host = _to_host(totals) if totals is not None else None
+            self.step_count += n_steps
+            self.last_run_metrics = host
+            if host is not None:
+                if host.n_dropped > 0:
+                    log.warning("run(%d): %d %s over the run", n_steps,
+                                host.n_dropped, self._dropped_what)
+                if host.n_overflow > 0:
+                    log.warning("run(%d): %d agents lost to cell overflow over "
+                                "the run", n_steps, host.n_overflow)
+            return StepRecord(
+                active_ped_count=host.n_active if host is not None else 0,
+                time_spawn=0.0, time_calc_state=t.elapsed / max(n_steps, 1))
 
     def _grow(self) -> None:
         """Flat backend: double the capacity, padding the agent tensors
         with inactive slots (the reference's sim.py:282-297)."""
-        old_cap = self.cfg.capacity
-        a = self.state.agents
-        self._build(old_cap * 2)
-        pad = self.cfg.capacity - old_cap
-        dev = a.pos.device
-        self.state = self.state._replace(agents=AgentState(
-            pos=torch.cat([a.pos, torch.zeros((pad, 2), device=dev)]),
-            vel=torch.cat([a.vel, torch.zeros((pad, 2), device=dev)]),
-            speed=torch.cat([a.speed, torch.ones((pad,), device=dev)]),
-            dest=torch.cat([a.dest, torch.zeros((pad,), dtype=torch.int32,
-                                                device=dev)]),
-            active=torch.cat([a.active, torch.zeros((pad,), dtype=torch.bool,
-                                                    device=dev)])))
-        log.info("capacity grown: %d -> %d", old_cap, self.cfg.capacity)
+        with trace.span("sim.grow"):
+            old_cap = self.cfg.capacity
+            a = self.state.agents
+            self._build(old_cap * 2)
+            pad = self.cfg.capacity - old_cap
+            dev = a.pos.device
+            self.state = self.state._replace(agents=AgentState(
+                pos=torch.cat([a.pos, torch.zeros((pad, 2), device=dev)]),
+                vel=torch.cat([a.vel, torch.zeros((pad, 2), device=dev)]),
+                speed=torch.cat([a.speed, torch.ones((pad,), device=dev)]),
+                dest=torch.cat([a.dest, torch.zeros((pad,), dtype=torch.int32,
+                                                    device=dev)]),
+                active=torch.cat([a.active, torch.zeros((pad,), dtype=torch.bool,
+                                                        device=dev)])))
+            log.info("capacity grown: %d -> %d", old_cap, self.cfg.capacity)
 
     def _grow_table(self, n_lost: int) -> None:
         """Grow the per-cell table K and re-bin (preemptively when
         n_lost == 0, reactively after a counted overflow)."""
-        old_k = self.options.table_capacity
-        new_k = old_k + max(4, old_k // 2)
-        if n_lost:
-            log.warning("step %d: %d agents dropped from full cells; growing "
-                        "table_capacity %d -> %d", self.step_count, n_lost,
-                        old_k, new_k)
-        else:
-            log.info("step %d: peak cell demand reached %d; growing "
-                     "table_capacity %d -> %d preemptively (drop-free)",
-                     self.step_count, old_k - 1, old_k, new_k)
-        self._rebuild(table_capacity=new_k)
+        with trace.span("sim.grow"):
+            old_k = self.options.table_capacity
+            new_k = old_k + max(4, old_k // 2)
+            if n_lost:
+                log.warning("step %d: %d agents dropped from full cells; growing "
+                            "table_capacity %d -> %d", self.step_count, n_lost,
+                            old_k, new_k)
+            else:
+                log.info("step %d: peak cell demand reached %d; growing "
+                         "table_capacity %d -> %d preemptively (drop-free)",
+                         self.step_count, old_k - 1, old_k, new_k)
+            self._rebuild(table_capacity=new_k)
 
     def _grow_movers(self) -> None:
         """Grow the mover table (capped at K) and rebuild the step — to keep
         the incremental path fast; an overflowing table loses no agent."""
-        old_mk = self.options.mover_capacity
-        new_mk = min(old_mk + max(2, old_mk // 2), self.options.table_capacity)
-        if new_mk == old_mk:
-            return
-        log.info("step %d: peak mover demand reached %d; growing mover table "
-                 "%d -> %d (fast-path retention)", self.step_count, old_mk - 1,
-                 old_mk, new_mk)
-        self._rebuild(mover_capacity=new_mk)
+        with trace.span("sim.grow"):
+            old_mk = self.options.mover_capacity
+            new_mk = min(old_mk + max(2, old_mk // 2), self.options.table_capacity)
+            if new_mk == old_mk:
+                return
+            log.info("step %d: peak mover demand reached %d; growing mover table "
+                     "%d -> %d (fast-path retention)", self.step_count, old_mk - 1,
+                     old_mk, new_mk)
+            self._rebuild(mover_capacity=new_mk)
 
     def _rebuild(self, **changes) -> None:
         """Apply option changes, rebuild the step and re-bin the agents

@@ -45,6 +45,7 @@ from pedoni_tpu_torch.models.sfm import StepConfig as PStepConfig
 from pedoni_tpu_torch.ops.kernels import rebin as port_rebin
 from pedoni_tpu_torch.scenario import load_scenario, loads_scenario
 from pedoni_tpu_torch.sim import Simulator, SimulatorOptions
+from pedoni_tpu_torch.utils import trace
 
 from test_rebin import K, NX, NXL, UNIT, _make_grid, _numpy_rebin
 from test_rebin_incremental import SCENARIO, _active_cells, _setup, _split_stay_movers
@@ -224,9 +225,13 @@ def test_hybrid_step_matches_reference(mover_k, compact_every):
         pcfg, incremental=True, mover_k=mover_k, compact_every=compact_every,
         generator=torch.Generator())  # unused: candidates are injected
     pgs = port_grid.GridState(d=torch.from_numpy(d0.copy()), step=0)
-    for i, (cand, want) in enumerate(zip(cands, want_metrics)):
-        pgs, pm = step(pgs, pfwp, pfobs, cand)
-        assert convert.metrics_to_dict(pm) == want, f"step {i}"
+    trace.enable(True)  # step.full_rebins counts while tracing is on
+    try:
+        for i, (cand, want) in enumerate(zip(cands, want_metrics)):
+            pgs, pm = step(pgs, pfwp, pfobs, cand)
+            assert convert.metrics_to_dict(pm) == want, f"step {i}"
+    finally:
+        trace.enable(False)
     rows = _active_rows(pgs.d.numpy())
     assert rows.shape == want_rows.shape and rows.shape[0] > 100
     np.testing.assert_allclose(rows, want_rows, atol=2e-5, rtol=1e-5)
