@@ -208,6 +208,15 @@ nvcc, one process per source, then:
    max(3, 5%) of the f64 oracle (tests/oracle_sfm.py, on the host), the grid losing no agent;
    the four runtime kernels against their twins on the funnel's grid
    after 150 steps; the counts, their means and the phase's seconds.
+20. the grid step's spawn scatter kernel (csrc/spawn_scatter.cu) on
+   scenarios/random.toml's grid state after SPAWN_FILL_TICKS ticks of
+   ``Simulator(backend="grid")`` (one launch a tick, counted): against its
+   twin bit for bit there (grid and counts) on a draw of its sampler and on
+   the same draw with every candidate active; the kernel alone and the
+   twin (the plain PyTorch composition it replaced) each timed by
+   ``_median_ms``, chained in place on a copy of the state, with the bytes
+   bound, beside ``Simulator.measure_spawn_time`` (a draw and the scatter,
+   SPAWN_TIMED chained).
 
 Each phase from 6 on prints its seconds.  With arguments the script is
 one rank of phase 17 and prints no result line.  Prints the card's name and power
@@ -275,6 +284,8 @@ RANDOM_PROFILE_TICKS = 48  # random.toml ticks under torch.profiler
 # Printed beside this run's; nothing is gated on it.
 RANDOM_TICK_MS_SYNCING = (4.9446, 0.3487)
 SPAWN_SYNC_STEPS = 16  # spawning steps under set_sync_debug_mode("error")
+SPAWN_FILL_TICKS = 3000  # phase 20: random.toml's fill, as the benchmark's tick cells
+SPAWN_TIMED = 20  # phase 20: chained spawns of measure_spawn_time
 TILES = ((1, 2), (2, 1), (2, 2))  # the 1M workload's tilings, all on one card
 TILE_STEPS = 16  # steps of the tiled and the whole-grid 1M step compared
 BIG_K = 121  # the table capacity after 81 in Simulator._grow_table
@@ -3269,6 +3280,62 @@ def _fidelity_phase(dev, card) -> dict:
     return out
 
 
+def _spawn_scatter_phase(dev, card) -> dict:
+    """20. The spawn scatter kernel on random.toml's filled grid: bit-equal
+    to its twin, timed beside it and beside ``measure_spawn_time``."""
+    from pedoni_tpu_torch import Simulator, SimulatorOptions, load_scenario
+    from pedoni_tpu_torch.models.sfm import spawn_sampler
+    from pedoni_tpu_torch.ops.kernels import spawn_scatter as ssk
+
+    sim = Simulator(SimulatorOptions(backend="grid", neighbor_grid_unit=1.5,
+                                     seed=1, device=dev.type), load_scenario(RANDOM))
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    sim.run(SPAWN_FILL_TICKS)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    launches = _launch_counts()["spawn_scatter"]
+    if launches != SPAWN_FILL_TICKS:
+        raise AssertionError(f"random.toml grid fill: {launches} spawn scatter "
+                             f"launches in {SPAWN_FILL_TICKS} ticks")
+    grid, k, d0 = sim.cfg.grid, sim.cfg.table_capacity, sim.state.d
+    cand = spawn_sampler(sim.cfg, dev)(torch.Generator(device=dev).manual_seed(7))
+    every = cand._replace(active=torch.ones_like(cand.active))
+    written = {}
+    for what, c in (("a draw", cand), ("every candidate active", every)):
+        got = ssk.spawn_scatter(grid, k, d0.clone(), c)
+        want = ssk.spawn_scatter_torch(grid, k, d0.clone(), c)
+        _same_bits(got[0], want[0])
+        if [int(t) for t in got[1:]] != [int(t) for t in want[1:]]:
+            raise AssertionError(f"spawn scatter on random.toml's grid ({what}): "
+                                 f"counts {got[1:]} != the twin's {want[1:]}")
+        written[what] = int(got[1]) - int(got[2])
+    d_kernel, d_twin = d0.clone(), d0.clone()
+    kernel_ms = _median_ms(lambda: ssk.spawn_scatter(grid, k, d_kernel, cand))
+    twin_ms = _median_ms(lambda: ssk.spawn_scatter_torch(grid, k, d_twin, cand))
+    spawn_ms = sim.measure_spawn_time(n=SPAWN_TIMED) * 1e3
+    # each candidate's pos, speed, dest and active flag read once; each
+    # written row's 7 channels and its cell's count read and written once
+    s = cand.pos.shape[0]
+    need = s * 17 + written["a draw"] * (7 * 4 + 8) + 8
+    bound_ms, by = _bound(need)
+    print(f"# spawn scatter (phase 20) on random.toml's grid after "
+          f"{SPAWN_FILL_TICKS} ticks ({sim.pedestrian_count} agents, fill "
+          f"{fill_s:.1f} s, {launches} launches): bit-equal to its twin on a draw "
+          f"({written['a draw']} of {s} written) and with every candidate "
+          f"active ({written['every candidate active']} written); kernel "
+          f"{kernel_ms:.4f} ms, twin {twin_ms:.4f} ms, bound {bound_ms:.2e} ms "
+          f"({by}; {need} B) (medians of 20, CUDA events); measure_spawn_time "
+          f"(draw + scatter, {SPAWN_TIMED} chained) {spawn_ms:.4f} ms on {card}",
+          flush=True)
+    return {"name": "spawn_scatter", "route": "cuda",
+            "source": CSRC + "spawn_scatter.cu",
+            "replaces": "pedoni_tpu/models/sfm_grid.py:140", "path": "grid spawn",
+            "launches": launches, "max_abs_err": 0.0, "ms": kernel_ms,
+            "plain_ms": twin_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None, "measure_spawn_ms": spawn_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -3561,10 +3628,15 @@ def main() -> int:
     fidelity = _fidelity_phase(dev, card)
     fidelity["seconds"] = time.perf_counter() - t0
     print(f"# phase 19 (fidelity) took {fidelity['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    kernels.append(_spawn_scatter_phase(dev, card))
+    print(f"# phase 20 (spawn scatter) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for entry in kernels:  # the forms of each kernel this run held to its twin
         if entry["name"] not in ("pairwise", *FLAT_KERNELS):
             entry["tile_offsets"] = "ported"
-        if entry["name"] not in ("rebin", "rebin_incremental", *FLAT_KERNELS):
+        if entry["name"] not in ("rebin", "rebin_incremental", "spawn_scatter",
+                                 *FLAT_KERNELS):
             entry["k_up_to"] = big_k["k_max"]  # the largest K compared here
         if entry["name"].startswith("step_kernel"):
             entry["waypoints"] = [1, 2, 8, 33]  # W compared here (2: step 1)
@@ -3578,7 +3650,8 @@ def main() -> int:
                           "rebin_incremental": ["hybrid", "tiles", "processes",
                                                 "fidelity"],
                           "pairwise": ["standalone"],
-                          **dict.fromkeys(FLAT_KERNELS, ["flat", "strips"])
+                          **dict.fromkeys(FLAT_KERNELS, ["flat", "strips"]),
+                          "spawn_scatter": ["grid spawn", "tiles"]
                           }[entry["name"]]
         if entry["name"] in pallas["kernels"]:
             entry["pallas"] = pallas["kernels"][entry["name"]]

@@ -3,9 +3,10 @@
 Counterpart of pedoni_tpu/models/sfm_grid.py.  The grid IS the state:
 ``D [ny_pad+2, K, 8, NXL]`` stays on the device and each step runs
 
-1. a plain-torch spawn scatter of at most S candidate rows (S small and
-   static) into free slots, before the kernels, so new agents receive
-   forces the same tick the reference spawns them (lib.rs:64-90);
+1. the spawn scatter (ops/kernels/spawn_scatter.py, one launch) of at
+   most S candidate rows (S small and static) into free slots, before the
+   step kernel, so new agents receive forces the same tick the reference
+   spawns them (lib.rs:64-90);
 2. the fused step kernel (ops/kernels/step_kernel.py): sampling, despawn,
    all forces, integration (sfm.rs:91-255) — by default in its mover mode,
    which also emits each cell's movers;
@@ -41,9 +42,10 @@ import torch
 
 from ..field import FieldMaps
 from ..ops.fields6 import Fields6
+from ..ops.kernels import spawn_scatter as spawn_kernel
 from ..ops.kernels.rebin import new_outputs, rebin, rebin_incremental
 from ..ops.kernels.step_kernel import SEG_COLS, fused_step, segment_table
-from ..ops.neighbor import compute_cell_ids, true_divide
+from ..ops.neighbor import compute_cell_ids
 from ..utils import trace
 from .sfm import (AgentState, SimState, StepConfig, StepMetrics,
                   make_initial_state, spawn_sampler)
@@ -251,61 +253,12 @@ def spawn_scatter(cfg: StepConfig, d: torch.Tensor, cand: AgentState,
     same-cell candidates in stream order; candidates beyond K are dropped
     and counted.  Written channels 0-6 of the slot, then the count channel
     += 1 per written candidate — bit-equal to the reference's scatter.
-    Every candidate row takes part in one fixed-size scatter: a row that is
-    not written goes to a dump slot (slot 0 of ghost row 0 in the last,
-    padding lane) and writes back what that slot holds, so nothing waits on
-    the host.  Returns (d, n_spawned, n_dropped) with 0-d i32 tensors."""
-    grid = cfg.grid
-    k = cfg.table_capacity
-    n2, kk, ch, nxl = d.shape
-    if n_rows is None:
-        n_rows = n2 - 2
-    if n_cols is None:
-        n_cols = grid.nx
-    if kk != k or ch != 8 or n2 != n_rows + 2 or n_cols + 2 >= nxl:
-        raise ValueError(f"d shape {tuple(d.shape)} does not match K={k}, "
-                         f"{n_rows} rows, {n_cols} columns")
-    dev = d.device
-    cand = cand.to(dev)
-    s = cand.pos.shape[0]
-    gx = torch.floor(true_divide(cand.pos[:, 0], grid.unit))
-    cy = torch.floor(true_divide(cand.pos[:, 1], grid.unit))
-    ing = cand.active & (gx >= 0) & (gx < grid.nx) & (cy >= 0) & (cy < grid.ny)
-    owned = (ing & (cy >= row_lo) & (cy < row_lo + n_rows)
-             & (gx >= col_lo) & (gx < col_lo + n_cols))
-    writable = (ing & (cy >= row_lo - 1) & (cy < row_lo + n_rows + 1)
-                & (gx >= col_lo - 1) & (gx < col_lo + n_cols + 1))
-    n_spawned = owned.sum().to(torch.int32)
-    ly = torch.where(writable, cy - row_lo, 0.0).long()  # -1 .. n_rows
-    lx = torch.where(writable, gx - col_lo, 0.0).long()  # -1 .. n_cols
-    cell = torch.where(writable, (ly + 1) * (grid.nx + 2) + (lx + 1),
-                       n2 * (grid.nx + 2))
-    order = torch.sort(cell, stable=True).indices
-    cell_s = cell[order]
-    idx = torch.arange(s, device=dev)
-    is_start = torch.ones(s, dtype=torch.bool, device=dev)
-    is_start[1:] = cell_s[1:] != cell_s[:-1]
-    rank = idx - torch.cummax(torch.where(is_start, idx, 0), dim=0).values
-    lx_s, ly_s = lx[order], ly[order]
-    writable_s, owned_s = writable[order], owned[order]
-    flat = d.view(-1)
-    row_at = (ly_s + 1) * (k * 8 * nxl) + (lx_s + 1)  # slot 0, ch 0 of the cell
-    slot_k = flat[row_at + 7 * nxl].long() + rank
-    ok = writable_s & (slot_k < k)
-    n_drop = (n_spawned - (owned_s & ok).sum()).to(torch.int32)
-
-    dump = nxl - 1  # ghost row 0, slot 0, ch 0, the last lane: padding
-    tgt = torch.where(ok, row_at + torch.clamp(slot_k, 0, k - 1) * (8 * nxl), dump)
-    speed = cand.speed[order]
-    vals = [cand.pos[order, 0], cand.pos[order, 1], torch.zeros_like(speed),
-            torch.zeros_like(speed), speed, cand.dest[order].float(),
-            torch.ones_like(speed)]
-    for c, v in enumerate(vals):
-        at = tgt + c * nxl
-        flat.scatter_(0, at, torch.where(ok, v, flat[at]))
-    cnt_at = torch.where(ok, row_at, dump) + 7 * nxl
-    flat.scatter_add_(0, cnt_at, ok.float())
-    return d, n_spawned, n_drop
+    One launch of ``csrc/spawn_scatter.cu`` on a card, its twin
+    ``ops/kernels/spawn_scatter.spawn_scatter_torch`` on the CPU; nothing
+    waits on the host.  Returns (d, n_spawned, n_dropped) with 0-d i32
+    tensors."""
+    return spawn_kernel.spawn_scatter(cfg.grid, cfg.table_capacity, d, cand,
+                                      row_lo, n_rows, col_lo, n_cols)
 
 
 def assert_movement_fits_rebin(cfg: StepConfig) -> None:

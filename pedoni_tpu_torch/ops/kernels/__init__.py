@@ -10,6 +10,7 @@ def launch_counts() -> dict[str, int]:
     from . import flat_scatter as fc
     from . import pairwise as pw
     from . import rebin as rb
+    from . import spawn_scatter as ss
     from . import step_kernel as sk
     return {"step_kernel": sk.fused_step.launches,
             "step_kernel_movers": sk.fused_step.mover_launches,
@@ -20,7 +21,8 @@ def launch_counts() -> dict[str, int]:
             "flat_pairwise": fp.flat_pairwise.launches,
             "flat_sample": fs.flat_sample.launches,
             "flat_scatter": fc.flat_scatter.launches,
-            "flat_integrate": fi.flat_integrate.launches}
+            "flat_integrate": fi.flat_integrate.launches,
+            "spawn_scatter": ss.spawn_scatter.launches}
 
 
 def zero_launch_counts() -> None:
@@ -31,10 +33,11 @@ def zero_launch_counts() -> None:
     from . import flat_scatter as fc
     from . import pairwise as pw
     from . import rebin as rb
+    from . import spawn_scatter as ss
     from . import step_kernel as sk
     sk.fused_step.launches = sk.fused_step.mover_launches = 0
     sk.fused_step.segment_launches = 0
     rb.rebin.launches = rb.rebin_incremental.launches = 0
     pw.pairwise.launches = fp.flat_pairwise.launches = 0
     fs.flat_sample.launches = fc.flat_scatter.launches = 0
-    fi.flat_integrate.launches = 0
+    fi.flat_integrate.launches = ss.spawn_scatter.launches = 0

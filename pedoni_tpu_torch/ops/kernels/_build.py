@@ -117,6 +117,8 @@ def library() -> ctypes.CDLL:
         lib.pedoni_flat_scatter.restype = i
         lib.pedoni_flat_integrate.argtypes = [p] * 9 + [q, i, i, p, p]
         lib.pedoni_flat_integrate.restype = i
+        lib.pedoni_spawn_scatter.argtypes = [p] * 6 + [i, f] + [i] * 8 + [p]
+        lib.pedoni_spawn_scatter.restype = i
         _lib = lib
         return lib
 

@@ -5,7 +5,8 @@ grids built to break its cell tiles), the full and the incremental rebin
 tiles and bit masks), the device gate that makes the hybrid step's choice,
 the standalone pairwise kernel, the flat pair kernel up to K 255, the
 flat sample, scatter and integrate kernels (with a flat step on the card
-against the CPU).
+against the CPU), the grid step's spawn scatter kernel (with a spawning
+grid step under sync debug mode "error").
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports neither JAX nor the
 reference package, so it runs on a machine with only PyTorch:
@@ -1278,3 +1279,75 @@ def test_flat_integrate_matches_twin(name, mode):
     for g, w in zip(got, want):
         assert _same_bits(g, w), float((g - w).abs().nan_to_num().max())
     assert float((got[0] - sc.rows[:, 0:2]).abs().nan_to_num().max()) > 0.01
+
+
+SPAWN_CASES = ["whole", "tile", "crowded_k3", "one_cell", "faulty", "empty", "many"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SPAWN_CASES)
+def test_spawn_scatter_matches_twin(name):
+    """The spawn scatter kernel (csrc/spawn_scatter.cu) against its twin
+    (spawn_scatter.spawn_scatter_torch) on the card and on the CPU, bit for
+    bit on the whole grid and in both counts, on tests/
+    test_torch_spawn_scatter.py's cases of random.toml's grid: its own
+    sampler's candidates, a tile's window (ghost-ring candidates written,
+    not counted), K 3 on a crowded grid, more than K candidates in one
+    cell, inactive, off-grid and NaN candidates, S = 0 and S = 3000 (the
+    kernel's chunks).  One launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pedoni_tpu_torch.ops.kernels import spawn_scatter as ssk
+    from test_torch_spawn_scatter import spawn_case
+
+    cfg, d, cand, kw = spawn_case(name)
+    args = (cfg.grid, cfg.table_capacity)
+    cpu = ssk.spawn_scatter_torch(*args, d.clone(), cand, **kw)
+    d, cand = d.cuda(), cand.to("cuda")
+    before = ssk.spawn_scatter.launches
+    got = ssk.spawn_scatter(*args, d.clone(), cand, **kw)
+    want = ssk.spawn_scatter_torch(*args, d.clone(), cand, **kw)
+    torch.cuda.synchronize()
+    assert ssk.spawn_scatter.launches == before + 1
+    assert got[1].dtype == got[2].dtype == torch.int32 and got[1].dim() == 0
+    for ref in (want, cpu):
+        assert _bits_equal(got[0].cpu(), ref[0].cpu())
+        assert (int(got[1]), int(got[2])) == (int(ref[1]), int(ref[2]))
+
+
+@pytest.mark.cuda
+def test_spawning_grid_step_makes_no_sync():
+    """A spawning grid step on the card (a small field, four spawns a step
+    on average) runs under set_sync_debug_mode("error"), one spawn scatter
+    launch a step, and spawns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pedoni_tpu_torch import Simulator, SimulatorOptions
+
+    sc = loads_scenario("""
+[field]
+size = [18, 12]
+[[waypoints]]
+line = [[2, 2], [2, 10]]
+[[waypoints]]
+line = [[16, 2], [16, 10]]
+[[pedestrians]]
+origin = 0
+destination = 1
+spawn = { kind = "periodic", frequency = 40.0 }
+""")
+    sim = Simulator(SimulatorOptions(backend="grid", device="cuda", seed=1), sc)
+    sim.run(4)
+    gs = sim.state
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    spawned = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(8):
+            gs, m = sim._step(gs, sim._fwp, sim._fobs)
+            spawned.append(m.n_spawned)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert launch_counts()["spawn_scatter"] == 8
+    assert int(torch.stack(spawned).sum()) > 0
