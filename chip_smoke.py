@@ -217,6 +217,18 @@ nvcc, one process per source, then:
    ``_median_ms``, chained in place on a copy of the state, with the bytes
    bound, beside ``Simulator.measure_spawn_time`` (a draw and the scatter,
    SPAWN_TIMED chained).
+21. scenarios/random.toml's flat Simulator (``-b auto``), whose step on the
+   card is one CUDA graph replay a tick (``sim.GraphedStep``), against the
+   same Simulator with its eager step: GRAPH_TICKS ticks bit-equal in every
+   agent channel and StepMetrics field, through a forced capacity growth
+   (captured again) and a restore of an earlier checkpoint (not captured
+   again); SPAWN_SYNC_STEPS replays, an assigned state copied in among them,
+   under ``set_sync_debug_mode("error")``; over GRAPH_PROFILE_TICKS ticks
+   under ``torch.profiler`` each flat kernel's launches in the trace equal
+   to ``launch_counts()``'s, with the device operations and busy us a tick;
+   then, after GRAPH_FILL_TICKS ticks, ms a tick (``tick()`` to its return,
+   host clock, the median of GRAPH_TIMED ticks from one checkpoint) graphed
+   and eager in turns (graphed, eager, eager, graphed).
 
 Each phase from 6 on prints its seconds.  With arguments the script is
 one rank of phase 17 and prints no result line.  Prints the card's name and power
@@ -286,6 +298,11 @@ RANDOM_TICK_MS_SYNCING = (4.9446, 0.3487)
 SPAWN_SYNC_STEPS = 16  # spawning steps under set_sync_debug_mode("error")
 SPAWN_FILL_TICKS = 3000  # phase 20: random.toml's fill, as the benchmark's tick cells
 SPAWN_TIMED = 20  # phase 20: chained spawns of measure_spawn_time
+GRAPH_TICKS = 600  # phase 21: random.toml ticks, graphed against eager
+GRAPH_SAVE, GRAPH_GROW, GRAPH_RESTORE = 100, 150, 300  # ... at these ticks
+GRAPH_PROFILE_TICKS = 48  # phase 21: graphed ticks under torch.profiler
+GRAPH_FILL_TICKS = 3000  # phase 21: random.toml's fill before the timed ticks
+GRAPH_TIMED = 500  # phase 21: ticks a timed turn (the benchmark's segment)
 TILES = ((1, 2), (2, 1), (2, 2))  # the 1M workload's tilings, all on one card
 TILE_STEPS = 16  # steps of the tiled and the whole-grid 1M step compared
 BIG_K = 121  # the table capacity after 81 in Simulator._grow_table
@@ -3336,6 +3353,123 @@ def _spawn_scatter_phase(dev, card) -> dict:
             "library_ms": None, "measure_spawn_ms": spawn_ms}
 
 
+def _graph_phase(dev, card) -> dict:
+    """21. random.toml's flat Simulator graphed against eager: bit-equal
+    ticks, replays without a sync, launches against the profiler, ms a
+    tick in turns."""
+    from pedoni_tpu_torch import Simulator, SimulatorOptions, checkpoint, load_scenario
+    from pedoni_tpu_torch.models.sfm import AgentState, SimState
+
+    def flat_sim(graphed: bool):
+        sim = Simulator(SimulatorOptions(device=dev.type, seed=7),
+                        load_scenario(RANDOM))
+        if not graphed:  # the eager step the graph captures
+            sim._graphed = None
+            sim._build(sim.cfg.capacity)
+        return sim
+
+    def bits(t: torch.Tensor) -> torch.Tensor:
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    graphed, eager = flat_sim(True), flat_sim(False)
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = pathlib.Path(tmp.name) / "c.npz"
+    for t in range(1, GRAPH_TICKS + 1):
+        for sim in (graphed, eager):
+            sim.tick()
+            if t == GRAPH_SAVE:
+                checkpoint.save(sim, ckpt)
+            if t == GRAPH_GROW:
+                sim._grow()
+            if t == GRAPH_RESTORE:
+                checkpoint.restore(sim, ckpt)
+        if graphed.last_metrics != eager.last_metrics or not all(
+                torch.equal(bits(a), bits(b))
+                for a, b in zip(graphed.state.agents, eager.state.agents)):
+            raise AssertionError(f"random.toml flat, tick {t}: graphed "
+                                 f"{graphed.last_metrics} != eager {eager.last_metrics} "
+                                 "or the agents differ")
+    step = graphed._step
+    if (step.captures, step.copies_in) != (2, 3):
+        raise AssertionError(f"graphed: {step.captures} captures, "
+                             f"{step.copies_in} copies in (want 2, 3)")
+    n_equal = graphed.pedestrian_count
+
+    copies = step.copies_in
+    assigned = SimState(AgentState(*(t.clone() for t in graphed.state.agents)),
+                        graphed.state.step)
+    torch.cuda.synchronize()
+    spawned = []
+    with _no_sync():
+        graphed.state = assigned
+        for _ in range(SPAWN_SYNC_STEPS):
+            graphed.state, m = graphed._step(graphed.state, graphed._fwp,
+                                             graphed._fobs)
+            spawned.append(m.n_spawned)
+    if step.copies_in != copies + 1 or int(torch.stack(spawned).sum()) == 0:
+        raise AssertionError("graphed replays under sync debug: "
+                             f"{step.copies_in - copies} copies in, "
+                             f"{int(torch.stack(spawned).sum())} spawned")
+
+    act = torch.profiler.ProfilerActivity
+    # one tick of the profiler's warm-up first, so that tracing is running
+    # when the counted ticks start
+    with torch.profiler.profile(
+            activities=[act.CPU, act.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                             active=GRAPH_PROFILE_TICKS)) as prof:
+        graphed.tick()
+        torch.cuda.synchronize()
+        before = _launch_counts()
+        for _ in range(GRAPH_PROFILE_TICKS):
+            prof.step()  # the first: warm-up over, recording
+            graphed.tick()
+        torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in _launch_counts().items()}
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    names = {"flat_sample": "flat_sample_kernel", "flat_scatter": "flat_scatter_kernel",
+             "flat_pairwise": "flat_pairwise_tile",
+             "flat_integrate": "flat_integrate_kernel"}
+    traced = {k: sum(names[k] in e.name for e in ops) for k in FLAT_KERNELS}
+    if any(traced[k] != moved[k] or moved[k] != GRAPH_PROFILE_TICKS
+           for k in FLAT_KERNELS):
+        raise AssertionError(f"graphed ticks: traced {traced}, counted {moved}")
+    ops_per_tick = len(ops) / GRAPH_PROFILE_TICKS
+    busy_us = sum(e.time_range.end - e.time_range.start
+                  for e in ops) / GRAPH_PROFILE_TICKS
+
+    graphed.run(GRAPH_FILL_TICKS)
+    checkpoint.save(graphed, ckpt)
+    tick_ms = {"graphed": [], "eager": []}
+    for what, sim in (("graphed", graphed), ("eager", eager), ("eager", eager),
+                      ("graphed", graphed)):
+        checkpoint.restore(sim, ckpt)
+        sim.tick()  # a capture where the restore changed the capacity
+        checkpoint.restore(sim, ckpt)
+        times = []
+        for _ in range(GRAPH_TIMED):
+            a = time.perf_counter()
+            sim.tick()
+            times.append((time.perf_counter() - a) * 1e3)
+        tick_ms[what].append(statistics.median(times))
+    tmp.cleanup()
+    out = {"ticks_equal": GRAPH_TICKS, "agents_at_equal_end": n_equal,
+           "captures": graphed.graph_captures, "launches": traced,
+           "device_ops_per_tick": ops_per_tick, "device_busy_us_per_tick": busy_us,
+           "agents_timed": graphed.pedestrian_count, "tick_ms_p50": tick_ms}
+    print(f"# graphed flat tick (phase 21) on random.toml: {GRAPH_TICKS} ticks "
+          f"bit-equal to the eager step through a growth and a restore "
+          f"({n_equal} agents); {SPAWN_SYNC_STEPS} replays without a sync; "
+          f"launches traced = counted {traced} over {GRAPH_PROFILE_TICKS} ticks, "
+          f"{ops_per_tick:.2f} device operations and {busy_us:.1f} us busy (sum) "
+          f"a tick; ms a tick at {graphed.pedestrian_count} agents (median of "
+          f"{GRAPH_TIMED}, graphed, eager, eager, graphed): {tick_ms} on {card}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -3632,6 +3766,10 @@ def main() -> int:
     kernels.append(_spawn_scatter_phase(dev, card))
     print(f"# phase 20 (spawn scatter) took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    graph = _graph_phase(dev, card)
+    print(f"# phase 21 (graphed flat tick) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for entry in kernels:  # the forms of each kernel this run held to its twin
         if entry["name"] not in ("pairwise", *FLAT_KERNELS):
             entry["tile_offsets"] = "ported"
@@ -3682,6 +3820,7 @@ def main() -> int:
     print("# tiles over 2 processes (phase 17): " + json.dumps(processes), flush=True)
     print("# spatial strips (phase 18): " + json.dumps(strips), flush=True)
     print("# fidelity (phase 19): " + json.dumps(fidelity), flush=True)
+    print("# graphed flat tick (phase 21): " + json.dumps(graph), flush=True)
     print(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the "
           f"kernel build included", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

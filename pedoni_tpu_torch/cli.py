@@ -222,9 +222,9 @@ def run_headless(args: argparse.Namespace) -> Path:
             renderer = TerminalRenderer(sim.scenario)
             keys = KeyPoller()  # SPACE toggles pause (renderer/mod.rs:121-136)
             # frames are fetched on a thread of their own (the reference's
-            # sim-thread / render-thread split, main.rs:20-26, 94-96); it
-            # enqueues on the same stream as the steps, so it reads whole
-            # states
+            # sim-thread / render-thread split, main.rs:20-26, 94-96);
+            # list_pedestrians holds the Simulator's lock, which each step
+            # holds too, so it reads whole states
             stream = SnapshotStream(
                 fetch=sim.list_pedestrians,
                 on_frame=lambda pos, dest: renderer.draw(pos, dest,

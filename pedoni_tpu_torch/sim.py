@@ -12,7 +12,11 @@ Three backends, as in the reference:
 - ``"xla"`` (the default): the flat step (models/sfm.py::make_step) on
   fixed-capacity agent tensors at the 1.4 m unit, whose capacity doubles
   when the population passes 80% of it; one device.  Its all-pairs mode
-  (``use_neighbor_grid=False``) is the true O(C^2) pass.
+  (``use_neighbor_grid=False``) is the true O(C^2) pass.  On a CUDA device
+  each step after the first of a capacity is one replay of a CUDA graph
+  of it (:class:`GraphedStep`), and the state it leaves in
+  ``sim.state`` is the graph's own buffers, which the next step
+  overwrites: clone a state to keep it across ticks.
 - ``"pallas"``: the same flat state and growth, at the 1.5 m unit, each
   step sorted into a slot grid that the fused step kernel advances
   (models/sfm_pallas.py::make_step_pallas); one device.
@@ -42,6 +46,8 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import threading
+from typing import Callable
 
 import torch
 
@@ -51,6 +57,7 @@ from .models import sfm_grid, sfm_pallas
 from .models.sfm import (AgentState, SimState, StepConfig, StepMetrics,
                           device_inputs, make_initial_state, make_step,
                           spawn_sampler)
+from .ops.kernels import add_launch_counts, launch_counts
 from .parallel import tile2d
 from .parallel.transport import transport_for
 from .physics import Physics
@@ -78,6 +85,108 @@ def _to_host(m: StepMetrics) -> StepMetrics:
     """One device->host transfer for all metric scalars."""
     with trace.span("sim.fetch"):
         return StepMetrics(*torch.stack(list(m)).tolist())
+
+
+def capture_graph(body: Callable[[], None], generator: torch.Generator
+                  ) -> Callable[[], None]:
+    """``body`` captured into a CUDA graph on the generator's card, on
+    torch's side stream for capture, with ``generator`` registered: each
+    replay draws what an eager ``body()`` would draw from the generator's
+    state at the replay and leaves it as far advanced, so that
+    ``set_state`` and ``manual_seed`` reach replays too.  Returns the
+    graph's replay.  A capture that fails raises.  The capture is
+    thread-local: another thread may use the card meanwhile."""
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    with torch.cuda.device(generator.device), \
+            torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        body()
+    return graph.replay
+
+
+class GraphedStep:
+    """The flat step (models/sfm.py::make_step) replayed from one CUDA
+    graph, called as the eager step is: ``step(state, field_rows,
+    obstacles) -> (SimState, StepMetrics)``.
+
+    The first call after :meth:`rebuild` runs the eager step, which is the
+    warm-up a capture needs (every kernel loaded, the sort's buffers
+    allocated; the step uses no per-stream library handle, so the current
+    stream serves), copies its result into input buffers of the graph's
+    own and captures, from them, one step: the eager step, the stack of
+    its seven metrics and the copy of its output state back into the
+    input buffers.  Every later call replays that graph: one launch, no
+    host sync.  The state returned is the input buffers themselves, so a
+    state handed back as it was returned costs no copy; any other (a
+    restored or an assigned one) is copied in first (``copies_in``).  The
+    next call overwrites a returned state; the metrics are a copy of their
+    own.  The fields and obstacles are bound at the capture.
+
+    The capture launches nothing, so the launch counts its wrappers took
+    are given back and each replay adds them (``ops/kernels.
+    launch_counts``).  ``capture`` (default :func:`capture_graph`) makes
+    the replay of a body; a test stands the graph in by the body itself.
+    """
+
+    def __init__(self, generator: torch.Generator,
+                 capture: Callable = capture_graph) -> None:
+        self.generator = generator
+        self._capture_fn = capture
+        self.captures = 0  # graphs captured, over every rebuild
+        self.copies_in = 0  # states copied into the input buffers
+        self.rebuild(None)
+
+    def rebuild(self, eager) -> None:
+        """Take a new eager step (new shapes): the next call captures."""
+        self.eager = eager
+        self._replay = self._inputs = self._args = self._metrics = None
+        self._launches: dict[str, int] = {}
+
+    def __call__(self, state: SimState, field_rows: torch.Tensor,
+                 obstacles: tuple[torch.Tensor, ...]
+                 ) -> tuple[SimState, StepMetrics]:
+        if self._replay is None:
+            return self._capture(state, field_rows, obstacles)
+        if field_rows is not self._args[0] or obstacles is not self._args[1]:
+            raise ValueError("GraphedStep: the fields or obstacles are not "
+                             "those its graph was captured with")
+        self._load(state.agents)
+        with trace.span("sim.replay"):
+            self._replay()
+        add_launch_counts(self._launches)
+        return (SimState(agents=self._inputs, step=state.step + 1),
+                StepMetrics(*self._metrics.clone().unbind()))
+
+    def _load(self, agents: AgentState) -> None:
+        """Copy ``agents`` into the input buffers unless they are them."""
+        if any(a is not b for a, b in zip(agents, self._inputs)):
+            for dst, src in zip(self._inputs, agents):
+                dst.copy_(src)
+            self.copies_in += 1
+
+    def _capture(self, state: SimState, field_rows: torch.Tensor,
+                 obstacles: tuple[torch.Tensor, ...]
+                 ) -> tuple[SimState, StepMetrics]:
+        with trace.span("sim.capture"):
+            new, metrics = self.eager(state, field_rows, obstacles)
+            self._inputs = AgentState(*(t.clone() for t in new.agents))
+            self.copies_in += 1
+            self._args = (field_rows, obstacles)
+
+            def body() -> None:
+                out, m = self.eager(SimState(agents=self._inputs, step=0),
+                                    field_rows, obstacles)
+                self._metrics = torch.stack(list(m))
+                for dst, src in zip(self._inputs, out.agents):
+                    dst.copy_(src)
+
+            before = launch_counts()
+            self._replay = self._capture_fn(body, self.generator)
+            self._launches = {k: n - before[k]
+                              for k, n in launch_counts().items() if n != before[k]}
+            add_launch_counts({k: -n for k, n in self._launches.items()})
+            self.captures += 1
+        return SimState(agents=self._inputs, step=new.step), metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +276,15 @@ class SimulatorOptions:
 
 
 class Simulator:
+    """A scenario's agents and their step (see the module docstring).
+
+    ``tick`` and ``run`` leave the state in ``state``.  On a CUDA device
+    the flat backend's next step overwrites that state in place (it is
+    the graph's buffers, :class:`GraphedStep`): a caller that keeps a
+    state across ticks clones it.  The steps, the growth and the agents'
+    reads (``list_pedestrians``, ``pedestrian_count``) hold one lock, so
+    another thread may read the agents while one ticks."""
+
     def __init__(self, options: SimulatorOptions, scenario: Scenario) -> None:
         options.check()
         options = options.resolved()
@@ -206,6 +324,11 @@ class Simulator:
 
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(options.seed)
+        # held by a step with its growth and by a read of the agents
+        self._lock = threading.RLock()
+        # the flat step on a card replays a CUDA graph of itself
+        self._graphed = (GraphedStep(self.generator)
+                         if cuda and options.backend == "xla" else None)
         capacity = options.capacity or self._auto_capacity(scenario)
         self._build(capacity)
         self.state = self._from_flat_state(
@@ -265,6 +388,9 @@ class Simulator:
             field, self._fobs = device_inputs(self.cfg, self.maps, self.device)
             self._fwp = field.rows
             self._step = make_step(self.cfg, generator=self.generator)
+            if self._graphed is not None:
+                self._graphed.rebuild(self._step)
+                self._step = self._graphed
             log.info("step function built: capacity=%d backend=xla device=%s",
                      capacity, self.device)
             return
@@ -324,8 +450,10 @@ class Simulator:
             sfm_grid.check_fits(need * self.devices.count(dev), dev)
 
     def tick(self) -> StepRecord:
-        """Advance one step (lib.rs:64-100) and return host-side metrics."""
-        with trace.span("sim.tick"):
+        """Advance one step (lib.rs:64-100) and return host-side metrics.
+        The state it leaves in ``state`` may be overwritten by the next
+        step (the flat backend on a card): clone it to keep it."""
+        with trace.span("sim.tick"), self._lock:
             with Timer() as t:
                 self.state, dmetrics = self._step(self.state, self._fwp, self._fobs)
                 metrics = _to_host(dmetrics)
@@ -353,6 +481,13 @@ class Simulator:
                 self._grow_movers()
             return StepRecord(active_ped_count=metrics.n_active, time_spawn=0.0,
                               time_calc_state=t.elapsed)
+
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs of the step captured so far: one at the first tick
+        and one after each change of capacity (0 where the step runs
+        eagerly: the CPU, the pallas and grid backends)."""
+        return 0 if self._graphed is None else self._graphed.captures
 
     @property
     def _dropped_what(self) -> str:
@@ -384,27 +519,29 @@ class Simulator:
         reactive path.  The flat backend's guard doubles the capacity at 80%
         occupancy instead, and a population that outruns it within the lag
         is cut at the capacity and counted in ``n_dropped``.  ``sync_every``
-        > 0 adds full syncs."""
+        > 0 adds full syncs.  As after ``tick``, the next step may
+        overwrite the state left in ``state``."""
         with trace.span("sim.run"):
             totals = None
             pending: list[StepMetrics] = []
             with Timer() as t:
                 for i in range(n_steps):
-                    self.state, metrics = self._step(self.state, self._fwp,
-                                                     self._fobs)
-                    totals = metrics if totals is None \
-                        else _accumulate_metrics(totals, metrics)
-                    if guard_every:
-                        pending.append(metrics)
-                        if len(pending) > guard_every:
-                            pending.pop(0)
-                        if ((i + 1) % guard_every == 0
-                                and self._needs_growth(pending[0])):
-                            self._grow_now()
-                            pending.clear()
-                    if sync_every and (i + 1) % sync_every == 0:
-                        if self._needs_growth(metrics):
-                            self._grow_now()
+                    with self._lock:  # a step at a time: readers go between
+                        self.state, metrics = self._step(self.state, self._fwp,
+                                                         self._fobs)
+                        totals = metrics if totals is None \
+                            else _accumulate_metrics(totals, metrics)
+                        if guard_every:
+                            pending.append(metrics)
+                            if len(pending) > guard_every:
+                                pending.pop(0)
+                            if ((i + 1) % guard_every == 0
+                                    and self._needs_growth(pending[0])):
+                                self._grow_now()
+                                pending.clear()
+                        if sync_every and (i + 1) % sync_every == 0:
+                            if self._needs_growth(metrics):
+                                self._grow_now()
                 host = _to_host(totals) if totals is not None else None
             self.step_count += n_steps
             self.last_run_metrics = host
@@ -592,18 +729,21 @@ class Simulator:
 
     def list_pedestrians(self):
         """Positions [n, 2] and destinations [n] of active agents, as
-        NumPy arrays (models/mod.rs:29-32 exchange struct analog)."""
-        a = self._to_flat_state().agents
-        act = a.active
-        return a.pos[act].cpu().numpy(), a.dest[act].cpu().numpy()
+        NumPy arrays (models/mod.rs:29-32 exchange struct analog), of one
+        state: read under the step's lock, so from any thread."""
+        with self._lock:
+            a = self._to_flat_state().agents
+            act = a.active
+            return a.pos[act].cpu().numpy(), a.dest[act].cpu().numpy()
 
     @property
     def pedestrian_count(self) -> int:
-        if self._flat:
-            return int(self.state.agents.active.sum())
-        if self._tcfg is not None:
-            return tile2d.population(self.state, self._transport)
-        return int((self.state.d[:, :, 6, :] > 0.5).sum())
+        with self._lock:
+            if self._flat:
+                return int(self.state.agents.active.sum())
+            if self._tcfg is not None:
+                return tile2d.population(self.state, self._transport)
+            return int((self.state.d[:, :, 6, :] > 0.5).sum())
 
     def new_log(self, scenario_name: str = "") -> DiagnosticLog:
         lg = DiagnosticLog(model=f"sfm-torch/{self.options.backend}",

@@ -23,7 +23,7 @@ import contextlib
 import torch
 
 NAMES = (
-    "sim.tick", "sim.run", "sim.fetch", "sim.grow",
+    "sim.tick", "sim.run", "sim.fetch", "sim.grow", "sim.capture", "sim.replay",
     "flat.step", "flat.spawn", "flat.sample", "flat.sort", "flat.scatter",
     "flat.pairs", "flat.integrate", "flat.metrics",
     "grid.step", "grid.spawn", "grid.forces", "grid.rebin", "grid.metrics",

@@ -6,7 +6,10 @@ tiles and bit masks), the device gate that makes the hybrid step's choice,
 the standalone pairwise kernel, the flat pair kernel up to K 255, the
 flat sample, scatter and integrate kernels (with a flat step on the card
 against the CPU), the grid step's spawn scatter kernel (with a spawning
-grid step under sync debug mode "error").
+grid step under sync debug mode "error"), and the flat Simulator's step
+as one CUDA graph replay (``-k graphed``: bit-equal to the eager step
+across a restore and a growth, no sync, its launches counted as the
+profiler sees them, its agents read from a second thread).
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports neither JAX nor the
 reference package, so it runs on a machine with only PyTorch:
@@ -1351,3 +1354,166 @@ spawn = { kind = "periodic", frequency = 40.0 }
         torch.cuda.set_sync_debug_mode("default")
     assert launch_counts()["spawn_scatter"] == 8
     assert int(torch.stack(spawned).sum()) > 0
+
+
+def _random_flat(graphed: bool, capacity: int = 0):
+    """scenarios/random.toml's flat Simulator on the card (the CLI's -b
+    auto), graphed as it is built, or with its eager step."""
+    from pedoni_tpu_torch import Simulator, SimulatorOptions
+
+    sim = Simulator(SimulatorOptions(device="cuda", seed=7, capacity=capacity),
+                    load_scenario(SCENARIOS / "random.toml"))
+    if not graphed:
+        sim._graphed = None
+        sim._build(sim.cfg.capacity)
+    return sim
+
+
+@pytest.mark.cuda
+def test_graphed_flat_ticks_equal_eager_across_a_restore_and_a_growth(tmp_path):
+    """600 ticks of random.toml's flat Simulator, graphed and eager: every
+    tick the positions, velocities, speeds, destinations, activity and
+    every StepMetrics field equal bit for bit, through a forced capacity
+    growth at tick 150 (captured again) and a restore at tick 300 of the
+    checkpoint of tick 100 (padded to the new capacity, not captured
+    again); both generators rewound alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pedoni_tpu_torch import checkpoint
+    from pedoni_tpu_torch.sim import GraphedStep
+
+    graphed, eager = _random_flat(True), _random_flat(False)
+    assert isinstance(graphed._step, GraphedStep)
+    assert not isinstance(eager._step, GraphedStep)
+    ckpt = tmp_path / "c.npz"
+    spawned = 0
+    for t in range(1, 601):
+        for sim in (graphed, eager):
+            sim.tick()
+            if t == 100:
+                checkpoint.save(sim, ckpt)
+            if t == 150:
+                sim._grow()
+            if t == 300:
+                checkpoint.restore(sim, ckpt)
+        assert graphed.last_metrics == eager.last_metrics, t
+        assert graphed.cfg.capacity == eager.cfg.capacity
+        for a, b in zip(graphed.state.agents, eager.state.agents):
+            assert _bits_equal(a, b), t
+        spawned += graphed.last_metrics.n_spawned
+    assert graphed.graph_captures == 2 and eager.graph_captures == 0
+    assert graphed._step.copies_in == 3  # the first tick, the growth, the restore
+    assert spawned > 0 and graphed.pedestrian_count > 0
+
+
+@pytest.mark.cuda
+def test_graphed_replay_makes_no_sync():
+    """Replays of the graphed flat step, an assigned state copied in among
+    them, under set_sync_debug_mode("error"); they spawn."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pedoni_tpu_torch.models.sfm import AgentState
+
+    sim = _random_flat(True)
+    for _ in range(3):
+        sim.tick()
+    step = sim._step
+    copies = step.copies_in
+    assigned = SimState(AgentState(*(t.clone() for t in sim.state.agents)),
+                        sim.state.step)
+    torch.cuda.synchronize()
+    spawned = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sim.state = assigned
+        for _ in range(8):
+            sim.state, m = sim._step(sim.state, sim._fwp, sim._fobs)
+            spawned.append(m.n_spawned)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert step.copies_in == copies + 1 and step.captures == 1
+    assert int(torch.stack(spawned).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_graphed_replay_counts_the_launches_the_profiler_sees():
+    """Over ticks that replay the graph, ``launch_counts()`` moves by the
+    launches of each flat kernel that torch.profiler traces: one a tick."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import re
+
+    sim = _random_flat(True)
+    for _ in range(3):
+        sim.tick()
+    act = torch.profiler.ProfilerActivity
+    # one tick of the profiler's warm-up first, so that tracing is running
+    # when the counted ticks start
+    with torch.profiler.profile(
+            activities=[act.CPU, act.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=6)) as prof:
+        sim.tick()
+        torch.cuda.synchronize()
+        before = launch_counts()
+        for _ in range(6):
+            prof.step()  # the first: warm-up over, recording
+            sim.tick()
+        torch.cuda.synchronize()
+    after = launch_counts()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for kernel, counter in (("flat_sample_kernel", "flat_sample"),
+                            ("flat_scatter_kernel", "flat_scatter"),
+                            ("flat_pairwise_tile", "flat_pairwise"),
+                            ("flat_integrate_kernel", "flat_integrate")):
+        traced = sum(bool(re.search(rf"\b{kernel}\b", n)) for n in names)
+        assert traced == after[counter] - before[counter] == 6, (kernel, traced)
+    assert sim.graph_captures == 1
+
+
+@pytest.mark.cuda
+def test_graphed_flat_agents_read_from_a_thread_through_growths():
+    """The CLI's live views: ``list_pedestrians`` on a second thread while
+    random.toml's graphed flat Simulator ticks from a capacity of 256
+    through its growths, each a capture (whose start frees torch's cache
+    and waits on the card) while the other thread reads.  No capture
+    fails, every read is of one state (as many destinations as positions,
+    each a waypoint), and the ticks end bit-equal to those of an eager
+    Simulator that nobody read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import threading
+
+    graphed = _random_flat(True, capacity=256)
+    n_wp = len(graphed.scenario.waypoints)
+    done = threading.Event()
+    reads, errors = [], []
+
+    def reader():
+        try:
+            while not done.is_set():
+                pos, dest = graphed.list_pedestrians()
+                reads.append(len(pos) == len(dest)
+                             and bool(((dest >= 0) & (dest < n_wp)).all())
+                             and bool(np.isfinite(pos).all()))
+        except Exception as e:  # noqa: BLE001 - the main thread raises it
+            errors.append(e)
+
+    thread = threading.Thread(target=reader)
+    thread.start()
+    try:
+        for _ in range(300):
+            graphed.tick()
+    finally:
+        done.set()
+        thread.join()
+    assert not errors, errors
+    assert graphed.cfg.capacity >= 1024 and graphed.graph_captures >= 3
+    assert len(reads) > 10 and all(reads)
+    eager = _random_flat(False, capacity=256)
+    for _ in range(300):
+        eager.tick()
+    assert eager.cfg.capacity == graphed.cfg.capacity
+    assert eager.last_metrics == graphed.last_metrics
+    for a, b in zip(graphed.state.agents, eager.state.agents):
+        assert _bits_equal(a, b)
