@@ -229,6 +229,18 @@ nvcc, one process per source, then:
    then, after GRAPH_FILL_TICKS ticks, ms a tick (``tick()`` to its return,
    host clock, the median of GRAPH_TIMED ticks from one checkpoint) graphed
    and eager in turns (graphed, eager, eager, graphed).
+22. scenarios/random.toml's grid Simulator (``-b grid``: the full rebin,
+   lambda 0.27 < 1.75), whose step on the card is one CUDA graph replay a
+   tick (``sim.GraphedGridStep``), against the same Simulator with its
+   eager step, as phase 21: GRAPH_TICKS ticks bit-equal in the grid and
+   every StepMetrics field through a forced table growth and a restore;
+   GRAPH_HYBRID_TICKS ticks of the forced hybrid (``incremental_rebin=
+   True``, a graph a branch) bit-equal through a table and a mover
+   growth; SPAWN_SYNC_STEPS replays under ``set_sync_debug_mode("error")``;
+   the hand kernels' traced launches against ``launch_counts()`` over
+   GRAPH_PROFILE_TICKS ticks, with the device operations, busy us and the
+   largest operations a tick; ms a tick graphed and eager in turns after
+   GRAPH_FILL_TICKS ticks.
 
 Each phase from 6 on prints its seconds.  With arguments the script is
 one rank of phase 17 and prints no result line.  Prints the card's name and power
@@ -240,6 +252,7 @@ failure or without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import datetime
 import importlib.util
@@ -303,6 +316,9 @@ GRAPH_SAVE, GRAPH_GROW, GRAPH_RESTORE = 100, 150, 300  # ... at these ticks
 GRAPH_PROFILE_TICKS = 48  # phase 21: graphed ticks under torch.profiler
 GRAPH_FILL_TICKS = 3000  # phase 21: random.toml's fill before the timed ticks
 GRAPH_TIMED = 500  # phase 21: ticks a timed turn (the benchmark's segment)
+GRAPH_HYBRID_TICKS = 200  # phase 22: ticks of the forced hybrid grid
+GRID_KERNELS = {"step_sample": "step_kernel", "step_pairs": "step_kernel",
+                "rebin_full": "rebin", "spawn_scatter_kernel": "spawn_scatter"}
 TILES = ((1, 2), (2, 1), (2, 2))  # the 1M workload's tilings, all on one card
 TILE_STEPS = 16  # steps of the tiled and the whole-grid 1M step compared
 BIG_K = 121  # the table capacity after 81 in Simulator._grow_table
@@ -3470,6 +3486,135 @@ def _graph_phase(dev, card) -> dict:
     return out
 
 
+def _graph_grid_phase(dev, card) -> dict:
+    """22. random.toml's grid Simulator graphed against eager: bit-equal
+    ticks on the full path and both branches of the hybrid, replays
+    without a sync, launches against the profiler, ms a tick in turns."""
+    from pedoni_tpu_torch import Simulator, SimulatorOptions, checkpoint, load_scenario
+
+    def grid_sim(graphed: bool, **options):
+        sim = Simulator(SimulatorOptions(backend="grid", device=dev.type, seed=7,
+                                         **options), load_scenario(RANDOM))
+        if not graphed:  # the eager step the graphs capture
+            sim._graphed = None
+            sim._build(sim.cfg.capacity)
+        return sim
+
+    def sizes(sim):
+        return sim.options.table_capacity, sim.options.mover_capacity, sim.cfg.capacity
+
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = pathlib.Path(tmp.name) / "c.npz"
+    equal = {}
+    for path, n_ticks, grow, kw in (
+            ("full", GRAPH_TICKS, GRAPH_GROW, {}),
+            ("hybrid", GRAPH_HYBRID_TICKS, GRAPH_HYBRID_TICKS * 3 // 10,
+             {"incremental_rebin": True})):
+        graphed, eager = grid_sim(True, **kw), grid_sim(False, **kw)
+        builds = 1
+        for t in range(1, n_ticks + 1):
+            before = sizes(graphed)
+            for sim in (graphed, eager):
+                sim.tick()
+                if t == GRAPH_SAVE // 2:
+                    checkpoint.save(sim, ckpt)
+                if t == grow:
+                    sim._grow_table(0)
+                if t == grow + n_ticks // 10 and path == "hybrid":
+                    sim._grow_movers()
+                if t == 2 * grow:
+                    checkpoint.restore(sim, ckpt)
+            builds += sizes(graphed) != before
+            if (graphed.last_metrics != eager.last_metrics
+                    or sizes(graphed) != sizes(eager)
+                    or not torch.equal(graphed.state.d.view(torch.int32),
+                                       eager.state.d.view(torch.int32))):
+                raise AssertionError(f"random.toml grid ({path}), tick {t}: graphed "
+                                     f"{graphed.last_metrics} != eager "
+                                     f"{eager.last_metrics} or the grids differ")
+        step = graphed._step
+        keys = 2 if graphed._resolve_incremental() else 1  # random.toml: full
+        if (step.captures, step.copies_in) != (builds * keys, builds * keys + 1):
+            raise AssertionError(f"graphed grid ({path}): {step.captures} captures, "
+                                 f"{step.copies_in} copies in, {builds} builds")
+        equal[path] = {"ticks": n_ticks, "captures": step.captures,
+                       "agents": graphed.pedestrian_count,
+                       "k": graphed.options.table_capacity}
+    graphed, eager = grid_sim(True), grid_sim(False)
+    for _ in range(3):
+        graphed.tick()
+    step = graphed._step
+    copies = step.copies_in
+    torch.cuda.synchronize()
+    spawned = []
+    with _no_sync():
+        graphed.state = graphed.state._replace(d=graphed.state.d.clone())
+        for _ in range(SPAWN_SYNC_STEPS):
+            graphed.state, m = graphed._step(graphed.state, graphed._fwp,
+                                             graphed._fobs)
+            spawned.append(m.n_spawned)
+    if step.copies_in != copies + 1 or int(torch.stack(spawned).sum()) == 0:
+        raise AssertionError("graphed grid replays under sync debug: "
+                             f"{step.copies_in - copies} copies in, "
+                             f"{int(torch.stack(spawned).sum())} spawned")
+
+    graphed.run(GRAPH_FILL_TICKS)
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(
+            activities=[act.CPU, act.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                             active=GRAPH_PROFILE_TICKS)) as prof:
+        graphed.tick()
+        torch.cuda.synchronize()
+        before = _launch_counts()
+        for _ in range(GRAPH_PROFILE_TICKS):
+            prof.step()
+            graphed.tick()
+        torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in _launch_counts().items()}
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    traced = {name: sum(name in e.name for e in ops) for name in GRID_KERNELS}
+    if any(traced[name] != moved[counter] or moved[counter] != GRAPH_PROFILE_TICKS
+           for name, counter in GRID_KERNELS.items()):
+        raise AssertionError(f"graphed grid ticks: traced {traced}, counted {moved}")
+    ops_per_tick = len(ops) / GRAPH_PROFILE_TICKS
+    by_name = collections.Counter()
+    for e in ops:
+        by_name[e.name[:48]] += ((e.time_range.end - e.time_range.start)
+                                 / GRAPH_PROFILE_TICKS)
+    busy_us = sum(by_name.values())
+
+    checkpoint.save(graphed, ckpt)
+    tick_ms = {"graphed": [], "eager": []}
+    for what, sim in (("graphed", graphed), ("eager", eager), ("eager", eager),
+                      ("graphed", graphed)):
+        checkpoint.restore(sim, ckpt)
+        sim.tick()  # a capture where the restore changed the sizes
+        checkpoint.restore(sim, ckpt)
+        times = []
+        for _ in range(GRAPH_TIMED):
+            a = time.perf_counter()
+            sim.tick()
+            times.append((time.perf_counter() - a) * 1e3)
+        tick_ms[what].append(statistics.median(times))
+    tmp.cleanup()
+    out = {"equal": equal, "launches": traced, "device_ops_per_tick": ops_per_tick,
+           "device_busy_us_per_tick": busy_us,
+           "top_ops_us_per_tick": {k: round(v, 2) for k, v in by_name.most_common(12)},
+           "agents_timed": graphed.pedestrian_count,
+           "k_timed": graphed.options.table_capacity, "tick_ms_p50": tick_ms}
+    print(f"# graphed grid tick (phase 22) on random.toml: {equal}, bit-equal to "
+          f"the eager step through growths and a restore; {SPAWN_SYNC_STEPS} "
+          f"replays without a sync; launches traced = counted {traced} over "
+          f"{GRAPH_PROFILE_TICKS} ticks, {ops_per_tick:.2f} device operations and "
+          f"{busy_us:.1f} us busy (sum) a tick; ms a tick at "
+          f"{graphed.pedestrian_count} agents (median of {GRAPH_TIMED}, graphed, "
+          f"eager, eager, graphed): {tick_ms} on {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -3770,6 +3915,10 @@ def main() -> int:
     graph = _graph_phase(dev, card)
     print(f"# phase 21 (graphed flat tick) took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    graph_grid = _graph_grid_phase(dev, card)
+    print(f"# phase 22 (graphed grid tick) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for entry in kernels:  # the forms of each kernel this run held to its twin
         if entry["name"] not in ("pairwise", *FLAT_KERNELS):
             entry["tile_offsets"] = "ported"
@@ -3821,6 +3970,7 @@ def main() -> int:
     print("# spatial strips (phase 18): " + json.dumps(strips), flush=True)
     print("# fidelity (phase 19): " + json.dumps(fidelity), flush=True)
     print("# graphed flat tick (phase 21): " + json.dumps(graph), flush=True)
+    print("# graphed grid tick (phase 22): " + json.dumps(graph_grid), flush=True)
     print(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the "
           f"kernel build included", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

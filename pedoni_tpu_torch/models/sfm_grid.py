@@ -347,12 +347,13 @@ def tile_kernels(cfg: StepConfig, row_block: int = 2, incremental: bool = True,
     rebin: some cell had more movers than the table holds, or the scenario
     spawns and its fullest cell's slot bound is >= K - 1
     (sfm_grid.py:396-419).  M, mdmx and flag are None where not made.
-    ``rebins(G, M, flag, **tile) -> (D', ovf, dmx, n_in, n_out)`` runs the
-    full rebin where flag is None, else both rebins launched with the flag,
-    of which only the selected one runs its body: no host sync.  ``tile``
-    holds a tile's ``row_offset``, ``col_offset`` and ``nx_local``; none for
-    a whole grid.  The segment table (segment mode) is copied to each of
-    ``devices`` now, to another device at its first step."""
+    ``rebins(G, M, flag, into=None, **tile) -> (D', ovf, dmx, n_in, n_out)``
+    runs the full rebin where flag is None, else both rebins launched with
+    the flag, of which only the selected one runs its body: no host sync.
+    D' is written into ``into`` where given.  ``tile`` holds a tile's
+    ``row_offset``, ``col_offset`` and ``nx_local``; none for a whole grid.
+    The segment table (segment mode) is copied to each of ``devices`` now,
+    to another device at its first step."""
     stride = _check_config(cfg)
     segs_on = _segments_on(cfg)
     for dev in devices:
@@ -379,11 +380,14 @@ def tile_kernels(cfg: StepConfig, row_block: int = 2, incremental: bool = True,
         return g, m, mdmx, need_full.to(torch.int32)
 
     def rebins(g: torch.Tensor, m: torch.Tensor | None,
-               flag: torch.Tensor | None, **tile) -> tuple[torch.Tensor, ...]:
+               flag: torch.Tensor | None, into: torch.Tensor | None = None,
+               **tile) -> tuple[torch.Tensor, ...]:
         args = (grid.unit, grid.nx, grid.ny)
-        if flag is None:
+        if flag is None and into is None:
             return rebin(g, *args, row_block=row_block, **tile)
-        out = new_outputs(g, row_block)
+        out = new_outputs(g, row_block, into)
+        if flag is None:
+            return rebin(g, *args, row_block=row_block, out=out, **tile)
         rebin(g, *args, row_block=row_block, gate=flag, out=out, **tile)
         rebin_incremental(g, m, *args, row_block=row_block, gate=flag, out=out,
                           **tile)
@@ -441,7 +445,15 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
     scenario's S = spawn.total rows); when None they are drawn from
     ``generator``, which must then be given for a spawning scenario.
     The spawn scatter writes into ``state.d`` in place (no ~100 MB copy at
-    1M agents): the input state is consumed."""
+    1M agents): the input state is consumed.  ``into`` (a tensor of D's
+    shape, which may be ``state.d`` itself: no read of D follows the
+    rebin) takes D' in place of a new tensor.
+
+    ``step.host_key(state)`` gives the host values that pick the step's
+    launches: None on the full path; in the hybrid, whether ``state.step``
+    sends the step to the full rebin (b) and whether tracing is on (it
+    adds to ``full_rebins``).  A CUDA graph of the step
+    (``sim.GraphedGridStep``) holds one a key."""
     forces, rebins = tile_kernels(cfg, row_block, incremental, mover_k)
     s = cfg.spawn.total
     if s > 0 and generator is None:
@@ -449,7 +461,7 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
     draw = spawn_sampler(cfg, generator.device) if s > 0 else None
 
     def step(state: GridState, fwp: torch.Tensor, fobs: torch.Tensor,
-             cand: AgentState | None = None
+             cand: AgentState | None = None, into: torch.Tensor | None = None
              ) -> tuple[GridState, StepMetrics]:
         with trace.span("grid.step"):
             d = state.d
@@ -464,7 +476,7 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
             with trace.span("grid.forces"):
                 g, m, mdmx, flag = forces(d, fwp, fobs, compact)
             with trace.span("grid.rebin"):
-                out = rebins(g, m, flag)
+                out = rebins(g, m, flag, into)
             with trace.span("grid.metrics"):
                 if incremental and trace.enabled():
                     if step.full_rebins is None:
@@ -475,5 +487,11 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
                                        [mdmx] if incremental else [], d.device)
             return GridState(d=out[0], step=state.step + 1), metrics
 
+    def host_key(state: GridState) -> tuple[bool, bool] | None:
+        if not incremental:
+            return None
+        return state.step % compact_every == 0, trace.enabled()
+
     step.full_rebins = None
+    step.host_key = host_key
     return step

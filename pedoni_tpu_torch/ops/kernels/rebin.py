@@ -99,13 +99,15 @@ def _check(g: torch.Tensor, row_block: int) -> None:
             f"ny_pad % {row_block} == 0, got {tuple(g.shape)}")
 
 
-def new_outputs(g: torch.Tensor, row_block: int = 2) -> tuple[torch.Tensor, ...]:
-    """Outputs for either rebin: (D' [ny2, K, 8, NXL] uninitialised, then
-    overflow, demand_max, active_in, active_out [nb] f32, zeroed — the
-    kernels accumulate into them)."""
+def new_outputs(g: torch.Tensor, row_block: int = 2,
+                d: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+    """Outputs for either rebin: (D' [ny2, K, 8, NXL] uninitialised, or
+    ``d``, which the rebin overwrites whole, then overflow, demand_max,
+    active_in, active_out [nb] f32, zeroed — the kernels accumulate into
+    them)."""
     nb = (g.shape[0] - 2) // row_block
     sums = torch.zeros((4, nb), dtype=torch.float32, device=g.device)
-    return (torch.empty_like(g), *sums)
+    return (torch.empty_like(g) if d is None else d, *sums)
 
 
 def _check_out(g: torch.Tensor, row_block: int, gate: torch.Tensor | None,

@@ -25,14 +25,18 @@ Three backends, as in the reference:
   auto-chosen by cell occupancy), at the 1.5 m unit, on one device or
   ``n_devices`` tiles (parallel/tile2d.py: row strips, or ``tile`` =
   (rows, cols)), with drop-free table growth and mover-table growth.
-  Where ``torch.distributed`` is initialized with a world size above 1,
-  the tiles are spread over the group's processes (the counterpart of the
-  reference's global ``jax.devices()``): rank r owns a contiguous block of
-  whole tile rows, all on its card ``cuda:(r mod cards)``, or on the CPU
-  for ``device="cpu"``, and every rank's ``tick`` and ``run`` return the
-  same metrics.  Reading the agents (``list_pedestrians``, checkpoints)
-  is then refused, as the reference cannot read an array that spans
-  processes either.
+  On one CUDA device each step after the first of a table size (of each
+  branch of the hybrid) is one replay of a CUDA graph of it
+  (:class:`GraphedGridStep`), and the grid it leaves in ``sim.state`` is
+  the graph's own buffer, which the next step overwrites, as on the flat
+  backend.  Where ``torch.distributed`` is initialized with a world size
+  above 1, the tiles are spread over the group's processes (the
+  counterpart of the reference's global ``jax.devices()``): rank r owns a
+  contiguous block of whole tile rows, all on its card ``cuda:(r mod
+  cards)``, or on the CPU for ``device="cpu"``, and every rank's ``tick``
+  and ``run`` return the same metrics.  Reading the agents
+  (``list_pedestrians``, checkpoints) is then refused, as the reference
+  cannot read an array that spans processes either.
 
 The two kernel backends (``pallas``, ``grid``) grow the cell unit in
 all-pairs mode to cover the cutoff.  All three take distance-map or exact
@@ -43,6 +47,7 @@ the device behind its lagged growth guard, and checkpoint as flat agents
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -104,23 +109,36 @@ def capture_graph(body: Callable[[], None], generator: torch.Generator
     return graph.replay
 
 
+@dataclasses.dataclass
+class _Graph:
+    """One captured graph of a step: its replay, the stack of the seven
+    metrics its body writes, and the launch counts a replay adds."""
+    replay: Callable[[], None] | None = None
+    metrics: torch.Tensor | None = None
+    launches: dict[str, int] = dataclasses.field(default_factory=dict)
+
+
 class GraphedStep:
-    """The flat step (models/sfm.py::make_step) replayed from one CUDA
+    """The flat step (models/sfm.py::make_step) replayed from a CUDA
     graph, called as the eager step is: ``step(state, field_rows,
     obstacles) -> (SimState, StepMetrics)``.
 
-    The first call after :meth:`rebuild` runs the eager step, which is the
-    warm-up a capture needs (every kernel loaded, the sort's buffers
+    A step whose launches depend on host values has a graph for each value
+    of ``key(state)`` (:meth:`rebuild`; the flat step has one).  The first
+    call of a key after :meth:`rebuild` runs the eager step, which is the
+    warm-up a capture needs (every kernel loaded, the library buffers
     allocated; the step uses no per-stream library handle, so the current
     stream serves), copies its result into input buffers of the graph's
-    own and captures, from them, one step: the eager step, the stack of
-    its seven metrics and the copy of its output state back into the
-    input buffers.  Every later call replays that graph: one launch, no
-    host sync.  The state returned is the input buffers themselves, so a
-    state handed back as it was returned costs no copy; any other (a
+    own (made at the first capture, shared by the graphs of every key)
+    and captures, from them, one step: the eager step, the stack of its
+    seven metrics and the copy of its output state back into the input
+    buffers.  Every later call of that key replays its graph: one launch,
+    no host sync.  The state returned is the input buffers themselves, so
+    a state handed back as it was returned costs no copy; any other (a
     restored or an assigned one) is copied in first (``copies_in``).  The
     next call overwrites a returned state; the metrics are a copy of their
-    own.  The fields and obstacles are bound at the capture.
+    own.  The fields and obstacles are bound at the first capture.  A call
+    that injects the step's spawn candidates runs the eager step.
 
     The capture launches nothing, so the launch counts its wrappers took
     are given back and each replay adds them (``ops/kernels.
@@ -136,57 +154,123 @@ class GraphedStep:
         self.copies_in = 0  # states copied into the input buffers
         self.rebuild(None)
 
-    def rebuild(self, eager) -> None:
-        """Take a new eager step (new shapes): the next call captures."""
-        self.eager = eager
-        self._replay = self._inputs = self._args = self._metrics = None
-        self._launches: dict[str, int] = {}
+    @staticmethod
+    def _held(state: SimState) -> AgentState:
+        """What the input buffers hold of a state."""
+        return state.agents
 
-    def __call__(self, state: SimState, field_rows: torch.Tensor,
-                 obstacles: tuple[torch.Tensor, ...]
-                 ) -> tuple[SimState, StepMetrics]:
-        if self._replay is None:
-            return self._capture(state, field_rows, obstacles)
-        if field_rows is not self._args[0] or obstacles is not self._args[1]:
+    @staticmethod
+    def _with(held: AgentState, step: int) -> SimState:
+        return SimState(agents=held, step=step)
+
+    @staticmethod
+    def _tensors(held: AgentState) -> tuple[torch.Tensor, ...]:
+        return tuple(held)
+
+    @staticmethod
+    def _clone(held: AgentState) -> AgentState:
+        return AgentState(*(t.clone() for t in held))
+
+    def rebuild(self, eager, key: Callable | None = None) -> None:
+        """Take a new eager step (new shapes) and its host key (``key(state)``
+        -> a hashable; None: one graph): the next call of each key
+        captures."""
+        self.eager = eager
+        self._key = key
+        self._graphs: dict[object, _Graph] = {}
+        self._inputs = self._args = None
+
+    def __call__(self, state, fields: torch.Tensor, obstacles, *cand):
+        if cand:
+            return self.eager(state, fields, obstacles, *cand)
+        if self._args is not None and (fields is not self._args[0]
+                                       or obstacles is not self._args[1]):
             raise ValueError("GraphedStep: the fields or obstacles are not "
                              "those its graph was captured with")
-        self._load(state.agents)
+        key = None if self._key is None else self._key(state)
+        graph = self._graphs.get(key)
+        if graph is None:
+            return self._capture(key, state, fields, obstacles)
+        self._load(state)
         with trace.span("sim.replay"):
-            self._replay()
-        add_launch_counts(self._launches)
-        return (SimState(agents=self._inputs, step=state.step + 1),
-                StepMetrics(*self._metrics.clone().unbind()))
+            graph.replay()
+        add_launch_counts(graph.launches)
+        return (self._with(self._inputs, state.step + 1),
+                StepMetrics(*graph.metrics.clone().unbind()))
 
-    def _load(self, agents: AgentState) -> None:
-        """Copy ``agents`` into the input buffers unless they are them."""
-        if any(a is not b for a, b in zip(agents, self._inputs)):
-            for dst, src in zip(self._inputs, agents):
-                dst.copy_(src)
-            self.copies_in += 1
+    def _body_step(self, state, fields, obstacles):
+        """The eager step on the input buffers, as the graph's body runs it."""
+        return self.eager(state, fields, obstacles)
 
-    def _capture(self, state: SimState, field_rows: torch.Tensor,
-                 obstacles: tuple[torch.Tensor, ...]
-                 ) -> tuple[SimState, StepMetrics]:
+    def _copy_in(self, held) -> None:
+        for dst, src in zip(self._tensors(self._inputs), self._tensors(held)):
+            dst.copy_(src)
+        self.copies_in += 1
+
+    def _load(self, state) -> None:
+        """Copy ``state`` into the input buffers unless it is them."""
+        held = self._held(state)
+        if any(a is not b for a, b in zip(self._tensors(held),
+                                          self._tensors(self._inputs))):
+            self._copy_in(held)
+
+    def _capture(self, key, state, fields, obstacles):
         with trace.span("sim.capture"):
-            new, metrics = self.eager(state, field_rows, obstacles)
-            self._inputs = AgentState(*(t.clone() for t in new.agents))
-            self.copies_in += 1
-            self._args = (field_rows, obstacles)
+            new, metrics = self.eager(state, fields, obstacles)
+            if self._inputs is None:
+                self._inputs = self._clone(self._held(new))
+                self.copies_in += 1
+                self._args = (fields, obstacles)
+            else:
+                self._copy_in(self._held(new))
 
             def body() -> None:
-                out, m = self.eager(SimState(agents=self._inputs, step=0),
-                                    field_rows, obstacles)
-                self._metrics = torch.stack(list(m))
-                for dst, src in zip(self._inputs, out.agents):
-                    dst.copy_(src)
+                out, m = self._body_step(self._with(self._inputs, state.step),
+                                         fields, obstacles)
+                graph.metrics = torch.stack(list(m))
+                for dst, src in zip(self._tensors(self._inputs),
+                                    self._tensors(self._held(out))):
+                    if dst is not src:
+                        dst.copy_(src)
 
+            graph = _Graph()
             before = launch_counts()
-            self._replay = self._capture_fn(body, self.generator)
-            self._launches = {k: n - before[k]
-                              for k, n in launch_counts().items() if n != before[k]}
-            add_launch_counts({k: -n for k, n in self._launches.items()})
+            graph.replay = self._capture_fn(body, self.generator)
+            graph.launches = {k: n - before[k] for k, n in launch_counts().items()
+                              if n != before[k]}
+            add_launch_counts({k: -n for k, n in graph.launches.items()})
+            self._graphs[key] = graph
             self.captures += 1
-        return SimState(agents=self._inputs, step=new.step), metrics
+        return self._with(self._inputs, new.step), metrics
+
+
+class GraphedGridStep(GraphedStep):
+    """The one-device grid step (models/sfm_grid.py::make_step_grid)
+    replayed from CUDA graphs, as :class:`GraphedStep` replays the flat
+    one: ``step(state, fwp, fobs) -> (GridState, StepMetrics)``.  The input
+    buffer is the grid D, into which the captured step's rebin writes D'
+    (the step's ``into``); the host key is the step's ``host_key`` (one
+    graph on the full path, one a branch of the hybrid)."""
+
+    @staticmethod
+    def _held(state: sfm_grid.GridState) -> torch.Tensor:
+        return state.d
+
+    @staticmethod
+    def _with(held: torch.Tensor, step: int) -> sfm_grid.GridState:
+        return sfm_grid.GridState(d=held, step=step)
+
+    @staticmethod
+    def _tensors(held: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        return (held,)
+
+    @staticmethod
+    def _clone(held: torch.Tensor) -> torch.Tensor:
+        return held.clone()
+
+    def _body_step(self, state, fields, obstacles):
+        """The rebin writes D' straight into the buffer (no copy back)."""
+        return self.eager(state, fields, obstacles, into=self._inputs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,11 +363,13 @@ class Simulator:
     """A scenario's agents and their step (see the module docstring).
 
     ``tick`` and ``run`` leave the state in ``state``.  On a CUDA device
-    the flat backend's next step overwrites that state in place (it is
-    the graph's buffers, :class:`GraphedStep`): a caller that keeps a
+    the next step of the flat backend and of the one-device grid
+    overwrites that state in place (it is the graph's buffers,
+    :class:`GraphedStep`, :class:`GraphedGridStep`): a caller that keeps a
     state across ticks clones it.  The steps, the growth and the agents'
     reads (``list_pedestrians``, ``pedestrian_count``) hold one lock, so
-    another thread may read the agents while one ticks."""
+    another thread may read the agents while one ticks; a step lets the
+    reads waiting for the lock go first."""
 
     def __init__(self, options: SimulatorOptions, scenario: Scenario) -> None:
         options.check()
@@ -324,11 +410,19 @@ class Simulator:
 
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(options.seed)
-        # held by a step with its growth and by a read of the agents
+        # held by a step with its growth and by a read of the agents; a step
+        # lets the reads waiting for it go first (_reading), so that ticks
+        # back to back do not starve another thread's reads
         self._lock = threading.RLock()
-        # the flat step on a card replays a CUDA graph of itself
+        self._turn = threading.Condition(self._lock)
+        self._readers: list[None] = []  # one entry a read waiting or reading
+        # the flat step and the one-device grid step on a card replay CUDA
+        # graphs of themselves
         self._graphed = (GraphedStep(self.generator)
-                         if cuda and options.backend == "xla" else None)
+                         if cuda and options.backend == "xla"
+                         else GraphedGridStep(self.generator)
+                         if cuda and options.backend == "grid" and n_dev == 1
+                         else None)
         capacity = options.capacity or self._auto_capacity(scenario)
         self._build(capacity)
         self.state = self._from_flat_state(
@@ -370,6 +464,8 @@ class Simulator:
 
     def _build(self, capacity: int) -> None:
         o = self.options
+        if self._graphed is not None:  # its graphs and bound fields go first
+            self._graphed.rebuild(None)
         self.cfg = StepConfig.build(
             self.scenario, physics=o.physics, capacity=capacity,
             neighbor_grid_unit=o.neighbor_grid_unit, field_unit=o.field_grid_unit,
@@ -415,6 +511,9 @@ class Simulator:
                 self.cfg, self.maps, self.device, row_block=o.row_block)
             self._step = sfm_grid.make_step_grid(
                 self.cfg, row_block=o.row_block, **step_kw)
+            if self._graphed is not None:
+                self._graphed.rebuild(self._step, self._step.host_key)
+                self._step = self._graphed
         log.info("step function built: capacity=%d K=%d device=%s tiles=%s",
                  capacity, o.table_capacity, self.device, o.resolve_tile())
 
@@ -452,8 +551,10 @@ class Simulator:
     def tick(self) -> StepRecord:
         """Advance one step (lib.rs:64-100) and return host-side metrics.
         The state it leaves in ``state`` may be overwritten by the next
-        step (the flat backend on a card): clone it to keep it."""
+        step (the flat backend and the one-device grid on a card): clone
+        it to keep it."""
         with trace.span("sim.tick"), self._lock:
+            self._readers_first()
             with Timer() as t:
                 self.state, dmetrics = self._step(self.state, self._fwp, self._fobs)
                 metrics = _to_host(dmetrics)
@@ -484,9 +585,13 @@ class Simulator:
 
     @property
     def graph_captures(self) -> int:
-        """CUDA graphs of the step captured so far: one at the first tick
-        and one after each change of capacity (0 where the step runs
-        eagerly: the CPU, the pallas and grid backends)."""
+        """CUDA graphs of the step captured so far: on the flat backend one
+        at the first tick and one after each change of capacity; on the
+        one-device grid one at the first step of each host key
+        (``make_step_grid``'s ``host_key``: one on the full path, one a
+        branch of the hybrid) and again after each growth of the table or
+        the mover table (0 where the step runs eagerly: the CPU, the pallas
+        backend, tiles)."""
         return 0 if self._graphed is None else self._graphed.captures
 
     @property
@@ -519,14 +624,16 @@ class Simulator:
         reactive path.  The flat backend's guard doubles the capacity at 80%
         occupancy instead, and a population that outruns it within the lag
         is cut at the capacity and counted in ``n_dropped``.  ``sync_every``
-        > 0 adds full syncs.  As after ``tick``, the next step may
-        overwrite the state left in ``state``."""
+        > 0 adds full syncs.  Its steps replay the step's graphs as
+        ``tick``'s do, the guard outside them, and, as after ``tick``, the
+        next step may overwrite the state left in ``state``."""
         with trace.span("sim.run"):
             totals = None
             pending: list[StepMetrics] = []
             with Timer() as t:
                 for i in range(n_steps):
                     with self._lock:  # a step at a time: readers go between
+                        self._readers_first()
                         self.state, metrics = self._step(self.state, self._fwp,
                                                          self._fobs)
                         totals = metrics if totals is None \
@@ -727,18 +834,36 @@ class Simulator:
             n_binned, n_flat, n_flat - n_binned, self.options.table_capacity)
         return gs
 
+    @contextlib.contextmanager
+    def _reading(self):
+        """The step's lock, held for a read of the agents that the next
+        step lets go first (:meth:`_readers_first`)."""
+        self._readers.append(None)  # atomic: no lock needed to queue
+        with self._lock:
+            try:
+                yield
+            finally:
+                self._readers.pop()
+                self._turn.notify_all()
+
+    def _readers_first(self) -> None:
+        """Before a step, with the lock held: wait while reads wait."""
+        while self._readers:
+            self._turn.wait()
+
     def list_pedestrians(self):
         """Positions [n, 2] and destinations [n] of active agents, as
         NumPy arrays (models/mod.rs:29-32 exchange struct analog), of one
-        state: read under the step's lock, so from any thread."""
-        with self._lock:
+        state: read under the step's lock, so from any thread, and before
+        the next step where a thread ticks back to back."""
+        with self._reading():
             a = self._to_flat_state().agents
             act = a.active
             return a.pos[act].cpu().numpy(), a.dest[act].cpu().numpy()
 
     @property
     def pedestrian_count(self) -> int:
-        with self._lock:
+        with self._reading():
             if self._flat:
                 return int(self.state.agents.active.sum())
             if self._tcfg is not None:

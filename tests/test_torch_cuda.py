@@ -6,10 +6,11 @@ tiles and bit masks), the device gate that makes the hybrid step's choice,
 the standalone pairwise kernel, the flat pair kernel up to K 255, the
 flat sample, scatter and integrate kernels (with a flat step on the card
 against the CPU), the grid step's spawn scatter kernel (with a spawning
-grid step under sync debug mode "error"), and the flat Simulator's step
-as one CUDA graph replay (``-k graphed``: bit-equal to the eager step
-across a restore and a growth, no sync, its launches counted as the
-profiler sees them, its agents read from a second thread).
+grid step under sync debug mode "error"), and the flat and the grid
+Simulator's steps as CUDA graph replays (``-k graphed``: bit-equal to the
+eager step across a restore and growths, both branches of the hybrid, no
+sync, their launches counted as the profiler sees them, their agents read
+from a second thread).
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports neither JAX nor the
 reference package, so it runs on a machine with only PyTorch:
@@ -1517,3 +1518,177 @@ def test_graphed_flat_agents_read_from_a_thread_through_growths():
     assert eager.last_metrics == graphed.last_metrics
     for a, b in zip(graphed.state.agents, eager.state.agents):
         assert _bits_equal(a, b)
+
+
+def _random_grid(graphed: bool, **options):
+    """scenarios/random.toml's grid Simulator on the card (the CLI's -b
+    grid; the full rebin unless ``incremental_rebin`` says otherwise),
+    graphed as it is built, or with its eager step."""
+    from pedoni_tpu_torch import Simulator, SimulatorOptions
+
+    sim = Simulator(SimulatorOptions(backend="grid", device="cuda", seed=7,
+                                     **options),
+                    load_scenario(SCENARIOS / "random.toml"))
+    if not graphed:
+        sim._graphed = None
+        sim._build(sim.cfg.capacity)
+    return sim
+
+
+def _sizes(sim) -> tuple[int, int, int]:
+    """What a change of rebuilds the grid step (and captures again)."""
+    return sim.options.table_capacity, sim.options.mover_capacity, sim.cfg.capacity
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["full", "hybrid"])
+def test_graphed_grid_ticks_equal_eager_through_growths_and_a_restore(path, tmp_path):
+    """600 ticks of random.toml's grid Simulator (200 of the forced
+    hybrid), graphed and eager: every tick the grid and every StepMetrics
+    field equal bit for bit, through a forced table growth (and in the
+    hybrid a mover growth), each captured again, and a restore of an
+    earlier checkpoint (the same sizes: not captured again).  The full
+    path holds one graph a build, the hybrid one for each branch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pedoni_tpu_torch import checkpoint
+    from pedoni_tpu_torch.sim import GraphedGridStep
+
+    hybrid = path == "hybrid"
+    kw = {"incremental_rebin": True} if hybrid else {}
+    graphed, eager = _random_grid(True, **kw), _random_grid(False, **kw)
+    assert isinstance(graphed._step, GraphedGridStep)
+    assert graphed._resolve_incremental() == hybrid
+    ckpt = tmp_path / "c.npz"
+    n_ticks, grow, restore = (200, 60, 120) if hybrid else (600, 150, 300)
+    builds, spawned = 1, 0
+    for t in range(1, n_ticks + 1):
+        sizes = _sizes(graphed)
+        for sim in (graphed, eager):
+            sim.tick()
+            if t == 50:
+                checkpoint.save(sim, ckpt)
+            if t == grow:
+                sim._grow_table(0)
+            if t == grow + 20 and hybrid:
+                sim._grow_movers()
+            if t == restore:
+                checkpoint.restore(sim, ckpt)
+        builds += _sizes(graphed) != sizes
+        assert graphed.last_metrics == eager.last_metrics, t
+        assert _sizes(graphed) == _sizes(eager)
+        assert _bits_equal(graphed.state.d, eager.state.d), t
+        spawned += graphed.last_metrics.n_spawned
+    step = graphed._step
+    assert builds >= (3 if hybrid else 2)
+    assert graphed.graph_captures == builds * (2 if hybrid else 1)
+    if hybrid:
+        assert sorted(step._graphs) == [(False, False), (True, False)]
+    assert step.copies_in == graphed.graph_captures + 1  # + the restore
+    assert eager.graph_captures == 0 and spawned > 0
+
+
+@pytest.mark.cuda
+def test_graphed_grid_replay_makes_no_sync():
+    """Replays of the graphed grid step, an assigned grid copied in among
+    them, under set_sync_debug_mode("error"); they spawn."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    sim = _random_grid(True)
+    for _ in range(3):
+        sim.tick()
+    step = sim._step
+    copies = step.copies_in
+    assigned = sim.state._replace(d=sim.state.d.clone())
+    torch.cuda.synchronize()
+    spawned = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sim.state = assigned
+        for _ in range(8):
+            sim.state, m = sim._step(sim.state, sim._fwp, sim._fobs)
+            spawned.append(m.n_spawned)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert step.copies_in == copies + 1 and step.captures == 1
+    assert int(torch.stack(spawned).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_graphed_grid_replay_counts_the_launches_the_profiler_sees():
+    """Over ticks that replay the grid's graph, ``launch_counts()`` moves by
+    the launches of each hand kernel that torch.profiler traces: one a
+    tick."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import re
+
+    sim = _random_grid(True)
+    for _ in range(3):
+        sim.tick()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(
+            activities=[act.CPU, act.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=6)) as prof:
+        sim.tick()
+        torch.cuda.synchronize()
+        before = launch_counts()
+        for _ in range(6):
+            prof.step()
+            sim.tick()
+        torch.cuda.synchronize()
+    after = launch_counts()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for kernel, counter in (("step_sample", "step_kernel"),
+                            ("step_pairs", "step_kernel"),
+                            ("rebin_full", "rebin"),
+                            ("spawn_scatter_kernel", "spawn_scatter")):
+        traced = sum(bool(re.search(rf"\b{kernel}\b", n)) for n in names)
+        assert traced == after[counter] - before[counter] == 6, (kernel, traced)
+    assert sim.graph_captures == 1
+
+
+@pytest.mark.cuda
+def test_graphed_grid_agents_read_from_a_thread_through_growths():
+    """The CLI's live views on the grid: ``list_pedestrians`` on a second
+    thread while random.toml's graphed grid Simulator ticks from K 8
+    through its table growths, each a capture.  No capture fails, every
+    read is of one state, and the ticks end bit-equal to those of an eager
+    Simulator that nobody read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import threading
+
+    graphed = _random_grid(True, table_capacity=8)
+    n_wp = len(graphed.scenario.waypoints)
+    done = threading.Event()
+    reads, errors = [], []
+
+    def reader():
+        try:
+            while not done.is_set():
+                pos, dest = graphed.list_pedestrians()
+                reads.append(len(pos) == len(dest)
+                             and bool(((dest >= 0) & (dest < n_wp)).all())
+                             and bool(np.isfinite(pos).all()))
+        except Exception as e:  # noqa: BLE001 - the main thread raises it
+            errors.append(e)
+
+    thread = threading.Thread(target=reader)
+    thread.start()
+    try:
+        for _ in range(300):
+            graphed.tick()
+    finally:
+        done.set()
+        thread.join(timeout=120)
+    assert not thread.is_alive() and not errors, errors
+    assert graphed.options.table_capacity > 8 and graphed.graph_captures >= 2
+    assert len(reads) > 10 and all(reads)
+    eager = _random_grid(False, table_capacity=8)
+    for _ in range(300):
+        eager.tick()
+    assert _sizes(eager) == _sizes(graphed)
+    assert eager.last_metrics == graphed.last_metrics
+    assert _bits_equal(graphed.state.d, eager.state.d)

@@ -6,8 +6,12 @@ last output (the first tick, a restore, an assignment); a capture again
 only where the shapes change (growth, a restore that rebuilds at a larger
 capacity), never on a same-size restore; the launch counts a capture
 gives back and a replay adds; the ``sim.capture`` and ``sim.replay``
-spans; the agents read from another thread only between steps.  On the card the same holds of the real graph
-(tests/test_torch_cuda.py, ``-k graphed``)."""
+spans; the agents read from another thread only between steps.  The
+one-device grid Simulator's graphed step (``sim.GraphedGridStep``) the
+same, through table and mover growths, with a graph a branch of the
+hybrid and tracing in its key; tiles and the pallas backend stay eager.
+On the card the same holds of the real graphs (tests/test_torch_cuda.py,
+``-k graphed``)."""
 
 from __future__ import annotations
 
@@ -19,11 +23,13 @@ import pytest
 import torch
 
 from pedoni_tpu_torch import checkpoint
-from pedoni_tpu_torch.models.sfm import AgentState, SimState, StepMetrics
+from pedoni_tpu_torch.models.sfm import (AgentState, SimState, StepMetrics,
+                                          spawn_sampler)
 from pedoni_tpu_torch.ops import kernels
 from pedoni_tpu_torch.ops.kernels import flat_sample as fsk
 from pedoni_tpu_torch.scenario import loads_scenario
-from pedoni_tpu_torch.sim import GraphedStep, Simulator, SimulatorOptions
+from pedoni_tpu_torch.sim import (GraphedGridStep, GraphedStep, Simulator,
+                                  SimulatorOptions)
 from pedoni_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
@@ -220,7 +226,7 @@ def test_a_replay_adds_the_launches_its_capture_gave_back():
         rows, obstacles = torch.zeros((1, 8)), ()
         state, m = step(_toy_state(), rows, obstacles)  # the warm-up, eager
         assert kernels.launch_counts()["flat_sample"] == 1
-        assert step._launches == {"flat_sample": 1}
+        assert step._graphs[None].launches == {"flat_sample": 1}
         for i in range(3):
             state, m = step(state, rows, obstacles)
             assert kernels.launch_counts()["flat_sample"] == 2 + i
@@ -326,3 +332,237 @@ def test_agents_are_read_from_another_thread_only_between_steps(advance):
     assert sim.cfg.capacity > 48 and sim.graph_captures >= 2  # grown
     assert reads and not any(inside)
     assert all(n_pos == n_dest for n_pos, n_dest in reads)
+
+
+# The one-device grid Simulator's graphed step (``sim.GraphedGridStep``):
+# its buffer is the grid D, and the hybrid holds one graph a host key.
+
+
+def _grid(graphed: bool, **options) -> Simulator:
+    options = {"backend": "grid", "device": "cpu", "seed": 5, "capacity": 256,
+               **options}
+    sim = Simulator(SimulatorOptions(**options), loads_scenario(SCENARIO))
+    if graphed:
+        sim._graphed = GraphedGridStep(sim.generator, capture=stand_in)
+        sim._build(sim.cfg.capacity)
+    return sim
+
+
+def _same_grid(a: Simulator, b: Simulator) -> None:
+    assert a.options == b.options and a.state.step == b.state.step
+    assert torch.equal(a.state.d.view(torch.int32), b.state.d.view(torch.int32))
+    assert a.last_metrics == b.last_metrics
+
+
+@pytest.mark.parametrize("path", ["full", "hybrid"])
+def test_graphed_grid_ticks_equal_eager_across_growths_and_a_restore(path, tmp_path):
+    """Ticks of the graphed grid Simulator equal the eager one's bit for bit
+    through a table growth, (in the hybrid) a mover growth and a restore of
+    an earlier checkpoint; each growth captures again, the restore (the
+    same sizes) does not; the hybrid meets both of its keys between any two
+    rebuilds (compact_every 4)."""
+    kw = {"incremental_rebin": path == "hybrid", "compact_every": 4}
+    graphed, eager = _grid(True, **kw), _grid(False, **kw)
+    ckpt = tmp_path / "c.npz"
+    for t in range(1, 41):
+        for sim in (graphed, eager):
+            sim.tick()
+            if t == 5:
+                checkpoint.save(sim, ckpt)
+            if t == 12:
+                sim._grow_table(0)
+            if t == 20 and path == "hybrid":
+                sim._grow_movers()
+            if t == 28:
+                checkpoint.restore(sim, ckpt)
+        _same_grid(graphed, eager)
+        own = t not in ((12, 20, 28) if path == "hybrid" else (12, 28))
+        assert (graphed.state.d is graphed._step._inputs) == own
+    assert graphed.options.table_capacity == 24
+    builds = 3 if path == "hybrid" else 2
+    assert graphed.graph_captures == builds * (2 if path == "hybrid" else 1)
+    assert graphed._step.copies_in == graphed.graph_captures + 1  # + the restore
+    assert eager.graph_captures == 0 and graphed.pedestrian_count > 40
+
+
+def test_the_hybrid_captures_a_graph_a_branch():
+    sim = _grid(True, incremental_rebin=True, compact_every=4)
+    step = sim._step
+    sim.tick()  # step 0: the full rebin's branch
+    assert list(step._graphs) == [(True, False)]
+    for _ in range(7):
+        sim.tick()
+    assert sorted(step._graphs) == [(False, False), (True, False)]
+    assert (step.captures, step.copies_in) == (2, 2)
+
+
+def test_a_grid_state_is_copied_in_only_when_it_is_not_the_graphs():
+    sim = _grid(True, incremental_rebin=False)
+    step = sim._step
+    for _ in range(4):
+        sim.tick()
+    assert (step.captures, step.copies_in) == (1, 1)
+    sim.state = sim.state._replace(d=sim.state.d.clone())  # an assignment
+    sim.tick()
+    assert (step.captures, step.copies_in) == (1, 2)
+    assert sim.state.d is step._inputs
+
+
+def test_graphed_grid_runs_equal_eager_with_the_lagged_guard():
+    """``run`` replays, its lagged guard outside the graph grows the table
+    as the eager Simulator's does."""
+    kw = {"table_capacity": 4, "incremental_rebin": False}
+    graphed, eager = _grid(True, **kw), _grid(False, **kw)
+    for sim in (graphed, eager):
+        sim.tick()
+        for _ in range(3):
+            sim.run(8, guard_every=4)
+    assert graphed.last_run_metrics == eager.last_run_metrics
+    assert graphed.options.table_capacity == eager.options.table_capacity > 4
+    _same_grid(graphed, eager)
+    k, grown = 4, 0
+    while k < graphed.options.table_capacity:  # 4 -> 8 -> 12 -> 18 ...
+        k, grown = k + max(4, k // 2), grown + 1
+    assert graphed.graph_captures == 1 + grown
+
+
+def test_turning_tracing_on_captures_the_hybrid_again():
+    """Tracing adds to ``full_rebins`` inside the hybrid step, so it joins
+    the host key: its graphs are captured again while it is on, and count
+    the full rebins as the eager step does."""
+    kw = {"incremental_rebin": True, "compact_every": 4}
+    graphed, eager = _grid(True, **kw), _grid(False, **kw)
+    for sim in (graphed, eager):
+        for _ in range(4):
+            sim.tick()
+    assert graphed.graph_captures == 2
+    trace.enable(True)
+    try:
+        for sim in (graphed, eager):
+            for _ in range(9):
+                sim.tick()
+    finally:
+        trace.enable(False)
+    assert graphed.graph_captures == 4
+    assert int(graphed._step.eager.full_rebins) == int(eager._step.full_rebins) >= 2
+    for sim in (graphed, eager):
+        sim.tick()
+    assert graphed.graph_captures == 4  # off again: the first graphs
+    _same_grid(graphed, eager)
+
+
+def test_injected_candidates_and_the_timings_stay_eager():
+    sim = _grid(True, incremental_rebin=False)
+    for _ in range(3):
+        sim.tick()
+    step = sim._step
+    before = sim.state.d.clone()
+    assert sim.measure_kernel_time(2) > 0 and sim.measure_spawn_time(2) > 0
+    assert torch.equal(sim.state.d, before) and step.captures == 1
+    cand = spawn_sampler(sim.cfg, sim.device)(torch.Generator().manual_seed(3))
+    state, _m = sim._step(sim.state, sim._fwp, sim._fobs, cand)
+    assert state.d is not step._inputs and step.captures == 1
+    sim.state = state
+    sim.tick()
+    assert step.copies_in == 2 and sim.state.d is step._inputs
+
+
+def test_tiles_and_the_pallas_backend_step_eagerly():
+    for options in ({"backend": "grid", "n_devices": 2}, {"backend": "pallas"}):
+        sim = Simulator(SimulatorOptions(device="cpu", capacity=256, **options),
+                        loads_scenario(SCENARIO))
+        sim.tick()
+        assert sim._graphed is None and sim.graph_captures == 0
+
+
+def test_grid_capture_and_replay_open_their_spans_inside_the_tick():
+    sim = _grid(True, incremental_rebin=False)
+    trace.enable(True)
+    try:
+        trees = []
+        for _ in range(2):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                sim.tick()
+            trees.append(_program_tree(prof))
+    finally:
+        trace.enable(False)
+    first, second = trees
+    assert first[("sim.capture", "sim.tick")] == 1
+    assert first[("grid.step", "sim.capture")] == 1  # the warm-up, eager
+    assert second[("sim.replay", "sim.tick")] == 1
+    assert second[("sim.capture", "sim.tick")] == 0
+
+
+def test_grid_agents_are_read_from_another_thread_only_between_steps():
+    """The grid's reads (an unbinning of the graph's buffer) from a second
+    thread while ``tick`` replays and the table grows: none inside a
+    replay, each of one state whole."""
+    stepping = threading.Event()
+
+    def slow(body, generator):
+        def replay():
+            stepping.set()
+            time.sleep(0.002)
+            body()
+            stepping.clear()
+
+        return replay
+
+    sim = _grid(False, table_capacity=4, incremental_rebin=False)
+    sim._graphed = GraphedGridStep(sim.generator, capture=slow)
+    sim._build(sim.cfg.capacity)
+    to_flat = sim._to_flat_state
+    inside, reads = [], []
+
+    def watched():
+        inside.append(stepping.is_set())
+        return to_flat()
+
+    sim._to_flat_state = watched
+    done = threading.Event()
+
+    def reader():
+        while not done.is_set():
+            pos, dest = sim.list_pedestrians()
+            reads.append((len(pos), len(dest)))
+
+    thread = threading.Thread(target=reader)
+    thread.start()
+    try:
+        for _ in range(12):
+            sim.tick()
+    finally:
+        done.set()
+        thread.join(timeout=60)
+    assert not thread.is_alive()
+    assert sim.options.table_capacity > 4 and sim.graph_captures >= 2  # grown
+    assert reads and not any(inside)
+    assert all(n_pos == n_dest for n_pos, n_dest in reads)
+
+
+@pytest.mark.parametrize("backend", ["xla", "grid"])
+def test_a_step_lets_a_waiting_read_go_first(backend):
+    """A read that waits for the step's lock goes before the next step, so
+    that ticks back to back (the CLI's live views with no pacing) do not
+    starve another thread's reads."""
+    sim = (_sim(True) if backend == "xla"
+           else _grid(True, incremental_rebin=False))
+    sim.tick()
+    to_flat = sim._to_flat_state
+    read_at = []
+
+    def watched():
+        read_at.append(sim.step_count)
+        return to_flat()
+
+    sim._to_flat_state = watched
+    thread = threading.Thread(target=sim.list_pedestrians)
+    with sim._lock:  # a step under way
+        thread.start()
+        while not sim._readers:  # the read waits for the lock
+            time.sleep(0.001)
+        sim.tick()
+    thread.join(timeout=60)
+    assert not thread.is_alive()
+    assert read_at == [1] and sim.step_count == 2
