@@ -217,30 +217,6 @@ nvcc, one process per source, then:
    ``_median_ms``, chained in place on a copy of the state, with the bytes
    bound, beside ``Simulator.measure_spawn_time`` (a draw and the scatter,
    SPAWN_TIMED chained).
-21. scenarios/random.toml's flat Simulator (``-b auto``), whose step on the
-   card is one CUDA graph replay a tick (``sim.GraphedStep``), against the
-   same Simulator with its eager step: GRAPH_TICKS ticks bit-equal in every
-   agent channel and StepMetrics field, through a forced capacity growth
-   (captured again) and a restore of an earlier checkpoint (not captured
-   again); SPAWN_SYNC_STEPS replays, an assigned state copied in among them,
-   under ``set_sync_debug_mode("error")``; over GRAPH_PROFILE_TICKS ticks
-   under ``torch.profiler`` each flat kernel's launches in the trace equal
-   to ``launch_counts()``'s, with the device operations and busy us a tick;
-   then, after GRAPH_FILL_TICKS ticks, ms a tick (``tick()`` to its return,
-   host clock, the median of GRAPH_TIMED ticks from one checkpoint) graphed
-   and eager in turns (graphed, eager, eager, graphed).
-22. scenarios/random.toml's grid Simulator (``-b grid``: the full rebin,
-   lambda 0.27 < 1.75), whose step on the card is one CUDA graph replay a
-   tick (``sim.GraphedGridStep``), against the same Simulator with its
-   eager step, as phase 21: GRAPH_TICKS ticks bit-equal in the grid and
-   every StepMetrics field through a forced table growth and a restore;
-   GRAPH_HYBRID_TICKS ticks of the forced hybrid (``incremental_rebin=
-   True``, a graph a branch) bit-equal through a table and a mover
-   growth; SPAWN_SYNC_STEPS replays under ``set_sync_debug_mode("error")``;
-   the hand kernels' traced launches against ``launch_counts()`` over
-   GRAPH_PROFILE_TICKS ticks, with the device operations, busy us and the
-   largest operations a tick; ms a tick graphed and eager in turns after
-   GRAPH_FILL_TICKS ticks.
 
 Each phase from 6 on prints its seconds.  With arguments the script is
 one rank of phase 17 and prints no result line.  Prints the card's name and power
@@ -311,17 +287,11 @@ RANDOM_TICK_MS_SYNCING = (4.9446, 0.3487)
 SPAWN_SYNC_STEPS = 16  # spawning steps under set_sync_debug_mode("error")
 SPAWN_FILL_TICKS = 3000  # phase 20: random.toml's fill, as the benchmark's tick cells
 SPAWN_TIMED = 20  # phase 20: chained spawns of measure_spawn_time
-GRAPH_TICKS = 600  # phase 21: random.toml ticks, graphed against eager
-GRAPH_SAVE, GRAPH_GROW, GRAPH_RESTORE = 100, 150, 300  # ... at these ticks
-GRAPH_PROFILE_TICKS = 48  # phase 21: graphed ticks under torch.profiler
-GRAPH_FILL_TICKS = 3000  # phase 21: random.toml's fill before the timed ticks
-GRAPH_TIMED = 500  # phase 21: ticks a timed turn (the benchmark's segment)
-GRAPH_HYBRID_TICKS = 200  # phase 22: ticks of the forced hybrid grid
 GRID_KERNELS = {"step_sample": "step_kernel", "step_pairs": "step_kernel",
                 "rebin_full": "rebin", "spawn_scatter_kernel": "spawn_scatter"}
 TILES = ((1, 2), (2, 1), (2, 2))  # the 1M workload's tilings, all on one card
 TILE_STEPS = 16  # steps of the tiled and the whole-grid 1M step compared
-BIG_K = 121  # the table capacity after 81 in Simulator._grow_table
+BIG_K = 121  # the table capacity after 81 in Simulator._grow
 WP_STEPS = 16  # hybrid steps of the bench problem at 8 and 33 waypoints
 MAX_K = 255  # the largest table capacity the pair passes take
 FLAT_WARMUP, FLAT_TIMED = 2, 10  # steps of the 1M flat (xla) problem
@@ -1126,7 +1096,7 @@ def _spawn_sync_phase(sim, card) -> None:
     from pedoni_tpu_torch.parallel import tile2d
 
     dev, o = sim.device, sim.options
-    flat = sim._to_flat_state()
+    flat = sim.flat_state()
     tcfg = tile2d.Tile2DConfig.build(sim.cfg, 2, 2, row_block=o.row_block)
     devices = [dev] * tcfg.n_devices
     twp, tob = tile2d.device_inputs(tcfg, sim.maps, sfm_grid.stride_for(sim.cfg),
@@ -1138,7 +1108,8 @@ def _spawn_sync_phase(sim, card) -> None:
                                      mover_k=o.mover_capacity,
                                      compact_every=o.compact_every, generator=tgen)
     ts = tile2d.make_sharded_grid_state(tcfg, flat, devices)
-    gs = sim._from_flat_state(flat)
+    sim.load_flat_state(flat)
+    gs = sim.state
     torch.cuda.synchronize()
     runs = {"whole": [], "tiled": []}
     torch.cuda.set_sync_debug_mode("error")
@@ -1322,7 +1293,7 @@ def _max_k_check(dev, grid1) -> float:
 
 def _large_k_phase(dev, card, bench, d_full, k14_ms, grid1) -> dict:
     """11. The 1M full-path state re-binned at K = BIG_K (the table after 81
-    in Simulator._grow_table): the pair passes stage the slot levels in
+    in Simulator._grow): the pair passes stage the slot levels in
     chunks there; the step kernel (base and mover mode) and 2D vs their
     twins, and their times beside those at K 14; then ``_max_k_check`` at
     K = MAX_K.  Returns the numbers."""
@@ -1526,7 +1497,7 @@ def _cli_phase() -> None:
         args = cli.build_parser().parse_args(runs["resumed"][0])
         sim = cli.make_simulator(args)
         checkpoint.restore(sim, args.resume)
-        rows = _agent_rows(agents_to_numpy(sim._to_flat_state().agents))
+        rows = _agent_rows(agents_to_numpy(sim.flat_state().agents))
         with np.load(ck100) as z:
             gen = torch.from_numpy(z["torch_generator"])
         if not (sim.step_count == 100 and np.array_equal(rows, _npz_rows(ck100))
@@ -3369,252 +3340,6 @@ def _spawn_scatter_phase(dev, card) -> dict:
             "library_ms": None, "measure_spawn_ms": spawn_ms}
 
 
-def _graph_phase(dev, card) -> dict:
-    """21. random.toml's flat Simulator graphed against eager: bit-equal
-    ticks, replays without a sync, launches against the profiler, ms a
-    tick in turns."""
-    from pedoni_tpu_torch import Simulator, SimulatorOptions, checkpoint, load_scenario
-    from pedoni_tpu_torch.models.sfm import AgentState, SimState
-
-    def flat_sim(graphed: bool):
-        sim = Simulator(SimulatorOptions(device=dev.type, seed=7),
-                        load_scenario(RANDOM))
-        if not graphed:  # the eager step the graph captures
-            sim._graphed = None
-            sim._build(sim.cfg.capacity)
-        return sim
-
-    def bits(t: torch.Tensor) -> torch.Tensor:
-        return t.view(torch.int32) if t.dtype == torch.float32 else t
-
-    graphed, eager = flat_sim(True), flat_sim(False)
-    tmp = tempfile.TemporaryDirectory()
-    ckpt = pathlib.Path(tmp.name) / "c.npz"
-    for t in range(1, GRAPH_TICKS + 1):
-        for sim in (graphed, eager):
-            sim.tick()
-            if t == GRAPH_SAVE:
-                checkpoint.save(sim, ckpt)
-            if t == GRAPH_GROW:
-                sim._grow()
-            if t == GRAPH_RESTORE:
-                checkpoint.restore(sim, ckpt)
-        if graphed.last_metrics != eager.last_metrics or not all(
-                torch.equal(bits(a), bits(b))
-                for a, b in zip(graphed.state.agents, eager.state.agents)):
-            raise AssertionError(f"random.toml flat, tick {t}: graphed "
-                                 f"{graphed.last_metrics} != eager {eager.last_metrics} "
-                                 "or the agents differ")
-    step = graphed._step
-    if (step.captures, step.copies_in) != (2, 3):
-        raise AssertionError(f"graphed: {step.captures} captures, "
-                             f"{step.copies_in} copies in (want 2, 3)")
-    n_equal = graphed.pedestrian_count
-
-    copies = step.copies_in
-    assigned = SimState(AgentState(*(t.clone() for t in graphed.state.agents)),
-                        graphed.state.step)
-    torch.cuda.synchronize()
-    spawned = []
-    with _no_sync():
-        graphed.state = assigned
-        for _ in range(SPAWN_SYNC_STEPS):
-            graphed.state, m = graphed._step(graphed.state, graphed._fwp,
-                                             graphed._fobs)
-            spawned.append(m.n_spawned)
-    if step.copies_in != copies + 1 or int(torch.stack(spawned).sum()) == 0:
-        raise AssertionError("graphed replays under sync debug: "
-                             f"{step.copies_in - copies} copies in, "
-                             f"{int(torch.stack(spawned).sum())} spawned")
-
-    act = torch.profiler.ProfilerActivity
-    # one tick of the profiler's warm-up first, so that tracing is running
-    # when the counted ticks start
-    with torch.profiler.profile(
-            activities=[act.CPU, act.CUDA],
-            schedule=torch.profiler.schedule(wait=0, warmup=1,
-                                             active=GRAPH_PROFILE_TICKS)) as prof:
-        graphed.tick()
-        torch.cuda.synchronize()
-        before = _launch_counts()
-        for _ in range(GRAPH_PROFILE_TICKS):
-            prof.step()  # the first: warm-up over, recording
-            graphed.tick()
-        torch.cuda.synchronize()
-    moved = {k: n - before[k] for k, n in _launch_counts().items()}
-    ops = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    names = {"flat_sample": "flat_sample_kernel", "flat_scatter": "flat_scatter_kernel",
-             "flat_pairwise": "flat_pairwise_tile",
-             "flat_integrate": "flat_integrate_kernel"}
-    traced = {k: sum(names[k] in e.name for e in ops) for k in FLAT_KERNELS}
-    if any(traced[k] != moved[k] or moved[k] != GRAPH_PROFILE_TICKS
-           for k in FLAT_KERNELS):
-        raise AssertionError(f"graphed ticks: traced {traced}, counted {moved}")
-    ops_per_tick = len(ops) / GRAPH_PROFILE_TICKS
-    busy_us = sum(e.time_range.end - e.time_range.start
-                  for e in ops) / GRAPH_PROFILE_TICKS
-
-    graphed.run(GRAPH_FILL_TICKS)
-    checkpoint.save(graphed, ckpt)
-    tick_ms = {"graphed": [], "eager": []}
-    for what, sim in (("graphed", graphed), ("eager", eager), ("eager", eager),
-                      ("graphed", graphed)):
-        checkpoint.restore(sim, ckpt)
-        sim.tick()  # a capture where the restore changed the capacity
-        checkpoint.restore(sim, ckpt)
-        times = []
-        for _ in range(GRAPH_TIMED):
-            a = time.perf_counter()
-            sim.tick()
-            times.append((time.perf_counter() - a) * 1e3)
-        tick_ms[what].append(statistics.median(times))
-    tmp.cleanup()
-    out = {"ticks_equal": GRAPH_TICKS, "agents_at_equal_end": n_equal,
-           "captures": graphed.graph_captures, "launches": traced,
-           "device_ops_per_tick": ops_per_tick, "device_busy_us_per_tick": busy_us,
-           "agents_timed": graphed.pedestrian_count, "tick_ms_p50": tick_ms}
-    print(f"# graphed flat tick (phase 21) on random.toml: {GRAPH_TICKS} ticks "
-          f"bit-equal to the eager step through a growth and a restore "
-          f"({n_equal} agents); {SPAWN_SYNC_STEPS} replays without a sync; "
-          f"launches traced = counted {traced} over {GRAPH_PROFILE_TICKS} ticks, "
-          f"{ops_per_tick:.2f} device operations and {busy_us:.1f} us busy (sum) "
-          f"a tick; ms a tick at {graphed.pedestrian_count} agents (median of "
-          f"{GRAPH_TIMED}, graphed, eager, eager, graphed): {tick_ms} on {card}",
-          flush=True)
-    return out
-
-
-def _graph_grid_phase(dev, card) -> dict:
-    """22. random.toml's grid Simulator graphed against eager: bit-equal
-    ticks on the full path and both branches of the hybrid, replays
-    without a sync, launches against the profiler, ms a tick in turns."""
-    from pedoni_tpu_torch import Simulator, SimulatorOptions, checkpoint, load_scenario
-
-    def grid_sim(graphed: bool, **options):
-        sim = Simulator(SimulatorOptions(backend="grid", device=dev.type, seed=7,
-                                         **options), load_scenario(RANDOM))
-        if not graphed:  # the eager step the graphs capture
-            sim._graphed = None
-            sim._build(sim.cfg.capacity)
-        return sim
-
-    def sizes(sim):
-        return sim.options.table_capacity, sim.options.mover_capacity, sim.cfg.capacity
-
-    tmp = tempfile.TemporaryDirectory()
-    ckpt = pathlib.Path(tmp.name) / "c.npz"
-    equal = {}
-    for path, n_ticks, grow, kw in (
-            ("full", GRAPH_TICKS, GRAPH_GROW, {}),
-            ("hybrid", GRAPH_HYBRID_TICKS, GRAPH_HYBRID_TICKS * 3 // 10,
-             {"incremental_rebin": True})):
-        graphed, eager = grid_sim(True, **kw), grid_sim(False, **kw)
-        builds = 1
-        for t in range(1, n_ticks + 1):
-            before = sizes(graphed)
-            for sim in (graphed, eager):
-                sim.tick()
-                if t == GRAPH_SAVE // 2:
-                    checkpoint.save(sim, ckpt)
-                if t == grow:
-                    sim._grow_table(0)
-                if t == grow + n_ticks // 10 and path == "hybrid":
-                    sim._grow_movers()
-                if t == 2 * grow:
-                    checkpoint.restore(sim, ckpt)
-            builds += sizes(graphed) != before
-            if (graphed.last_metrics != eager.last_metrics
-                    or sizes(graphed) != sizes(eager)
-                    or not torch.equal(graphed.state.d.view(torch.int32),
-                                       eager.state.d.view(torch.int32))):
-                raise AssertionError(f"random.toml grid ({path}), tick {t}: graphed "
-                                     f"{graphed.last_metrics} != eager "
-                                     f"{eager.last_metrics} or the grids differ")
-        step = graphed._step
-        keys = 2 if graphed._resolve_incremental() else 1  # random.toml: full
-        if (step.captures, step.copies_in) != (builds * keys, builds * keys + 1):
-            raise AssertionError(f"graphed grid ({path}): {step.captures} captures, "
-                                 f"{step.copies_in} copies in, {builds} builds")
-        equal[path] = {"ticks": n_ticks, "captures": step.captures,
-                       "agents": graphed.pedestrian_count,
-                       "k": graphed.options.table_capacity}
-    graphed, eager = grid_sim(True), grid_sim(False)
-    for _ in range(3):
-        graphed.tick()
-    step = graphed._step
-    copies = step.copies_in
-    torch.cuda.synchronize()
-    spawned = []
-    with _no_sync():
-        graphed.state = graphed.state._replace(d=graphed.state.d.clone())
-        for _ in range(SPAWN_SYNC_STEPS):
-            graphed.state, m = graphed._step(graphed.state, graphed._fwp,
-                                             graphed._fobs)
-            spawned.append(m.n_spawned)
-    if step.copies_in != copies + 1 or int(torch.stack(spawned).sum()) == 0:
-        raise AssertionError("graphed grid replays under sync debug: "
-                             f"{step.copies_in - copies} copies in, "
-                             f"{int(torch.stack(spawned).sum())} spawned")
-
-    graphed.run(GRAPH_FILL_TICKS)
-    act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(
-            activities=[act.CPU, act.CUDA],
-            schedule=torch.profiler.schedule(wait=0, warmup=1,
-                                             active=GRAPH_PROFILE_TICKS)) as prof:
-        graphed.tick()
-        torch.cuda.synchronize()
-        before = _launch_counts()
-        for _ in range(GRAPH_PROFILE_TICKS):
-            prof.step()
-            graphed.tick()
-        torch.cuda.synchronize()
-    moved = {k: n - before[k] for k, n in _launch_counts().items()}
-    ops = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    traced = {name: sum(name in e.name for e in ops) for name in GRID_KERNELS}
-    if any(traced[name] != moved[counter] or moved[counter] != GRAPH_PROFILE_TICKS
-           for name, counter in GRID_KERNELS.items()):
-        raise AssertionError(f"graphed grid ticks: traced {traced}, counted {moved}")
-    ops_per_tick = len(ops) / GRAPH_PROFILE_TICKS
-    by_name = collections.Counter()
-    for e in ops:
-        by_name[e.name[:48]] += ((e.time_range.end - e.time_range.start)
-                                 / GRAPH_PROFILE_TICKS)
-    busy_us = sum(by_name.values())
-
-    checkpoint.save(graphed, ckpt)
-    tick_ms = {"graphed": [], "eager": []}
-    for what, sim in (("graphed", graphed), ("eager", eager), ("eager", eager),
-                      ("graphed", graphed)):
-        checkpoint.restore(sim, ckpt)
-        sim.tick()  # a capture where the restore changed the sizes
-        checkpoint.restore(sim, ckpt)
-        times = []
-        for _ in range(GRAPH_TIMED):
-            a = time.perf_counter()
-            sim.tick()
-            times.append((time.perf_counter() - a) * 1e3)
-        tick_ms[what].append(statistics.median(times))
-    tmp.cleanup()
-    out = {"equal": equal, "launches": traced, "device_ops_per_tick": ops_per_tick,
-           "device_busy_us_per_tick": busy_us,
-           "top_ops_us_per_tick": {k: round(v, 2) for k, v in by_name.most_common(12)},
-           "agents_timed": graphed.pedestrian_count,
-           "k_timed": graphed.options.table_capacity, "tick_ms_p50": tick_ms}
-    print(f"# graphed grid tick (phase 22) on random.toml: {equal}, bit-equal to "
-          f"the eager step through growths and a restore; {SPAWN_SYNC_STEPS} "
-          f"replays without a sync; launches traced = counted {traced} over "
-          f"{GRAPH_PROFILE_TICKS} ticks, {ops_per_tick:.2f} device operations and "
-          f"{busy_us:.1f} us busy (sum) a tick; ms a tick at "
-          f"{graphed.pedestrian_count} agents (median of {GRAPH_TIMED}, graphed, "
-          f"eager, eager, graphed): {tick_ms} on {card}", flush=True)
-    return out
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -3911,14 +3636,6 @@ def main() -> int:
     kernels.append(_spawn_scatter_phase(dev, card))
     print(f"# phase 20 (spawn scatter) took {time.perf_counter() - t0:.1f} s",
           flush=True)
-    t0 = time.perf_counter()
-    graph = _graph_phase(dev, card)
-    print(f"# phase 21 (graphed flat tick) took {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    graph_grid = _graph_grid_phase(dev, card)
-    print(f"# phase 22 (graphed grid tick) took {time.perf_counter() - t0:.1f} s",
-          flush=True)
     for entry in kernels:  # the forms of each kernel this run held to its twin
         if entry["name"] not in ("pairwise", *FLAT_KERNELS):
             entry["tile_offsets"] = "ported"
@@ -3969,8 +3686,6 @@ def main() -> int:
     print("# tiles over 2 processes (phase 17): " + json.dumps(processes), flush=True)
     print("# spatial strips (phase 18): " + json.dumps(strips), flush=True)
     print("# fidelity (phase 19): " + json.dumps(fidelity), flush=True)
-    print("# graphed flat tick (phase 21): " + json.dumps(graph), flush=True)
-    print("# graphed grid tick (phase 22): " + json.dumps(graph_grid), flush=True)
     print(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the "
           f"kernel build included", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -88,31 +88,17 @@ def _read(path: str | Path) -> tuple[SimState, int, tuple[str, torch.Tensor] | N
 def save(sim, path: str | Path) -> None:
     """Checkpoint a Simulator: its flat agents, step counters and
     generator state."""
-    save_state(sim._to_flat_state(), path, step_count=sim.step_count,
+    save_state(sim.flat_state(), path, step_count=sim.step_count,
                generator=sim.generator)
 
 
 def restore(sim, path: str | Path) -> None:
-    """Restore a Simulator in place.  A checkpoint larger than the
-    simulator's capacity rebuilds it at the checkpoint's capacity; a
-    smaller one is padded with inactive slots (the reference's
-    checkpoint.py:64-87).  One process only (``Simulator._one_process``)."""
-    sim._one_process("restoring a checkpoint")
+    """Restore a Simulator in place (``Simulator.load_flat_state``: a
+    checkpoint larger than the simulator's capacity rebuilds it at the
+    checkpoint's capacity; a smaller one is padded with inactive slots, the
+    reference's checkpoint.py:64-87).  One process only."""
     state, step_count, generator = _read(path)
-    n = state.agents.pos.shape[0]
-    if n > sim.cfg.capacity:
-        sim._build(n)
-    pad = sim.cfg.capacity - n
-    if pad > 0:
-        a = state.agents
-        state = state._replace(agents=AgentState(
-            pos=torch.cat([a.pos, torch.zeros((pad, 2))]),
-            vel=torch.cat([a.vel, torch.zeros((pad, 2))]),
-            speed=torch.cat([a.speed, torch.ones((pad,))]),
-            dest=torch.cat([a.dest, torch.zeros((pad,), dtype=torch.int32)]),
-            active=torch.cat([a.active, torch.zeros((pad,), dtype=torch.bool)]),
-        ))
-    sim.state = sim._from_flat_state(state)
+    sim.load_flat_state(state)
     sim.step_count = step_count
     if generator is not None and generator[0] == sim.generator.device.type:
         sim.generator.set_state(generator[1])

@@ -55,6 +55,18 @@ class AgentState(NamedTuple):
     def to(self, device: torch.device | str) -> "AgentState":
         return AgentState(*(t.to(device) for t in self))
 
+    def padded(self, n: int) -> "AgentState":
+        """These agents with inactive slots appended up to ``n`` rows, on
+        their device (position, velocity and destination 0, speed 1: the
+        reference's sim.py:282-297); themselves where they hold ``n`` or
+        more."""
+        pad = n - self.pos.shape[0]
+        if pad <= 0:
+            return self
+        return AgentState(*(torch.cat([t, torch.full((pad, *t.shape[1:]), fill,
+                                                     dtype=t.dtype, device=t.device)])
+                            for t, fill in zip(self, (0, 0, 1, 0, False))))
+
 
 class SimState(NamedTuple):
     agents: AgentState

@@ -453,7 +453,7 @@ def make_step_grid(cfg: StepConfig, row_block: int = 2,
     launches: None on the full path; in the hybrid, whether ``state.step``
     sends the step to the full rebin (b) and whether tracing is on (it
     adds to ``full_rebins``).  A CUDA graph of the step
-    (``sim.GraphedGridStep``) holds one a key."""
+    (``sim.GraphedStep``) holds one a key."""
     forces, rebins = tile_kernels(cfg, row_block, incremental, mover_k)
     s = cfg.spawn.total
     if s > 0 and generator is None:

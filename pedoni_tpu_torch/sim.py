@@ -27,7 +27,7 @@ Three backends, as in the reference:
   (rows, cols)), with drop-free table growth and mover-table growth.
   On one CUDA device each step after the first of a table size (of each
   branch of the hybrid) is one replay of a CUDA graph of it
-  (:class:`GraphedGridStep`), and the grid it leaves in ``sim.state`` is
+  (:class:`GraphedStep`), and the grid it leaves in ``sim.state`` is
   the graph's own buffer, which the next step overwrites, as on the flat
   backend.  Where ``torch.distributed`` is initialized with a world size
   above 1, the tiles are spread over the group's processes (the
@@ -42,7 +42,9 @@ The two kernel backends (``pallas``, ``grid``) grow the cell unit in
 all-pairs mode to cover the cutoff.  All three take distance-map or exact
 segment obstacles (``use_distance_map=False``), keep ``run``'s totals on
 the device behind its lagged growth guard, and checkpoint as flat agents
-(checkpoint.py), so a checkpoint crosses backends and device counts.
+(``flat_state``, ``load_flat_state``), so a checkpoint crosses backends
+and device counts.  What differs between them is decided by the state's
+kind (``_Kind``), chosen once.
 """
 
 from __future__ import annotations
@@ -59,9 +61,8 @@ import torch
 from .diagnostics import DiagnosticLog, StepRecord
 from .field import Field, FieldMaps
 from .models import sfm_grid, sfm_pallas
-from .models.sfm import (AgentState, SimState, StepConfig, StepMetrics,
-                          device_inputs, make_initial_state, make_step,
-                          spawn_sampler)
+from .models.sfm import (SimState, StepConfig, StepMetrics, device_inputs,
+                          make_initial_state, make_step, spawn_sampler)
 from .ops.kernels import add_launch_counts, launch_counts
 from .parallel import tile2d
 from .parallel.transport import transport_for
@@ -92,6 +93,38 @@ def _to_host(m: StepMetrics) -> StepMetrics:
         return StepMetrics(*torch.stack(list(m)).tolist())
 
 
+def _spawns_in_60s(scenario: Scenario) -> tuple[int, float]:
+    """Agents placed at once, and spawned in 60 s: the population horizon
+    of the capacity and the rebin estimates."""
+    return (sum(g.spawn.count for g in scenario.once_groups),
+            sum(g.spawn.frequency for g in scenario.periodic_groups) * 60)
+
+
+def _seconds_per_call(fn: Callable[[], None], n: int,
+                      device: torch.device) -> float:
+    """Seconds a call of ``fn``, over ``n`` back to back after a warm one:
+    CUDA events on a CUDA device, the host clock elsewhere."""
+    fn()  # warm
+    if device.type != "cuda":
+        with Timer() as t:
+            for _ in range(n):
+                fn()
+        return t.elapsed / n
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1000.0 / n
+
+
+def _graphs_on(device: torch.device) -> bool:
+    """Whether a kind that graphs its step does so on ``device``."""
+    return device.type == "cuda"
+
+
 def capture_graph(body: Callable[[], None], generator: torch.Generator
                   ) -> Callable[[], None]:
     """``body`` captured into a CUDA graph on the generator's card, on
@@ -119,66 +152,59 @@ class _Graph:
 
 
 class GraphedStep:
-    """The flat step (models/sfm.py::make_step) replayed from a CUDA
-    graph, called as the eager step is: ``step(state, field_rows,
-    obstacles) -> (SimState, StepMetrics)``.
+    """A step replayed from CUDA graphs, called as the eager step is:
+    ``step(state, fields, obstacles) -> (state, StepMetrics)``; the flat
+    step (models/sfm.py::make_step) or the one-device grid step
+    (models/sfm_grid.py::make_step_grid).  ``keyed``: each value of the
+    step's ``host_key(state)`` has a graph (the grid step's: one on the
+    full path, one a branch of the hybrid); else one graph.  ``into``: the
+    eager step writes its output into the buffers given as its ``into``
+    (the grid's rebin), so the graph copies nothing back.
 
-    A step whose launches depend on host values has a graph for each value
-    of ``key(state)`` (:meth:`rebuild`; the flat step has one).  The first
-    call of a key after :meth:`rebuild` runs the eager step, which is the
-    warm-up a capture needs (every kernel loaded, the library buffers
-    allocated; the step uses no per-stream library handle, so the current
-    stream serves), copies its result into input buffers of the graph's
-    own (made at the first capture, shared by the graphs of every key)
-    and captures, from them, one step: the eager step, the stack of its
-    seven metrics and the copy of its output state back into the input
-    buffers.  Every later call of that key replays its graph: one launch,
-    no host sync.  The state returned is the input buffers themselves, so
-    a state handed back as it was returned costs no copy; any other (a
-    restored or an assigned one) is copied in first (``copies_in``).  The
-    next call overwrites a returned state; the metrics are a copy of their
-    own.  The fields and obstacles are bound at the first capture.  A call
-    that injects the step's spawn candidates runs the eager step.
+    The first call of a key after :meth:`rebuild` runs the eager step,
+    which is the warm-up a capture needs (every kernel loaded, the library
+    buffers allocated; the step uses no per-stream library handle, so the
+    current stream serves), copies its result into input buffers of the
+    graph's own (a clone of the state's first field, the flat agents' five
+    tensors or the grid D, made at the first capture of a build and shared
+    by the graphs of every key) and captures, from them, one step: the
+    eager step, the stack of its seven metrics and the copy of its output
+    state back into the input buffers.  Every later call of that key
+    replays its graph: one launch, no host sync.  The state returned is the
+    input buffers themselves, so a state handed back as it was returned
+    costs no copy (:meth:`holds`); any other (a restored or an assigned
+    one) is copied in first (``copies_in``).  The next call overwrites a
+    returned state; the metrics are a copy of their own.  The fields and
+    obstacles are bound at the first capture.  A call that injects the
+    step's spawn candidates runs the eager step.
 
     The capture launches nothing, so the launch counts its wrappers took
     are given back and each replay adds them (``ops/kernels.
-    launch_counts``).  ``capture`` (default :func:`capture_graph`) makes
-    the replay of a body; a test stands the graph in by the body itself.
+    launch_counts``).  The module's :func:`capture_graph` makes the replay
+    of a body; a test stands the graph in by the body itself.
     """
 
-    def __init__(self, generator: torch.Generator,
-                 capture: Callable = capture_graph) -> None:
+    def __init__(self, generator: torch.Generator, keyed: bool = False,
+                 into: bool = False) -> None:
         self.generator = generator
-        self._capture_fn = capture
+        self.keyed = keyed
+        self.into = into
         self.captures = 0  # graphs captured, over every rebuild
         self.copies_in = 0  # states copied into the input buffers
         self.rebuild(None)
 
-    @staticmethod
-    def _held(state: SimState) -> AgentState:
-        """What the input buffers hold of a state."""
-        return state.agents
-
-    @staticmethod
-    def _with(held: AgentState, step: int) -> SimState:
-        return SimState(agents=held, step=step)
-
-    @staticmethod
-    def _tensors(held: AgentState) -> tuple[torch.Tensor, ...]:
-        return tuple(held)
-
-    @staticmethod
-    def _clone(held: AgentState) -> AgentState:
-        return AgentState(*(t.clone() for t in held))
-
-    def rebuild(self, eager, key: Callable | None = None) -> None:
-        """Take a new eager step (new shapes) and its host key (``key(state)``
-        -> a hashable; None: one graph): the next call of each key
+    def rebuild(self, eager) -> None:
+        """Take a new eager step (new shapes): the next call of each key
         captures."""
         self.eager = eager
-        self._key = key
+        self._key = eager.host_key if self.keyed and eager is not None else None
         self._graphs: dict[object, _Graph] = {}
-        self._inputs = self._args = None
+        self._inputs = self._buffers = self._args = None
+
+    def holds(self, state) -> bool:
+        """Whether ``state`` is held in the input buffers themselves."""
+        return self._buffers is not None and all(
+            a is b for a, b in zip(self._tensors(state[0]), self._buffers))
 
     def __call__(self, state, fields: torch.Tensor, obstacles, *cand):
         if cand:
@@ -191,86 +217,59 @@ class GraphedStep:
         graph = self._graphs.get(key)
         if graph is None:
             return self._capture(key, state, fields, obstacles)
-        self._load(state)
+        if not self.holds(state):
+            self._copy_in(state)
         with trace.span("sim.replay"):
             graph.replay()
         add_launch_counts(graph.launches)
-        return (self._with(self._inputs, state.step + 1),
+        return (self._state(self._inputs, state.step + 1),
                 StepMetrics(*graph.metrics.clone().unbind()))
 
-    def _body_step(self, state, fields, obstacles):
-        """The eager step on the input buffers, as the graph's body runs it."""
-        return self.eager(state, fields, obstacles)
+    def _map(self, state) -> None:
+        """The buffers' place in a state of a build's type, and their clone."""
+        held = state[0]
+        if isinstance(held, torch.Tensor):
+            self._tensors = lambda h: (h,)
+            self._inputs = held.clone()
+        else:
+            self._tensors = lambda h: h
+            self._inputs = type(held)(*(t.clone() for t in held))
+        self._state = type(state)
+        self._buffers = self._tensors(self._inputs)
 
-    def _copy_in(self, held) -> None:
-        for dst, src in zip(self._tensors(self._inputs), self._tensors(held)):
+    def _copy_in(self, state) -> None:
+        for dst, src in zip(self._buffers, self._tensors(state[0])):
             dst.copy_(src)
         self.copies_in += 1
-
-    def _load(self, state) -> None:
-        """Copy ``state`` into the input buffers unless it is them."""
-        held = self._held(state)
-        if any(a is not b for a, b in zip(self._tensors(held),
-                                          self._tensors(self._inputs))):
-            self._copy_in(held)
 
     def _capture(self, key, state, fields, obstacles):
         with trace.span("sim.capture"):
             new, metrics = self.eager(state, fields, obstacles)
             if self._inputs is None:
-                self._inputs = self._clone(self._held(new))
+                self._map(new)
                 self.copies_in += 1
                 self._args = (fields, obstacles)
             else:
-                self._copy_in(self._held(new))
+                self._copy_in(new)
+            into = {"into": self._inputs} if self.into else {}
 
             def body() -> None:
-                out, m = self._body_step(self._with(self._inputs, state.step),
-                                         fields, obstacles)
+                out, m = self.eager(self._state(self._inputs, state.step),
+                                    fields, obstacles, **into)
                 graph.metrics = torch.stack(list(m))
-                for dst, src in zip(self._tensors(self._inputs),
-                                    self._tensors(self._held(out))):
+                for dst, src in zip(self._buffers, self._tensors(out[0])):
                     if dst is not src:
                         dst.copy_(src)
 
             graph = _Graph()
             before = launch_counts()
-            graph.replay = self._capture_fn(body, self.generator)
+            graph.replay = capture_graph(body, self.generator)
             graph.launches = {k: n - before[k] for k, n in launch_counts().items()
                               if n != before[k]}
             add_launch_counts({k: -n for k, n in graph.launches.items()})
             self._graphs[key] = graph
             self.captures += 1
-        return self._with(self._inputs, new.step), metrics
-
-
-class GraphedGridStep(GraphedStep):
-    """The one-device grid step (models/sfm_grid.py::make_step_grid)
-    replayed from CUDA graphs, as :class:`GraphedStep` replays the flat
-    one: ``step(state, fwp, fobs) -> (GridState, StepMetrics)``.  The input
-    buffer is the grid D, into which the captured step's rebin writes D'
-    (the step's ``into``); the host key is the step's ``host_key`` (one
-    graph on the full path, one a branch of the hybrid)."""
-
-    @staticmethod
-    def _held(state: sfm_grid.GridState) -> torch.Tensor:
-        return state.d
-
-    @staticmethod
-    def _with(held: torch.Tensor, step: int) -> sfm_grid.GridState:
-        return sfm_grid.GridState(d=held, step=step)
-
-    @staticmethod
-    def _tensors(held: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        return (held,)
-
-    @staticmethod
-    def _clone(held: torch.Tensor) -> torch.Tensor:
-        return held.clone()
-
-    def _body_step(self, state, fields, obstacles):
-        """The rebin writes D' straight into the buffer (no copy back)."""
-        return self.eager(state, fields, obstacles, into=self._inputs)
+        return self._state(self._inputs, new.step), metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -359,17 +358,282 @@ class SimulatorOptions:
         return o
 
 
+class _Kind:
+    """The Simulator's state kind, chosen once from its options: ``build``
+    (the step and its two inputs for ``sim.cfg``, refused before any tensor
+    exists where they do not fit), ``to_flat``/``from_flat`` (the state as
+    flat agents and back), ``count``, ``growth`` (what a step's metrics call
+    for) and ``dropped`` (what ``n_dropped`` counts).  Where ``graph_how``
+    is set, the step on a card (:func:`_graphs_on`) is a
+    :class:`GraphedStep` made with it."""
+
+    graph_how: dict | None = None
+    dropped = "agents dropped at capacity"
+
+    def __init__(self, sim: "Simulator") -> None:
+        self.sim = sim
+        self.devices = [sim.device]
+        self.graphed = self.graph_how is not None and _graphs_on(sim.device)
+        self.graph: GraphedStep | None = None
+
+    def _graph(self, step):
+        """``step`` as this kind runs it: its graphs where it graphs."""
+        if not self.graphed:
+            return step
+        if self.graph is None:
+            self.graph = GraphedStep(self.sim.generator, **self.graph_how)
+        self.graph.rebuild(step)
+        return self.graph
+
+    def release(self) -> None:
+        """Before a build: the graphs, and the fields they bound, go."""
+        if self.graph is not None:
+            self.graph.rebuild(None)
+
+    def one_process(self, what: str) -> None:
+        """Raise NotImplementedError for ``what`` where the state spans
+        processes."""
+
+    def measure_kernel_time(self, n: int) -> float | None:
+        return None
+
+    def measure_spawn_time(self, n: int) -> float | None:
+        return None
+
+
+class _FlatKind(_Kind):
+    """``xla``: flat agent tensors (a SimState), the capacity doubled past
+    80% occupancy; on a card one graph a capacity."""
+
+    graph_how = {}
+
+    def build(self):
+        """The flat step; its inputs are the packed field rows and the
+        obstacle segments."""
+        sim = self.sim
+        field, fobs = device_inputs(sim.cfg, sim.maps, sim.device)
+        return (self._graph(make_step(sim.cfg, generator=sim.generator)),
+                field.rows, fobs)
+
+    def to_flat(self, state: SimState) -> SimState:
+        return state
+
+    from_flat = to_flat
+
+    def count(self, state: SimState) -> int:
+        return int(state.agents.active.sum())
+
+    def growth(self, m: StepMetrics, guard: bool = False):
+        """Both ``tick``'s rule and ``run``'s guard: the capacity doubles
+        past 80% occupancy."""
+        if int(m.n_active) > 0.8 * self.sim.cfg.capacity:
+            return ("capacity",)
+        return None
+
+
+class _PallasKind(_FlatKind):
+    """``pallas``: the flat state and growth, stepped by the fused step
+    kernel; eager."""
+
+    graph_how = None
+
+    def build(self):
+        """The pallas step and its field tensors (the reference's
+        sim.py:230-276), refused where its layout or its memory
+        (``sfm_pallas.device_bytes``) does not fit."""
+        sim, o = self.sim, self.sim.options
+        if not sfm_pallas.layout_ok(sim.cfg):
+            raise ValueError(
+                "pallas backend requires an integral neighbor/field unit "
+                "ratio and at least one waypoint; use backend='xla' for this "
+                "scenario")
+        sfm_grid.check_fits(sfm_pallas.device_bytes(sim.cfg, o.row_block),
+                            sim.device, what="the pallas step")
+        fwp, fobs = sfm_pallas.pallas_device_inputs(
+            sim.cfg, sim.maps, sim.device, row_block=o.row_block)
+        return (sfm_pallas.make_step_pallas(sim.cfg, row_block=o.row_block,
+                                            generator=sim.generator), fwp, fobs)
+
+
+class _GridKind(_Kind):
+    """``grid`` on one device: the grid D (a GridState), its table K and
+    mover table grown; on a card one graph a host key, the rebin writing D'
+    into the graph's buffer."""
+
+    graph_how = {"keyed": True, "into": True}
+    dropped = "spawn candidates dropped into full cells"
+
+    def _step_kw(self, tile: tuple[int, int] | None = None) -> dict:
+        """The grid step's arguments, refused before any of its tensors
+        exist where they (``sfm_grid.device_bytes``, of a ``tile``'s rows
+        and lanes) do not fit a card's free memory; tiles that share a card
+        add up there."""
+        sim, o = self.sim, self.sim.options
+        incremental = sim._resolve_incremental()
+        need = sfm_grid.device_bytes(sim.cfg, o.row_block, incremental,
+                                     o.mover_capacity, tile)
+        for dev in set(self.devices):
+            sfm_grid.check_fits(need * self.devices.count(dev), dev)
+        return dict(incremental=incremental, mover_k=o.mover_capacity,
+                    compact_every=o.compact_every, generator=sim.generator)
+
+    def build(self):
+        sim, o = self.sim, self.sim.options
+        self._kernel_chain = None  # shapes depend on K
+        self._spawn_chain = None  # reads sim.cfg, rebuilt with it
+        kw = self._step_kw()
+        fwp, fobs = sfm_grid.field_tensors(sim.cfg, sim.maps, sim.device,
+                                           row_block=o.row_block)
+        return (self._graph(sfm_grid.make_step_grid(
+            sim.cfg, row_block=o.row_block, **kw)), fwp, fobs)
+
+    def to_flat(self, state) -> SimState:
+        return sfm_grid.unbin_state(self.sim.cfg, state)
+
+    def _bin(self, state: SimState):
+        return sfm_grid.bin_state(self.sim.cfg, state,
+                                  row_block=self.sim.options.row_block)
+
+    def from_flat(self, state: SimState):
+        """The agents binned (the reference's sim.py:543-560)."""
+        gs = self._bin(state)
+        # bin_state drops agents beyond K in their cells, as the reference's
+        # does; the count is logged, no tensor changes
+        n_binned = self.count(gs)
+        n_flat = int(state.agents.active.sum())
+        (log.warning if n_binned < n_flat else log.info)(
+            "binned %d of %d agents (%d beyond K=%d in their cells, dropped)",
+            n_binned, n_flat, n_flat - n_binned, self.sim.options.table_capacity)
+        return gs
+
+    def count(self, state) -> int:
+        return int((state.d[:, :, 6, :] > 0.5).sum())
+
+    def growth(self, m: StepMetrics, guard: bool = False):
+        """``tick``'s rule: the table grows reactively after a counted
+        overflow, preemptively (drop-free) when some cell is one agent short
+        of K, and the mover table when a cell's movers are one short of it.
+        ``run``'s lagged guard grows only the table, preemptively."""
+        o = self.sim.options
+        if guard:
+            return ("table",) if int(m.max_demand) >= o.table_capacity - 1 else None
+        if m.n_overflow > 0:
+            # Reactive: a cell jumped past K within one step.  Counted.
+            return "table", m.n_overflow
+        if m.max_demand >= o.table_capacity - 1:
+            # Drop-free growth: some cell is one agent short of K.
+            return ("table",)
+        if (m.max_mover_demand >= o.mover_capacity - 1
+                and o.mover_capacity < o.table_capacity):
+            # A performance trigger, not a safety one: a mover-table
+            # overflow only costs a full-rebin step, never an agent.
+            return ("movers",)
+        return None
+
+    def measure_kernel_time(self, n: int) -> float | None:
+        sim = self.sim
+        if self._kernel_chain is None:
+            self._kernel_chain = sfm_grid.make_kernel_chain(
+                sim.cfg, row_block=sim.options.row_block,
+                incremental=sim._resolve_incremental(),
+                mover_k=sim.options.mover_capacity)
+        chain, fwp, fobs, d = self._kernel_chain, sim._fwp, sim._fobs, sim.state.d
+
+        def once() -> None:
+            nonlocal d
+            d = chain(d, fwp, fobs)
+
+        return _seconds_per_call(once, n, sim.device)
+
+    def measure_spawn_time(self, n: int) -> float | None:
+        sim = self.sim
+        if sim.cfg.spawn.total == 0:
+            return 0.0
+        if self._spawn_chain is None:
+            draw = spawn_sampler(sim.cfg, sim.device)
+            generator = torch.Generator(device=sim.device)
+            generator.manual_seed(sim.options.seed)
+            cfg = sim.cfg
+            self._spawn_chain = lambda d: sfm_grid.spawn_scatter(
+                cfg, d, draw(generator))
+        chain, d = self._spawn_chain, sim.state.d.clone()
+        return _seconds_per_call(lambda: chain(d), n, sim.device)
+
+
+class _TileKind(_GridKind):
+    """``grid`` cut into ``n_devices`` tiles (parallel/tile2d.py), over this
+    process's devices or a process group's; eager."""
+
+    graph_how = None
+
+    def __init__(self, sim: "Simulator") -> None:
+        super().__init__(sim)
+        n_dev = sim.options.n_devices
+        cuda = sim.device.type == "cuda"
+        self.transport = transport_for(n_dev)
+        if self.transport.world > 1:
+            # this process's tiles, all on one card (NCCL: one rank a card)
+            own = len(self.transport.tiles)
+            self.devices = ([torch.device(
+                "cuda", self.transport.rank % torch.cuda.device_count())] * own
+                if cuda else [sim.device] * own)
+        else:
+            if cuda and torch.cuda.device_count() < n_dev:
+                raise ValueError(f"--devices {n_dev} but only "
+                                 f"{torch.cuda.device_count()} devices are visible")
+            self.devices = ([torch.device("cuda", i) for i in range(n_dev)]
+                            if cuda else [sim.device] * n_dev)
+
+    def build(self):
+        sim, o = self.sim, self.sim.options
+        # the step's field arguments are per-tile lists
+        self.tcfg = tile2d.Tile2DConfig.build(sim.cfg, *o.resolve_tile(),
+                                              row_block=o.row_block)
+        kw = self._step_kw((self.tcfg.rows_local, self.tcfg.nxl_local))
+        fwp, fobs = tile2d.device_inputs(self.tcfg, sim.maps,
+                                         sfm_grid.stride_for(sim.cfg),
+                                         self.devices, self.transport)
+        return (tile2d.make_sharded_step(self.tcfg, self.devices,
+                                         transport=self.transport, **kw),
+                fwp, fobs)
+
+    def one_process(self, what: str) -> None:
+        if self.transport.world > 1:
+            raise NotImplementedError(
+                f"{what} across {self.transport.world} processes is not "
+                "supported (nor by the reference, which cannot read an array "
+                "that spans processes); metrics and pedestrian_count are")
+
+    def to_flat(self, state) -> SimState:
+        """The gathered whole grid, unbinned on every rank."""
+        return tile2d.unbin_sharded(self.tcfg, state, transport=self.transport,
+                                    everywhere=True)
+
+    def _bin(self, state: SimState):
+        return tile2d.make_sharded_grid_state(self.tcfg, state, self.devices,
+                                              self.transport, self.sim.generator)
+
+    def count(self, state) -> int:
+        return tile2d.population(state, self.transport)
+
+    def measure_kernel_time(self, n: int) -> float | None:
+        raise ValueError("measure_kernel_time times one device's kernels; "
+                         "this simulator runs tiles")
+
+    measure_spawn_time = _Kind.measure_spawn_time
+
+
 class Simulator:
     """A scenario's agents and their step (see the module docstring).
 
     ``tick`` and ``run`` leave the state in ``state``.  On a CUDA device
     the next step of the flat backend and of the one-device grid
     overwrites that state in place (it is the graph's buffers,
-    :class:`GraphedStep`, :class:`GraphedGridStep`): a caller that keeps a
-    state across ticks clones it.  The steps, the growth and the agents'
-    reads (``list_pedestrians``, ``pedestrian_count``) hold one lock, so
-    another thread may read the agents while one ticks; a step lets the
-    reads waiting for the lock go first."""
+    :class:`GraphedStep`): a caller that keeps a state across ticks clones
+    it.  The steps, the growth and the agents' reads (``list_pedestrians``,
+    ``pedestrian_count``, ``flat_state``) hold one lock, so another thread
+    may read the agents while one ticks; a step lets the reads waiting for
+    the lock go first."""
 
     def __init__(self, options: SimulatorOptions, scenario: Scenario) -> None:
         options.check()
@@ -378,28 +642,15 @@ class Simulator:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {options.device!r} requested but "
                                "torch.cuda.is_available() is False")
-        n_dev = options.n_devices
-        # the tiles over this process and the others of a distributed group
-        self._transport = (transport_for(n_dev) if n_dev > 1
-                           and options.backend == "grid" else None)
-        cuda = self.device.type == "cuda"
-        if self._transport is not None and self._transport.world > 1:
-            # this process's tiles, all on one card (NCCL: one rank a card)
-            own = len(self._transport.tiles)
-            self.devices = ([torch.device(
-                "cuda", self._transport.rank % torch.cuda.device_count())] * own
-                if cuda else [self.device] * own)
-        else:
-            if cuda and torch.cuda.device_count() < n_dev:
-                raise ValueError(f"--devices {n_dev} but only "
-                                 f"{torch.cuda.device_count()} devices are visible")
-            self.devices = ([torch.device("cuda", i) for i in range(n_dev)]
-                            if cuda and n_dev > 1 else [self.device] * n_dev)
-        # the generator and the metrics live on the first tile's device
-        if n_dev > 1:
-            self.device = self.devices[0]
         self.options = options
         self.scenario = scenario
+        # the state's kind, chosen once; the tiles' lays out their devices
+        self._kind = (_FlatKind if options.backend == "xla"
+                      else _PallasKind if options.backend == "pallas"
+                      else _GridKind if options.n_devices == 1
+                      else _TileKind)(self)
+        # the generator and the metrics live on the first tile's device
+        self.device = self._kind.devices[0]
 
         with Timer() as t_field:
             self.field = Field.from_scenario(scenario, options.field_grid_unit)
@@ -416,26 +667,17 @@ class Simulator:
         self._lock = threading.RLock()
         self._turn = threading.Condition(self._lock)
         self._readers: list[None] = []  # one entry a read waiting or reading
-        # the flat step and the one-device grid step on a card replay CUDA
-        # graphs of themselves
-        self._graphed = (GraphedStep(self.generator)
-                         if cuda and options.backend == "xla"
-                         else GraphedGridStep(self.generator)
-                         if cuda and options.backend == "grid" and n_dev == 1
-                         else None)
         capacity = options.capacity or self._auto_capacity(scenario)
         self._build(capacity)
-        self.state = self._from_flat_state(
-            make_initial_state(self.cfg, self.generator, self.device))
+        self._put(make_initial_state(self.cfg, self.generator, self.device))
         self.step_count = 0
         self.last_metrics: StepMetrics | None = None  # host, last tick()
         self.last_run_metrics: StepMetrics | None = None  # host, last run()
 
     @staticmethod
     def _auto_capacity(scenario: Scenario) -> int:
-        n_once = sum(g.spawn.count for g in scenario.once_groups)
-        rate = sum(g.spawn.frequency for g in scenario.periodic_groups)
-        estimate = int(n_once * 1.25 + rate * 60 + 1024)
+        n_once, n_periodic = _spawns_in_60s(scenario)
+        estimate = int(n_once * 1.25 + n_periodic + 1024)
         cap = 1024
         while cap < estimate:
             cap *= 2
@@ -450,103 +692,35 @@ class Simulator:
         o = self.options
         if o.incremental_rebin is not None:
             return o.incremental_rebin
-        n_once = sum(g.spawn.count for g in self.scenario.once_groups)
-        rate = sum(g.spawn.frequency for g in self.scenario.periodic_groups)
-        est_n = n_once + rate * 60
+        n_once, n_periodic = _spawns_in_60s(self.scenario)
+        est_n = n_once + n_periodic
         w, h = self.scenario.size
         lam = est_n / max(w * h, 1e-9) * o.neighbor_grid_unit ** 2
         return lam >= 1.75
 
-    @property
-    def _flat(self) -> bool:
-        """Flat agent tensors as the state: the xla and pallas backends."""
-        return self.options.backend in ("xla", "pallas")
-
     def _build(self, capacity: int) -> None:
+        """The step's config at ``capacity``, and the kind's step and input
+        tensors for it.  The old step, its graphs and its fields go before
+        the new ones are made (a rebuild would otherwise hold both)."""
         o = self.options
-        if self._graphed is not None:  # its graphs and bound fields go first
-            self._graphed.rebuild(None)
+        self._step = self._fwp = self._fobs = None
+        self._kind.release()
         self.cfg = StepConfig.build(
             self.scenario, physics=o.physics, capacity=capacity,
             neighbor_grid_unit=o.neighbor_grid_unit, field_unit=o.field_grid_unit,
             table_capacity=o.table_capacity, chunk_size=o.chunk_size,
             use_neighbor_grid=o.use_neighbor_grid,
             use_distance_map=o.use_distance_map)
-        self._tcfg = None
-        self._kernel_chain = None  # shapes depend on K
-        self._spawn_chain = None  # reads self.cfg, rebuilt with it
-        if o.backend == "pallas":
-            self._build_pallas(capacity)
-            return
-        if self._flat:
-            # the step's two input arguments: on this backend the packed
-            # field rows and the obstacle segments
-            field, self._fobs = device_inputs(self.cfg, self.maps, self.device)
-            self._fwp = field.rows
-            self._step = make_step(self.cfg, generator=self.generator)
-            if self._graphed is not None:
-                self._graphed.rebuild(self._step)
-                self._step = self._graphed
-            log.info("step function built: capacity=%d backend=xla device=%s",
-                     capacity, self.device)
-            return
-        step_kw = dict(incremental=self._resolve_incremental(),
-                       mover_k=o.mover_capacity, compact_every=o.compact_every,
-                       generator=self.generator)
-        # the old fields, and the packed copy cached for them, go before the
-        # new ones are made (a rebuild would otherwise hold both)
-        self._fwp = self._fobs = None
-        if o.n_devices > 1:  # the step's field arguments are per-tile lists
-            self._tcfg = tile2d.Tile2DConfig.build(
-                self.cfg, *o.resolve_tile(), row_block=o.row_block)
-        self._check_fits(step_kw["incremental"])
-        if self._tcfg is not None:
-            self._fwp, self._fobs = tile2d.device_inputs(
-                self._tcfg, self.maps, sfm_grid.stride_for(self.cfg),
-                self.devices, self._transport)
-            self._step = tile2d.make_sharded_step(
-                self._tcfg, self.devices, transport=self._transport, **step_kw)
-        else:
-            self._fwp, self._fobs = sfm_grid.field_tensors(
-                self.cfg, self.maps, self.device, row_block=o.row_block)
-            self._step = sfm_grid.make_step_grid(
-                self.cfg, row_block=o.row_block, **step_kw)
-            if self._graphed is not None:
-                self._graphed.rebuild(self._step, self._step.host_key)
-                self._step = self._graphed
-        log.info("step function built: capacity=%d K=%d device=%s tiles=%s",
-                 capacity, o.table_capacity, self.device, o.resolve_tile())
+        self._step, self._fwp, self._fobs = self._kind.build()
+        log.info("step function built: backend=%s capacity=%d K=%d device=%s "
+                 "tiles=%s", o.backend, capacity, o.table_capacity, self.device,
+                 o.resolve_tile())
 
-    def _build_pallas(self, capacity: int) -> None:
-        """The pallas backend's step and field tensors (the reference's
-        sim.py:230-276), refused before any tensor exists where its layout
-        or its memory (``sfm_pallas.device_bytes``) does not fit."""
-        o = self.options
-        if not sfm_pallas.layout_ok(self.cfg):
-            raise ValueError(
-                "pallas backend requires an integral neighbor/field unit "
-                "ratio and at least one waypoint; use backend='xla' for this "
-                "scenario")
-        self._fwp = self._fobs = None  # the old fields go first
-        sfm_grid.check_fits(sfm_pallas.device_bytes(self.cfg, o.row_block),
-                            self.device, what="the pallas step")
-        self._fwp, self._fobs = sfm_pallas.pallas_device_inputs(
-            self.cfg, self.maps, self.device, row_block=o.row_block)
-        self._step = sfm_pallas.make_step_pallas(
-            self.cfg, row_block=o.row_block, generator=self.generator)
-        log.info("step function built: capacity=%d K=%d backend=pallas "
-                 "device=%s", capacity, o.table_capacity, self.device)
-
-    def _check_fits(self, incremental: bool) -> None:
-        """Refuse, before any of its tensors exist, a step whose tensors
-        (``sfm_grid.device_bytes``) do not fit a card's free memory; tiles
-        that share a card add up there."""
-        o, tcfg = self.options, self._tcfg
-        need = sfm_grid.device_bytes(
-            self.cfg, o.row_block, incremental, o.mover_capacity,
-            None if tcfg is None else (tcfg.rows_local, tcfg.nxl_local))
-        for dev in set(self.devices):
-            sfm_grid.check_fits(need * self.devices.count(dev), dev)
+    def _put(self, flat: SimState) -> None:
+        """Flat agents as the state: padded with inactive slots to the
+        capacity, on the simulator's device, in the kind's form."""
+        self.state = self._kind.from_flat(SimState(
+            flat.agents.padded(self.cfg.capacity).to(self.device), flat.step))
 
     def tick(self) -> StepRecord:
         """Advance one step (lib.rs:64-100) and return host-side metrics.
@@ -562,24 +736,13 @@ class Simulator:
             self.last_metrics = metrics
             if metrics.n_dropped > 0:
                 log.warning("step %d: %d %s", self.step_count, metrics.n_dropped,
-                            self._dropped_what)
+                            self._kind.dropped)
             if metrics.n_exited > 0:
                 log.debug("step %d: %d agents left the field", self.step_count,
                           metrics.n_exited)
-            if self._flat:
-                if metrics.n_active > 0.8 * self.cfg.capacity:
-                    self._grow()
-            elif metrics.n_overflow > 0:
-                # Reactive: a cell jumped past K within one step.  Counted.
-                self._grow_table(metrics.n_overflow)
-            elif metrics.max_demand >= self.options.table_capacity - 1:
-                # Drop-free growth: some cell is one agent short of K.
-                self._grow_table(0)
-            elif (metrics.max_mover_demand >= self.options.mover_capacity - 1
-                  and self.options.mover_capacity < self.options.table_capacity):
-                # A performance trigger, not a safety one: a mover-table
-                # overflow only costs a full-rebin step, never an agent.
-                self._grow_movers()
+            growth = self._kind.growth(metrics)
+            if growth:
+                self._grow(*growth)
             return StepRecord(active_ped_count=metrics.n_active, time_spawn=0.0,
                               time_calc_state=t.elapsed)
 
@@ -592,26 +755,7 @@ class Simulator:
         branch of the hybrid) and again after each growth of the table or
         the mover table (0 where the step runs eagerly: the CPU, the pallas
         backend, tiles)."""
-        return 0 if self._graphed is None else self._graphed.captures
-
-    @property
-    def _dropped_what(self) -> str:
-        """What ``n_dropped`` counts on this backend."""
-        return ("agents dropped at capacity" if self._flat
-                else "spawn candidates dropped into full cells")
-
-    def _needs_growth(self, m: StepMetrics) -> bool:
-        """The preemptive growth rule of ``run``'s guard: the flat tensors
-        at 80% of the capacity, the grid's peak cell demand at K - 1."""
-        if self._flat:
-            return int(m.n_active) > 0.8 * self.cfg.capacity
-        return int(m.max_demand) >= self.options.table_capacity - 1
-
-    def _grow_now(self) -> None:
-        if self._flat:
-            self._grow()
-        else:
-            self._grow_table(0)
+        return getattr(self._kind.graph, "captures", 0)
 
     def run(self, n_steps: int, sync_every: int = 0,
             guard_every: int = 4) -> StepRecord:
@@ -642,20 +786,21 @@ class Simulator:
                             pending.append(metrics)
                             if len(pending) > guard_every:
                                 pending.pop(0)
-                            if ((i + 1) % guard_every == 0
-                                    and self._needs_growth(pending[0])):
-                                self._grow_now()
+                            growth = ((i + 1) % guard_every == 0 and
+                                      self._kind.growth(pending[0], guard=True))
+                            if growth:
+                                self._grow(*growth)
                                 pending.clear()
                         if sync_every and (i + 1) % sync_every == 0:
-                            if self._needs_growth(metrics):
-                                self._grow_now()
+                            if growth := self._kind.growth(metrics, guard=True):
+                                self._grow(*growth)
                 host = _to_host(totals) if totals is not None else None
             self.step_count += n_steps
             self.last_run_metrics = host
             if host is not None:
                 if host.n_dropped > 0:
                     log.warning("run(%d): %d %s over the run", n_steps,
-                                host.n_dropped, self._dropped_what)
+                                host.n_dropped, self._kind.dropped)
                 if host.n_overflow > 0:
                     log.warning("run(%d): %d agents lost to cell overflow over "
                                 "the run", n_steps, host.n_overflow)
@@ -663,64 +808,46 @@ class Simulator:
                 active_ped_count=host.n_active if host is not None else 0,
                 time_spawn=0.0, time_calc_state=t.elapsed / max(n_steps, 1))
 
-    def _grow(self) -> None:
-        """Flat backend: double the capacity, padding the agent tensors
-        with inactive slots (the reference's sim.py:282-297)."""
+    def _grow(self, what: str, n_lost: int = 0) -> None:
+        """Grow what the kind's rule names, rebuild the step and load the
+        agents back in (across processes, every rank re-bins the whole
+        gathered grid).  ``"capacity"`` doubles the flat tensors, padding
+        them with inactive slots (the reference's sim.py:282-297);
+        ``"table"`` grows the per-cell table K (preemptively when ``n_lost``
+        is 0, reactively after a counted overflow); ``"movers"`` grows the
+        mover table, capped at K, to keep the incremental path fast (an
+        overflowing mover table loses no agent)."""
         with trace.span("sim.grow"):
-            old_cap = self.cfg.capacity
-            a = self.state.agents
-            self._build(old_cap * 2)
-            pad = self.cfg.capacity - old_cap
-            dev = a.pos.device
-            self.state = self.state._replace(agents=AgentState(
-                pos=torch.cat([a.pos, torch.zeros((pad, 2), device=dev)]),
-                vel=torch.cat([a.vel, torch.zeros((pad, 2), device=dev)]),
-                speed=torch.cat([a.speed, torch.ones((pad,), device=dev)]),
-                dest=torch.cat([a.dest, torch.zeros((pad,), dtype=torch.int32,
-                                                    device=dev)]),
-                active=torch.cat([a.active, torch.zeros((pad,), dtype=torch.bool,
-                                                        device=dev)])))
-            log.info("capacity grown: %d -> %d", old_cap, self.cfg.capacity)
-
-    def _grow_table(self, n_lost: int) -> None:
-        """Grow the per-cell table K and re-bin (preemptively when
-        n_lost == 0, reactively after a counted overflow)."""
-        with trace.span("sim.grow"):
-            old_k = self.options.table_capacity
-            new_k = old_k + max(4, old_k // 2)
-            if n_lost:
-                log.warning("step %d: %d agents dropped from full cells; growing "
-                            "table_capacity %d -> %d", self.step_count, n_lost,
-                            old_k, new_k)
+            o, capacity, changes = self.options, self.cfg.capacity, {}
+            if what == "capacity":
+                capacity *= 2
+            elif what == "table":
+                old_k = o.table_capacity
+                changes["table_capacity"] = new_k = old_k + max(4, old_k // 2)
+                if n_lost:
+                    log.warning("step %d: %d agents dropped from full cells; "
+                                "growing table_capacity %d -> %d",
+                                self.step_count, n_lost, old_k, new_k)
+                else:
+                    log.info("step %d: peak cell demand reached %d; growing "
+                             "table_capacity %d -> %d preemptively (drop-free)",
+                             self.step_count, old_k - 1, old_k, new_k)
             else:
-                log.info("step %d: peak cell demand reached %d; growing "
-                         "table_capacity %d -> %d preemptively (drop-free)",
-                         self.step_count, old_k - 1, old_k, new_k)
-            self._rebuild(table_capacity=new_k)
-
-    def _grow_movers(self) -> None:
-        """Grow the mover table (capped at K) and rebuild the step — to keep
-        the incremental path fast; an overflowing table loses no agent."""
-        with trace.span("sim.grow"):
-            old_mk = self.options.mover_capacity
-            new_mk = min(old_mk + max(2, old_mk // 2), self.options.table_capacity)
-            if new_mk == old_mk:
-                return
-            log.info("step %d: peak mover demand reached %d; growing mover table "
-                     "%d -> %d (fast-path retention)", self.step_count, old_mk - 1,
-                     old_mk, new_mk)
-            self._rebuild(mover_capacity=new_mk)
-
-    def _rebuild(self, **changes) -> None:
-        """Apply option changes, rebuild the step and re-bin the agents
-        (across processes, every rank re-bins the whole gathered grid)."""
-        flat = (tile2d.unbin_sharded(self._tcfg, self.state,
-                                     transport=self._transport, everywhere=True)
-                if self._tcfg is not None else self._to_flat_state())
-        self.state = None  # the old grid goes before the new step is sized
-        self.options = dataclasses.replace(self.options, **changes)
-        self._build(self.cfg.capacity)
-        self.state = self._from_flat_state(flat)
+                old_mk = o.mover_capacity
+                new_mk = min(old_mk + max(2, old_mk // 2), o.table_capacity)
+                if new_mk == old_mk:
+                    return
+                log.info("step %d: peak mover demand reached %d; growing mover "
+                         "table %d -> %d (fast-path retention)", self.step_count,
+                         old_mk - 1, old_mk, new_mk)
+                changes["mover_capacity"] = new_mk
+            flat = self._kind.to_flat(self.state)
+            self.state = None  # the old state goes before the new step is sized
+            self.options = dataclasses.replace(o, **changes)
+            self._build(capacity)
+            self._put(flat)
+            if what == "capacity":
+                log.info("capacity grown: %d -> %d", capacity // 2, capacity)
 
     def measure_kernel_time(self, n: int = 10) -> float | None:
         """Seconds per step of the grid step's kernels alone (fused step +
@@ -729,30 +856,7 @@ class Simulator:
         CUDA device timed with CUDA events; on the CPU (twins) with the
         host clock.  One device only; None on the flat backends, as in the
         reference (grid only)."""
-        if self._flat:
-            return None
-        if self._tcfg is not None:
-            raise ValueError("measure_kernel_time times one device's kernels; "
-                             "this simulator runs tiles")
-        if self._kernel_chain is None:
-            self._kernel_chain = sfm_grid.make_kernel_chain(
-                self.cfg, row_block=self.options.row_block,
-                incremental=self._resolve_incremental(),
-                mover_k=self.options.mover_capacity)
-        d = self._kernel_chain(self.state.d, self._fwp, self._fobs)  # warm
-        if self.device.type != "cuda":
-            with Timer() as t:
-                for _ in range(n):
-                    d = self._kernel_chain(d, self._fwp, self._fobs)
-            return t.elapsed / n
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            d = self._kernel_chain(d, self._fwp, self._fobs)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1000.0 / n
+        return self._kind.measure_kernel_time(n)
 
     def measure_spawn_time(self, n: int = 10) -> float | None:
         """Seconds of the grid step's spawn alone -- a draw of this step's
@@ -763,76 +867,32 @@ class Simulator:
         On a CUDA device timed with CUDA events; on the CPU with the host
         clock.  Grid backend on one device only: None elsewhere; 0.0 when
         the scenario has no spawn sources."""
-        if self.options.backend != "grid" or self._tcfg is not None:
-            return None
-        if self.cfg.spawn.total == 0:
-            return 0.0
-        if self._spawn_chain is None:
-            draw = spawn_sampler(self.cfg, self.device)
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(self.options.seed)
-            cfg = self.cfg
-            self._spawn_chain = lambda d: sfm_grid.spawn_scatter(
-                cfg, d, draw(generator))
-        d = self.state.d.clone()
-        self._spawn_chain(d)  # warm
-        if self.device.type != "cuda":
-            with Timer() as t:
-                for _ in range(n):
-                    self._spawn_chain(d)
-            return t.elapsed / n
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            self._spawn_chain(d)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1000.0 / n
+        return self._kind.measure_spawn_time(n)
 
-    def _one_process(self, what: str) -> None:
-        """Raise NotImplementedError for ``what`` when the tiles span
-        processes."""
-        if self._transport is not None and self._transport.world > 1:
-            raise NotImplementedError(
-                f"{what} across {self._transport.world} processes is not "
-                "supported (nor by the reference, which cannot read an array "
-                "that spans processes); metrics and pedestrian_count are")
-
-    def _to_flat_state(self) -> SimState:
+    def flat_state(self) -> SimState:
         """The state as flat agent tensors, whatever the backend or device
-        count: the checkpoint, render and diagnostic exchange format.  One
-        process only (``_one_process``)."""
-        if self._flat:
-            return self.state
-        self._one_process("reading the agents")
-        if self._tcfg is not None:
-            return tile2d.unbin_sharded(self._tcfg, self.state)
-        return sfm_grid.unbin_state(self.cfg, self.state)
+        count: the checkpoint, render and diagnostic exchange format, read
+        under the step's lock.  On the flat backends it is the state itself,
+        which the next step on a card overwrites: clone it to keep it.  One
+        process only (NotImplementedError where the tiles span
+        processes)."""
+        with self._reading():
+            self._kind.one_process("reading the agents")
+            return self._kind.to_flat(self.state)
 
-    def _from_flat_state(self, state: SimState):
-        """Inverse of :meth:`_to_flat_state` (the reference's sim.py:
-        543-560): the agents binned on this simulator's device, or cut into
-        its tiles, or the flat agents themselves on the flat backend -- so
-        checkpoints restore across backends and device counts."""
-        state = SimState(agents=state.agents.to(self.device), step=state.step)
-        if self._flat:
-            return state
-        if self._tcfg is not None:
-            gs = tile2d.make_sharded_grid_state(self._tcfg, state, self.devices,
-                                                self._transport, self.generator)
-            n_binned = tile2d.population(gs, self._transport)
-        else:
-            gs = sfm_grid.bin_state(self.cfg, state,
-                                    row_block=self.options.row_block)
-            n_binned = int((gs.d[:, :, 6] > 0.5).sum())
-        # bin_state drops agents beyond K in their cells, as the reference's
-        # does; the count is logged, no tensor changes
-        n_flat = int(state.agents.active.sum())
-        (log.warning if n_binned < n_flat else log.info)(
-            "binned %d of %d agents (%d beyond K=%d in their cells, dropped)",
-            n_binned, n_flat, n_flat - n_binned, self.options.table_capacity)
-        return gs
+    def load_flat_state(self, state: SimState) -> None:
+        """Flat agent tensors (a checkpoint's, another backend's) as the
+        state, under the step's lock: a state of more rows than the
+        capacity rebuilds the step at its rows, one of fewer is padded with
+        inactive slots (the reference's checkpoint.py:64-87), and the grid
+        backend bins the agents (the reference's sim.py:543-560), so that
+        agents cross backends and device counts.  One process only."""
+        with self._lock:
+            self._kind.one_process("loading the agents")
+            n = state.agents.pos.shape[0]
+            if n > self.cfg.capacity:
+                self._build(n)
+            self._put(state)
 
     @contextlib.contextmanager
     def _reading(self):
@@ -857,18 +917,14 @@ class Simulator:
         state: read under the step's lock, so from any thread, and before
         the next step where a thread ticks back to back."""
         with self._reading():
-            a = self._to_flat_state().agents
+            a = self.flat_state().agents
             act = a.active
             return a.pos[act].cpu().numpy(), a.dest[act].cpu().numpy()
 
     @property
     def pedestrian_count(self) -> int:
         with self._reading():
-            if self._flat:
-                return int(self.state.agents.active.sum())
-            if self._tcfg is not None:
-                return tile2d.population(self.state, self._transport)
-            return int((self.state.d[:, :, 6, :] > 0.5).sum())
+            return self._kind.count(self.state)
 
     def new_log(self, scenario_name: str = "") -> DiagnosticLog:
         lg = DiagnosticLog(model=f"sfm-torch/{self.options.backend}",

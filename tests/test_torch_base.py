@@ -130,7 +130,7 @@ spawn = { kind = "once", count = 40 }
     want = _rows(convert.agents_to_numpy(flat.state.agents))
     assert want.shape[0] == 40 and grid.step_count == 5
     np.testing.assert_array_equal(
-        _rows(convert.agents_to_numpy(grid._to_flat_state().agents)), want)
+        _rows(convert.agents_to_numpy(grid.flat_state().agents)), want)
     for _ in range(3):
         grid.tick()
     port_ckpt.save(grid, tmp_path / "grid.npz")
@@ -139,7 +139,7 @@ spawn = { kind = "once", count = 40 }
     assert back.step_count == 8 and back.state.step == 8
     np.testing.assert_array_equal(
         _rows(convert.agents_to_numpy(back.state.agents)),
-        _rows(convert.agents_to_numpy(grid._to_flat_state().agents)))
+        _rows(convert.agents_to_numpy(grid.flat_state().agents)))
 
 
 def test_quickstart_runs_on_the_cpu(capsys, tmp_path):

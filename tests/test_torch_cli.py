@@ -63,7 +63,7 @@ def _active_rows(pos, vel, speed, dest, active):
 
 
 def _sim_rows(sim):
-    a = convert.agents_to_numpy(sim._to_flat_state().agents)
+    a = convert.agents_to_numpy(sim.flat_state().agents)
     return _active_rows(a["pos"], a["vel"], a["speed"], a["dest"], a["active"])
 
 

@@ -1357,17 +1357,22 @@ spawn = { kind = "periodic", frequency = 40.0 }
     assert int(torch.stack(spawned).sum()) > 0
 
 
-def _random_flat(graphed: bool, capacity: int = 0):
-    """scenarios/random.toml's flat Simulator on the card (the CLI's -b
-    auto), graphed as it is built, or with its eager step."""
+def _built(graphed: bool, **options):
+    """scenarios/random.toml's Simulator on the card, graphed as it is
+    built, or with the eager step its graphs capture (the module's
+    ``_graphs_on`` patched while it is built)."""
     from pedoni_tpu_torch import Simulator, SimulatorOptions
+    from pedoni_tpu_torch import sim as sim_module
 
-    sim = Simulator(SimulatorOptions(device="cuda", seed=7, capacity=capacity),
-                    load_scenario(SCENARIOS / "random.toml"))
-    if not graphed:
-        sim._graphed = None
-        sim._build(sim.cfg.capacity)
-    return sim
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(sim_module, "_graphs_on", lambda device: graphed)
+        return Simulator(SimulatorOptions(device="cuda", seed=7, **options),
+                         load_scenario(SCENARIOS / "random.toml"))
+
+
+def _random_flat(graphed: bool, capacity: int = 0):
+    """random.toml's flat Simulator on the card (the CLI's -b auto)."""
+    return _built(graphed, capacity=capacity)
 
 
 @pytest.mark.cuda
@@ -1394,7 +1399,7 @@ def test_graphed_flat_ticks_equal_eager_across_a_restore_and_a_growth(tmp_path):
             if t == 100:
                 checkpoint.save(sim, ckpt)
             if t == 150:
-                sim._grow()
+                sim._grow("capacity")
             if t == 300:
                 checkpoint.restore(sim, ckpt)
         assert graphed.last_metrics == eager.last_metrics, t
@@ -1521,18 +1526,9 @@ def test_graphed_flat_agents_read_from_a_thread_through_growths():
 
 
 def _random_grid(graphed: bool, **options):
-    """scenarios/random.toml's grid Simulator on the card (the CLI's -b
-    grid; the full rebin unless ``incremental_rebin`` says otherwise),
-    graphed as it is built, or with its eager step."""
-    from pedoni_tpu_torch import Simulator, SimulatorOptions
-
-    sim = Simulator(SimulatorOptions(backend="grid", device="cuda", seed=7,
-                                     **options),
-                    load_scenario(SCENARIOS / "random.toml"))
-    if not graphed:
-        sim._graphed = None
-        sim._build(sim.cfg.capacity)
-    return sim
+    """random.toml's grid Simulator on the card (the CLI's -b grid; the
+    full rebin unless ``incremental_rebin`` says otherwise)."""
+    return _built(graphed, backend="grid", **options)
 
 
 def _sizes(sim) -> tuple[int, int, int]:
@@ -1552,12 +1548,13 @@ def test_graphed_grid_ticks_equal_eager_through_growths_and_a_restore(path, tmp_
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from pedoni_tpu_torch import checkpoint
-    from pedoni_tpu_torch.sim import GraphedGridStep
+    from pedoni_tpu_torch.sim import GraphedStep
 
     hybrid = path == "hybrid"
     kw = {"incremental_rebin": True} if hybrid else {}
     graphed, eager = _random_grid(True, **kw), _random_grid(False, **kw)
-    assert isinstance(graphed._step, GraphedGridStep)
+    assert isinstance(graphed._step, GraphedStep)
+    assert not isinstance(eager._step, GraphedStep)
     assert graphed._resolve_incremental() == hybrid
     ckpt = tmp_path / "c.npz"
     n_ticks, grow, restore = (200, 60, 120) if hybrid else (600, 150, 300)
@@ -1569,9 +1566,9 @@ def test_graphed_grid_ticks_equal_eager_through_growths_and_a_restore(path, tmp_
             if t == 50:
                 checkpoint.save(sim, ckpt)
             if t == grow:
-                sim._grow_table(0)
+                sim._grow("table")
             if t == grow + 20 and hybrid:
-                sim._grow_movers()
+                sim._grow("movers")
             if t == restore:
                 checkpoint.restore(sim, ckpt)
         builds += _sizes(graphed) != sizes

@@ -146,7 +146,7 @@ def test_all_pairs_simulator_matches_oracle():
     assert sim.options.neighbor_grid_unit == 2.0
     assert sim.options.table_capacity == 29  # ceil(16 * (2.0 / 1.5)^2)
     assert sim.cfg.grid.unit == 2.0 and sim._fwp.shape[2] == 8  # stride 8
-    sim.state = sim._from_flat_state(PSimState(
+    sim.load_flat_state(PSimState(
         convert.agents_from_numpy(pos, vel, speed, dest, active, "cpu"), 0))
     for _ in range(N_STEPS):
         sim.tick()

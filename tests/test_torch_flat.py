@@ -501,7 +501,7 @@ def test_run_guard_on_the_grid_as_the_reference(monkeypatch):
     monkeypatch.setattr(port_sim.sfm_grid, "make_step_grid", injected)
     port = _burst_grid_sim(4)
     flat = ref._to_flat_state()
-    port.state = port._from_flat_state(_to_port(flat))
+    port.load_flat_state(_to_port(flat))
     assert port.pedestrian_count == ref.pedestrian_count
     ref.run(12, guard_every=4)
     port.run(12, guard_every=4)

@@ -1,17 +1,18 @@
-"""The Simulator's graphed flat step (``sim.GraphedStep``) on the CPU, with
-the CUDA graph stood in by the body it would capture: ticks and runs
-equal to the eager step's bit for bit across a restore and a growth; a
-state copied into the graph's buffers only when it is not the graph's own
-last output (the first tick, a restore, an assignment); a capture again
-only where the shapes change (growth, a restore that rebuilds at a larger
-capacity), never on a same-size restore; the launch counts a capture
-gives back and a replay adds; the ``sim.capture`` and ``sim.replay``
-spans; the agents read from another thread only between steps.  The
-one-device grid Simulator's graphed step (``sim.GraphedGridStep``) the
-same, through table and mover growths, with a graph a branch of the
-hybrid and tracing in its key; tiles and the pallas backend stay eager.
-On the card the same holds of the real graphs (tests/test_torch_cuda.py,
-``-k graphed``)."""
+"""The Simulator's graphed steps (``sim.GraphedStep``) on the CPU, with the
+CUDA graph stood in by the body it would capture (the module's
+``capture_graph`` patched) and the Simulator built as on a card (the
+module's ``_graphs_on`` patched while it is built): the flat step and the
+one-device grid step.  Ticks and runs equal to the eager step's bit for
+bit across a restore and growths (the flat capacity; the grid's table and
+mover table); a state copied into the graph's buffers only when it is not
+the graph's own last output (the first tick, a restore, an assignment); a
+capture again only where the shapes change (growth, a restore that
+rebuilds at a larger capacity), never on a same-size restore; a graph a
+branch of the grid's hybrid, with tracing in its key; the launch counts a
+capture gives back and a replay adds; the ``sim.capture`` and
+``sim.replay`` spans; the agents read from another thread only between
+steps.  Tiles and the pallas backend stay eager.  On the card the same
+holds of the real graphs (tests/test_torch_cuda.py, ``-k graphed``)."""
 
 from __future__ import annotations
 
@@ -23,13 +24,13 @@ import pytest
 import torch
 
 from pedoni_tpu_torch import checkpoint
+from pedoni_tpu_torch import sim as sim_module
 from pedoni_tpu_torch.models.sfm import (AgentState, SimState, StepMetrics,
                                           spawn_sampler)
 from pedoni_tpu_torch.ops import kernels
 from pedoni_tpu_torch.ops.kernels import flat_sample as fsk
 from pedoni_tpu_torch.scenario import loads_scenario
-from pedoni_tpu_torch.sim import (GraphedGridStep, GraphedStep, Simulator,
-                                  SimulatorOptions)
+from pedoni_tpu_torch.sim import GraphedStep, Simulator, SimulatorOptions
 from pedoni_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
@@ -65,25 +66,47 @@ destination = 0
 spawn = { kind = "periodic", frequency = 5 }
 """
 
+# each backend's graphed step, the grid on its full path
+KINDS = {"xla": {}, "grid": {"backend": "grid", "incremental_rebin": False}}
+
 
 def stand_in(body, generator):
     """The graph stood in by its body: a replay runs it eagerly."""
     return body
 
 
-def _sim(graphed: bool, capacity: int = 256, seed: int = 5) -> Simulator:
-    sim = Simulator(SimulatorOptions(device="cpu", seed=seed, capacity=capacity),
-                    loads_scenario(SCENARIO))
-    if graphed:
-        sim._graphed = GraphedStep(sim.generator, capture=stand_in)
-        sim._build(sim.cfg.capacity)
-    return sim
+@pytest.fixture(autouse=True)
+def _graphs_stood_in(monkeypatch):
+    monkeypatch.setattr(sim_module, "capture_graph", stand_in)
+
+
+def _sim(graphed: bool, **options) -> Simulator:
+    """A Simulator on the CPU whose kind graphs its step as on a card
+    (``graphed``), or steps eagerly."""
+    options = {"device": "cpu", "seed": 5, "capacity": 256, **options}
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(sim_module, "_graphs_on", lambda device: graphed)
+        return Simulator(SimulatorOptions(**options), loads_scenario(SCENARIO))
+
+
+def _tensors(state) -> tuple[torch.Tensor, ...]:
+    return (state.d,) if hasattr(state, "d") else tuple(state.agents)
+
+
+def _cloned(state):
+    """The same state in tensors of its own: an assignment."""
+    if hasattr(state, "d"):
+        return state._replace(d=state.d.clone())
+    return state._replace(agents=AgentState(*(t.clone() for t in state.agents)))
 
 
 def _same(a: Simulator, b: Simulator) -> None:
-    assert a.cfg.capacity == b.cfg.capacity and a.state.step == b.state.step
-    for x, y in zip(a.state.agents, b.state.agents):
-        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert a.options == b.options and a.cfg.capacity == b.cfg.capacity
+    assert a.state.step == b.state.step
+    for x, y in zip(_tensors(a.state), _tensors(b.state)):
+        assert x.dtype == y.dtype
+        assert torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
+                           y.view(torch.int32) if y.is_floating_point() else y)
     assert a.last_metrics == b.last_metrics
 
 
@@ -91,48 +114,82 @@ def test_the_cpu_simulator_steps_eagerly():
     for backend in ("xla", "pallas", "grid"):
         sim = Simulator(SimulatorOptions(backend=backend, device="cpu",
                                          capacity=256), loads_scenario(SCENARIO))
-        assert sim._graphed is None and not isinstance(sim._step, GraphedStep)
+        assert not isinstance(sim._step, GraphedStep)
         sim.tick()
         assert sim.graph_captures == 0
 
 
-def test_graphed_ticks_equal_eager_across_a_restore_and_a_growth(tmp_path):
-    graphed, eager = _sim(True), _sim(False)
+@pytest.mark.parametrize("path", ["xla", "full", "hybrid"])
+def test_graphed_ticks_equal_eager_across_a_restore_and_a_growth(path, tmp_path):
+    """Ticks of the graphed Simulator equal the eager one's bit for bit
+    through forced growths (the flat capacity 256 -> 512; the grid's table,
+    and in the hybrid its mover table) and a restore of an earlier
+    checkpoint (the flat one's 256 rows padded to 512).  Each growth
+    captures again and the restore does not; both leave a state of their
+    own, copied in at the next tick.  The hybrid (compact_every 4) meets
+    both of its keys between any two builds."""
+    if path == "xla":
+        kw, save, grows, restore, n_ticks = {}, 10, {25: "capacity"}, 40, 60
+    else:
+        kw = {"backend": "grid", "incremental_rebin": path == "hybrid",
+              "compact_every": 4}
+        grows = {12: "table", **({20: "movers"} if path == "hybrid" else {})}
+        save, restore, n_ticks = 5, 28, 40
+    graphed, eager = _sim(True, **kw), _sim(False, **kw)
     ckpt = tmp_path / "c.npz"
-    for t in range(1, 61):
+    for t in range(1, n_ticks + 1):
         for sim in (graphed, eager):
             sim.tick()
-            if t == 10:
+            if t == save:
                 checkpoint.save(sim, ckpt)
-            if t == 25:
-                sim._grow()  # a forced growth: 256 -> 512
-            if t == 40:
-                checkpoint.restore(sim, ckpt)  # at 512: padded, no rebuild
+            if t in grows:
+                sim._grow(grows[t])
+            if t == restore:
+                checkpoint.restore(sim, ckpt)
         _same(graphed, eager)
-        # growth and a restore leave a state of their own, copied in next
-        assert (graphed.state.agents is graphed._step._inputs) == (t not in (25, 40))
-    assert graphed.cfg.capacity == 512 and graphed.graph_captures == 2
-    assert any(m > 0 for m in graphed.last_metrics[:2])
+        assert graphed._step.holds(graphed.state) == (t not in (*grows, restore))
+    keys = 2 if path == "hybrid" else 1
+    assert graphed.graph_captures == (1 + len(grows)) * keys
+    assert graphed._step.copies_in == graphed.graph_captures + 1  # + the restore
+    assert eager.graph_captures == 0
+    if path == "xla":
+        assert graphed.cfg.capacity == 512
+        assert any(m > 0 for m in graphed.last_metrics[:2])
+    else:
+        assert graphed.options.table_capacity == 24
+        assert graphed.pedestrian_count > 40
 
 
-def test_graphed_runs_equal_eager_with_the_lagged_guard():
+@pytest.mark.parametrize("backend", ["xla", "grid"])
+def test_graphed_runs_equal_eager_with_the_lagged_guard(backend):
     """``run`` keeps a lagged metric of each step and sums them: each
-    replay's metrics are its own, not the graph's next output."""
-    graphed, eager = _sim(True, capacity=64), _sim(False, capacity=64)
+    replay's metrics are its own, not the graph's next output.  Its guard,
+    outside the graph, doubles the flat capacity or grows the grid's table
+    as the eager Simulator's does; one capture at the first tick, one a
+    growth."""
+    kw = ({"capacity": 64} if backend == "xla" else
+          {**KINDS["grid"], "table_capacity": 4})
+    graphed, eager = _sim(True, **kw), _sim(False, **kw)
     for sim in (graphed, eager):
         sim.tick()
         for _ in range(3):
-            sim.run(12, guard_every=4)
+            sim.run(12 if backend == "xla" else 8, guard_every=4)
     assert graphed.last_run_metrics == eager.last_run_metrics
-    for x, y in zip(graphed.state.agents, eager.state.agents):
-        assert torch.equal(x, y)
-    assert graphed.cfg.capacity == eager.cfg.capacity > 64  # the guard grew it
-    # one capture at the first tick, one a doubling
-    assert graphed.graph_captures == 1 + (graphed.cfg.capacity // 64).bit_length() - 1
+    _same(graphed, eager)
+    if backend == "xla":
+        assert graphed.cfg.capacity > 64
+        grown = (graphed.cfg.capacity // 64).bit_length() - 1
+    else:
+        k, grown = 4, 0
+        while k < graphed.options.table_capacity:  # 4 -> 8 -> 12 -> 18 ...
+            k, grown = k + max(4, k // 2), grown + 1
+        assert grown > 0
+    assert graphed.graph_captures == 1 + grown
 
 
-def test_a_state_is_copied_in_only_when_it_is_not_the_graphs():
-    sim = _sim(True)
+@pytest.mark.parametrize("backend", ["xla", "grid"])
+def test_a_state_is_copied_in_only_when_it_is_not_the_graphs(backend):
+    sim = _sim(True, **KINDS[backend])
     step = sim._step
     sim.tick()  # the first tick: its eager result is copied in
     assert (step.captures, step.copies_in) == (1, 1)
@@ -142,15 +199,15 @@ def test_a_state_is_copied_in_only_when_it_is_not_the_graphs():
     sim.state = sim.state._replace(step=sim.state.step)  # the same tensors
     sim.tick()
     assert step.copies_in == 1
-    a = sim.state.agents
-    sim.state = SimState(agents=AgentState(*(t.clone() for t in a)),
-                         step=sim.state.step)  # an assignment
+    sim.state = _cloned(sim.state)  # an assignment
     sim.tick()
-    assert step.copies_in == 2
-    sim.state.agents.pos[0, 0] += 0.5  # written in place: the graph reads it
-    before = sim.state.agents.pos[0].clone()
-    sim.tick()
-    assert step.copies_in == 2 and not torch.equal(sim.state.agents.pos[0], before)
+    assert step.copies_in == 2 and step.holds(sim.state)
+    if backend == "xla":
+        sim.state.agents.pos[0, 0] += 0.5  # written in place: the graph reads it
+        before = sim.state.agents.pos[0].clone()
+        sim.tick()
+        assert step.copies_in == 2
+        assert not torch.equal(sim.state.agents.pos[0], before)
     assert step.captures == 1
 
 
@@ -165,7 +222,7 @@ def test_a_restore_copies_in_and_captures_only_at_a_larger_capacity(tmp_path):
     checkpoint.restore(sim, small)  # the same capacity
     sim.tick()
     assert (step.captures, step.copies_in) == (1, 2)
-    sim._grow()
+    sim._grow("capacity")
     sim.tick()  # a new capacity: captured again
     assert sim.cfg.capacity == 512 and (step.captures, step.copies_in) == (2, 3)
     checkpoint.save(sim, large)  # capacity 512
@@ -210,7 +267,7 @@ def _toy_state(n: int = 4) -> SimState:
         step=0)
 
 
-def test_a_replay_adds_the_launches_its_capture_gave_back():
+def test_a_replay_adds_the_launches_its_capture_gave_back(monkeypatch):
     def record(body, generator):
         body()  # a capture records the body's launches and runs nothing
 
@@ -219,9 +276,10 @@ def test_a_replay_adds_the_launches_its_capture_gave_back():
 
         return replay
 
+    monkeypatch.setattr(sim_module, "capture_graph", record)
     kernels.zero_launch_counts()
     try:
-        step = GraphedStep(torch.Generator(), capture=record)
+        step = GraphedStep(torch.Generator())
         step.rebuild(_toy_eager)
         rows, obstacles = torch.zeros((1, 8)), ()
         state, m = step(_toy_state(), rows, obstacles)  # the warm-up, eager
@@ -238,7 +296,7 @@ def test_a_replay_adds_the_launches_its_capture_gave_back():
 
 
 def test_the_metrics_of_each_replay_are_their_own():
-    step = GraphedStep(torch.Generator(), capture=stand_in)
+    step = GraphedStep(torch.Generator())
     step.rebuild(_toy_eager)
     rows = torch.zeros((1, 8))
     state, m1 = step(_toy_state(4), rows, ())
@@ -262,8 +320,9 @@ def _program_tree(prof) -> collections.Counter:
     return out
 
 
-def test_capture_and_replay_open_their_spans_inside_the_tick():
-    sim = _sim(True)
+@pytest.mark.parametrize("backend", ["xla", "grid"])
+def test_capture_and_replay_open_their_spans_inside_the_tick(backend):
+    sim = _sim(True, **KINDS[backend])
     trace.enable(True)
     try:
         trees = []
@@ -275,8 +334,9 @@ def test_capture_and_replay_open_their_spans_inside_the_tick():
     finally:
         trace.enable(False)
     first, second = trees
+    layer = "flat" if backend == "xla" else "grid"
     assert first[("sim.capture", "sim.tick")] == 1
-    assert first[("flat.step", "sim.capture")] == 1  # the warm-up, eager
+    assert first[(f"{layer}.step", "sim.capture")] == 1  # the warm-up, eager
     assert first[("sim.replay", "sim.tick")] == 0
     assert second[("sim.replay", "sim.tick")] == 1
     assert second[("sim.capture", "sim.tick")] == 0
@@ -284,11 +344,14 @@ def test_capture_and_replay_open_their_spans_inside_the_tick():
 
 
 @pytest.mark.parametrize("advance", ["tick", "run"])
-def test_agents_are_read_from_another_thread_only_between_steps(advance):
+@pytest.mark.parametrize("backend", ["xla", "grid"])
+def test_agents_are_read_from_another_thread_only_between_steps(
+        backend, advance, monkeypatch):
     """``list_pedestrians`` on a second thread, as the CLI's live views
-    call it, while ``tick`` or ``run`` replays and grows: no read starts
-    inside a replay (on a card the replay rewrites the state it would
-    read), and each read is of one state whole."""
+    call it, while ``tick`` or ``run`` replays and grows (the flat
+    capacity, the grid's table): no read starts inside a replay (on a card
+    the replay rewrites the state it would read), and each read is of one
+    state whole."""
     stepping = threading.Event()
 
     def slow(body, generator):
@@ -300,17 +363,18 @@ def test_agents_are_read_from_another_thread_only_between_steps(advance):
 
         return replay
 
-    sim = _sim(False, capacity=48)  # the 40 placed at once pass 80%
-    sim._graphed = GraphedStep(sim.generator, capture=slow)
-    sim._build(sim.cfg.capacity)
-    to_flat = sim._to_flat_state
+    monkeypatch.setattr(sim_module, "capture_graph", slow)
+    # the 40 placed at once pass 80% of 48; K 4 fills at once
+    sim = (_sim(True, capacity=48) if backend == "xla"
+           else _sim(True, **KINDS["grid"], table_capacity=4))
+    flat_state = sim.flat_state
     inside, reads = [], []
 
     def watched():
         inside.append(stepping.is_set())
-        return to_flat()
+        return flat_state()
 
-    sim._to_flat_state = watched
+    sim.flat_state = watched
     done = threading.Event()
 
     def reader():
@@ -328,65 +392,17 @@ def test_agents_are_read_from_another_thread_only_between_steps(advance):
                 sim.run(4, guard_every=2)
     finally:
         done.set()
-        thread.join()
-    assert sim.cfg.capacity > 48 and sim.graph_captures >= 2  # grown
+        thread.join(timeout=60)
+    assert not thread.is_alive()
+    grown = (sim.cfg.capacity > 48 if backend == "xla"
+             else sim.options.table_capacity > 4)
+    assert grown and sim.graph_captures >= 2
     assert reads and not any(inside)
     assert all(n_pos == n_dest for n_pos, n_dest in reads)
 
 
-# The one-device grid Simulator's graphed step (``sim.GraphedGridStep``):
-# its buffer is the grid D, and the hybrid holds one graph a host key.
-
-
-def _grid(graphed: bool, **options) -> Simulator:
-    options = {"backend": "grid", "device": "cpu", "seed": 5, "capacity": 256,
-               **options}
-    sim = Simulator(SimulatorOptions(**options), loads_scenario(SCENARIO))
-    if graphed:
-        sim._graphed = GraphedGridStep(sim.generator, capture=stand_in)
-        sim._build(sim.cfg.capacity)
-    return sim
-
-
-def _same_grid(a: Simulator, b: Simulator) -> None:
-    assert a.options == b.options and a.state.step == b.state.step
-    assert torch.equal(a.state.d.view(torch.int32), b.state.d.view(torch.int32))
-    assert a.last_metrics == b.last_metrics
-
-
-@pytest.mark.parametrize("path", ["full", "hybrid"])
-def test_graphed_grid_ticks_equal_eager_across_growths_and_a_restore(path, tmp_path):
-    """Ticks of the graphed grid Simulator equal the eager one's bit for bit
-    through a table growth, (in the hybrid) a mover growth and a restore of
-    an earlier checkpoint; each growth captures again, the restore (the
-    same sizes) does not; the hybrid meets both of its keys between any two
-    rebuilds (compact_every 4)."""
-    kw = {"incremental_rebin": path == "hybrid", "compact_every": 4}
-    graphed, eager = _grid(True, **kw), _grid(False, **kw)
-    ckpt = tmp_path / "c.npz"
-    for t in range(1, 41):
-        for sim in (graphed, eager):
-            sim.tick()
-            if t == 5:
-                checkpoint.save(sim, ckpt)
-            if t == 12:
-                sim._grow_table(0)
-            if t == 20 and path == "hybrid":
-                sim._grow_movers()
-            if t == 28:
-                checkpoint.restore(sim, ckpt)
-        _same_grid(graphed, eager)
-        own = t not in ((12, 20, 28) if path == "hybrid" else (12, 28))
-        assert (graphed.state.d is graphed._step._inputs) == own
-    assert graphed.options.table_capacity == 24
-    builds = 3 if path == "hybrid" else 2
-    assert graphed.graph_captures == builds * (2 if path == "hybrid" else 1)
-    assert graphed._step.copies_in == graphed.graph_captures + 1  # + the restore
-    assert eager.graph_captures == 0 and graphed.pedestrian_count > 40
-
-
 def test_the_hybrid_captures_a_graph_a_branch():
-    sim = _grid(True, incremental_rebin=True, compact_every=4)
+    sim = _sim(True, backend="grid", incremental_rebin=True, compact_every=4)
     step = sim._step
     sim.tick()  # step 0: the full rebin's branch
     assert list(step._graphs) == [(True, False)]
@@ -396,42 +412,12 @@ def test_the_hybrid_captures_a_graph_a_branch():
     assert (step.captures, step.copies_in) == (2, 2)
 
 
-def test_a_grid_state_is_copied_in_only_when_it_is_not_the_graphs():
-    sim = _grid(True, incremental_rebin=False)
-    step = sim._step
-    for _ in range(4):
-        sim.tick()
-    assert (step.captures, step.copies_in) == (1, 1)
-    sim.state = sim.state._replace(d=sim.state.d.clone())  # an assignment
-    sim.tick()
-    assert (step.captures, step.copies_in) == (1, 2)
-    assert sim.state.d is step._inputs
-
-
-def test_graphed_grid_runs_equal_eager_with_the_lagged_guard():
-    """``run`` replays, its lagged guard outside the graph grows the table
-    as the eager Simulator's does."""
-    kw = {"table_capacity": 4, "incremental_rebin": False}
-    graphed, eager = _grid(True, **kw), _grid(False, **kw)
-    for sim in (graphed, eager):
-        sim.tick()
-        for _ in range(3):
-            sim.run(8, guard_every=4)
-    assert graphed.last_run_metrics == eager.last_run_metrics
-    assert graphed.options.table_capacity == eager.options.table_capacity > 4
-    _same_grid(graphed, eager)
-    k, grown = 4, 0
-    while k < graphed.options.table_capacity:  # 4 -> 8 -> 12 -> 18 ...
-        k, grown = k + max(4, k // 2), grown + 1
-    assert graphed.graph_captures == 1 + grown
-
-
 def test_turning_tracing_on_captures_the_hybrid_again():
     """Tracing adds to ``full_rebins`` inside the hybrid step, so it joins
     the host key: its graphs are captured again while it is on, and count
     the full rebins as the eager step does."""
-    kw = {"incremental_rebin": True, "compact_every": 4}
-    graphed, eager = _grid(True, **kw), _grid(False, **kw)
+    kw = {"backend": "grid", "incremental_rebin": True, "compact_every": 4}
+    graphed, eager = _sim(True, **kw), _sim(False, **kw)
     for sim in (graphed, eager):
         for _ in range(4):
             sim.tick()
@@ -448,11 +434,11 @@ def test_turning_tracing_on_captures_the_hybrid_again():
     for sim in (graphed, eager):
         sim.tick()
     assert graphed.graph_captures == 4  # off again: the first graphs
-    _same_grid(graphed, eager)
+    _same(graphed, eager)
 
 
 def test_injected_candidates_and_the_timings_stay_eager():
-    sim = _grid(True, incremental_rebin=False)
+    sim = _sim(True, **KINDS["grid"])
     for _ in range(3):
         sim.tick()
     step = sim._step
@@ -461,84 +447,18 @@ def test_injected_candidates_and_the_timings_stay_eager():
     assert torch.equal(sim.state.d, before) and step.captures == 1
     cand = spawn_sampler(sim.cfg, sim.device)(torch.Generator().manual_seed(3))
     state, _m = sim._step(sim.state, sim._fwp, sim._fobs, cand)
-    assert state.d is not step._inputs and step.captures == 1
+    assert not step.holds(state) and step.captures == 1
     sim.state = state
     sim.tick()
-    assert step.copies_in == 2 and sim.state.d is step._inputs
+    assert step.copies_in == 2 and step.holds(sim.state)
 
 
 def test_tiles_and_the_pallas_backend_step_eagerly():
+    """Even where steps are graphed, as on a card."""
     for options in ({"backend": "grid", "n_devices": 2}, {"backend": "pallas"}):
-        sim = Simulator(SimulatorOptions(device="cpu", capacity=256, **options),
-                        loads_scenario(SCENARIO))
+        sim = _sim(True, **options)
         sim.tick()
-        assert sim._graphed is None and sim.graph_captures == 0
-
-
-def test_grid_capture_and_replay_open_their_spans_inside_the_tick():
-    sim = _grid(True, incremental_rebin=False)
-    trace.enable(True)
-    try:
-        trees = []
-        for _ in range(2):
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-                sim.tick()
-            trees.append(_program_tree(prof))
-    finally:
-        trace.enable(False)
-    first, second = trees
-    assert first[("sim.capture", "sim.tick")] == 1
-    assert first[("grid.step", "sim.capture")] == 1  # the warm-up, eager
-    assert second[("sim.replay", "sim.tick")] == 1
-    assert second[("sim.capture", "sim.tick")] == 0
-
-
-def test_grid_agents_are_read_from_another_thread_only_between_steps():
-    """The grid's reads (an unbinning of the graph's buffer) from a second
-    thread while ``tick`` replays and the table grows: none inside a
-    replay, each of one state whole."""
-    stepping = threading.Event()
-
-    def slow(body, generator):
-        def replay():
-            stepping.set()
-            time.sleep(0.002)
-            body()
-            stepping.clear()
-
-        return replay
-
-    sim = _grid(False, table_capacity=4, incremental_rebin=False)
-    sim._graphed = GraphedGridStep(sim.generator, capture=slow)
-    sim._build(sim.cfg.capacity)
-    to_flat = sim._to_flat_state
-    inside, reads = [], []
-
-    def watched():
-        inside.append(stepping.is_set())
-        return to_flat()
-
-    sim._to_flat_state = watched
-    done = threading.Event()
-
-    def reader():
-        while not done.is_set():
-            pos, dest = sim.list_pedestrians()
-            reads.append((len(pos), len(dest)))
-
-    thread = threading.Thread(target=reader)
-    thread.start()
-    try:
-        for _ in range(12):
-            sim.tick()
-    finally:
-        done.set()
-        thread.join(timeout=60)
-    assert not thread.is_alive()
-    assert sim.options.table_capacity > 4 and sim.graph_captures >= 2  # grown
-    assert reads and not any(inside)
-    assert all(n_pos == n_dest for n_pos, n_dest in reads)
+        assert not isinstance(sim._step, GraphedStep) and sim.graph_captures == 0
 
 
 @pytest.mark.parametrize("backend", ["xla", "grid"])
@@ -546,17 +466,16 @@ def test_a_step_lets_a_waiting_read_go_first(backend):
     """A read that waits for the step's lock goes before the next step, so
     that ticks back to back (the CLI's live views with no pacing) do not
     starve another thread's reads."""
-    sim = (_sim(True) if backend == "xla"
-           else _grid(True, incremental_rebin=False))
+    sim = _sim(True, **KINDS[backend])
     sim.tick()
-    to_flat = sim._to_flat_state
+    flat_state = sim.flat_state
     read_at = []
 
     def watched():
         read_at.append(sim.step_count)
-        return to_flat()
+        return flat_state()
 
-    sim._to_flat_state = watched
+    sim.flat_state = watched
     thread = threading.Thread(target=sim.list_pedestrians)
     with sim._lock:  # a step under way
         thread.start()

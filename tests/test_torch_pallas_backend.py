@@ -269,7 +269,7 @@ def _sim(backend, **kw):
 
 
 def _sim_rows(sim):
-    a = convert.agents_to_numpy(sim._to_flat_state().agents)
+    a = convert.agents_to_numpy(sim.flat_state().agents)
     return _rows(a["pos"], a["vel"], a["speed"], a["dest"], a["active"])
 
 

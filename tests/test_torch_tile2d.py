@@ -283,7 +283,7 @@ def test_tiled_simulator_evacuates_gap_like_one_device():
     one = Simulator(SimulatorOptions(backend="grid", device="cpu", seed=1), sc)
     four = Simulator(SimulatorOptions(backend="grid", device="cpu", seed=1, n_devices=4,
                                       tile=(2, 2)), sc)
-    assert four._tcfg.n_devices == 4 and four.pedestrian_count == one.pedestrian_count
+    assert four._kind.tcfg.n_devices == 4 and four.pedestrian_count == one.pedestrian_count
     for i in range(400):
         one.tick()
         four.tick()
