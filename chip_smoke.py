@@ -253,7 +253,7 @@ F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PAIR_FLOPS = 45  # float operations of one pair_accum within the cutoff
 PAIR_TEST_FLOPS = 6  # its distance test alone (a candidate past the cutoff)
 # float operations of one forces.pair_terms pair within the cutoff, as
-# csrc/flat_pairwise.cu evaluates it (four divides, four sqrt, one exp, the
+# csrc/flat_pairwise.cu evaluates it (seven divides, four sqrt, one exp, the
 # FOV test, the damping and the two adds of the sum each counted once)
 FLAT_PAIR_FLOPS = 63
 # float operations of one agent of csrc/flat_sample.cu (the coordinates,
@@ -2171,6 +2171,42 @@ def _flat_model_and_quickstart(dev) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _pair_grid(step, st, *inputs) -> torch.Tensor:
+    """The padded cell grid that the flat step ``step`` hands its pair pass
+    on one step from ``st`` (a copy)."""
+    from pedoni_tpu_torch.ops import forcepass
+
+    real, seen = forcepass.dense_pairwise, []
+
+    def spy(data, *args, **kw):
+        seen.append(data.clone())
+        return real(data, *args, **kw)
+
+    forcepass.dense_pairwise = spy
+    try:
+        step(st, *inputs)
+    finally:
+        forcepass.dense_pairwise = real
+    return seen[0]
+
+
+def _jam_flat_grid(dev) -> tuple[torch.Tensor, object, int]:
+    """scenarios/random.toml's padded cell grid on the flat step (K 16 at
+    1.4 m) after SPAWN_FILL_TICKS ticks of the CLI's default Simulator, as
+    the benchmark's random.tick cell fills it: (grid, physics, agents)."""
+    from pedoni_tpu_torch import Simulator, SimulatorOptions, load_scenario
+    from pedoni_tpu_torch.models import sfm
+
+    sim = Simulator(SimulatorOptions(backend="xla", neighbor_grid_unit=1.4,
+                                     field_grid_unit=0.25, table_capacity=16,
+                                     seed=1, device=dev.type), load_scenario(RANDOM))
+    sim.run(SPAWN_FILL_TICKS)
+    field, obstacles = sfm.device_inputs(sim.cfg, sim.maps, dev)
+    step = sfm.make_step(sim.cfg, generator=torch.Generator(device=dev).manual_seed(1))
+    d = _pair_grid(step, sim.flat_state(), field.rows, obstacles)
+    return d, sim.cfg.physics, sim.pedestrian_count
+
+
 def _flat_grids(dev) -> list[tuple[str, torch.Tensor]]:
     """Seeded padded grids [ny+2, nx+2, K, 8] for the flat pair kernel:
     test_torch_cuda.py's cases (K 14, 16, 64 and 255, a ragged nx, one
@@ -2208,10 +2244,12 @@ def _flat_grids(dev) -> list[tuple[str, torch.Tensor]]:
 
 def _flat_kernel_entry(dev, card, d: torch.Tensor, phys, launches: int) -> dict:
     """15c. The flat pair kernel against its twin (forcepass.
-    dense_pairwise_torch, on the card) bit for bit on ``_flat_grids`` and on
-    the 1M problem's padded grid ``d``; kernel, twin and bound timed on
-    ``d``, beside its first design's time.  Returns the JSON entry, with
-    ``launches`` from the 1M run."""
+    dense_pairwise_torch, on the card) bit for bit on ``_flat_grids``, on
+    the 1M problem's padded grid ``d`` and on random.toml's jammed grid
+    (``_jam_flat_grid``); kernel, twin and bound timed on ``d``, beside its
+    first design's time, the kernel on the jammed grid too, and the
+    kernel's lane occupancies (flat_pairwise_occupancy) on both.  Returns
+    the JSON entry, with ``launches`` from the 1M run."""
     from pedoni_tpu_torch.ops import forcepass
     from pedoni_tpu_torch.ops.kernels import flat_pairwise as fpk
     from pedoni_tpu_torch.ops.neighbor import CellGrid
@@ -2221,8 +2259,10 @@ def _flat_kernel_entry(dev, card, d: torch.Tensor, phys, launches: int) -> dict:
         return forcepass.dense_pairwise_torch(g, grid, g.shape[2], phys,
                                               pass_bytes=FLAT_TWIN_PASS_BYTES)
 
+    jam, jam_phys, jam_agents = _jam_flat_grid(dev)
     errs, k_up_to = {}, 0
-    for what, g in (*_flat_grids(dev), (f"1M grid {tuple(d.shape)}", d)):
+    for what, g in (*_flat_grids(dev), (f"1M grid {tuple(d.shape)}", d),
+                    (f"random.toml jam {tuple(jam.shape)}", jam)):
         got, want = fpk.flat_pairwise(g, phys), twin(g)
         torch.cuda.synchronize()
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)) or \
@@ -2251,13 +2291,24 @@ def _flat_kernel_entry(dev, card, d: torch.Tensor, phys, launches: int) -> dict:
           f"{FLAT_PAIR_FLOPS} + {beyond} past it x {PAIR_TEST_FLOPS} = "
           f"{flops / 1e9:.3f} GFLOP at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
           f"{b_ms / k_ms:.1%} of it) on {card}", flush=True)
+    jam_ms = _median_ms(lambda: fpk.flat_pairwise(jam, jam_phys))
+    occ = {"1M": fpk.flat_pairwise_occupancy(d, phys),
+           "jam": fpk.flat_pairwise_occupancy(jam, jam_phys)}
+    print(f"# flat_pairwise: on random.toml's jammed grid after {SPAWN_FILL_TICKS} "
+          f"ticks ({jam_agents} agents, K {jam.shape[2]}) kernel {jam_ms:.4f} ms "
+          f"(median of 20, CUDA events); lane occupancy of the force body / the "
+          f"walk: 1M grid {occ['1M']['body_occupancy']:.4f} / "
+          f"{occ['1M']['walk_occupancy']:.4f}, jammed grid "
+          f"{occ['jam']['body_occupancy']:.4f} / {occ['jam']['walk_occupancy']:.4f} "
+          f"({occ['1M']['pairs']} and {occ['jam']['pairs']} pairs) on {card}",
+          flush=True)
     return {"name": "flat_pairwise", "route": "cuda",
             "source": CSRC + "flat_pairwise.cu",
             "replaces": "pedoni_tpu/ops/forcepass.py:141 (XLA, no pallas_call)",
             "path": "flat", "launches": launches,
             "max_abs_err": max(errs.values()), "ms": k_ms, "plain_ms": t_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "k_up_to": k_up_to}
+            "k_up_to": k_up_to, "jam_ms": jam_ms, "occupancy": occ}
 
 
 def _cases_module(name: str = "test_torch_flat_sample_cases"):

@@ -108,6 +108,8 @@ def library() -> ctypes.CDLL:
         lib.pedoni_pairwise.restype = i
         lib.pedoni_flat_pairwise.argtypes = [p, p] + [i] * 3 + [p, p]
         lib.pedoni_flat_pairwise.restype = i
+        lib.pedoni_flat_pairwise_occupancy.argtypes = [p, p] + [i] * 3 + [p, p, p]
+        lib.pedoni_flat_pairwise_occupancy.restype = i
         lib.pedoni_flat_pairwise_tile.argtypes = [i, p]
         lib.pedoni_flat_pairwise_tile.restype = i
         q = ctypes.c_int64

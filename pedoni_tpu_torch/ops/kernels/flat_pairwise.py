@@ -12,7 +12,9 @@ bit on the card.
 
 The kernel's block is a tile of cells with its one-cell halo in shared
 memory; the kernel's launcher picks the tile from K (``tile_shape`` asks
-it which), so that several blocks share an SM.
+it which), so that several blocks share an SM.  Its warps share the pair
+work of 32 slots at a time; ``flat_pairwise_occupancy`` reads how busy
+their lanes are.
 
 The reference has no pallas_call here: XLA fuses its ``lax.map`` over row
 blocks (pedoni_tpu/ops/forcepass.py:141).  The flat step and the x-strips
@@ -59,6 +61,18 @@ def _check(data: torch.Tensor) -> None:
                          "(ny, nx >= 1, 1 <= K <= 255)")
 
 
+def _launch_args(data: torch.Tensor, phys: Physics):
+    """(library, acc, constants) of a launch on ``data``, a CUDA tensor."""
+    if data.device.type != "cuda":
+        raise ValueError(f"flat_pairwise: unsupported device {data.device}")
+    if data.data_ptr() % 16:
+        raise ValueError("flat_pairwise: data must be 16-byte aligned")
+    ny2, nx2, k, _ = data.shape
+    acc = torch.empty((ny2 * nx2 * k, 2), dtype=torch.float32, device=data.device)
+    consts = torch.tensor(flat_constants(phys), dtype=torch.float32)
+    return _build.library(), acc, consts
+
+
 def flat_pairwise(data: torch.Tensor, phys: Physics) -> torch.Tensor:
     """Pair accelerations of every slot of ``data`` (see the module's
     docstring): the kernel on a CUDA tensor, the twin on a CPU one."""
@@ -67,13 +81,7 @@ def flat_pairwise(data: torch.Tensor, phys: Physics) -> torch.Tensor:
     if data.device.type == "cpu":
         from ..forcepass import dense_pairwise_torch
         return dense_pairwise_torch(data, CellGrid(1.0, nx2 - 2, ny2 - 2), k, phys)
-    if data.device.type != "cuda":
-        raise ValueError(f"flat_pairwise: unsupported device {data.device}")
-    if data.data_ptr() % 16:
-        raise ValueError("flat_pairwise: data must be 16-byte aligned")
-    lib = _build.library()
-    acc = torch.empty((ny2 * nx2 * k, 2), dtype=torch.float32, device=data.device)
-    consts = torch.tensor(flat_constants(phys), dtype=torch.float32)
+    lib, acc, consts = _launch_args(data, phys)
     with torch.cuda.device(data.device):  # a launch goes to the current card
         rc = lib.pedoni_flat_pairwise(
             data.data_ptr(), acc.data_ptr(), ny2, nx2, k, consts.data_ptr(),
@@ -84,3 +92,24 @@ def flat_pairwise(data: torch.Tensor, phys: Physics) -> torch.Tensor:
 
 
 flat_pairwise.launches = 0
+
+
+def flat_pairwise_occupancy(data: torch.Tensor, phys: Physics) -> dict:
+    """How busy the kernel's lanes are on ``data`` (a CUDA tensor): one
+    launch of its counting build (not counted in ``flat_pairwise.launches``)
+    reads the pairs evaluated, the lanes issued in force-body batches, the
+    distance tests made and the lanes issued in walk rounds; the
+    occupancies are pairs over body lanes and tests over walk lanes."""
+    _check(data)
+    ny2, nx2, k, _ = data.shape
+    lib, acc, consts = _launch_args(data, phys)
+    counts = torch.zeros(4, dtype=torch.int64, device=data.device)
+    with torch.cuda.device(data.device):
+        rc = lib.pedoni_flat_pairwise_occupancy(
+            data.data_ptr(), acc.data_ptr(), ny2, nx2, k, consts.data_ptr(),
+            counts.data_ptr(), torch.cuda.current_stream(data.device).cuda_stream)
+    _build.check_launch(rc, "pedoni_flat_pairwise_occupancy")
+    pairs, body, tests, walk = counts.tolist()
+    return {"pairs": pairs, "body_lanes": body, "tests": tests, "walk_lanes": walk,
+            "body_occupancy": pairs / body if body else None,
+            "walk_occupancy": tests / walk if walk else None}

@@ -970,19 +970,28 @@ def test_spatial_strips_on_the_card():
 
 
 def _flat_grid(ny: int, nx: int, k: int, seed: int,
-               scattered: bool = False) -> torch.Tensor:
+               kind: str = "random") -> torch.Tensor:
     """A seeded padded grid [ny+2, nx+2, K, 8] on the card, as
     forcepass.scatter_cell_data lays one out: each cell filled from slot 0
     (a fifth of them empty), cells up to full, 5% of the filled slots
-    inactive, agents in the ring too.  ``scattered``: positions anywhere
-    within 3 cells of their own (no cell holds only its own), a few NaN
-    and infinite, so that the kernel's per-cell box cull meets boxes that
-    overlap and boxes with non-finite corners."""
+    inactive, agents in the ring too.  ``kind``: "scattered", positions
+    anywhere within 3 cells of their own (no cell holds only its own), a
+    few NaN and infinite, so that the kernel's per-cell box cull meets
+    boxes that overlap and boxes with non-finite corners; "jam", nine in
+    ten cells full and every filled slot active, 5-8 agents a m^2 at
+    1.4 m; "lone", one full tile of 4 x 8 cells among empty ones."""
     rng = np.random.default_rng(seed)
     d = np.zeros((ny + 2, nx + 2, k, 8), np.float32)
     count = rng.integers(0, k + 1, (ny + 2, nx + 2)) * (
         rng.uniform(size=(ny + 2, nx + 2)) < 0.8)
+    if kind == "jam":
+        count = np.where(rng.uniform(size=count.shape) < 0.9, k,
+                         rng.integers(10, k + 1, count.shape))
+    if kind == "lone":
+        count = np.zeros_like(count)
+        count[4:8, 8:16] = k  # the tile (1, 1) of the K 14 launch
     r, c, j = np.nonzero(np.arange(k)[None, None] < count[..., None])
+    scattered = kind == "scattered"
     spread = rng.uniform(-3.0, 4.0, (2, r.size)) if scattered else rng.uniform(
         size=(2, r.size))
     d[r, c, j, 0] = (c - 1 + spread[0]) * 1.4
@@ -993,30 +1002,37 @@ def _flat_grid(ny: int, nx: int, k: int, seed: int,
     d[r, c, j, 2:4] = rng.normal(0, 0.8, (r.size, 2))
     e = rng.normal(0, 1, (r.size, 2))
     d[r, c, j, 4:6] = e / np.linalg.norm(e, axis=1, keepdims=True)
-    d[r, c, j, 6] = rng.uniform(size=r.size) < 0.95
+    d[r, c, j, 6] = rng.uniform(size=r.size) < (1.0 if kind == "jam" else 0.95)
     return torch.from_numpy(d).cuda()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ny, nx, k, scattered",
-                         [(30, 40, 14, False), (24, 37, 16, False), (10, 12, 64, False),
-                          (6, 7, 255, False), (17, 131, 14, False),
-                          (452, 229, 14, False), (30, 40, 14, True), (8, 9, 64, True)],
+@pytest.mark.parametrize("ny, nx, k, kind",
+                         [(30, 40, 14, "random"), (24, 37, 16, "random"),
+                          (10, 12, 64, "random"), (6, 7, 255, "random"),
+                          (17, 131, 14, "random"), (452, 229, 14, "random"),
+                          (30, 40, 14, "scattered"), (8, 9, 64, "scattered"),
+                          (24, 37, 16, "jam"), (14, 26, 14, "lone"),
+                          (30, 40, 1, "random"), (10, 12, 33, "random")],
                          ids=["K14", "K16", "K64", "K255", "ragged_nx", "strip",
-                              "scattered_K14", "scattered_K64"])
-def test_flat_pairwise_matches_twin(ny, nx, k, scattered):
+                              "scattered_K14", "scattered_K64", "jam_K16",
+                              "lone_tile", "K1", "K33"])
+def test_flat_pairwise_matches_twin(ny, nx, k, kind):
     """The flat pair kernel (csrc/flat_pairwise.cu) against its twin
     (forcepass.dense_pairwise_torch) on the card, bit for bit on the whole
     padded tensor, ring and inactive slots included; each K takes its own
-    tile shape (1 x 1 at K 255); the last case is one of two x-strips'
+    tile shape (1 x 1 at K 255); the strip case is one of two x-strips'
     windows of the 1M xla problem; the scattered cases hold agents off
-    their cells, some at non-finite positions.  One launch counted."""
+    their cells, some at non-finite positions; a jammed grid at K 16 (a
+    warp's queue fills many times over), one full tile among empty ones,
+    and K 1 and 33, where a cell's slots are fewer or more than a warp's
+    lanes.  One launch counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from pedoni_tpu_torch.ops import forcepass
     from pedoni_tpu_torch.ops.neighbor import CellGrid
 
-    d = _flat_grid(ny, nx, k, seed=k + nx, scattered=scattered)
+    d = _flat_grid(ny, nx, k, seed=k + nx, kind=kind)
     phys = Physics()
     before = fpk.flat_pairwise.launches
     got = fpk.flat_pairwise(d, phys)
@@ -1030,6 +1046,32 @@ def test_flat_pairwise_matches_twin(ny, nx, k, scattered):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ny, nx, k, kind", [(30, 40, 14, "random"),
+                                             (24, 37, 16, "jam")],
+                         ids=["K14", "jam_K16"])
+def test_flat_pairwise_occupancy(ny, nx, k, kind):
+    """The kernel's occupancy counter (flat_pairwise_occupancy): its pairs
+    are the pairs within the cutoff that chip_smoke.py's _flat_pairs counts
+    on the same grid (every interior slot's, active or idle), its distance
+    tests at least as many, both occupancies in (0, 1], and it counts no
+    launch of the step's kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import chip_smoke
+
+    d = _flat_grid(ny, nx, k, seed=k + nx, kind=kind)
+    phys = Physics()
+    before = fpk.flat_pairwise.launches
+    got = fpk.flat_pairwise_occupancy(d, phys)
+    assert fpk.flat_pairwise.launches == before
+    within, _beyond = chip_smoke._flat_pairs(d, phys.cutoff_sq)
+    assert got["pairs"] == within > 0
+    assert got["tests"] >= got["pairs"]
+    assert 0 < got["body_occupancy"] <= 1 and 0 < got["walk_occupancy"] <= 1
+    assert got["body_lanes"] % 32 == 0 and got["walk_lanes"] % 32 == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 14, 16, 64, 255])
 def test_flat_pairwise_tile_fits_the_block(k):
     """The flat pair kernel's launch at K as its launcher picks it
@@ -1037,7 +1079,8 @@ def test_flat_pairwise_tile_fits_the_block(k):
     up to 255 its shared memory within 64 KB, its halo slots indexable by
     the kernel's 16-bit list, threads a multiple of 32 up to 256 and no
     more than its slots need; the preferred 4 x 8 tile at the 1M problem's
-    K 14, and the shared memory laid out as the kernel's comment says."""
+    K 14, with four blocks resident an SM, fewer warps past K 213, and the
+    shared memory laid out as the kernel's comment says."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     for kk in range(1, 256):
@@ -1050,11 +1093,13 @@ def test_flat_pairwise_tile_fits_the_block(k):
         with pytest.raises(ValueError, match="unsupported K"):
             fpk.tile_shape(bad)
     tr, tc, threads, smem = fpk.tile_shape(k)
-    assert (tr, tc) == {1: (4, 8), 14: (4, 8), 16: (4, 8), 64: (2, 4),
-                        255: (1, 1)}[k]
-    halo = (tr + 2) * (tc + 2)
-    assert smem == (10 * tr * tc * k + 20 * halo * k + 20 * halo + 128
-                    + 2 * 32 * threads)
+    assert (tr, tc, threads) == {1: (4, 8, 32), 14: (4, 8, 256), 16: (4, 8, 256),
+                                 64: (2, 4, 256), 255: (1, 1, 128)}[k]
+    halo, warps = (tr + 2) * (tc + 2), threads // 32
+    assert smem == (12 * tr * tc * k + 20 * halo * k + 20 * halo + 196
+                    + (1408 + 8 * 256) * warps)
+    if k in (14, 16):  # four blocks an SM (228 KB, 1 KB reserved a block)
+        assert 4 * (smem + 1024) <= 228 * 1024
 
 
 def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
