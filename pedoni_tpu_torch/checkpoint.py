@@ -94,9 +94,10 @@ def save(sim, path: str | Path) -> None:
 
 def restore(sim, path: str | Path) -> None:
     """Restore a Simulator in place (``Simulator.load_flat_state``: a
-    checkpoint larger than the simulator's capacity rebuilds it at the
-    checkpoint's capacity; a smaller one is padded with inactive slots, the
-    reference's checkpoint.py:64-87).  One process only."""
+    checkpoint larger than the simulator's capacity raises it to the
+    checkpoint's capacity, rebuilding the flat backends' step; a smaller one
+    is padded with inactive slots, the reference's checkpoint.py:64-87).
+    One process only."""
     state, step_count, generator = _read(path)
     sim.load_flat_state(state)
     sim.step_count = step_count

@@ -363,7 +363,8 @@ class _Kind:
     (the step and its two inputs for ``sim.cfg``, refused before any tensor
     exists where they do not fit), ``to_flat``/``from_flat`` (the state as
     flat agents and back), ``count``, ``growth`` (what a step's metrics call
-    for) and ``dropped`` (what ``n_dropped`` counts).  Where ``graph_how``
+    for), ``hold`` (room for more agent rows than the capacity) and
+    ``dropped`` (what ``n_dropped`` counts).  Where ``graph_how``
     is set, the step on a card (:func:`_graphs_on`) is a
     :class:`GraphedStep` made with it."""
 
@@ -393,6 +394,12 @@ class _Kind:
     def one_process(self, what: str) -> None:
         """Raise NotImplementedError for ``what`` where the state spans
         processes."""
+
+    def hold(self, rows: int) -> None:
+        """Before a state of ``rows`` agent rows, more than the capacity, is
+        put: the step is built for the capacity, so it is built again at
+        ``rows``."""
+        self.sim._build(rows)
 
     def measure_kernel_time(self, n: int) -> float | None:
         return None
@@ -486,6 +493,12 @@ class _GridKind(_Kind):
                                            row_block=o.row_block)
         return (self._graph(sfm_grid.make_step_grid(
             sim.cfg, row_block=o.row_block, **kw)), fwp, fobs)
+
+    def hold(self, rows: int) -> None:
+        """The agents live in the grid and no step reads the capacity, which
+        only sizes the flat copies (``to_flat``): it is raised to ``rows``
+        and the step, its fields and its graphs are kept."""
+        self.sim.cfg = dataclasses.replace(self.sim.cfg, capacity=rows)
 
     def to_flat(self, state) -> SimState:
         return sfm_grid.unbin_state(self.sim.cfg, state)
@@ -671,6 +684,8 @@ class Simulator:
         self._build(capacity)
         self._put(make_initial_state(self.cfg, self.generator, self.device))
         self.step_count = 0
+        # growths by kind (_grow's), counted whether tracing is on or off
+        self.growths = {"capacity": 0, "table": 0, "movers": 0}
         self.last_metrics: StepMetrics | None = None  # host, last tick()
         self.last_run_metrics: StepMetrics | None = None  # host, last run()
 
@@ -816,7 +831,9 @@ class Simulator:
         ``"table"`` grows the per-cell table K (preemptively when ``n_lost``
         is 0, reactively after a counted overflow); ``"movers"`` grows the
         mover table, capped at K, to keep the incremental path fast (an
-        overflowing mover table loses no agent)."""
+        overflowing mover table loses no agent).  Each growth adds one to
+        ``growths[what]`` and opens ``sim.grow.<what>`` inside
+        ``sim.grow``; a mover table already at K grows nothing."""
         with trace.span("sim.grow"):
             o, capacity, changes = self.options, self.cfg.capacity, {}
             if what == "capacity":
@@ -841,11 +858,13 @@ class Simulator:
                          "table %d -> %d (fast-path retention)", self.step_count,
                          old_mk - 1, old_mk, new_mk)
                 changes["mover_capacity"] = new_mk
-            flat = self._kind.to_flat(self.state)
-            self.state = None  # the old state goes before the new step is sized
-            self.options = dataclasses.replace(o, **changes)
-            self._build(capacity)
-            self._put(flat)
+            self.growths[what] += 1
+            with trace.span(f"sim.grow.{what}"):
+                flat = self._kind.to_flat(self.state)
+                self.state = None  # the old state goes before the new step is sized
+                self.options = dataclasses.replace(o, **changes)
+                self._build(capacity)
+                self._put(flat)
             if what == "capacity":
                 log.info("capacity grown: %d -> %d", capacity // 2, capacity)
 
@@ -882,16 +901,18 @@ class Simulator:
 
     def load_flat_state(self, state: SimState) -> None:
         """Flat agent tensors (a checkpoint's, another backend's) as the
-        state, under the step's lock: a state of more rows than the
-        capacity rebuilds the step at its rows, one of fewer is padded with
-        inactive slots (the reference's checkpoint.py:64-87), and the grid
-        backend bins the agents (the reference's sim.py:543-560), so that
-        agents cross backends and device counts.  One process only."""
+        state, under the step's lock: a state of more rows than the capacity
+        raises the capacity to its rows (on the flat backends a rebuild of
+        the step; the grid keeps its step, its fields and its graphs), one of
+        fewer is padded with inactive slots (the reference's
+        checkpoint.py:64-87), and the grid backend bins the agents (the
+        reference's sim.py:543-560), so that agents cross backends and
+        device counts.  One process only."""
         with self._lock:
             self._kind.one_process("loading the agents")
             n = state.agents.pos.shape[0]
             if n > self.cfg.capacity:
-                self._build(n)
+                self._kind.hold(n)
             self._put(state)
 
     @contextlib.contextmanager

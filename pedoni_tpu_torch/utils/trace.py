@@ -24,6 +24,7 @@ import torch
 
 NAMES = (
     "sim.tick", "sim.run", "sim.fetch", "sim.grow", "sim.capture", "sim.replay",
+    "sim.grow.capacity", "sim.grow.table", "sim.grow.movers",
     "flat.step", "flat.spawn", "flat.sample", "flat.sort", "flat.scatter",
     "flat.pairs", "flat.integrate", "flat.metrics",
     "grid.step", "grid.spawn", "grid.forces", "grid.rebin", "grid.metrics",

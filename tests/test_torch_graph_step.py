@@ -6,8 +6,9 @@ one-device grid step.  Ticks and runs equal to the eager step's bit for
 bit across a restore and growths (the flat capacity; the grid's table and
 mover table); a state copied into the graph's buffers only when it is not
 the graph's own last output (the first tick, a restore, an assignment); a
-capture again only where the shapes change (growth, a restore that
-rebuilds at a larger capacity), never on a same-size restore; a graph a
+capture again only where the shapes change (growth, a flat restore
+that rebuilds at a larger capacity), never on a same-size restore nor on
+a grid restore of more rows than the capacity; a graph a
 branch of the grid's hybrid, with tracing in its key; the launch counts a
 capture gives back and a replay adds; the ``sim.capture`` and
 ``sim.replay`` spans; the agents read from another thread only between
@@ -235,6 +236,34 @@ def test_a_restore_copies_in_and_captures_only_at_a_larger_capacity(tmp_path):
     checkpoint.restore(other, small)  # 256 rows padded to 512: no rebuild
     other.tick()
     assert other.graph_captures == 2 and other._step.copies_in == 3
+
+
+def test_a_grid_restore_past_the_capacity_keeps_the_graph(tmp_path):
+    """The grid's agents live in the grid, so a checkpoint of more rows than
+    the capacity (a crowd that outgrew it, unbinned) raises the capacity
+    and is binned into the step as built: no rebuild, no capture, the same
+    fields; only the copy in.  The ticks after it equal an eager
+    Simulator's bit for bit."""
+    ckpt = tmp_path / "c.npz"
+    graphed, eager = _sim(True, **KINDS["grid"]), _sim(False, **KINDS["grid"])
+    big = _sim(False, **KINDS["grid"], capacity=1024)
+    big.load_flat_state(SimState(AgentState(
+        pos=torch.rand((300, 2), generator=torch.Generator().manual_seed(1))
+        * torch.tensor([16.0, 10.0]) + torch.tensor([4.0, 1.0]),
+        vel=torch.zeros((300, 2)), speed=torch.full((300,), 1.3),
+        dest=torch.ones(300, dtype=torch.int32),
+        active=torch.ones(300, dtype=torch.bool)), 0))
+    checkpoint.save(big, ckpt)
+    for sim in (graphed, eager):
+        sim.tick()
+        built = (sim._step, sim._fwp, sim._fobs)
+        checkpoint.restore(sim, ckpt)  # 1024 rows into a capacity of 256
+        assert (sim._step, sim._fwp, sim._fobs) == built
+        assert sim.pedestrian_count > 256 and sim.cfg.capacity == 1024
+        for _ in range(3):
+            sim.tick()
+    _same(graphed, eager)
+    assert graphed.graph_captures == 1 and graphed._step.copies_in == 2
 
 
 def test_a_restore_rewinds_the_graphed_stream(tmp_path):
