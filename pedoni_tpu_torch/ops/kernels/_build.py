@@ -100,6 +100,8 @@ def library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pedoni_step_kernel.argtypes = [p] * 9 + [i] * 18 + [p, p]
         lib.pedoni_step_kernel.restype = i
+        lib.pedoni_step_kernel_occupancy.argtypes = [p] * 9 + [i] * 18 + [p] * 3
+        lib.pedoni_step_kernel_occupancy.restype = i
         lib.pedoni_rebin_full.argtypes = [p] * 7 + [i] * 5 + [f] + [i] * 9 + [p]
         lib.pedoni_rebin_full.restype = i
         lib.pedoni_rebin_incremental.argtypes = [p] * 8 + [i] * 6 + [f] + [i] * 9 + [p]

@@ -62,7 +62,13 @@
 //   sectors an agent, where fields6 cost 24.
 // step_pairs (one block per tile of TR rows x 32 lanes of cells; TR, the
 // block size and the shared memory come from step_kernel.py::
-// pair_pass_launch):
+// pair_pass_launch: two rows where three blocks of them fit an SM, as the
+// kernel's 40 registers allow, else one row where that fits three, and so
+// on down.  Past K 21 a two-row tile leaves room for two blocks only: a
+// jam's few dense tiles then set the pass's time, and one-row tiles, three
+// blocks an SM, ran the funnel's jam at K 24 in 0.055 ms against 0.074;
+// two rows stage less halo a row and win where three fit, 0.303 ms
+// against 0.404 on the 1M grid; PERF.md):
 //   1. stage: every slot (row, j) of the tile and its one-cell halo, as
 //      sanitized pos/vel in shared memory, with coalesced loads along the
 //      lanes, all started before any is used.  A warp stages one (row, j)
@@ -84,9 +90,25 @@
 //      then dy, then dx), so kernel and twin agree bit for bit.  Holes
 //      below a cell's bound cost nothing (their bit is clear).  Then the
 //      trapezoidal integration, and the new pos/vel go to shared memory.
-//      (Lanes that each walk their own candidate stream to the next hit make
-//      the warp wait for its slowest search every round: that version was
-//      slower than the first design.)
+//      The counting build (step_pairs_count, launched by
+//      pedoni_step_kernel_occupancy alone) adds up the pairs evaluated, the
+//      lanes of the heavy part's rounds, the candidates tested and the
+//      light part's test slots (9 a lane a level its warp walks).
+//      Tried and slower (PERF.md): lanes that each walk their own
+//      candidate stream to the next hit (the warp waits for its slowest
+//      search every round); warp-wide pair queues, as flat_pairwise.cu's
+//      (even groups of listed agents a warp, a group's (agent, level)
+//      records walked 32 a round, hits queued and evaluated 32 at a time,
+//      each agent's terms added in queue order through warp shuffles):
+//      2.3 times the time on the funnel's jam, since its lanes were busy
+//      already (0.82 of the heavy part's, 0.99 queued) and the shuffles (~100
+//      a batch of 32 pairs) and a walk three times as dear cost more than
+//      pair_force; even groups a warp alone (more warps, fewer lanes each:
+//      slower at every grid); two or three hits a lane a round (-12% on
+//      the jam, +13% on the 1M grid at 56-62 registers, two blocks an SM
+//      where three were; -7%/-1% bound to three); two-row tiles split on
+//      the card where their cells hold more agents than a block has
+//      threads (the registers rose to 64, or spilled at 40).
 //   4. movers (mover mode, the tile's first TR warps, one thread per cell):
 //      walk the cell's K slots in order and note the movers — act' * (1 -
 //      same) > 0.5, same = [the integrated position's cell is this cell] by
@@ -179,6 +201,8 @@ constexpr int kChunk = 7;              // slot levels per walk chunk: 63 bits
 constexpr int kSegCap = 64;            // segments: kept rows staged at once
 constexpr int kTermCap = 1024;         // segments: (agent, row) terms a round
 constexpr int kMaxWarps = 32;
+// the occupancy counter's totals (pedoni_step_kernel_occupancy)
+enum { kPairs, kBodyLanes, kTests, kWalkLanes };
 
 struct StepConsts {
   float inv_unit;          // 1 / field_unit
@@ -545,13 +569,14 @@ __device__ void segment_pass(const float* __restrict__ segs, int n_seg,
   }
 }
 
-template <bool kSeg, bool kChunked>
+template <bool kSeg, bool kChunked, bool kCount>
 __device__ __forceinline__ void pairs_body(
     const float* __restrict__ d, const float* __restrict__ act_in,
     const float4* __restrict__ ea, float* __restrict__ out,
     float* __restrict__ m, float* __restrict__ movf, float* __restrict__ mdmx,
     const Dims& dm, const StepConsts& sc, int tr, int mk, int rb,
-    const float* __restrict__ segs, int n_seg, int levels) {
+    const float* __restrict__ segs, int n_seg, int levels,
+    unsigned long long* __restrict__ counts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int K = dm.k;
   const int H = tr + 2;
@@ -833,6 +858,7 @@ __device__ __forceinline__ void pairs_body(
     }
   } else {
     // 3. one thread per live agent
+    unsigned long long n_pairs = 0, n_body = 0, n_tests = 0, n_walk = 0;
     for (int base = 0; base < n_live; base += blockDim.x) {
       const int i = base + tid;
       const bool has = i < n_live;
@@ -870,6 +896,7 @@ __device__ __forceinline__ void pairs_body(
       // together.
       const unsigned long long* rm = rowmask + w * K;
       const int jwarp = __reduce_max_sync(kFullWarp, jend);
+      if (kCount) n_walk += 9ull * 32 * jwarp;
       for (int j0 = 0; j0 < jwarp; j0 += kChunk) {
         unsigned long long hits = 0;
         const int j1 = min(j0 + kChunk, jend);
@@ -878,6 +905,7 @@ __device__ __forceinline__ void pairs_body(
                           (unsigned)((rm[K + j] >> lt) & 7ull) << 3 |
                           (unsigned)((rm[2 * K + j] >> lt) & 7ull) << 6;
           if (j == k) bits &= ~16u;  // self
+          if (kCount) n_tests += __popc(bits);
           if (bits == 0) continue;
           const int c0 = (w * K + j) * kHaloLanes + lt;
           unsigned in = 0;
@@ -895,6 +923,10 @@ __device__ __forceinline__ void pairs_body(
           hits |= (unsigned long long)(bits & in) << (9 * (j - j0));
         }
         while (__any_sync(kFullWarp, hits != 0)) {
+          if (kCount) {
+            n_body += 32;
+            n_pairs += __popc(__ballot_sync(kFullWarp, hits != 0));
+          }
           if (hits) {
             const int b = __ffsll((long long)hits) - 1;
             hits &= hits - 1;
@@ -921,6 +953,16 @@ __device__ __forceinline__ void pairs_body(
         rpy[si] = py + (vy + vely) * sc.dt_half;
         rvx[si] = vx;
         rvy[si] = vy;
+      }
+    }
+    if (kCount) {
+      for (int off = 16; off > 0; off >>= 1)
+        n_tests += __shfl_down_sync(kFullWarp, n_tests, off);
+      if (t == 0) {
+        atomicAdd(counts + kPairs, n_pairs);
+        atomicAdd(counts + kBodyLanes, n_body);
+        atomicAdd(counts + kTests, n_tests);
+        atomicAdd(counts + kWalkLanes, n_walk);
       }
     }
   }
@@ -1047,32 +1089,38 @@ __device__ __forceinline__ void pairs_body(
   }
 }
 
-// The pair pass of the base and mover modes, and of segments mode.  The
-// segments kernel asks for three blocks an SM, as the base mode gets at 40
-// registers: at 64 it got two, and the 1M segment state's kernel ran 13%
-// slower (PERF.md).  They are two kernels because an explicit minimum of
-// one block an SM changed the base mode's register allocation and slowed
-// it.  The _chunked kernels stage the slot levels `levels` at a time, for a
-// K whose one-row tile does not fit a block's shared memory (one block an
-// SM).
-#define PEDONI_PAIRS_KERNEL(name, bounds, seg, chunked)                       \
+// The pair pass of the base and mover modes, and of segments mode, at the
+// 40 registers that let three blocks reside on an SM, as step_kernel.py::
+// PAIR_BLOCKS_SM counts on when it picks the tile.  The base mode takes 40
+// unbounded (bound to three blocks it ran 2.5% slower, and an
+// explicit minimum of one block an SM slowed it too); the segments kernel
+// asks for three: at 64 registers it got two, and the 1M segment state's
+// kernel ran 13% slower (PERF.md).  The _chunked kernels stage the slot
+// levels `levels` at a time, for a K whose one-row tile does not fit a
+// block's shared memory (one block an SM).
+#define PEDONI_PAIRS_KERNEL(name, bounds, seg, chunked, count)                \
   __global__ void bounds name(                                               \
       const float* __restrict__ d, const float* __restrict__ act_in,         \
       const float4* __restrict__ ea, float* __restrict__ out,                \
       float* __restrict__ m, float* __restrict__ movf,                       \
       float* __restrict__ mdmx, Dims dm, StepConsts sc, int tr, int mk,      \
-      int rb, const float* __restrict__ segs, int n_seg, int levels) {       \
-    pairs_body<seg, chunked>(d, act_in, ea, out, m, movf, mdmx, dm, sc, tr,  \
-                             mk, rb, segs, n_seg, levels);                   \
+      int rb, const float* __restrict__ segs, int n_seg, int levels,         \
+      unsigned long long* __restrict__ counts) {                             \
+    pairs_body<seg, chunked, count>(d, act_in, ea, out, m, movf, mdmx, dm,   \
+                                    sc, tr, mk, rb, segs, n_seg, levels,     \
+                                    counts);                                 \
   }
-PEDONI_PAIRS_KERNEL(step_pairs, __launch_bounds__(512), false, false)
-PEDONI_PAIRS_KERNEL(step_pairs_segments, __launch_bounds__(512, 3), true, false)
-PEDONI_PAIRS_KERNEL(step_pairs_chunked, __launch_bounds__(512), false, true)
+PEDONI_PAIRS_KERNEL(step_pairs, __launch_bounds__(512), false, false, false)
+PEDONI_PAIRS_KERNEL(step_pairs_segments, __launch_bounds__(512, 3), true, false,
+                    false)
+PEDONI_PAIRS_KERNEL(step_pairs_chunked, __launch_bounds__(512), false, true,
+                    false)
 PEDONI_PAIRS_KERNEL(step_pairs_segments_chunked, __launch_bounds__(512), true,
+                    true, false)
+// the occupancy counter's build of step_pairs (never launched by a step)
+PEDONI_PAIRS_KERNEL(step_pairs_count, __launch_bounds__(512), false, false,
                     true)
 #undef PEDONI_PAIRS_KERNEL
-
-}  // namespace
 
 // consts: 19 floats in StepConsts order (see step_kernel.py::_constants).
 // mk == 0 is the base mode (m, movf, mdmx unused); mk > 0 the mover mode,
@@ -1089,16 +1137,14 @@ PEDONI_PAIRS_KERNEL(step_pairs_segments_chunked, __launch_bounds__(512), true,
 // cudaError_t, -1 for a launch shape the kernel does not take
 // (pair_pass_launch gives tiles of 1 or 2 rows and blocks of 512 threads),
 // or PEDONI_WRONG_DEVICE (device.cuh) for a grid off the current device.
-extern "C" int pedoni_step_kernel(const float* d, const float* fields,
-                                  const float* segs, float* act, float* ea,
-                                  float* out, float* m, float* movf,
-                                  float* mdmx, int ny2, int k, int nxl,
-                                  int n_wp, int frows, int stride, int mk,
-                                  int rb, int n_seg, int seg_pass,
-                                  int tile_rows, int threads, int smem_bytes,
-                                  int levels, int roff, int coff,
-                                  int movers_lo, int movers_hi,
-                                  const float* consts, void* stream) {
+int step_launch(const float* d, const float* fields, const float* segs,
+                float* act, float* ea, float* out, float* m, float* movf,
+                float* mdmx, int ny2, int k, int nxl, int n_wp, int frows,
+                int stride, int mk, int rb, int n_seg, int seg_pass,
+                int tile_rows, int threads, int smem_bytes, int levels,
+                int roff, int coff, int movers_lo, int movers_hi,
+                const float* consts, unsigned long long* counts,
+                void* stream) {
   if (const int w = pedoni_on_current_device(d)) return w;
   StepConsts sc;
   sc.inv_unit = consts[0];
@@ -1123,6 +1169,7 @@ extern "C" int pedoni_step_kernel(const float* d, const float* fields,
   const bool seg = n_seg >= 0;
   const bool pass = seg && seg_pass != 0;  // else step_sample walks the table
   const bool chunked = levels < k;
+  if (counts && (seg || chunked)) return -1;  // the counter's build: step_pairs
   if (tile_rows < 1 || tile_rows > 2 || k > 255 || threads != 512 ||
       nxl % kTileLanes != 0 || levels < 1 || levels > k ||
       (int64_t)smem_bytes !=
@@ -1144,8 +1191,9 @@ extern "C" int pedoni_step_kernel(const float* d, const float* fields,
         d, f4, act, (float4*)ea, out, dm, sc, segs, 0, mk == 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  auto pairs = chunked ? (pass ? step_pairs_segments_chunked : step_pairs_chunked)
-                       : (pass ? step_pairs_segments : step_pairs);
+  auto pairs = counts ? step_pairs_count
+               : chunked ? (pass ? step_pairs_segments_chunked : step_pairs_chunked)
+                         : (pass ? step_pairs_segments : step_pairs);
   e = cudaFuncSetAttribute(pairs, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem_bytes);
   if (e != cudaSuccess) return (int)e;
@@ -1153,6 +1201,43 @@ extern "C" int pedoni_step_kernel(const float* d, const float* fields,
             (unsigned)((ny2 - 2 + tile_rows - 1) / tile_rows));
   pairs<<<grid, threads, smem_bytes, st>>>(d, act, (const float4*)ea, out, m,
                                            movf, mdmx, dm, sc, tile_rows, mk,
-                                           rb, segs, n_seg, levels);
+                                           rb, segs, n_seg, levels, counts);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int pedoni_step_kernel(const float* d, const float* fields,
+                                  const float* segs, float* act, float* ea,
+                                  float* out, float* m, float* movf,
+                                  float* mdmx, int ny2, int k, int nxl,
+                                  int n_wp, int frows, int stride, int mk,
+                                  int rb, int n_seg, int seg_pass,
+                                  int tile_rows, int threads, int smem_bytes,
+                                  int levels, int roff, int coff,
+                                  int movers_lo, int movers_hi,
+                                  const float* consts, void* stream) {
+  return step_launch(d, fields, segs, act, ea, out, m, movf, mdmx, ny2, k, nxl,
+                     n_wp, frows, stride, mk, rb, n_seg, seg_pass, tile_rows,
+                     threads, smem_bytes, levels, roff, coff, movers_lo,
+                     movers_hi, consts, nullptr, stream);
+}
+
+// pedoni_step_kernel with the occupancy counter's build of its pair pass:
+// adds the pairs evaluated, the lanes of the force body's rounds, the
+// candidates tested (below their cell's bound, live, not the agent itself)
+// and the lanes' test slots of the walk (9 a lane a slot level its warp
+// walks) into counts[0..3] (device memory, int64).  The distance-map mode with
+// all levels staged at once; -1 otherwise.
+extern "C" int pedoni_step_kernel_occupancy(
+    const float* d, const float* fields, const float* segs, float* act,
+    float* ea, float* out, float* m, float* movf, float* mdmx, int ny2, int k,
+    int nxl, int n_wp, int frows, int stride, int mk, int rb, int n_seg,
+    int seg_pass, int tile_rows, int threads, int smem_bytes, int levels,
+    int roff, int coff, int movers_lo, int movers_hi, const float* consts,
+    unsigned long long* counts, void* stream) {
+  return step_launch(d, fields, segs, act, ea, out, m, movf, mdmx, ny2, k, nxl,
+                     n_wp, frows, stride, mk, rb, n_seg, seg_pass, tile_rows,
+                     threads, smem_bytes, levels, roff, coff, movers_lo,
+                     movers_hi, consts, counts, stream);
 }

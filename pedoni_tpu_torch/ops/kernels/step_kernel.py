@@ -52,6 +52,10 @@ SEG_CULL_RANGES = 110  # cull distance in obs_range: exp(-110) is 0 in f32
 SEG_SAMPLE_WALK = 8  # segments: a table this short is walked by the sample pass
 SEG_CULL_SLACK = 2.0 ** -12  # of the coordinates' size: their f32 rounding
 WALK_LEVELS = 7  # slot levels of the pair walk's 63-bit word (csrc kChunk)
+# blocks of the pair pass an SM's 65,536 registers hold: step_pairs takes 40
+# a thread (ptxas; chip_smoke.py prints it), step_pairs_segments is bound to
+# them (csrc/step_kernel.cu)
+PAIR_BLOCKS_SM = 3
 
 
 def _constants(phys: Physics, grid_size: tuple[float, float],
@@ -180,18 +184,24 @@ def pair_pass_launch(k: int, ny2: int, nxl: int, segments: bool = False
 
     A block owns ``tile_rows`` x TILE_LANES cells; blocks tile lanes
     [0, NXL) and the centre rows 1 .. ny2-2 (the last tile may be ragged).
-    The tile comes from ``tiles.tile_launch``: two rows where two blocks
-    fit an SM.  Blocks of 512 threads: two of them give an SM the 32 warps
-    that hide the pair loop's latency (at 16 the 1M step measured slower,
-    as did taller tiles; PERF.md).  Where a one-row tile's K slot levels do
-    not fit a block (K above 98; above 92 in segments mode), one-row tiles stage
-    them in chunks of a multiple of the walk's 7 levels, which keeps the
-    summation order."""
+    The tile comes from ``tiles.tile_launch``: the one that lets the most
+    blocks reside on an SM, up to the PAIR_BLOCKS_SM its registers allow,
+    two rows at a tie.  Two rows stage less halo a row (the 1M bench grid
+    at K 14, three blocks either way: 0.303 ms against 0.404); past K 21
+    only one-row tiles leave room for a third block, and the jams of
+    scenarios/funnel.toml and random.toml at K 24 ran 0.055 and 0.066 ms
+    in them against 0.074 and 0.079 in two-row tiles (PERF.md).
+    Blocks of 512 threads: two or three of them give an SM the 32 or 48
+    warps that hide the pair loop's latency (at 16 the 1M step measured
+    slower, as did taller tiles; PERF.md).  Where a one-row tile's K slot
+    levels do not fit a block (K above 98; above 92 in segments mode),
+    one-row tiles stage them in chunks of a multiple of the walk's 7
+    levels, which keeps the summation order."""
     if nxl % TILE_LANES != 0 or ny2 < 3 or not 1 <= k <= 255:
         raise ValueError(f"pair pass: unsupported grid ny2={ny2}, K={k}, NXL={nxl}")
     return tile_launch(
         lambda rows, levels: pair_pass_smem_bytes(k, rows, segments, levels),
-        ny2, k, WALK_LEVELS, f"pair pass: K={k}")
+        ny2, k, WALK_LEVELS, f"pair pass: K={k}", PAIR_BLOCKS_SM)
 
 
 def segment_pass(n_seg: int) -> bool:
@@ -289,6 +299,33 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
         return fused_step_torch(d, fwp, fobs, phys, grid_size, stride,
                                 field_unit, emit_movers, row_block, segments,
                                 row_offset, col_offset, nx_local)
+    outs, args, _held = _launch_args(
+        d, fwp, fobs, phys, grid_size, stride, field_unit, emit_movers,
+        row_block, segments, row_offset, col_offset, nx_local)
+    with torch.cuda.device(d.device):  # a launch goes to the current card
+        rc = _build.library().pedoni_step_kernel(*args)
+    _build.check_launch(rc, "pedoni_step_kernel")
+    if segments is not None:
+        fused_step.segment_launches += 1
+    elif emit_movers:
+        fused_step.mover_launches += 1
+    else:
+        fused_step.launches += 1
+    return outs if emit_movers else outs[0]
+
+
+fused_step.launches = 0  # distance-map base-mode launches
+fused_step.mover_launches = 0  # distance-map emit_movers launches
+fused_step.segment_launches = 0  # segment-mode launches, either output mode
+
+
+def _launch_args(d, fwp, fobs, phys, grid_size, stride, field_unit, emit_movers,
+                 row_block, segments, row_offset, col_offset, nx_local):
+    """(outputs, arguments, held) of a launch of the kernel on ``d``, a CUDA
+    tensor: the outputs G, and in the mover mode M, movf, mdmx; the
+    arguments of ``pedoni_step_kernel`` that make them, the stream last;
+    the scratch and the host array of constants they point to, to be held
+    until the launch is queued."""
     if d.device.type != "cuda":
         raise ValueError(f"fused_step: unsupported device {d.device}")
     if segments is not None and not (phys.obs_range > 0
@@ -296,7 +333,6 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
         raise ValueError("segments mode needs obs_range > 0 and a finite "
                          "obs_strength: the kernel's cull assumes that "
                          "exp(-d / obs_range) vanishes with distance")
-    lib = _build.library()
     ny2, k, _, nxl = d.shape
     mk = emit_movers
     seg_pass = segments is not None and segment_pass(segments.shape[0])
@@ -315,28 +351,45 @@ def fused_step(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
     consts = torch.tensor(_constants(phys, grid_size, field_unit, stride),
                           dtype=torch.float32)  # host array, read at launch
     n_seg = -1 if segments is None else segments.shape[0]  # -1: distance map
-    with torch.cuda.device(d.device):  # a launch goes to the current card
-        rc = lib.pedoni_step_kernel(
-            d.data_ptr(), fields.data_ptr(),
+    args = (d.data_ptr(), fields.data_ptr(),
             None if segments is None else segments.data_ptr(), act.data_ptr(),
             ea.data_ptr(), out.data_ptr(), *mover_ptrs, ny2, k, nxl,
             fwp.shape[0], fwp.shape[1], stride, mk, row_block, n_seg,
             int(seg_pass), tile_rows, threads, smem, levels, row_offset,
             col_offset, movers_lo, movers_hi, consts.data_ptr(),
             torch.cuda.current_stream(d.device).cuda_stream)
-    _build.check_launch(rc, "pedoni_step_kernel")
-    if segments is not None:
-        fused_step.segment_launches += 1
-    elif mk:
-        fused_step.mover_launches += 1
-    else:
-        fused_step.launches += 1
-    return (out, m, blocks[0], blocks[1]) if mk else out
+    return (((out, m, blocks[0], blocks[1]) if mk else (out,)), args,
+            (act, ea, consts))
 
 
-fused_step.launches = 0  # distance-map base-mode launches
-fused_step.mover_launches = 0  # distance-map emit_movers launches
-fused_step.segment_launches = 0  # segment-mode launches, either output mode
+def step_pairs_occupancy(d: torch.Tensor, fwp: torch.Tensor, fobs: torch.Tensor,
+                         phys: Physics, grid_size: tuple[float, float],
+                         stride: int = 6, field_unit: float = 0.25,
+                         emit_movers: int = 0, row_block: int = 2,
+                         row_offset: int = 0, col_offset: int = 0,
+                         nx_local: int | None = None) -> dict:
+    """How busy the lanes of the pair pass's step 3 are on ``d`` (a CUDA
+    tensor; ``fused_step``'s arguments, the distance-map mode): one launch
+    of the kernel with its pair pass's counting build, which
+    ``launch_counts()`` does not count, reads the pairs evaluated, the
+    lanes of the force body's rounds, the candidates tested (live, below
+    their cell's bound, not the agent itself) and the lanes' test slots
+    of the walk (9 a lane a slot level its warp walks); the
+    occupancies are pairs over body lanes and tests over walk slots.  Where
+    the levels are staged in chunks (K above 98) it raises."""
+    _check(d, fwp, fobs, None, stride, emit_movers, row_block)
+    _outs, args, _held = _launch_args(
+        d, fwp, fobs, phys, grid_size, stride, field_unit, emit_movers,
+        row_block, None, row_offset, col_offset, nx_local)
+    counts = torch.zeros(4, dtype=torch.int64, device=d.device)
+    with torch.cuda.device(d.device):
+        rc = _build.library().pedoni_step_kernel_occupancy(
+            *args[:-1], counts.data_ptr(), args[-1])
+    _build.check_launch(rc, "pedoni_step_kernel_occupancy")
+    pairs, body, tests, walk = counts.tolist()
+    return {"pairs": pairs, "body_lanes": body, "tests": tests, "walk_lanes": walk,
+            "body_occupancy": pairs / body if body else None,
+            "walk_occupancy": tests / walk if walk else None}
 
 
 def _sample(planes: torch.Tensor, plane_idx: torch.Tensor | None,

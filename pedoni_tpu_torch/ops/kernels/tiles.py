@@ -16,8 +16,8 @@ PAIR_TILE_ROWS = (2, 1)  # tile rows of the pair passes, tallest first
 PAIR_THREADS = 512  # threads a block of the pair passes
 
 
-def tile_launch(smem_of, ny2: int, k: int, level_step: int, what: str
-                ) -> tuple[int, int, int, int]:
+def tile_launch(smem_of, ny2: int, k: int, level_step: int, what: str,
+                blocks: int = 2) -> tuple[int, int, int, int]:
     """(tile rows, PAIR_THREADS, shared-memory bytes, staged levels) of a
     pair pass over tiles of TILE_LANES cells a row at K = ``k`` slot
     levels, on a grid of ny2 rows (ghost rows included).  Its block needs
@@ -26,17 +26,18 @@ def tile_launch(smem_of, ny2: int, k: int, level_step: int, what: str
     fewer, in chunks.
 
     Where all K levels fit: the tallest tile of PAIR_TILE_ROWS (and no
-    taller than the grid's centre rows) that leaves room for two blocks on
-    an SM, else the tallest that fits one.  Else one-row tiles that stage
+    taller than the grid's centre rows) that leaves room for ``blocks``
+    blocks on an SM (the most that the kernel's registers let reside),
+    else for one fewer, and so on down to one.  Else one-row tiles that stage
     the levels in chunks: the most levels, a multiple of ``level_step``
     below K, that fit one block.  Raises where not even ``level_step``
     levels fit."""
     rows = [t for t in PAIR_TILE_ROWS if t <= ny2 - 2] or [1]
     room = SMEM_SM - SMEM_BLOCK_RESERVED
-    for blocks in (2, 1):
+    for b in range(blocks, 0, -1):
         for t in rows:
             need = smem_of(t, k)
-            if blocks * (need + SMEM_BLOCK_RESERVED) <= SMEM_SM:
+            if b * (need + SMEM_BLOCK_RESERVED) <= SMEM_SM:
                 return t, PAIR_THREADS, need, k
     for levels in range((k - 1) // level_step * level_step, 0, -level_step):
         need = smem_of(1, levels)

@@ -1,6 +1,9 @@
 """The hand-written CUDA kernels vs their plain PyTorch twins, on the card:
-the step kernel (base, mover and segment modes, field strides 6 and 8, and
-grids built to break its cell tiles), the full and the incremental rebin
+the step kernel (base, mover and segment modes, field strides 6 and 8,
+grids built to break its cell tiles, and the grids of the benchmark's grid
+cells: random.toml's and funnel.toml's jams at K 24 in one- and two-row
+tiles, the 1M bench state in the mover mode; and its pair pass's occupancy
+counter), the full and the incremental rebin
 (and the grids of tests/test_torch_rebin_cases.py, built to break their
 tiles and bit masks), the device gate that makes the hybrid step's choice,
 the standalone pairwise kernel, the flat pair kernel up to K 255, the
@@ -66,19 +69,59 @@ def card_grid():
     return sc, cfg, d, fwp, fobs
 
 
+@pytest.fixture(scope="module")
+def cell_grids():
+    """The grids of the grid step's cells on the card, each built once when
+    a test first asks for it (pair_phases.step_grids): the 1M bench problem
+    after its warm-up, random.toml's and funnel.toml's after the fill that
+    grows their tables to K 24."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import pair_phases
+
+    built = {}
+
+    def get(name):
+        if name not in built:
+            built.update(pair_phases.step_grids(torch.device("cuda"), (name,)))
+        return built[name]
+
+    return get
+
+
 @pytest.mark.cuda
-def test_step_kernel_matches_twin(card_grid):
-    sc, cfg, d, fwp, fobs = card_grid
-    before = sk.fused_step.launches
-    got = sk.fused_step(d, fwp, fobs, cfg.physics, sc.size)
-    want = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size)
-    torch.cuda.synchronize()
-    assert sk.fused_step.launches == before + 1
-    assert torch.equal(got[:, :, 6], want[:, :, 6])
-    held = (d[:, :, 6] > 0.5).unsqueeze(2).expand(-1, -1, 4, -1)
-    assert float((got[:, :, 0:4] - want[:, :, 0:4]).abs()[held].max()) <= 1e-5
-    assert torch.equal(got[:, :, 4:6], want[:, :, 4:6])
-    assert torch.equal(got[0], torch.zeros_like(got[0]))
+@pytest.mark.parametrize("state", ["gap.toml crowd", "random.toml", "funnel.toml"])
+def test_step_kernel_matches_twin(card_grid, cell_grids, state, monkeypatch):
+    """The base mode against its twin: on gap.toml's seeded crowd, and bit
+    for bit on random.toml's and funnel.toml's grids after the fill (K 24;
+    the funnel's jam holds cells of 13 agents and more), in the one-row
+    tiles the chooser picks there and in two-row tiles (the chooser held to
+    two blocks an SM)."""
+    if state == "gap.toml crowd":
+        sc, cfg, d, fwp, fobs = card_grid
+        before = sk.fused_step.launches
+        got = sk.fused_step(d, fwp, fobs, cfg.physics, sc.size)
+        want = sk.fused_step_torch(d, fwp, fobs, cfg.physics, sc.size)
+        torch.cuda.synchronize()
+        assert sk.fused_step.launches == before + 1
+        assert torch.equal(got[:, :, 6], want[:, :, 6])
+        held = (d[:, :, 6] > 0.5).unsqueeze(2).expand(-1, -1, 4, -1)
+        assert float((got[:, :, 0:4] - want[:, :, 0:4]).abs()[held].max()) <= 1e-5
+        assert torch.equal(got[:, :, 4:6], want[:, :, 4:6])
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        return
+    d, fwp, fobs, kw = cell_grids(state)
+    ny2, k, _, nxl = d.shape
+    assert k == 24 and int(d[:, 0, 7].max()) >= (13 if state == "funnel.toml" else 1)
+    want = sk.fused_step_torch(d, fwp, fobs, **kw)
+    for rows in (1, 2):
+        monkeypatch.setattr(sk, "PAIR_BLOCKS_SM", 3 if rows == 1 else 2)
+        assert sk.pair_pass_launch(k, ny2, nxl)[0] == rows
+        before = sk.fused_step.launches
+        got = sk.fused_step(d, fwp, fobs, **kw)
+        torch.cuda.synchronize()
+        assert sk.fused_step.launches == before + 1
+        assert torch.equal(got, want), rows
 
 
 @pytest.mark.cuda
@@ -95,7 +138,23 @@ def test_rebin_kernel_matches_twin(card_grid):
 
 
 @pytest.mark.cuda
-def test_step_kernel_movers_matches_twin(card_grid):
+@pytest.mark.parametrize("state", ["gap.toml crowd", "1M open field"])
+def test_step_kernel_movers_matches_twin(card_grid, cell_grids, state):
+    """The mover mode against its twin: on gap.toml's seeded crowd, and bit
+    for bit on the 1M bench problem's state after its warm-up, as the
+    hybrid runs it (two-row tiles)."""
+    if state == "1M open field":
+        d, fwp, fobs, kw = cell_grids(state)
+        assert sk.pair_pass_launch(d.shape[1], d.shape[0], d.shape[3])[0] == 2
+        before = sk.fused_step.mover_launches
+        got = sk.fused_step(d, fwp, fobs, **kw)
+        want = sk.fused_step_torch(d, fwp, fobs, **kw)
+        torch.cuda.synchronize()
+        assert sk.fused_step.mover_launches == before + 1
+        for a, b in zip(got, want):  # G, M, movf, mdmx
+            assert torch.equal(a, b)
+        assert float(got[1][:, 0, 7].sum()) > 0  # some movers
+        return
     sc, cfg, d, fwp, fobs = card_grid
     before = sk.fused_step.mover_launches
     got = sk.fused_step(d, fwp, fobs, cfg.physics, sc.size, emit_movers=6)
@@ -108,6 +167,34 @@ def test_step_kernel_movers_matches_twin(card_grid):
     for a, b in zip(got[1:], want[1:]):  # M, movf, mdmx
         assert torch.equal(a, b)
     assert float(got[1][:, 0, 7].sum()) > 0  # some movers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["gap.toml crowd", "funnel.toml"])
+def test_step_pairs_occupancy(card_grid, cell_grids, state):
+    """The pair pass's occupancy counter (step_kernel.step_pairs_occupancy)
+    on gap.toml's crowd and on the funnel's jam: both occupancies in (0, 1],
+    no more pairs than candidates tested, no more of these than test slots,
+    whole warps of lanes, the same counts from a second launch, and no
+    launch counted in launch_counts(); past K 98 (levels in chunks) it
+    raises."""
+    if state == "funnel.toml":
+        d, fwp, fobs, kw = cell_grids(state)
+    else:
+        sc, cfg, d, fwp, fobs = card_grid
+        kw = dict(phys=cfg.physics, grid_size=sc.size)
+    before = launch_counts()
+    got = sk.step_pairs_occupancy(d, fwp, fobs, **kw)
+    again = sk.step_pairs_occupancy(d, fwp, fobs, **kw)
+    assert launch_counts() == before
+    assert got == again
+    assert 0 < got["body_occupancy"] <= 1 and 0 < got["walk_occupancy"] <= 1
+    assert 0 < got["pairs"] <= got["tests"] <= got["walk_lanes"]
+    assert got["body_lanes"] % 32 == 0 and got["walk_lanes"] % (9 * 32) == 0
+    if state == "gap.toml crowd":
+        big = _crowded_grid(120, seed=3)
+        with pytest.raises(RuntimeError):
+            sk.step_pairs_occupancy(*big[2:5], big[1].physics, big[0].size)
 
 
 @pytest.mark.cuda

@@ -66,11 +66,17 @@ def test_rebin_plans_every_k(nxl):
 
 
 def test_plans_below_the_chunks_are_unchanged():
-    """Where every level fits, the plan is the one the chooser gave before
-    chunks existed: two rows where two blocks fit an SM, the whole-level
-    shared memory (the bench's K 14, the all-pairs K 29, K 40 and 98)."""
+    """Where every level fits, the plan stages them all at once, in the
+    tile that lets the most blocks of the step's pair pass reside on an SM
+    (three at its registers), two rows at a tie: the bench's K 14 in two
+    rows, the all-pairs K 29 in one row (three blocks, where two rows leave
+    room for two), K 40 and 98 in one row, with the whole-level shared
+    memory."""
     assert sk.pair_pass_launch(14, NY2, 1024) == (2, 512, 50652, 14)
-    assert sk.pair_pass_launch(29, 136, 256)[:2] == (2, 512)
+    assert sk.pair_pass_launch(29, 136, 256)[:2] == (1, 512)
+    assert 3 * (sk.pair_pass_smem_bytes(29, 1) + tiles.SMEM_BLOCK_RESERVED) \
+        <= tiles.SMEM_SM < 3 * (sk.pair_pass_smem_bytes(29, 2)
+                                 + tiles.SMEM_BLOCK_RESERVED)
     assert sk.pair_pass_launch(40, NY2, 1024)[:2] == (1, 512)
     rows, _, smem, levels = sk.pair_pass_launch(98, NY2, 1024)
     assert (rows, levels) == (1, 98) and smem == sk.pair_pass_smem_bytes(98, 1)

@@ -1,9 +1,10 @@
 """pair_phases.py and chip_smoke.py's flat pair grids on the CPU: the cut
 builds' and the variants' source edits apply, each once, to
-csrc/flat_pairwise.cu as it is; every design is told apart by its first
-cut; the script refuses to run without a card; ``_pair_grid`` hands back
-the grid the flat step gives its pair pass.  Imports neither JAX nor the
-reference package."""
+csrc/flat_pairwise.cu and to csrc/step_kernel.cu as they are (the step
+kernel's common edits too: its pair pass launched alone, its shared memory
+its own); every design is told apart by its first cut; the script refuses
+to run without a card; ``_pair_grid`` hands back the grid the flat step
+gives its pair pass.  Imports neither JAX nor the reference package."""
 
 import os
 import pathlib
@@ -23,38 +24,74 @@ from pedoni_tpu_torch.scenario import load_scenario
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = ROOT / pair_phases.KERNEL
 
 
-def _variants():
-    _cuts, variants = pair_phases.DESIGNS[pair_phases._design(SOURCE.read_text())]
-    return [None, *variants]
+def _source(kernel: str) -> str:
+    return (ROOT / pair_phases.KERNELS[kernel].path).read_text()
 
 
-@pytest.mark.parametrize("variant", _variants(),
-                         ids=lambda v: "as it is" if v is None else v)
-def test_cuts_apply_to_the_kernel(variant):
-    """The kernel is a design the script knows; its cuts, then the
-    variant's edits, each replace their text exactly once, and every cut
-    leaves the source's PEDONI_PHASE branches balanced."""
-    src = SOURCE.read_text()
-    cuts, _variants = pair_phases.DESIGNS[pair_phases._design(src)]
-    out = pair_phases.cut_source(src, variant)
+def _cases():
+    """(kernel, variant) of each kernel's design as it is; the flat
+    kernel's cases keep their ids, the step kernel's are prefixed."""
+    out = []
+    for kernel, spec in pair_phases.KERNELS.items():
+        _cuts, variants = spec.designs[pair_phases._design(_source(kernel), kernel)]
+        out += [(kernel, v) for v in (None, *variants)]
+    return out
+
+
+def _id(case):
+    kernel, variant = case
+    name = "as it is" if variant is None else variant
+    return name if kernel == "flat_pairwise" else f"{kernel}: {name}"
+
+
+@pytest.mark.parametrize("case", _cases(), ids=_id)
+def test_cuts_apply_to_the_kernel(case):
+    """The kernel is a design the script knows; its common edits, its
+    cuts, then the variant's edits, each replace their text exactly once,
+    and every cut leaves the source's PEDONI_PHASE branches balanced."""
+    kernel, variant = case
+    src = _source(kernel)
+    spec = pair_phases.KERNELS[kernel]
+    cuts, _variants = spec.designs[pair_phases._design(src, kernel)]
+    out = pair_phases.cut_source(src, variant, kernel)
     assert out.count("PEDONI_PHASE") >= len(cuts)
     assert out.count("#if PEDONI_PHASE") == out.count("#endif") - src.count("#endif")
     assert out != src
+    for _old, new in spec.common:
+        assert out.count(new) == 1
     if variant is not None:
-        assert out != pair_phases.cut_source(src)
+        assert out != pair_phases.cut_source(src, None, kernel)
 
 
 def test_designs_are_told_apart():
-    """No design's first cut appears in another design's cuts, so a
-    source is recognised as one design alone."""
-    firsts = {name: cuts[0][0] for name, (cuts, _v) in pair_phases.DESIGNS.items()}
-    for name, (cuts, _v) in pair_phases.DESIGNS.items():
-        for other, first in firsts.items():
-            if other != name:
-                assert all(first not in old for old, _new in cuts), (name, other)
+    """No design's first cut appears in another design's cuts of the same
+    kernel, so a source is recognised as one design alone."""
+    for kernel, spec in pair_phases.KERNELS.items():
+        firsts = {name: cuts[0][0] for name, (cuts, _v) in spec.designs.items()}
+        for name, (cuts, _v) in spec.designs.items():
+            for other, first in firsts.items():
+                if other != name:
+                    assert all(first not in old for old, _new in cuts), (
+                        kernel, name, other)
+
+
+def test_step_cuts_key_the_pair_pass():
+    """The step kernel's cuts: phase 1 skips step 3's loop over the listed
+    agents, phase 2 keeps the walk's hits live and runs no force body; the
+    common edits add the switch that skips the sample pass and the
+    shared-memory size a build works out for itself, at the arguments'
+    places pair_phases.py writes them."""
+    out = pair_phases.cut_source(_source("step_pairs"), None, "step_pairs")
+    assert "base < (PEDONI_PHASE == 1 ? 0 : n_live)" in out
+    assert "#if PEDONI_PHASE == 2" in out and "hits = 0;" in out
+    assert 'extern "C" int pedoni_pairs_only = 0;' in out
+    assert "if (pedoni_pairs_only) {" in out
+    assert "if (smem_bytes < 0) smem_bytes = (int)pairs_smem_bytes(tile_rows, k);" in out
+    argtypes = pair_phases.KERNELS["step_pairs"].argtypes
+    assert len(argtypes) == 29
+    assert argtypes[pair_phases.TILE_ROWS_ARG] is argtypes[pair_phases.SMEM_ARG]
 
 
 def test_refuses_to_run_without_a_card():

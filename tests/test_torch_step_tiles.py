@@ -57,10 +57,16 @@ def test_pair_pass_launch_fits_and_covers(k, ny2, nxl):
 
 
 def test_pair_pass_launch_prefers_two_blocks_an_sm():
-    """Two rows of cells and 512 threads at the bench's K = 14 and at the
-    all-pairs K = 29 alike, with room for a second block."""
+    """512 threads and room for a second block at the bench's K = 14 and
+    the all-pairs K = 29 alike, the most blocks of the pair pass an SM's
+    registers hold (three) first: two rows of cells at K 14, where three
+    blocks of them fit, one row at K 29 and K 25, where only one-row tiles
+    leave room for a third, and two rows again at K 16."""
     assert sk.pair_pass_launch(14, 178, 1024)[:2] == (2, 512)
-    assert sk.pair_pass_launch(29, 136, 256)[:2] == (2, 512)
+    assert sk.pair_pass_launch(16, 136, 256)[:2] == (2, 512)
+    assert sk.pair_pass_launch(29, 136, 256)[:2] == (1, 512)
+    assert sk.pair_pass_launch(25, 178, 1024)[:2] == (1, 512)
+    assert sk.PAIR_BLOCKS_SM == 3
     for k in (14, 16, 25, 29):
         assert 2 * (sk.pair_pass_launch(k, 178, 1024)[2] + 1024) <= 228 * 1024
 
